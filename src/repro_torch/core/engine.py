@@ -1,0 +1,273 @@
+"""GQ-Fast engine facade (paper Fig. 4 architecture), on PyTorch.
+
+``GQFastDatabase`` = Loader: builds both fragment indices per relationship table
+and ships them to the device. ``GQFastEngine`` = Query Processor: SQL → RQNA
+(parse + normalize/verify) → physical chain plan → lowered IR bound to device
+tensors (prepare once / execute many, as JDBC-style prepared statements).
+
+Entry points run on ``"cuda"`` unless the caller passes ``device="cpu"``; a
+request for CUDA on a machine without it raises rather than running on the CPU.
+Settings the reference has and this port does not run yet (packed device
+encodings, block skipping, fusion, other strategies, meshes, batched
+execution, profiling) raise :class:`ValidationError` naming the ROADMAP item
+that brings them.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from ..obs import trace as T
+from ..robust.admission import PreparedCache
+from ..robust.errors import QueryError, ValidationError
+from . import executor as X
+from .algebra import ChainPlan, RelHop, SeedIds
+from .fragments import FragmentIndex, build_index
+from .lower import PhysicalPlan, lower
+from .planner import plan_query
+from .schema import Schema
+from .sql import parse
+
+
+def resolve_device(device) -> torch.device:
+    """``None`` means CUDA. CUDA requested where there is none raises."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise ValidationError(
+            f"device {str(dev)!r} requested but torch.cuda.is_available() is "
+            "False; pass device='cpu' to run on the CPU",
+            device=str(dev),
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValidationError(
+            f"device must be 'cuda' or 'cpu', got {str(dev)!r}", device=str(dev)
+        )
+    return dev
+
+
+class GQFastDatabase:
+    """In-memory GQ-Fast database: both directions of every relationship table.
+
+    ``keep_packed`` (default True, matching ``fragments.build_index``) keeps
+    the host-side bit-packed words on each ``ColumnFragments``; this port's
+    device store is dense (``device_encodings="dense"``), so they are only
+    host memory. ``device`` is where the indexes live: ``None`` means
+    ``"cuda"``."""
+
+    def __init__(
+        self,
+        schema: Schema,
+        encodings: dict[tuple[str, str, str], str] | None = None,
+        account_space: bool = True,
+        keep_packed: bool = True,
+        device_encodings: str = "dense",
+        device=None,
+    ):
+        X.require_supported("device_encodings", device_encodings, X.DEVICE_ENCODINGS)
+        dev = resolve_device(device)
+        schema.validate()
+        self.schema = schema
+        self.host_indexes: dict[tuple[str, str], FragmentIndex] = {}
+        for rel in schema.relationships.values():
+            for key in (rel.fk1, rel.fk2):
+                enc = {
+                    col: e
+                    for (t, k, col), e in (encodings or {}).items()
+                    if t == rel.name and k == key
+                }
+                self.host_indexes[(rel.name, key)] = build_index(
+                    schema, rel, key, enc or None,
+                    keep_packed=keep_packed, account_space=account_space,
+                )
+        self.device = X.build_device_db(
+            schema, self.host_indexes, device_encodings, device=dev
+        )
+
+    @classmethod
+    def from_parts(cls, schema: Schema, host_indexes, device) -> "GQFastDatabase":
+        """Assemble a database from already-built parts (host indexes and a
+        :class:`~repro_torch.core.executor.DeviceDB`, e.g. one made by
+        :func:`repro_torch.convert.device_db_from_numpy`) without re-running
+        index construction."""
+        schema.validate()
+        db = cls.__new__(cls)
+        db.schema = schema
+        db.host_indexes = host_indexes
+        db.device = device
+        return db
+
+    def space_report(self) -> dict[str, Any]:
+        raise X.not_ported("space_report()", "4 (compressed device storage)")
+
+
+@dataclass
+class PreparedQuery:
+    sql: str
+    plan: ChainPlan
+    fn: Callable[..., Any]
+    param_names: list[str]
+    group_entity: str | None
+    phys: PhysicalPlan | None = None  # lowered IR
+    strategy: str = "frontier"
+    block_skipping: str = "off"  # frontier-sparsity mode baked into fn
+    fusion: str = "off"  # multi-hop fusion mode baked into fn
+    hop_estimates: list[dict] | None = None  # per-hop selectivity estimates
+
+    def validate_params(self, params: dict) -> None:
+        """Typed parameter-binding validation: every declared parameter bound,
+        no unknown names — callers get a :class:`ValidationError` instead of a
+        raw KeyError out of the argument zip."""
+        missing = [n for n in self.param_names if n not in params]
+        if missing:
+            raise ValidationError(
+                f"missing parameters: {missing}",
+                missing=missing, expected=list(self.param_names),
+                query=" ".join(self.sql.split()),
+            )
+        extra = [n for n in params if n not in self.param_names]
+        if extra:
+            raise ValidationError(
+                f"unknown parameters: {extra}",
+                unknown=extra, expected=list(self.param_names),
+                query=" ".join(self.sql.split()),
+            )
+
+    def __call__(self, **params) -> np.ndarray:
+        """Execute with the given bindings; returns the dense result as a host
+        numpy array (the copy to the host waits for the device)."""
+        self.validate_params(params)
+        args = [params[n] for n in self.param_names]
+        if T.current() is None:  # the zero-overhead default path
+            return self.fn(*args).cpu().numpy()
+        with T.span("execute", strategy=self.strategy,
+                    query=" ".join(self.sql.split())) as sp:
+            out = sp.fence(self.fn(*args))  # kernel_ms: device-done
+            return out.cpu().numpy()
+
+    def profile(self, reps: int = 3, **params) -> Any:
+        raise X.not_ported("profile()", "9 (observability)")
+
+    def explain(self, analyze: bool = False, **params) -> str:
+        """Human-readable execution summary: the op pipeline, the strategy,
+        the block-skipping and fusion modes, and per-hop estimated active
+        fractions. ``analyze=True`` (EXPLAIN ANALYZE) waits for the profiler."""
+        if analyze:
+            raise X.not_ported("explain(analyze=True)", "9 (observability)")
+        lines = [
+            f"query: {' '.join(self.sql.split())}",
+            f"strategy: {self.strategy}",
+            f"block_skipping: {self.block_skipping}",
+            f"fusion: {self.fusion}",
+            f"params: {self.param_names}",
+        ]
+        if self.phys is not None:
+            sig = " -> ".join(type(op).__name__ for op in self.phys.ops)
+            lines.append(f"ops: {sig}")
+        for h in self.hop_estimates or []:
+            lines.append(
+                f"  hop I_{h['table']}.{h['src_key']}: "
+                f"est_active_fraction={h['est_active_fraction']:.4g}"
+            )
+        return "\n".join(lines)
+
+    def execute_batch(self, **param_arrays) -> np.ndarray:
+        raise X.not_ported("execute_batch()", "7 (batched serving)")
+
+
+class GQFastEngine:
+    def __init__(self, db: GQFastDatabase, strategy: str = "frontier",
+                 mesh=None, max_prepared: int = 64):
+        if strategy != "frontier":
+            raise X.not_ported(
+                f"strategy={strategy!r}", "8 (fragment_loop and the auto strategy)"
+            )
+        if mesh is not None:
+            raise X.not_ported("mesh", "13 (distributed strategy)")
+        self.db = db
+        self.strategy = strategy
+        # fixed-size LRU: each entry pins a lowered plan bound to device
+        # tensors, so the prepare cache must not grow without bound
+        self._cache: PreparedCache = PreparedCache(max_prepared)
+
+    def prepare(self, sql: str, block_skipping: str = "off",
+                fusion: str = "off") -> PreparedQuery:
+        """Parse, plan and lower ``sql`` once for repeated execution.
+        ``block_skipping`` and ``fusion`` take ``'off'`` only in this port."""
+        X.require_supported("block_skipping", block_skipping, X.BLOCK_SKIPPING_MODES)
+        X.require_supported("fusion", fusion, X.FUSION_MODES)
+        cached = self._cache.get(sql)  # the only settings are the defaults
+        if cached is not None:
+            return cached
+        with T.span("prepare", query=" ".join(sql.split())):
+            try:
+                with T.span("parse"):
+                    ast = parse(sql)
+                with T.span("plan"):
+                    plan = plan_query(self.db.schema, ast)
+                # lower once: the per-execute ref-resolution and constant-mask
+                # work is hoisted out of the hot path
+                with T.span("lower"):
+                    phys = lower(self.db.device, plan)
+            except QueryError as e:
+                # every prepare-stage failure carries the query text
+                raise e.with_context(query=" ".join(sql.split()))
+            with T.span("compile") as csp:
+                fn = X.compile_frontier(self.db.device, phys)
+                csp.annotate(strategy=self.strategy, n_ops=len(phys.ops))
+            pq = PreparedQuery(
+                sql, plan, fn, list(phys.param_names), plan.group_entity, phys,
+                strategy=self.strategy, block_skipping=block_skipping,
+                fusion=fusion, hop_estimates=self._hop_fractions(plan),
+            )
+        self._cache.put(sql, pq)
+        return pq
+
+    def _hop_fractions(self, plan: ChainPlan) -> list[dict]:
+        """Per-hop estimated active fraction: seed cardinality pushed through
+        p90 fanouts. ``frontier_est × p90(degree)`` edges are expected to be
+        touched out of E — the 90th-percentile fragment length rather than
+        the mean, because graph degree distributions are heavy-tailed and a
+        seed that lands on a hub makes the *average* a serious
+        under-prediction of touched work. The reached-destination count caps
+        at the dst domain, and a mask seed starts whole-domain (fraction 1).
+        The selectivity model behind the explain() report."""
+        if isinstance(plan.seed, SeedIds):
+            ids = plan.seed.ids if isinstance(plan.seed.ids, list) else [plan.seed.ids]
+            frontier_est: float | None = float(len(ids))
+        else:
+            frontier_est = None  # mask seed: whole-domain support
+        hops = []
+        for s in plan.steps:
+            if not isinstance(s, RelHop) or s.degree_filter:
+                continue
+            idx = self.db.host_indexes[(s.table, s.src_key)]
+            E = max(idx.num_edges, 1)
+            h = max(idx.indptr.shape[0] - 1, 1)
+            degrees = np.diff(np.asarray(idx.indptr))
+            fanout = float(np.percentile(degrees, 90)) if degrees.size else 0.0
+            fanout = max(fanout, E / h)  # p90 never below the mean edge share
+            if frontier_est is None:
+                frontier_est = float(h)
+            touched = min(frontier_est * fanout, float(E))
+            hops.append({
+                "table": s.table,
+                "src_key": s.src_key,
+                "est_active_fraction": touched / E,
+            })
+            frontier_est = min(touched, float(self.db.schema.domain_size(s.dst_entity)))
+        return hops
+
+    def query(self, sql: str, **params) -> np.ndarray:
+        return self.prepare(sql)(**params)
+
+    def query_topk(self, sql: str, k: int = 10, **params) -> list[tuple[int, float]]:
+        scores = self.query(sql, **params)
+        return self._topk(scores, k)
+
+    @staticmethod
+    def _topk(scores: np.ndarray, k: int) -> list[tuple[int, float]]:
+        idx = np.argsort(-scores)[:k]
+        return [(int(i), float(scores[i])) for i in idx if scores[i] != 0]

@@ -1,0 +1,48 @@
+"""The PyTorch port stands alone: it imports neither JAX nor the JAX package
+``repro``, so it runs on a machine where JAX is not installed."""
+import os
+import re
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+# `import jax`, `from jax…`, and absolute imports of the reference package
+FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.MULTILINE)
+
+
+def test_port_query_loads_neither_jax_nor_repro():
+    code = textwrap.dedent("""
+        import sys
+        from repro_torch.core.engine import GQFastDatabase, GQFastEngine
+        from repro_torch.data import synth_graph as SG
+        schema = SG.make_pubmed(n_docs=200, n_terms=20, n_authors=50, seed=1)
+        eng = GQFastEngine(GQFastDatabase(schema, account_space=False, device="cpu"))
+        out = eng.query(SG.QUERY_AS, a0=3)
+        assert out.shape == (50,) and (out != 0).any()
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+        print("LOADED", bad)
+        assert not bad, bad
+    """)
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")}, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LOADED []" in proc.stdout
+
+
+def test_port_sources_import_neither_jax_nor_repro():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 10
+    offenders = [
+        f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
+        for f in files for m in FORBIDDEN.finditer(f.read_text())
+    ]
+    assert not offenders, offenders
