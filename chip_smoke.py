@@ -5,27 +5,47 @@
 
 Phases (any failure exits non-zero; nothing is caught while the run goes on):
 
- 1. Card, power limit, torch/CUDA versions; build the CUDA kernel from
-    ``src/repro_torch/kernels/csrc`` with nvcc and report the build time.
- 2. Load a PubMed-shaped graph (4M documents, 27,000 terms, 2M authors) on the
-    card with dense device encodings, and a SemMedDB-shaped graph at 10× the
-    generator's defaults.
- 3. The kernel against its plain PyTorch version on the card, for every op, at
-    E ∈ {0, 1, 4097} and at the main path's hop shapes (I_DT.Term with its
-    measure, I_DA.Doc measure-free). sum within rtol=atol=1e-4, min/max/bool
-    equal.
- 4. The main path: the paper's seven queries through ``GQFastEngine.query`` /
-    ``query_topk``. The kernel's launch counter is set to 0 just before and
-    read just after; it must equal the number of HopOps executed. Each result
-    is compared with the same lowered plan run through the plain version on
-    the card, SD with the numpy oracle ``run_sql`` at full scale, and all
-    seven with ``run_sql`` at the quickstart scale.
- 5. Times: per query the median wall time of 20 runs (each ends with the copy
-    of the result to the host) and, from torch.profiler, the device's busy
-    time by kind and its idle share; per hop shape the kernel's CUDA-event time
-    beside its bytes bound, the plain version's time and one library call
-    computing the same function (a cuSPARSE CSR matrix-vector product through
-    ``torch.mv`` on a prebuilt matrix, for sum) — the port never calls it.
+ 1. Card, power limit, torch/CUDA versions; build every CUDA kernel from
+    ``src/repro_torch/kernels/csrc`` (one nvcc per source, all started
+    together) and report the build times and ptxas register/spill lines.
+ 2. Load a PubMed-shaped graph (4M documents, 27,000 terms, 2M authors) and a
+    SemMedDB-shaped graph at 10× the generator's defaults, each twice on the
+    card: dense device encodings, and the reference's default
+    ``device_encodings="auto"`` (bit-packed keys) built from the same host
+    indexes. Device bytes per index and the ratio to dense.
+ 3. Kernels against their plain PyTorch versions on the card (sum within
+    rtol=atol=1e-4, min/max/bool equal): the dense hop at E ∈ {0, 1, 4097}
+    and the main path's hop shapes; the storage round trip (every packed or
+    dict column decoded by ``bitunpack`` equal to the host values);
+    ``bitunpack`` at widths 1–32; the packed hop for every op × measure mode ×
+    packed/dense dst at E ∈ {0, 1, 4097} and at I_DT.Term / I_DA.Doc (the
+    dict mode through a per-column override); both active kernels at support
+    fractions from one seed to 100%, equal to the scan and the plain version.
+ 4. The main paths, each driven through ``GQFastEngine.query`` /
+    ``query_topk`` with every launch counter set to 0 just before and read
+    just after:
+      a. dense storage, skipping off (slice 1): fragment_spmv launches equal
+         the HopOps executed;
+      b. the defaults (auto storage, auto skipping): packed-hop launches
+         (scan + active) equal the HopOps; per hop the n_active / n_blocks
+         the list gave;
+      c. auto storage, skipping off: packed scan launches equal the HopOps;
+      d. dense storage, auto skipping: dense hop launches (scan + active)
+         equal the HopOps;
+      e. a composite measure over a packed column (SUM(dt2.Fre * dt2.Fre) in
+         SD's shape): it decodes through bitunpack (its planner path is the
+         reference's: tests/test_torch_storage.py runs it in both packages).
+    Each result is compared with the same lowered plan run through the plain
+    versions on the card, the defaults with the dense path (exact for
+    SD/AD/RECENT/CS), SD with the numpy oracle ``run_sql`` at full scale, and
+    all seven with ``run_sql`` at the quickstart scale under both storages.
+ 5. Times: per query the median wall time of 20 runs and the profiler's
+    device breakdown, under the defaults beside the dense path; per kernel
+    at the main path's shapes its CUDA-event time beside its bound, the plain
+    version's time and one library call computing the same function where
+    there is one (``torch.mv`` on a CSR matrix; none for bitunpack); scan
+    against skip and the cost of the block list at support fractions from
+    one seed to 100%, which set ``SKIP_BLOCK_FRACTION``.
 
 Output: progress lines, then the card line, the ``{"kernels": [...]}`` line and
 last ``{"ok": true, "device": {...}}``. Everything measured is also written to
@@ -53,13 +73,37 @@ QUICKSTART_PUBMED = dict(n_docs=20_000, n_terms=800, n_authors=5_000, seed=7)
 QUERY_REPS = 20
 KERNEL_REPS = 20
 PROFILE_REPS = 5
+SUPPORTS = ("one_seed", 0.01, 0.1, 0.5, 1.0)
 
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth and non-tensor fp32 rate
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 
 OPS = ("sum", "min", "max", "bool")
+M_MODES = ("none", "dense", "packed", "dict")
 EXACT_QUERIES = ("SD", "AD", "RECENT", "CS")  # counts and memberships
+
+Q_COMPOSITE = """
+SELECT dt2.Doc, SUM(dt2.Fre * dt2.Fre)
+FROM DT dt1 JOIN DT dt2 ON dt1.Term = dt2.Term
+WHERE dt1.Doc = :d0
+GROUP BY dt2.Doc
+"""
+
+# kernel name → (module under repro_torch.kernels, counter, source, TPU kernel)
+KERNELS = {
+    "fragment_spmv": ("fragment_spmv", "LAUNCHES", "fragment_spmv.cu",
+                      "src/repro/kernels/fragment_spmv.py:103"),
+    "fragment_spmv_active": ("fragment_spmv", "ACTIVE_LAUNCHES", "fragment_spmv.cu",
+                             "src/repro/kernels/fragment_spmv.py:180"),
+    "bitunpack": ("bitunpack", "LAUNCHES", "bitunpack.cu",
+                  "src/repro/kernels/bitunpack.py:83"),
+    "fragment_spmv_packed": ("fragment_spmv_packed", "LAUNCHES", "fragment_spmv_packed.cu",
+                             "src/repro/kernels/fragment_spmv_packed.py:220"),
+    "fragment_spmv_packed_active": ("fragment_spmv_packed", "ACTIVE_LAUNCHES",
+                                    "fragment_spmv_packed.cu",
+                                    "src/repro/kernels/fragment_spmv_packed.py:287"),
+}
 
 
 def log(msg: str) -> None:
@@ -87,6 +131,21 @@ def sync() -> None:
     torch.cuda.synchronize()
 
 
+def kmod(name: str):
+    import importlib
+
+    return importlib.import_module(f"repro_torch.kernels.{KERNELS[name][0]}")
+
+
+def reset_counts() -> None:
+    for name, (_, attr, _, _) in KERNELS.items():
+        setattr(kmod(name), attr, 0)
+
+
+def read_counts() -> dict:
+    return {name: getattr(kmod(name), attr) for name, (_, attr, _, _) in KERNELS.items()}
+
+
 def time_device_ms(fn, reps: int) -> float:
     """Mean device time of ``fn`` over ``reps`` calls, by CUDA events, after
     warm-up."""
@@ -104,14 +163,19 @@ def time_device_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(E: int, n_src: int, n_dst: int, has_m: bool) -> tuple[float, str]:
-    """Least time for one hop: each input read once (src, dst, m per edge, the
-    frontier), the output written once, against the card's memory rate; and
-    the per-edge multiply plus combine against the fp32 rate."""
-    nbytes = (12 if has_m else 8) * E + 4 * n_src + 4 * n_dst
+def bound_ms(nbytes: int, flops: int) -> tuple[float, str]:
+    """The least time for the work: bytes over the memory rate against
+    operations over the fp32 rate, whichever is larger."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 2 * E / FP32_FLOP_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def hop_bound(E: int, n_src: int, n_dst: int, dst_bytes: int, m_bytes: int,
+              extra: int = 0) -> tuple[float, str]:
+    """One hop: src (4 B an edge), the dst and measure streams as stored,
+    the frontier and the output once each; a multiply and a combine an edge."""
+    return bound_ms(4 * E + dst_bytes + m_bytes + 4 * n_src + 4 * n_dst + extra, 2 * E)
 
 
 def compare(got, want, exact: bool, what: str) -> float:
@@ -129,10 +193,12 @@ def compare(got, want, exact: bool, what: str) -> float:
     elif not torch.allclose(got, want, rtol=1e-4, atol=1e-4, equal_nan=False):
         diff = (got.double() - want.double()).abs()
         raise AssertionError(f"{what}: max abs err {float(diff.max())} beyond rtol=atol=1e-4")
-    fin = torch.isfinite(got) & torch.isfinite(want)
     if not torch.equal(torch.isfinite(got), torch.isfinite(want)):
         raise AssertionError(f"{what}: non-finite entries differ")
-    return float((got[fin].double() - want[fin].double()).abs().max()) if fin.any() else 0.0
+    if got.dtype.is_floating_point:
+        fin = torch.isfinite(got) & torch.isfinite(want)
+        return float((got[fin].double() - want[fin].double()).abs().max()) if fin.any() else 0.0
+    return 0.0
 
 
 def frontier(n: int, op: str, gen, device):
@@ -150,8 +216,39 @@ def frontier(n: int, op: str, gen, device):
     return w
 
 
-def check_kernel(db, device) -> tuple[float, list[dict]]:
-    """Phase 3: kernel vs plain version at small and main-path shapes."""
+def sparse_frontier(w, degrees, support, op: str, seed: int):
+    """``w`` with every source outside a random support set to the
+    ⊕-identity; the support takes sources in a random order until their edges
+    reach ``support`` × E (``"one_seed"``: the single source of median
+    degree among those with edges)."""
+    import torch
+
+    from repro_torch.kernels.ref import IDENTITY
+
+    deg = degrees.cpu().numpy().astype(np.int64)
+    rng = np.random.default_rng(seed)
+    if support == "one_seed":
+        nz = np.flatnonzero(deg)
+        keep = nz[np.argsort(deg[nz], kind="stable")][nz.shape[0] // 2:][:1]
+    else:
+        order = rng.permutation(deg.shape[0])
+        reach = np.cumsum(deg[order])
+        keep = order[: int(np.searchsorted(reach, support * reach[-1])) + 1]
+    mask = torch.zeros(deg.shape[0], dtype=torch.bool)
+    mask[torch.from_numpy(keep)] = True
+    out = torch.full_like(w, IDENTITY[op])
+    m = mask.to(w.device)
+    out[m] = w[m]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+
+def check_dense_kernel(db, device) -> tuple[float, list[dict]]:
+    """Phase 3a: fragment_spmv vs plain at small and main-path shapes."""
     import torch
 
     from repro_torch.kernels import fragment_spmv as kernel
@@ -178,13 +275,204 @@ def check_kernel(db, device) -> tuple[float, list[dict]]:
             got = kernel.fragment_spmv(w, src, dst, m, n_dst, op=op)
             want = ref.fragment_spmv_ref(w, src, dst, m, n_dst, op=op)
             sync()
-            err = compare(got, want, exact=op != "sum", what=f"kernel {name} {op}")
+            err = compare(got, want, exact=op != "sum", what=f"fragment_spmv {name} {op}")
             worst = max(worst, err)
-            rows.append({"shape": name, "op": op, "E": int(src.shape[0]),
-                         "max_abs_err": err})
-            log(f"  kernel {name:10s} E={int(src.shape[0]):>9d} {op:4s} ok"
-                f" (max abs err {err:.3g})")
+            rows.append({"shape": name, "op": op, "E": int(src.shape[0]), "max_abs_err": err})
+        log(f"  fragment_spmv {name:10s} E={int(src.shape[0]):>9d} all ops ok")
     return worst, rows
+
+
+def storage_round_trip(host_dbs) -> dict:
+    """Phase 3b: decode every packed or dict column of the auto databases on
+    the card with bitunpack; equal to the host values and to the plain
+    decode."""
+    import torch
+
+    from repro_torch.kernels import bitunpack as bk
+    from repro_torch.kernels import ref
+
+    cols = 0
+    widths = set()
+    for label, db in host_dbs:
+        for (t, k), di in db.device.indexes.items():
+            idx = db.host_indexes[(t, k)]
+            other = next(c for c in idx.columns if c != k and c in
+                         (db.schema.relationships[t].fk1, db.schema.relationships[t].fk2))
+            for name, col in [(other, di.dst_col), *di.measure_cols.items()]:
+                if col.kind == "dense":
+                    continue
+                got = bk.bitunpack(col.words, col.width, col.count)
+                compare(got, ref.bitunpack_ref(col.words, col.width, col.count), True,
+                        f"bitunpack {label} I_{t}.{k}/{name} vs plain")
+                host = torch.from_numpy(np.asarray(idx.columns[name].values))
+                if col.kind == "dict":
+                    got = col.dictionary[got.to(torch.int64)]
+                    host = host.to(torch.float32)
+                else:
+                    host = host.to(torch.int32)
+                compare(got, host, True, f"bitunpack {label} I_{t}.{k}/{name} vs host")
+                cols += 1
+                widths.add(col.width)
+    sync()
+    log(f"  storage round trip: {cols} packed/dict columns decoded on the card equal the"
+        f" host values (widths {sorted(widths)})")
+    return {"columns": cols, "widths": sorted(widths)}
+
+
+def check_bitunpack(device) -> float:
+    """Phase 3c: bitunpack at every width 1–32 against the plain decode."""
+    import torch
+
+    from repro_torch.core.fragments import _pack_words
+    from repro_torch.kernels import bitunpack as bk
+    from repro_torch.kernels import ref
+
+    rng = np.random.default_rng(5)
+    for width in range(1, 33):
+        count = 1_000_003
+        vals = rng.integers(0, 2**width, size=count, dtype=np.uint64)
+        words = torch.from_numpy(_pack_words(vals, width).view(np.int32)).to(device)
+        got = bk.bitunpack(words, width, count)
+        compare(got, ref.bitunpack_ref(words, width, count), True, f"bitunpack width {width}")
+        if not np.array_equal(got.cpu().numpy().view(np.uint32), vals.astype(np.uint32)):
+            raise AssertionError(f"bitunpack width {width}: differs from the packed values")
+    sync()
+    log("  bitunpack widths 1..32 (1,000,003 values each) equal the plain decode")
+    return 0.0
+
+
+def packed_cases(db, dict_db, device):
+    """(name, n_src, src, dst operand, dst_width, {m_mode: (measure, mdict,
+    m_width)}, n_dst) for the packed-hop checks."""
+    import torch
+
+    from repro_torch.core.fragments import _pack_words
+
+    gen = torch.Generator(device=device).manual_seed(2)
+    rng = np.random.default_rng(3)
+    out = []
+    for E in (0, 1, 4097):
+        n_src, n_dst = 5000, 300
+        src = np.sort(rng.integers(0, n_src, E)).astype(np.int32)
+        dst = rng.integers(0, n_dst, E)
+        mint = rng.integers(0, 40, E)
+        midx = rng.integers(0, 5, E)
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+        words = lambda v, b: t(_pack_words(v, b).view(np.int32))  # noqa: E731
+        modes = {"none": (None, None, 0),
+                 "dense": (torch.rand(E, generator=gen, device=device), None, 0),
+                 "packed": (words(mint, 6), None, 6),
+                 "dict": (words(midx, 3), t(np.array([0.5, 3.0, 0.0, 7.25, 1.0], np.float32)), 3)}
+        for dst_packed in (True, False):
+            d, dw = (words(dst, 9), 9) if dst_packed else (t(dst.astype(np.int32)), 0)
+            out.append((f"E={E} dst {'packed' if dst_packed else 'dense'}", n_src, t(src),
+                        d, dw, modes, n_dst))
+    dt = db.device.index("DT", "Term")
+    fre = dt.measure_cols["Fre"]
+    dfre = dict_db.device.index("DT", "Term").measure_cols["Fre"]
+    if fre.kind != "packed" or dfre.kind != "dict" or dt.dst_col.kind != "packed":
+        raise AssertionError(f"I_DT.Term layout: dst {dt.dst_col.kind}, Fre {fre.kind},"
+                             f" dict override Fre {dfre.kind}")
+    # decoded with the plain version: no materialize memo is left behind
+    modes = {"none": (None, None, 0), "dense": (fre.materialize(use_kernel=False), None, 0),
+             "packed": (fre.words, None, fre.width),
+             "dict": (dfre.words, dfre.dictionary, dfre.width)}
+    n_doc = db.schema.domain_size("Document")
+    out.append(("I_DT.Term dst packed", dt.indptr.shape[0] - 1, dt.src_ids, dt.dst_col.words,
+                dt.dst_col.width, modes, n_doc))
+    out.append(("I_DT.Term dst dense", dt.indptr.shape[0] - 1, dt.src_ids,
+                dt.dst_col.materialize(use_kernel=False), 0, modes, n_doc))
+    da = db.device.index("DA", "Doc")
+    out.append(("I_DA.Doc dst packed", da.indptr.shape[0] - 1, da.src_ids, da.dst_col.words,
+                da.dst_col.width, {"none": (None, None, 0)}, db.schema.domain_size("Author")))
+    return out
+
+
+def check_packed_kernel(cases, device) -> tuple[float, list[dict]]:
+    """Phase 3d: fragment_spmv_packed vs plain, every op × m_mode × dst."""
+    import torch
+
+    from repro_torch.kernels import fragment_spmv_packed as pk
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=device).manual_seed(4)
+    worst, rows = 0.0, []
+    for name, n_src, src, dst, dw, modes, n_dst in cases:
+        for m_mode, (m, md, mw) in modes.items():
+            for op in OPS:
+                w = frontier(n_src, op, gen, device)
+                kw = dict(dst_width=dw, m_mode=m_mode, m_width=mw, op=op)
+                got = pk.fragment_spmv_packed(w, src, dst, m, md, n_dst, **kw)
+                want = ref.fragment_spmv_packed_ref(w, src, dst, m, md, n_dst, **kw)
+                sync()
+                err = compare(got, want, op != "sum", f"fragment_spmv_packed {name} {m_mode} {op}")
+                worst = max(worst, err)
+                rows.append({"shape": name, "m_mode": m_mode, "op": op,
+                             "E": int(src.shape[0]), "max_abs_err": err})
+        log(f"  fragment_spmv_packed {name:22s} E={int(src.shape[0]):>9d}"
+            f" m_modes {list(modes)} × all ops ok")
+    return worst, rows
+
+
+def check_active_kernels(db, db_dense, device) -> tuple[dict, list[dict]]:
+    """Phase 3e: both active kernels at support fractions from one seed to
+    100% on I_DT.Term: skip ('on') and 'auto''s scan order both equal the
+    scan kernel and the plain version."""
+    import torch
+
+    from repro_torch.kernels import active
+    from repro_torch.kernels import fragment_spmv as dk
+    from repro_torch.kernels import fragment_spmv_packed as pk
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=device).manual_seed(6)
+    pt, dt = db.device.index("DT", "Term"), db_dense.device.index("DT", "Term")
+    fre, n_dst = pt.measure_cols["Fre"], db.schema.domain_size("Document")
+    n_src = pt.indptr.shape[0] - 1
+    E = int(pt.src_ids.shape[0])
+    nb = active.n_edge_blocks(E)
+    worst = {"fragment_spmv_active": 0.0, "fragment_spmv_packed_active": 0.0}
+    rows = []
+    for support in SUPPORTS:
+        for op in OPS:
+            w = sparse_frontier(frontier(n_src, op, gen, device), pt.degrees, support, op, 7)
+            bi, na = active.active_block_list(w, ref.IDENTITY[op], pt.block_src_min,
+                                              pt.block_src_max)
+            n_act = int(na[0])
+            exact = op != "sum"
+            kw = dict(dst_width=pt.dst_col.width, m_mode="packed", m_width=fre.width, op=op)
+            scan_p = pk.fragment_spmv_packed(w, pt.src_ids, pt.dst_col.words, fre.words,
+                                             None, n_dst, **kw)
+            scan_d = dk.fragment_spmv(w, dt.src_ids, dt.dst_ids, dt.measures["Fre"], n_dst, op=op)
+            plain_d = ref.fragment_spmv_active_ref(w, dt.src_ids, dt.dst_ids,
+                                                   dt.measures["Fre"], bi, na, n_dst, op=op)
+            for scan_above in (nb, 0):  # follow the list; scan order
+                got = pk.fragment_spmv_packed_active(w, pt.src_ids, pt.dst_col.words,
+                                                     fre.words, None, bi, na, n_dst,
+                                                     scan_above=scan_above, **kw)
+                what = f"packed_active {support} {op} scan_above={scan_above}"
+                e1 = compare(got, scan_p, exact, f"{what} vs scan")
+                e2 = compare(got, ref.fragment_spmv_packed_active_ref(
+                    w, pt.src_ids, pt.dst_col.words, fre.words, None, bi, na, n_dst,
+                    scan_above=scan_above, **kw), exact, f"{what} vs plain")
+                worst["fragment_spmv_packed_active"] = max(
+                    worst["fragment_spmv_packed_active"], e1, e2)
+                got = dk.fragment_spmv_active(w, dt.src_ids, dt.dst_ids, dt.measures["Fre"],
+                                              bi, na, n_dst, op=op, scan_above=scan_above)
+                what = f"dense active {support} {op} scan_above={scan_above}"
+                e1 = compare(got, scan_d, exact, f"{what} vs scan")
+                e2 = compare(got, plain_d, exact, f"{what} vs plain")
+                worst["fragment_spmv_active"] = max(worst["fragment_spmv_active"], e1, e2)
+            sync()
+            rows.append({"support": support, "op": op, "n_active": n_act, "n_blocks": nb})
+        log(f"  active kernels, support {support}: {n_act}/{nb} blocks active;"
+            f" skip == scan order == scan == plain for every op")
+    return worst, rows
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the main paths
+# ---------------------------------------------------------------------------
 
 
 def hop_count(phys) -> int:
@@ -221,80 +509,115 @@ def busy_concept(sem) -> int:
     return int(sem.relationships["CS"].columns["CID"][0])
 
 
-def drive_main_path(engines, SG, c0) -> tuple[dict, int, int]:
-    """Phase 4a: the seven queries through the engine's entry points, with
-    the launch counter set to 0 just before and read just after."""
-    from repro_torch.kernels import fragment_spmv as kernel
+def drive_path(label, engines, SG, c0, block_skipping, kernels, topk: bool):
+    """One main path: the seven queries (and ``query_topk`` for AS when the
+    path runs the engine's default skipping) with every counter set to 0
+    just before and read just after. ``kernels`` are the hop kernels of the
+    path: their launches must equal the HopOps executed, and the last of them
+    must have launched. Returns (results, counts, hop_ops, per-hop skip
+    records)."""
+    from repro_torch.kernels import ops as K
 
-    prepared = {n: engines[n].prepare(q) for n, q, _ in cases(SG, c0)}
+    prepared = {n: engines[n].prepare(q, block_skipping=block_skipping)
+                for n, q, _ in cases(SG, c0)}
     expected = sum(hop_count(prepared[n].phys) for n, _, _ in cases(SG, c0))
-    expected += hop_count(prepared["AS"].phys)  # query_topk runs AS once more
+    if topk:
+        expected += hop_count(prepared["AS"].phys)
+    skips = []
+    plan_skip = K._plan_skip
+
+    def recorded(w, op, E, blocks, mode):  # the smoke reads n_active after the run
+        plan = plan_skip(w, op, E, blocks, mode)
+        if plan is not None:
+            skips.append((current[0], plan[1], plan[2], E))
+        return plan
+
+    current = [None]
     results = {}
-    kernel.LAUNCHES = 0
-    for name, q, params in cases(SG, c0):
-        results[name] = engines[name].query(q, **params)
-    top = engines["AS"].query_topk(SG.QUERY_AS, k=10, a0=7)
-    launches = kernel.LAUNCHES
-    if launches != expected:
-        raise AssertionError(f"kernel launches {launches} != HopOps executed {expected}")
-    # atomics reorder the float sums from run to run: same ids, values within
-    # the sum tolerance
-    want = engines["AS"]._topk(results["AS"], 10)
-    if not top or [i for i, _ in top] != [i for i, _ in want]:
-        raise AssertionError(f"query_topk ids {top} != query's {want}")
-    compare(np.asarray([v for _, v in top]), np.asarray([v for _, v in want]), False,
-            "query_topk scores")
-    return results, launches, expected
+    K._plan_skip = recorded
+    try:
+        reset_counts()
+        for name, q, params in cases(SG, c0):
+            current[0] = name
+            results[name] = (engines[name].query(q, **params) if block_skipping == "auto"
+                             else prepared[name](**params))
+        if topk:
+            current[0] = "AS topk"
+            top = engines["AS"].query_topk(SG.QUERY_AS, k=10, a0=7)
+        counts = read_counts()
+    finally:
+        K._plan_skip = plan_skip
+    launched = sum(counts[k] for k in kernels)
+    if launched != expected:
+        raise AssertionError(f"path {label}: {kernels} launched {launched} times,"
+                             f" HopOps executed {expected} ({counts})")
+    if counts[kernels[-1]] < 1:
+        raise AssertionError(f"path {label}: {kernels[-1]} never launched ({counts})")
+    if topk:
+        want = engines["AS"]._topk(results["AS"], 10)
+        if not top or [i for i, _ in top] != [i for i, _ in want]:
+            raise AssertionError(f"query_topk ids {top} != query's {want}")
+        compare(np.asarray([v for _, v in top]), np.asarray([v for _, v in want]), False,
+                "query_topk scores")
+    hops = [{"query": q, "n_active": int(na[0]), "n_blocks": -(-E // 4096),
+             "scan_above": int(sa)} for q, na, sa, E in skips]
+    log(f"  path {label}: launches {counts} (HopOps executed {expected})")
+    return results, counts, expected, hops
 
 
-def check_results(results, engines, schemas, SG, c0, run_sql) -> dict:
-    """Phase 4b: each result against the plain version on the card (same
-    lowered plan), finite and of the domain's shape; SD against the oracle."""
+def check_results(label, results, engines, SG, c0, block_skipping) -> dict:
+    """Each result against the same lowered plan run through the plain
+    versions on the card; finite, of the domain's shape, not empty."""
     from repro_torch.core import executor as X
 
     errs = {}
     for name, q, params in cases(SG, c0):
         got = results[name]
-        pq = engines[name].prepare(q)
+        pq = engines[name].prepare(q, block_skipping=block_skipping)
         if got.shape != (pq.phys.out_dom,) or not np.isfinite(got).all():
-            raise AssertionError(f"{name}: shape {got.shape} or non-finite values")
+            raise AssertionError(f"{label} {name}: shape {got.shape} or non-finite values")
         if not (got != 0).any():
-            raise AssertionError(f"{name}: empty result")
-        plain = X.compile_frontier(engines[name].db.device, pq.phys, use_kernel=False)
+            raise AssertionError(f"{label} {name}: empty result")
+        plain = X.compile_frontier(engines[name].db.device, pq.phys,
+                                   block_skipping=block_skipping, use_kernel=False)
         want = plain(*[params[n] for n in pq.param_names]).cpu().numpy()
-        errs[name] = compare(got, want, name in EXACT_QUERIES, f"{name} vs plain")
-        log(f"  {name:6s} nnz={int((got != 0).sum()):>9d} matches the plain version"
-            f" (max abs err {errs[name]:.3g})")
-    t0 = time.perf_counter()
-    ref = run_sql(schemas["SD"], SG.QUERY_SD, {"d0": 5})
-    compare(results["SD"], ref.astype(np.float32), True, "SD vs run_sql (full scale)")
-    log(f"  SD matches run_sql at full scale ({time.perf_counter() - t0:.1f} s oracle)")
+        errs[name] = compare(got, want, name in EXACT_QUERIES, f"{label} {name} vs plain")
+    log(f"  path {label}: every result matches the plain versions on the card"
+        f" (max abs err {max(errs.values()):.3g})")
     return errs
 
 
-def check_quickstart(SG, run_sql, GQFastDatabase, GQFastEngine, device) -> None:
-    """Phase 4c: all seven queries against run_sql at the quickstart scale."""
+def check_quickstart(SG, run_sql, GQFastDatabase, GQFastEngine, device, encodings) -> None:
+    """All seven queries against run_sql at the quickstart scale."""
     pub = SG.make_pubmed(**QUICKSTART_PUBMED)
     sem = SG.make_semmeddb()  # the generator's defaults
     c0 = busy_concept(sem)
-    eng_p = GQFastEngine(GQFastDatabase(pub, account_space=False, device=device))
-    eng_s = GQFastEngine(GQFastDatabase(sem, account_space=False, device=device))
+    kw = dict(account_space=False, device=device, device_encodings=encodings)
+    eng_p = GQFastEngine(GQFastDatabase(pub, **kw))
+    eng_s = GQFastEngine(GQFastDatabase(sem, **kw))
+    worst = 0.0
     for name, q, params in cases(SG, c0):
         schema, eng = (sem, eng_s) if name == "CS" else (pub, eng_p)
         got = eng.query(q, **params)
         ref = run_sql(schema, q, params)
-        err = compare(got, ref.astype(np.float32), name in EXACT_QUERIES,
-                      f"{name} vs run_sql (quickstart)")
+        worst = max(worst, compare(got, ref.astype(np.float32), name in EXACT_QUERIES,
+                                   f"{name} vs run_sql (quickstart, {encodings})"))
         if not (got != 0).any():
             raise AssertionError(f"{name}: empty result at quickstart scale")
-        log(f"  {name:6s} matches run_sql at quickstart scale (max abs err {err:.3g})")
+    log(f"  all seven match run_sql at quickstart scale, device_encodings={encodings!r}"
+        f" (max abs err {worst:.3g})")
 
 
-def time_queries(engines, SG, c0) -> dict:
-    """Phase 5a: median wall ms of QUERY_REPS executions per query."""
+# ---------------------------------------------------------------------------
+# phase 5: times
+# ---------------------------------------------------------------------------
+
+
+def time_queries(label, engines, SG, c0, block_skipping) -> dict:
+    """Median wall ms of QUERY_REPS executions per query."""
     out = {}
     for name, q, params in cases(SG, c0):
-        pq = engines[name].prepare(q)
+        pq = engines[name].prepare(q, block_skipping=block_skipping)
         pq(**params)
         ts = []
         for _ in range(QUERY_REPS):
@@ -303,89 +626,273 @@ def time_queries(engines, SG, c0) -> dict:
             ts.append((time.perf_counter() - t0) * 1e3)
         out[name] = {"median_ms": statistics.median(ts), "min_ms": min(ts),
                      "max_ms": max(ts), "hops": hop_count(pq.phys)}
-        log(f"  {name:6s} median {out[name]['median_ms']:.3f} ms over {QUERY_REPS}"
-            f" runs (min {out[name]['min_ms']:.3f}, hops {out[name]['hops']})")
+        log(f"  {label:8s} {name:6s} median {out[name]['median_ms']:.4f} ms over {QUERY_REPS}"
+            f" runs (min {out[name]['min_ms']:.4f}, hops {out[name]['hops']})")
     return out
 
 
-def breakdown(engines, SG, c0) -> dict:
-    """Phase 5b: where a query's time goes. torch.profiler over PROFILE_REPS
-    runs gives the device's busy time per run, split into the fragment_spmv
-    kernel, copies (the result to the host) and everything else (fills,
-    seeds, masks); the idle share is 1 − busy / the wall time of the same
-    profiled runs (profiling slows them, so both sides carry its cost).
-    ``None`` where the profiler saw no device activity."""
+def breakdown(label, engines, SG, c0, block_skipping) -> dict:
+    """Where a query's time goes. torch.profiler over PROFILE_REPS runs gives
+    the device's busy time per run, split into the hop kernels, bitunpack,
+    copies (the result to the host) and everything else (fills, seeds,
+    masks, the block lists); the idle share is 1 − busy / the wall time of
+    the same profiled runs (profiling slows them, so both sides carry its
+    cost). ``None`` where the profiler saw no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     out = {}
     for name, q, params in cases(SG, c0):
-        pq = engines[name].prepare(q)
+        pq = engines[name].prepare(q, block_skipping=block_skipping)
         pq(**params)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(PROFILE_REPS):
                 pq(**params)  # returns host numpy: waits for the device
             wall = (time.perf_counter() - t0) * 1e3 / PROFILE_REPS
-        split = {"fragment_spmv": 0.0, "copy": 0.0, "other": 0.0}
+        split = {"hop": 0.0, "bitunpack": 0.0, "copy": 0.0, "other": 0.0}
+        launches = 0
         for ev in prof.key_averages():
             if ev.device_type != DeviceType.CUDA:
                 continue
-            kind = ("fragment_spmv" if "fragment_spmv" in ev.key
+            kind = ("hop" if "fragment_spmv" in ev.key
+                    else "bitunpack" if "bitunpack" in ev.key
                     else "copy" if "Memcpy" in ev.key else "other")
             split[kind] += ev.self_device_time_total / 1e3 / PROFILE_REPS
+            launches += ev.count
         busy = sum(split.values())
         if busy == 0.0:
             out[name] = None
-            log(f"  {name:6s} device time not measured (profiler saw no device events)")
+            log(f"  {label:8s} {name:6s} device time not measured (profiler saw no device events)")
             continue
         out[name] = {"busy_ms": busy, **{f"{k}_ms": v for k, v in split.items()},
-                     "profiled_wall_ms": wall, "idle_share": max(0.0, 1.0 - busy / wall)}
-        log(f"  {name:6s} device busy {busy:.3f} ms of {wall:.3f} ms profiled wall"
-            f" (fragment_spmv {split['fragment_spmv']:.3f}, copy {split['copy']:.3f},"
-            f" other {split['other']:.3f}; idle share {out[name]['idle_share']:.3f})")
+                     "profiled_wall_ms": wall, "idle_share": max(0.0, 1.0 - busy / wall),
+                     "device_ops_per_run": launches / PROFILE_REPS}
+        log(f"  {label:8s} {name:6s} device busy {busy:.4f} ms of {wall:.4f} ms profiled wall"
+            f" (hop {split['hop']:.4f}, copy {split['copy']:.4f}, other {split['other']:.4f};"
+            f" {launches / PROFILE_REPS:.0f} device ops a run; idle share"
+            f" {out[name]['idle_share']:.3f})")
     return out
 
 
-def time_kernel(db, device) -> list[dict]:
-    """Phase 5c: kernel vs bound vs plain vs library at the main path's hop
-    shapes, sum over a dense random frontier (every edge live)."""
+def csr_matrix(src, dst, vals, n_src, n_dst):
     import torch
 
-    from repro_torch.kernels import fragment_spmv as kernel
+    return torch.sparse_coo_tensor(
+        torch.stack([dst.to(torch.int64), src.to(torch.int64)]), vals, (n_dst, n_src),
+        check_invariants=False,
+    ).coalesce().to_sparse_csr()
+
+
+def time_kernels(db, db_dense, device) -> dict:
+    """Per kernel at the main path's shapes, sum over a dense random
+    frontier (every edge live): CUDA-event ms, bound, plain ms, library ms."""
+    import torch
+
+    from repro_torch.kernels import active
+    from repro_torch.kernels import bitunpack as bk
+    from repro_torch.kernels import fragment_spmv as dk
+    from repro_torch.kernels import fragment_spmv_packed as pk
     from repro_torch.kernels import ref
 
     gen = torch.Generator(device=device).manual_seed(1)
-    rows = []
+    rows = {k: [] for k in KERNELS}
     for name, (table, key), meas, dst_ent in (
         ("I_DT.Term", ("DT", "Term"), "Fre", "Document"),
         ("I_DA.Doc", ("DA", "Doc"), None, "Author"),
     ):
-        di = db.device.index(table, key)
+        di, pi = db_dense.device.index(table, key), db.device.index(table, key)
         n_src, n_dst = di.indptr.shape[0] - 1, db.schema.domain_size(dst_ent)
         src, dst = di.src_ids, di.dst_ids
         m = di.measures[meas] if meas else None
         E = int(src.shape[0])
         w = frontier(n_src, "sum", gen, device)
-        ms = time_device_ms(lambda: kernel.fragment_spmv(w, src, dst, m, n_dst), KERNEL_REPS)
-        plain_ms = time_device_ms(lambda: ref.fragment_spmv_ref(w, src, dst, m, n_dst), KERNEL_REPS)
-        vals = m if m is not None else torch.ones(E, device=device)
-        A = torch.sparse_coo_tensor(
-            torch.stack([dst.to(torch.int64), src.to(torch.int64)]), vals, (n_dst, n_src),
-            check_invariants=False,
-        ).coalesce().to_sparse_csr()
+        A = csr_matrix(src, dst, m if m is not None else torch.ones(E, device=device),
+                       n_src, n_dst)
         lib = torch.mv(A, w)
-        compare(kernel.fragment_spmv(w, src, dst, m, n_dst), lib, False,
-                f"library yardstick {name}")
+        compare(dk.fragment_spmv(w, src, dst, m, n_dst), lib, False, f"torch.mv {name}")
         library_ms = time_device_ms(lambda: torch.mv(A, w), KERNEL_REPS)
         del A, lib
-        b_ms, b_by = bound(E, n_src, n_dst, m is not None)
-        rows.append({"shape": name, "op": "sum", "E": E, "n_src": n_src, "n_dst": n_dst,
-                     "measure": meas is not None, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms})
-        log(f"  {name:10s} E={E} kernel {ms:.4f} ms  bound {b_ms:.4f} ms ({b_by})"
-            f"  plain {plain_ms:.4f} ms  torch.mv(CSR) {library_ms:.4f} ms")
+        # dense scan and active (list built beforehand: the kernel alone)
+        bi, na = active.active_block_list(w, 0.0, di.block_src_min, di.block_src_max)
+        nb = active.n_edge_blocks(E)
+        mb = 4 * E if m is not None else 0
+        b, by = hop_bound(E, n_src, n_dst, 4 * E, mb)
+        ms = time_device_ms(lambda: dk.fragment_spmv(w, src, dst, m, n_dst), KERNEL_REPS)
+        plain = time_device_ms(lambda: ref.fragment_spmv_ref(w, src, dst, m, n_dst), KERNEL_REPS)
+        rows["fragment_spmv"].append(dict(shape=name, E=E, ms=ms, plain_ms=plain, bound_ms=b,
+                                          bound_by=by, library_ms=library_ms))
+        ms = time_device_ms(lambda: dk.fragment_spmv_active(w, src, dst, m, bi, na, n_dst,
+                                                            scan_above=nb), KERNEL_REPS)
+        plain = time_device_ms(lambda: ref.fragment_spmv_active_ref(w, src, dst, m, bi, na,
+                                                                    n_dst), KERNEL_REPS)
+        b, by = hop_bound(E, n_src, n_dst, 4 * E, mb, extra=4 * nb + 4)
+        rows["fragment_spmv_active"].append(dict(shape=name, E=E, ms=ms, plain_ms=plain,
+                                                 bound_ms=b, bound_by=by,
+                                                 library_ms=library_ms, support=1.0))
+        # packed scan and active
+        pm = pi.measure_cols[meas] if meas else None
+        mw, m_mode = (pm.words, "packed") if pm is not None else (None, "none")
+        kw = dict(dst_width=pi.dst_col.width, m_mode=m_mode,
+                  m_width=pm.width if pm is not None else 0)
+        dwords = pi.dst_col.words
+        pb = 4 * dwords.shape[0] + (4 * mw.shape[0] if mw is not None else 0)
+        b, by = hop_bound(E, n_src, n_dst, 4 * dwords.shape[0],
+                          4 * mw.shape[0] if mw is not None else 0)
+        ms = time_device_ms(lambda: pk.fragment_spmv_packed(w, src, dwords, mw, None, n_dst,
+                                                            **kw), KERNEL_REPS)
+        plain = time_device_ms(lambda: ref.fragment_spmv_packed_ref(w, src, dwords, mw, None,
+                                                                    n_dst, **kw), KERNEL_REPS)
+        rows["fragment_spmv_packed"].append(dict(shape=name, E=E, ms=ms, plain_ms=plain,
+                                                 bound_ms=b, bound_by=by,
+                                                 library_ms=library_ms, packed_bytes=pb,
+                                                 dst_width=kw["dst_width"],
+                                                 m_width=kw["m_width"]))
+        ms = time_device_ms(lambda: pk.fragment_spmv_packed_active(
+            w, src, dwords, mw, None, bi, na, n_dst, scan_above=nb, **kw), KERNEL_REPS)
+        plain = time_device_ms(lambda: ref.fragment_spmv_packed_active_ref(
+            w, src, dwords, mw, None, bi, na, n_dst, **kw), KERNEL_REPS)
+        b, by = hop_bound(E, n_src, n_dst, 4 * dwords.shape[0],
+                          4 * mw.shape[0] if mw is not None else 0, extra=4 * nb + 4)
+        rows["fragment_spmv_packed_active"].append(dict(shape=name, E=E, ms=ms, plain_ms=plain,
+                                                        bound_ms=b, bound_by=by,
+                                                        library_ms=library_ms, support=1.0))
+        for k in KERNELS:
+            if rows[k] and rows[k][-1]["shape"] == name:
+                r = rows[k][-1]
+                log(f"  {k:28s} {name:10s} E={E} {r['ms']:.4f} ms  bound {r['bound_ms']:.4f} ms"
+                    f" ({r['bound_by']})  plain {r['plain_ms']:.4f} ms"
+                    f"  torch.mv(CSR) {r['library_ms']:.4f} ms")
+        if name == "I_DT.Term":  # bitunpack of the 22-bit Doc column
+            count, width = pi.dst_col.count, pi.dst_col.width
+            ms = time_device_ms(lambda: bk.bitunpack(dwords, width, count), KERNEL_REPS)
+            plain = time_device_ms(lambda: ref.bitunpack_ref(dwords, width, count), KERNEL_REPS)
+            b, by = bound_ms(4 * dwords.shape[0] + 4 * count, 0)
+            rows["bitunpack"].append(dict(shape=f"{name} dst ({width} bits)", E=count, ms=ms,
+                                          plain_ms=plain, bound_ms=b, bound_by=by,
+                                          library_ms=None))
+            log(f"  {'bitunpack':28s} {name} dst {width} bits, {count} values {ms:.4f} ms"
+                f"  bound {b:.4f} ms ({by})  plain {plain:.4f} ms  library none")
     return rows
+
+
+def device_busy(fn) -> tuple[float, float]:
+    """Device busy ms and device operations of one call of ``fn``, from
+    torch.profiler over PROFILE_REPS calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_REPS):
+            fn()
+        sync()
+    evs = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return (sum(e.self_device_time_total for e in evs) / 1e3 / PROFILE_REPS,
+            sum(e.count for e in evs) / PROFILE_REPS)
+
+
+#: A kernel following the block list counts as no slower than scan order
+#: while within this factor of it (the spread of repeated event timings).
+SKIP_TIE = 1.05
+
+
+def time_skipping(db, db_dense, device) -> tuple[list[dict], float]:
+    """Scan against skip at support fractions from one seed to 100% on
+    I_DT.Term (sum), packed and dense:
+
+      * the block list alone: per-call time by CUDA events over back-to-back
+        calls (what a hop pays, launch overhead included) and its device
+        busy time and operations by the profiler;
+      * the kernels alone, the list built beforehand: the scan kernel, the
+        active kernel following the list, and the active kernel in scan
+        order ('auto' above its threshold), with the bytes bound of the
+        blocks the list names;
+      * the whole hop through ``kernels.ops`` with block_skipping 'off' and
+        'on' (list + active kernel).
+
+    Returns the rows and the derived threshold: the largest active fraction
+    up to which following the list was no slower (within SKIP_TIE) than scan
+    order at every measured support, for both layouts."""
+    import torch
+
+    from repro_torch.kernels import active
+    from repro_torch.kernels import fragment_spmv as dk
+    from repro_torch.kernels import fragment_spmv_packed as pk
+    from repro_torch.kernels import ops as K
+
+    gen = torch.Generator(device=device).manual_seed(8)
+    pt, dt = db.device.index("DT", "Term"), db_dense.device.index("DT", "Term")
+    fre, n_dst = pt.measure_cols["Fre"], db.schema.domain_size("Document")
+    n_src, E = pt.indptr.shape[0] - 1, int(pt.src_ids.shape[0])
+    nb = active.n_edge_blocks(E)
+    blocks = (pt.block_src_min, pt.block_src_max)
+    kw = dict(dst_width=pt.dst_col.width, m_mode="packed", m_width=fre.width)
+    per_edge = {"packed": (4 * pt.dst_col.words.shape[0] + 4 * fre.words.shape[0]) / E + 4,
+                "dense": 12}
+    base = frontier(n_src, "sum", gen, device)
+    # on the H100 (torch 2.11) the first profiled run here recorded no device
+    # events, after the breakdown's runs had; a throwaway one goes first
+    device_busy(lambda: active.active_block_list(base, 0.0, *blocks))
+    rows, ok_up_to, broken = [], 0.0, False
+    for support in SUPPORTS:
+        w = sparse_frontier(base, pt.degrees, support, "sum", 9)
+        lst = lambda: active.active_block_list(w, 0.0, *blocks)  # noqa: E731
+        bi, na = lst()
+        n_act = int(na[0])
+        busy, ops = device_busy(lst)
+        r = {"support": support, "n_active": n_act, "n_blocks": nb,
+             "active_fraction": n_act / nb, "list_ms": time_device_ms(lst, KERNEL_REPS),
+             "list_device_ms": busy, "list_device_ops": ops}
+        for layout in ("packed", "dense"):
+            if layout == "packed":
+                scan = lambda: pk.fragment_spmv_packed(w, pt.src_ids, pt.dst_col.words,  # noqa: E731
+                                                       fre.words, None, n_dst, **kw)
+                act = lambda sa: pk.fragment_spmv_packed_active(  # noqa: E731
+                    w, pt.src_ids, pt.dst_col.words, fre.words, None, bi, na, n_dst,
+                    scan_above=sa, **kw)
+                hop = lambda mode: K.fragment_spmv_packed(  # noqa: E731
+                    w, pt.src_ids, pt.dst_col.words, fre.words, n_dst=n_dst, blocks=blocks,
+                    block_skipping=mode, **kw)
+            else:
+                scan = lambda: dk.fragment_spmv(w, dt.src_ids, dt.dst_ids,  # noqa: E731
+                                                dt.measures["Fre"], n_dst)
+                act = lambda sa: dk.fragment_spmv_active(  # noqa: E731
+                    w, dt.src_ids, dt.dst_ids, dt.measures["Fre"], bi, na, n_dst,
+                    scan_above=sa)
+                hop = lambda mode: K.fragment_spmv(  # noqa: E731
+                    w, dt.src_ids, dt.dst_ids, dt.measures["Fre"], n_dst, blocks=blocks,
+                    block_skipping=mode)
+            r[f"{layout}_scan_ms"] = time_device_ms(scan, KERNEL_REPS)
+            r[f"{layout}_skip_ms"] = time_device_ms(lambda: act(nb), KERNEL_REPS)
+            r[f"{layout}_skip_device_ms"] = device_busy(lambda: act(nb))[0]
+            r[f"{layout}_scan_order_ms"] = time_device_ms(lambda: act(0), KERNEL_REPS)
+            r[f"{layout}_skip_bound_ms"] = bound_ms(
+                int(per_edge[layout] * min(E, n_act * 4096)) + 4 * n_src + 4 * n_dst
+                + 4 * nb + 4, 2 * min(E, n_act * 4096))[0]
+            r[f"{layout}_hop_off_ms"] = time_device_ms(lambda: hop("off"), KERNEL_REPS)
+            r[f"{layout}_hop_on_ms"] = time_device_ms(lambda: hop("on"), KERNEL_REPS)
+        rows.append(r)
+        tie = all(r[f"{lay}_skip_ms"] <= SKIP_TIE * r[f"{lay}_scan_order_ms"]
+                  for lay in ("packed", "dense"))
+        broken = broken or not tie
+        if not broken:
+            ok_up_to = n_act / nb
+        log(f"  support {support}: {n_act}/{nb} blocks ({n_act / nb:.4f}); list {r['list_ms']:.4f}"
+            f" ms a call ({r['list_device_ms']:.4f} ms device, {r['list_device_ops']:.0f} ops)")
+        for lay in ("packed", "dense"):
+            log(f"    {lay:6s} kernels: scan {r[f'{lay}_scan_ms']:.4f} / skip"
+                f" {r[f'{lay}_skip_ms']:.4f} ({r[f'{lay}_skip_device_ms']:.4f} device with the"
+                f" output fill, bound {r[f'{lay}_skip_bound_ms']:.4f}) / scan order"
+                f" {r[f'{lay}_scan_order_ms']:.4f} ms; hop off {r[f'{lay}_hop_off_ms']:.4f} /"
+                f" on {r[f'{lay}_hop_on_ms']:.4f} ms")
+    log(f"  following the list is no slower than scan order (within {SKIP_TIE}x) up to an"
+        f" active fraction of {ok_up_to:.4f}")
+    return rows, ok_up_to
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -405,14 +912,31 @@ def main() -> int:
     return 0
 
 
+def device_bytes(db) -> dict:
+    from repro_torch.storage import device_space_report
+
+    rep = device_space_report(db.device)
+    return {"total_bytes": rep["total_bytes"], "dense_bytes": rep["dense_bytes"],
+            "ratio": rep["ratio"],
+            "indexes": {k: {"device_bytes": v["device_bytes"], "dense_bytes": v["dense_bytes"],
+                            "columns": {c: (d["kind"], d["device_bytes"])
+                                        for c, d in v["columns"].items()}}
+                        for k, v in rep["indexes"].items()}}
+
+
 def run(device) -> None:
     """All phases on ``device``; raises on the first failure."""
     import torch
 
+    from repro_torch.core import executor as X
     from repro_torch.core.engine import GQFastDatabase, GQFastEngine
     from repro_torch.core.reference import run_sql
     from repro_torch.data import synth_graph as SG
-    from repro_torch.kernels import fragment_spmv as kernel
+    from repro_torch.kernels import active
+    from repro_torch.kernels import bitunpack as bk
+    from repro_torch.kernels import fragment_spmv as dk
+    from repro_torch.kernels import fragment_spmv_packed as pk
+    from repro_torch.kernels.cuda_build import build_all
 
     t_start = time.perf_counter()
     card = card_line()
@@ -420,82 +944,163 @@ def run(device) -> None:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
-    # phase 1: build
+    # phase 1: build every kernel library at once
+    libs = [dk.LIB, pk.LIB, bk.LIB]
     t0 = time.perf_counter()
-    kernel.build()
-    log(f"[1] built fragment_spmv in {time.perf_counter() - t0:.2f} s"
-        f" (nvcc {kernel.BUILD_SECONDS if kernel.BUILD_SECONDS is not None else 'cached'})")
-    for line in (kernel.BUILD_LOG or "").splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"    ptxas: {line.strip()}")
+    build_all(libs)
+    t_build = time.perf_counter() - t0
+    log(f"[1] built {len(libs)} kernel libraries in {t_build:.2f} s (parallel nvcc)")
+    builds = {}
+    for lib in libs:
+        builds[lib.name] = lib.build_seconds
+        log(f"  {lib.source.name}: nvcc {lib.build_seconds if lib.build_seconds is not None else 'cached'} s")
+        for line in (lib.build_log or "").splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"    ptxas: {line.strip()}")
 
-    # phase 2: data
+    # phase 2: data, dense and auto storage over the same host indexes
     t0 = time.perf_counter()
     pub = SG.make_pubmed(**PUBMED)
     sem = SG.make_semmeddb(**SEMMED)
     t_gen = time.perf_counter() - t0
     t0 = time.perf_counter()
-    db = GQFastDatabase(pub, account_space=False, keep_packed=False, device=device)
-    db_sem = GQFastDatabase(sem, account_space=False, keep_packed=False, device=device)
+    kw = dict(account_space=False, keep_packed=True, device=device, device_encodings="dense")
+    db_dense = GQFastDatabase(pub, **kw)
+    dbs_dense = GQFastDatabase(sem, **kw)
     sync()
     t_load = time.perf_counter() - t0
-    dev_bytes = sum(
-        t.numel() * t.element_size()
-        for d in (db.device, db_sem.device)
-        for di in d.indexes.values()
-        for t in (di.indptr, di.src_ids, di.dst_ids, di.degrees, *di.measures.values())
-    )
+    t0 = time.perf_counter()
+    db = GQFastDatabase.from_parts(pub, db_dense.host_indexes, X.build_device_db(
+        pub, db_dense.host_indexes, "auto", device=device))
+    dbs = GQFastDatabase.from_parts(sem, dbs_dense.host_indexes, X.build_device_db(
+        sem, dbs_dense.host_indexes, "auto", device=device))
+    dict_db = GQFastDatabase.from_parts(pub, {("DT", "Term"): db_dense.host_indexes[("DT", "Term")]},
+                                        X.build_device_db(
+        pub, {("DT", "Term"): db_dense.host_indexes[("DT", "Term")]},
+        {("DT", "Term", "Fre"): "dict"}, device=device))
+    sync()
+    t_auto = time.perf_counter() - t0
+    space = {"pubmed_dense": device_bytes(db_dense), "semmed_dense": device_bytes(dbs_dense),
+             "pubmed_auto": device_bytes(db), "semmed_auto": device_bytes(dbs)}
     log(f"[2] PubMed DT={pub.relationships['DT'].num_rows} DA={pub.relationships['DA'].num_rows}"
         f" rows, SemMedDB SP={sem.relationships['SP'].num_rows}; generated in {t_gen:.1f} s,"
-        f" indexed and loaded in {t_load:.1f} s; {dev_bytes / 1e9:.3f} GB of index tensors")
+        f" indexed and loaded dense in {t_load:.1f} s, auto from the same host indexes in"
+        f" {t_auto:.1f} s")
+    for label in ("pubmed_auto", "semmed_auto"):
+        s = space[label]
+        log(f"  {label}: {s['total_bytes']} device bytes vs {s['dense_bytes']} dense"
+            f" (ratio {s['ratio']:.4f})")
+        for k, v in s["indexes"].items():
+            log(f"    {k}: {v['device_bytes']} B (dense {v['dense_bytes']} B) columns {v['columns']}")
 
-    # phase 3: kernel vs plain on the card
-    log("[3] kernel against its plain version")
-    worst_err, checks = check_kernel(db, device)
+    # phase 3: kernels against their plain versions
+    log("[3] kernels against their plain versions on the card")
+    worst = {k: 0.0 for k in KERNELS}
+    worst["fragment_spmv"], dense_checks = check_dense_kernel(db_dense, device)
+    round_trip = storage_round_trip([("pubmed", db), ("semmed", dbs), ("pubmed dict", dict_db)])
+    worst["bitunpack"] = check_bitunpack(device)
+    worst["fragment_spmv_packed"], packed_checks = check_packed_kernel(
+        packed_cases(db, dict_db, device), device)
+    act_worst, active_checks = check_active_kernels(db, db_dense, device)
+    worst.update(act_worst)
+    del dict_db
 
-    # phase 4: the main path
+    # phase 4: the main paths
     c0 = busy_concept(sem)
-    eng_pub, eng_sem = GQFastEngine(db), GQFastEngine(db_sem)
-    engines = {n: (eng_sem if n == "CS" else eng_pub) for n, _, _ in cases(SG, c0)}
-    log("[4] main path: seven queries through GQFastEngine.query / query_topk")
-    results, launches, expected = drive_main_path(engines, SG, c0)
-    log(f"  fragment_spmv launches on the main path: {launches} (HopOps executed {expected})")
-    schemas = {n: (sem if n == "CS" else pub) for n, _, _ in cases(SG, c0)}
-    errs = check_results(results, engines, schemas, SG, c0, run_sql)
-    check_quickstart(SG, run_sql, GQFastDatabase, GQFastEngine, device)
+    engines = {}
+    for label, (p, s) in {"dense": (db_dense, dbs_dense), "auto": (db, dbs)}.items():
+        ep, es = GQFastEngine(p), GQFastEngine(s)
+        engines[label] = {n: (es if n == "CS" else ep) for n, _, _ in cases(SG, c0)}
+    log("[4] main paths through GQFastEngine.query / query_topk")
+    paths = {}
+    res_a, *rest = drive_path("a: dense, skipping off", engines["dense"], SG, c0, "off",
+                              ["fragment_spmv"], topk=False)
+    paths["a_dense_off"] = dict(zip(("counts", "hop_ops", "skip"), rest))
+    res_b, *rest = drive_path("b: defaults (auto storage, auto skipping)", engines["auto"], SG,
+                              c0, "auto", ["fragment_spmv_packed", "fragment_spmv_packed_active"],
+                              topk=True)
+    paths["b_defaults"] = dict(zip(("counts", "hop_ops", "skip"), rest))
+    for h in rest[2]:
+        log(f"    {h['query']:8s} hop: {h['n_active']}/{h['n_blocks']} blocks active"
+            f" (scan order above {h['scan_above']})")
+    res_c, *rest = drive_path("c: auto storage, skipping off", engines["auto"], SG, c0, "off",
+                              ["fragment_spmv_packed"], topk=False)
+    paths["c_auto_off"] = dict(zip(("counts", "hop_ops", "skip"), rest))
+    res_d, *rest = drive_path("d: dense storage, auto skipping", engines["dense"], SG, c0,
+                              "auto", ["fragment_spmv", "fragment_spmv_active"], topk=True)
+    paths["d_dense_auto"] = dict(zip(("counts", "hop_ops", "skip"), rest))
+    # e: a composite measure over a packed column decodes through bitunpack
+    fre = db.device.index("DT", "Term").measure_cols["Fre"]
+    fre._dense = None  # no decoded copy yet: the query makes it
+    eng = engines["auto"]["SD"]
+    reset_counts()
+    comp = eng.query(Q_COMPOSITE, d0=5)
+    counts_e = read_counts()
+    if counts_e["bitunpack"] < 1:
+        raise AssertionError(f"path e: bitunpack never launched ({counts_e})")
+    paths["e_composite"] = {"counts": counts_e}
+    log(f"  path e: composite measure SUM(dt2.Fre * dt2.Fre): launches {counts_e}")
+    errs = {"dense": check_results("a", res_a, engines["dense"], SG, c0, "off"),
+            "defaults": check_results("b", res_b, engines["auto"], SG, c0, "auto")}
+    check_results("c", res_c, engines["auto"], SG, c0, "off")
+    check_results("d", res_d, engines["dense"], SG, c0, "auto")
+    for name, _, _ in cases(SG, c0):
+        for other, lbl in ((res_a, "dense/off"), (res_c, "auto/off"), (res_d, "dense/auto")):
+            compare(res_b[name], other[name], name in EXACT_QUERIES, f"defaults {name} vs {lbl}")
+    log("  defaults equal the dense path (exact for SD/AD/RECENT/CS) and every other path")
+    pq = eng.prepare(Q_COMPOSITE)
+    plain = X.compile_frontier(db.device, pq.phys, use_kernel=False)(5).cpu().numpy()
+    compare(comp, plain, False, "composite vs plain")
+    compare(comp, engines["dense"]["SD"].query(Q_COMPOSITE, d0=5), False, "composite vs dense")
+    t0 = time.perf_counter()
+    want = run_sql(pub, SG.QUERY_SD, {"d0": 5})
+    compare(res_b["SD"], want.astype(np.float32), True, "SD vs run_sql (full scale)")
+    compare(res_a["SD"], want.astype(np.float32), True, "dense SD vs run_sql (full scale)")
+    log(f"  SD matches run_sql at full scale on both storages"
+        f" ({time.perf_counter() - t0:.1f} s oracle)")
+    check_quickstart(SG, run_sql, GQFastDatabase, GQFastEngine, device, "dense")
+    check_quickstart(SG, run_sql, GQFastDatabase, GQFastEngine, device, "auto")
 
     # phase 5: times
     log("[5] times")
-    qtimes = time_queries(engines, SG, c0)
-    split = breakdown(engines, SG, c0)
-    ktimes = time_kernel(db, device)
+    qtimes = {"defaults": time_queries("defaults", engines["auto"], SG, c0, "auto"),
+              "dense": time_queries("dense", engines["dense"], SG, c0, "off")}
+    split = {"defaults": breakdown("defaults", engines["auto"], SG, c0, "auto"),
+             "dense": breakdown("dense", engines["dense"], SG, c0, "off")}
+    ktimes = time_kernels(db, db_dense, device)
+    skipping, skip_fraction = time_skipping(db, db_dense, device)
     state = card_state()
     log(f"  card state after timing (clocks.sm, power.draw, power.limit, temp): {state}")
+    log(f"  SKIP_BLOCK_FRACTION in use: {active.SKIP_BLOCK_FRACTION}; measured here:"
+        f" {skip_fraction:.4f}")
 
-    primary = ktimes[0]
-    entry = {
-        "name": "fragment_spmv", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/fragment_spmv.cu",
-        "replaces": "src/repro/kernels/fragment_spmv.py:103",
-        "launches": launches, "max_abs_err": worst_err,
-        "ms": primary["ms"], "plain_ms": primary["plain_ms"],
-        "bound_ms": primary["bound_ms"], "bound_by": primary["bound_by"],
-        "library_ms": primary["library_ms"],
-        "library_call": "torch.mv on a prebuilt sparse CSR matrix (cuSPARSE SpMV), sum only",
-        "timed_shape": f"{primary['shape']} sum, E={primary['E']}",
-        "check": "ok", "per_shape": ktimes,
-    }
+    launches = {k: sum(p["counts"][k] for p in paths.values()) for k in KERNELS}
+    entries = []
+    for k, (_, _, src, replaces) in KERNELS.items():
+        primary = ktimes[k][0]
+        entries.append({
+            "name": k, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": replaces, "launches": launches[k], "max_abs_err": worst[k],
+            "ms": primary["ms"], "plain_ms": primary["plain_ms"],
+            "bound_ms": primary["bound_ms"], "bound_by": primary["bound_by"],
+            "library_ms": primary["library_ms"],
+            "timed_shape": f"{primary['shape']} sum, E={primary['E']}",
+        })
     record = {
         "card": card, "card_state": state, "torch": torch.__version__,
-        "cuda": torch.version.cuda, "build_seconds": kernel.BUILD_SECONDS,
+        "cuda": torch.version.cuda, "build_seconds": builds, "build_wall_seconds": t_build,
         "config": {"pubmed": PUBMED, "semmed": SEMMED,
                    "dt_rows": int(pub.relationships["DT"].num_rows),
-                   "da_rows": int(pub.relationships["DA"].num_rows),
-                   "index_tensor_bytes": dev_bytes},
-        "setup_seconds": {"generate": t_gen, "index_and_load": t_load},
-        "kernel_checks": checks, "main_path": {"launches": launches, "hop_ops": expected},
-        "query_max_abs_err_vs_plain": errs, "queries": qtimes,
-        "query_device_breakdown": split, "kernels": [entry],
+                   "da_rows": int(pub.relationships["DA"].num_rows)},
+        "device_bytes": space,
+        "setup_seconds": {"generate": t_gen, "index_and_load_dense": t_load,
+                          "load_auto": t_auto},
+        "checks": {"dense": dense_checks, "packed": packed_checks, "active": active_checks,
+                   "round_trip": round_trip},
+        "paths": paths, "query_max_abs_err_vs_plain": errs, "queries": qtimes,
+        "query_device_breakdown": split, "kernel_times": ktimes, "skipping": skipping,
+        "skip_block_fraction": active.SKIP_BLOCK_FRACTION,
+        "skip_block_fraction_measured": skip_fraction, "kernels": entries,
         "total_seconds": time.perf_counter() - t_start,
     }
     out_dir = ROOT / "chiprun_out"
@@ -504,7 +1109,7 @@ def run(device) -> None:
     log(f"done in {record['total_seconds']:.1f} s")
 
     print(card, flush=True)
-    print(json.dumps({"kernels": [entry]}), flush=True)
+    print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

@@ -1,23 +1,29 @@
 """Carry a database's device state across from the JAX package.
 
 The counterpart of loading weights: :func:`device_db_from_numpy` takes the
-arrays of a reference ``DeviceDB`` (dense device encodings), as numpy, and
-builds the port's :class:`~repro_torch.core.executor.DeviceDB` holding the same
-integers and floats on ``device``. Nothing here imports the reference; the
-caller turns its arrays into numpy first.
+arrays of a reference ``DeviceDB``, as numpy, and builds the port's
+:class:`~repro_torch.core.executor.DeviceDB` holding the same integers, floats,
+packed words and dictionaries on ``device``. Nothing here imports the
+reference; the caller turns its arrays into numpy first.
 
 ``arrays`` layout::
 
     {
       "indexes": {
         (table, key): {
-          "indptr": int[h+1], "src_ids": int[E], "dst_ids": int[E],
-          "degrees": int[h], "measures": {name: float[E], ...},
+          "indptr": int[h+1], "src_ids": int[E], "degrees": int[h],
+          "dst_ids": column, "measures": {name: column, ...},
         },
         ...
       },
       "entity_attrs": {(entity, attr): float[dom], ...},
     }
+
+where a column is a decoded array (dense) or a dict naming its kind:
+``{"kind": "dense", "values": array}``,
+``{"kind": "packed", "words": uint32[n], "width": w, "count": E}`` or
+``{"kind": "dict", "words": uint32[n], "width": w, "count": E,
+"dictionary": float[u]}``.
 """
 from __future__ import annotations
 
@@ -27,6 +33,31 @@ import torch
 from .core.executor import DeviceDB, make_device_index, to_device
 from .core.schema import Schema
 from .robust.errors import ValidationError
+from .storage import DenseColumn, DeviceColumn, DictPackedColumn, PackedColumn
+from .storage.policy import words_tensor
+
+
+def column_from_numpy(spec, dtype: torch.dtype, device, where: str) -> DeviceColumn:
+    """One column of ``arrays`` (see the module docstring) on ``device``;
+    ``dtype`` is the decoded type (int32 keys, float32 measures)."""
+    if not isinstance(spec, dict):
+        return DenseColumn(to_device(spec, dtype, device))
+    kind = spec.get("kind")
+    if kind == "dense":
+        return DenseColumn(to_device(spec["values"], dtype, device))
+    if kind not in ("packed", "dict"):
+        raise ValidationError(f"{where}: unknown column kind {kind!r}", kind=kind)
+    width, count = int(spec["width"]), int(spec["count"])
+    words = np.asarray(spec["words"])
+    if not 1 <= width <= 32 or words.shape[0] < -(-count * width // 32):
+        raise ValidationError(
+            f"{where}: {words.shape[0]} words cannot hold {count} values of {width} bits",
+            width=width, count=count,
+        )
+    if kind == "packed":
+        return PackedColumn(words_tensor(words, device), width, count, dtype)
+    return DictPackedColumn(words_tensor(words, device), width, count,
+                            to_device(spec["dictionary"], dtype, device))
 
 
 def device_db_from_numpy(schema: Schema, arrays: dict, device="cuda",
@@ -38,14 +69,18 @@ def device_db_from_numpy(schema: Schema, arrays: dict, device="cuda",
     device = torch.device(device)
     indexes = {}
     for (table, key), a in arrays["indexes"].items():
+        where = f"I_{table}.{key}"
         indptr = np.asarray(a["indptr"])
         if not np.array_equal(np.asarray(a["degrees"]), np.diff(indptr)):
             raise ValidationError(
-                f"I_{table}.{key}: degrees disagree with indptr",
-                table=table, key=key,
+                f"{where}: degrees disagree with indptr", table=table, key=key,
             )
         indexes[(table, key)] = make_device_index(
-            indptr, a["src_ids"], a["dst_ids"], a["measures"], device
+            indptr, a["src_ids"],
+            column_from_numpy(a["dst_ids"], torch.int32, device, where),
+            {m: column_from_numpy(v, torch.float32, device, f"{where}/{m}")
+             for m, v in a["measures"].items()},
+            device,
         )
     attrs = {
         k: to_device(v, torch.float32, device)

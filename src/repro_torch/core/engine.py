@@ -7,10 +7,12 @@ tensors (prepare once / execute many, as JDBC-style prepared statements).
 
 Entry points run on ``"cuda"`` unless the caller passes ``device="cpu"``; a
 request for CUDA on a machine without it raises rather than running on the CPU.
-Settings the reference has and this port does not run yet (packed device
-encodings, block skipping, fusion, other strategies, meshes, batched
-execution, profiling) raise :class:`ValidationError` naming the ROADMAP item
-that brings them.
+The defaults are the reference's storage and skipping: ``device_encodings=
+"auto"`` (bit-packed keys, decoded inside the hop kernel) and
+``prepare(block_skipping="auto")``. Settings the reference has and this port
+does not run yet (fusion, other strategies, meshes, batched execution,
+profiling) raise :class:`ValidationError` naming the ROADMAP item that brings
+them.
 """
 from __future__ import annotations
 
@@ -51,11 +53,16 @@ def resolve_device(device) -> torch.device:
 class GQFastDatabase:
     """In-memory GQ-Fast database: both directions of every relationship table.
 
+    ``device_encodings`` selects the device column store's per-column
+    layout (``repro_torch.storage.policy``): ``"auto"`` (default — the §5-style
+    chooser: BCA-packed keys, dict/packed measures where smaller),
+    ``"dense"`` (decoded-CSR baseline), ``"packed"`` (BCA wherever it fits),
+    or a per-column dict keyed by ``(table, key, column)``.
+
     ``keep_packed`` (default True, matching ``fragments.build_index``) keeps
-    the host-side bit-packed words on each ``ColumnFragments``; this port's
-    device store is dense (``device_encodings="dense"``), so they are only
-    host memory. ``device`` is where the indexes live: ``None`` means
-    ``"cuda"``."""
+    the host-side bit-packed words on each ``ColumnFragments``; the storage
+    policy ships those same words to the device instead of re-packing.
+    ``device`` is where the indexes live: ``None`` means ``"cuda"``."""
 
     def __init__(
         self,
@@ -63,10 +70,10 @@ class GQFastDatabase:
         encodings: dict[tuple[str, str, str], str] | None = None,
         account_space: bool = True,
         keep_packed: bool = True,
-        device_encodings: str = "dense",
+        device_encodings: str | dict = "auto",
         device=None,
     ):
-        X.require_supported("device_encodings", device_encodings, X.DEVICE_ENCODINGS)
+        X.check_device_encodings(device_encodings)
         dev = resolve_device(device)
         schema.validate()
         self.schema = schema
@@ -100,7 +107,24 @@ class GQFastDatabase:
         return db
 
     def space_report(self) -> dict[str, Any]:
-        raise X.not_ported("space_report()", "4 (compressed device storage)")
+        """Host byte-array accounting (paper §5 analytic model) plus the
+        ``device`` section: real bytes the device column store holds, per
+        column, with the decoded-CSR baseline for the compression ratio."""
+        from ..storage import device_space_report
+
+        rep: dict[str, Any] = {"indexes": {}, "total_bytes": 0}
+        for (t, k), idx in self.host_indexes.items():
+            cols = {
+                c: {"encoding": cf.encoding, "bytes": cf.encoded_bytes}
+                for c, cf in idx.columns.items()
+            }
+            b = idx.total_bytes()
+            rep["indexes"][f"I_{t}.{k}"] = {
+                "columns": cols, "lookup_bytes": idx.lookup_bytes(), "bytes": b,
+            }
+            rep["total_bytes"] += b
+        rep["device"] = device_space_report(self.device)
+        return rep
 
 
 @dataclass
@@ -112,7 +136,7 @@ class PreparedQuery:
     group_entity: str | None
     phys: PhysicalPlan | None = None  # lowered IR
     strategy: str = "frontier"
-    block_skipping: str = "off"  # frontier-sparsity mode baked into fn
+    block_skipping: str = "auto"  # frontier-sparsity mode baked into fn
     fusion: str = "off"  # multi-hop fusion mode baked into fn
     hop_estimates: list[dict] | None = None  # per-hop selectivity estimates
 
@@ -192,13 +216,18 @@ class GQFastEngine:
         # tensors, so the prepare cache must not grow without bound
         self._cache: PreparedCache = PreparedCache(max_prepared)
 
-    def prepare(self, sql: str, block_skipping: str = "off",
+    def prepare(self, sql: str, block_skipping: str = "auto",
                 fusion: str = "off") -> PreparedQuery:
         """Parse, plan and lower ``sql`` once for repeated execution.
-        ``block_skipping`` and ``fusion`` take ``'off'`` only in this port."""
+        ``block_skipping`` ('auto' | 'on' | 'off') sets the frontier-sparsity
+        mode of every hop: 'auto' follows the active-block list while few
+        blocks survive and scans otherwise (decided on the device), 'on'
+        always follows it, 'off' always scans. ``fusion`` takes ``'off'`` only
+        in this port."""
         X.require_supported("block_skipping", block_skipping, X.BLOCK_SKIPPING_MODES)
         X.require_supported("fusion", fusion, X.FUSION_MODES)
-        cached = self._cache.get(sql)  # the only settings are the defaults
+        key = (sql, self.strategy, block_skipping, fusion)
+        cached = self._cache.get(key)
         if cached is not None:
             return cached
         with T.span("prepare", query=" ".join(sql.split())):
@@ -215,14 +244,15 @@ class GQFastEngine:
                 # every prepare-stage failure carries the query text
                 raise e.with_context(query=" ".join(sql.split()))
             with T.span("compile") as csp:
-                fn = X.compile_frontier(self.db.device, phys)
+                fn = X.compile_frontier(self.db.device, phys,
+                                        block_skipping=block_skipping, fusion=fusion)
                 csp.annotate(strategy=self.strategy, n_ops=len(phys.ops))
             pq = PreparedQuery(
                 sql, plan, fn, list(phys.param_names), plan.group_entity, phys,
                 strategy=self.strategy, block_skipping=block_skipping,
                 fusion=fusion, hop_estimates=self._hop_fractions(plan),
             )
-        self._cache.put(sql, pq)
+        self._cache.put(key, pq)
         return pq
 
     def _hop_fractions(self, plan: ChainPlan) -> list[dict]:

@@ -5,10 +5,16 @@ Every strategy is a *thin interpreter* over the IR built by
 (:func:`walk_ir`) folds the op sequence, and a strategy chooses the primitive
 each op maps to. This port has the ``frontier`` strategy: bottom-up, fully
 pipelined execution over dense per-entity-domain frontier vectors, where each
-HopOp is one call of :func:`repro_torch.kernels.ops.fragment_spmv` — the
-hand-written CUDA kernel on the card, its plain PyTorch version on the CPU.
-Intermediates are vectors, never materialized join tables. PyTorch runs
-eagerly, so a compiled query is a plain Python closure over the lowered plan.
+HopOp is one call of :func:`repro_torch.kernels.ops.fragment_spmv` or, when
+the index's columns are stored bit-packed by the device column store
+(:mod:`repro_torch.storage`), of the decode-fused
+:func:`repro_torch.kernels.ops.fragment_spmv_packed`, which decodes dst ids and
+measures inside the hop (the paper's compression-inside-the-operator design)
+— hand-written CUDA kernels on the card, their plain PyTorch versions on the
+CPU. With block skipping engaged each hop runs the ``*_active`` variant over
+the blocks its frontier reaches. Intermediates are vectors, never materialized
+join tables. PyTorch runs eagerly, so a compiled query is a plain Python
+closure over the lowered plan.
 
 Aggregation semantics are pluggable: the walker is parameterized by a
 :class:`repro_torch.core.semiring.Semiring`, so SUM/COUNT, MIN/MAX, EXISTS and
@@ -18,6 +24,7 @@ aggregation array; size = domain of the group key).
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Any, Callable
 
@@ -27,7 +34,15 @@ import torch
 from ..kernels import ops as K
 from ..kernels.active import block_ranges
 from ..robust.errors import ExecutionError, ValidationError
-from ..storage import DenseColumn, DeviceColumn
+from ..storage import (
+    DenseColumn,
+    DeviceColumn,
+    DictPackedColumn,
+    PackedColumn,
+    build_device_column,
+    column_uniques,
+    resolve_device_encoding,
+)
 from .algebra import ChainPlan, EntityStep, Param, SeedIds
 from .fragments import FragmentIndex
 from .lower import (
@@ -35,6 +50,9 @@ from .lower import (
     EntityFilterOp,
     GroupOp,
     HopOp,
+    LBin,
+    LCall,
+    LCol,
     LParam,
     PhysicalPlan,
     SeedOp,
@@ -44,17 +62,14 @@ from .lower import (
 from .schema import Schema
 from .semiring import BOOL_OR_AND, Semiring, semiring_for
 
-#: The device encodings, block-skipping and fusion modes this port runs. The
-#: reference's other settings arrive with the ROADMAP items named here; until
-#: then they raise instead of quietly running something else.
-DEVICE_ENCODINGS = ("dense",)
-BLOCK_SKIPPING_MODES = ("off",)
+#: The global device-encoding modes (a per-column dict is the other form),
+#: block-skipping modes and fusion modes this port runs. The reference's
+#: other fusion modes arrive with the ROADMAP item named in ``_NOT_YET``;
+#: until then they raise instead of quietly running something else.
+DEVICE_ENCODING_MODES = ("auto", "dense", "packed")
+BLOCK_SKIPPING_MODES = K.BLOCK_SKIPPING_MODES
 FUSION_MODES = ("off",)
-_NOT_YET = {
-    "device_encodings": "4 (compressed device storage)",
-    "block_skipping": "5 (frontier-sparsity block skipping)",
-    "fusion": "6 (pipelined fusion)",
-}
+_NOT_YET = {"fusion": ("6 (pipelined fusion)", ("on", "auto"))}
 
 
 def not_ported(what: str, item: str) -> ValidationError:
@@ -68,8 +83,18 @@ def not_ported(what: str, item: str) -> ValidationError:
 
 
 def require_supported(option: str, value, supported: tuple) -> None:
-    if value not in supported:
-        raise not_ported(f"{option}={value!r}", _NOT_YET[option])
+    """Raise unless ``value`` is one of ``supported``: a value the reference
+    has and the port does not run yet names the ROADMAP item that brings it;
+    any other value is unknown."""
+    if value in supported:
+        return
+    item, later = _NOT_YET.get(option, (None, ()))
+    if value in later:
+        raise not_ported(f"{option}={value!r}", item)
+    raise ValidationError(
+        f"{option} must be one of {supported}, got {value!r}",
+        **{option: value, "valid": supported},
+    )
 
 
 @dataclass
@@ -84,10 +109,10 @@ class DeviceIndex:
     degrees: torch.Tensor | None = None
     measure_cols: dict[str, DeviceColumn] = field(default_factory=dict)
     # per-EDGE_BLOCK [src_min, src_max] over the CSR-ordered edge arrays
-    # (kernels/active.py), host numpy — the block-skipping metadata later
-    # slices read
-    block_src_min: np.ndarray | None = None
-    block_src_max: np.ndarray | None = None
+    # (kernels/active.py), int32 on the index's device — the block-skipping
+    # metadata; None disables skipping for this index
+    block_src_min: torch.Tensor | None = None
+    block_src_max: torch.Tensor | None = None
 
     @property
     def dst_ids(self) -> torch.Tensor:
@@ -125,42 +150,79 @@ def to_device(a, dtype: torch.dtype, device) -> torch.Tensor:
     return torch.tensor(np.asarray(a, dtype=np_dtype), device=device)
 
 
-def make_device_index(indptr, src_ids, dst_ids, measures: dict, device) -> DeviceIndex:
-    """One index on ``device`` from host arrays: int32 structure, float32
-    measures, host block-range metadata."""
+def make_device_index(indptr, src_ids, dst_col: DeviceColumn,
+                      measure_cols: dict[str, DeviceColumn], device) -> DeviceIndex:
+    """One index on ``device`` from host structure arrays and its columns
+    (already on ``device``): int32 structure and the block-range metadata,
+    moved to the device once here."""
     src = np.asarray(src_ids)
     bmin, bmax = block_ranges(src)
     indptr = np.asarray(indptr)
     return DeviceIndex(
         indptr=to_device(indptr, torch.int32, device),
         src_ids=to_device(src, torch.int32, device),
-        dst_col=DenseColumn(to_device(dst_ids, torch.int32, device)),
+        dst_col=dst_col,
         degrees=to_device(np.diff(indptr), torch.int32, device),
-        measure_cols={
-            m: DenseColumn(to_device(v, torch.float32, device))
-            for m, v in measures.items()
-        },
-        block_src_min=bmin,
-        block_src_max=bmax,
+        measure_cols=dict(measure_cols),
+        block_src_min=to_device(bmin, torch.int32, device),
+        block_src_max=to_device(bmax, torch.int32, device),
     )
+
+
+def check_device_encodings(device_encodings) -> None:
+    """A global mode of :data:`DEVICE_ENCODING_MODES` or a per-column dict."""
+    if not isinstance(device_encodings, dict):
+        require_supported("device_encodings", device_encodings, DEVICE_ENCODING_MODES)
 
 
 def build_device_db(
     schema: Schema,
     host_indexes: dict[tuple[str, str], FragmentIndex],
-    device_encodings: str = "dense",
+    device_encodings: str | dict = "auto",
     device="cuda",
 ) -> DeviceDB:
-    """Ship every fragment index to ``device`` as dense int32/float32 CSR."""
-    require_supported("device_encodings", device_encodings, DEVICE_ENCODINGS)
+    """Ship every fragment index to ``device`` under the storage policy.
+
+    ``device_encodings``: ``"auto"`` (§5-style chooser, the default) |
+    ``"dense"`` (decoded-CSR baseline) | ``"packed"`` (force BCA wherever it
+    fits) | a per-column dict ``{(table, key, column): encoding}`` with
+    ``"auto"`` filling unspecified columns. Every key of a per-column dict
+    must name a real (table, key, column) address — a typo'd override would
+    otherwise be silently ignored."""
+    check_device_encodings(device_encodings)
     dev: dict[tuple[str, str], DeviceIndex] = {}
+    seen_addrs: set[tuple[str, str, str]] = set()
     for (table, key), idx in host_indexes.items():
         other = next(c for c in idx.columns if c != key and _is_fk(schema, table, c))
-        dev[(table, key)] = make_device_index(
-            idx.indptr, idx.src_ids(), idx.columns[other].values,
-            {m: cf.values for m, cf in idx.columns.items() if m != other},
-            device,
+        cf = idx.columns[other]
+        seen_addrs.add((table, key, other))
+        enc = resolve_device_encoding(
+            device_encodings, (table, key, other), cf.values, cf.domain, is_key=True
         )
+        dst_col = build_device_column(cf, enc, torch.int32, device)
+        measure_cols = {}
+        for m, cf in idx.columns.items():
+            if m == other:
+                continue
+            seen_addrs.add((table, key, m))
+            uq = column_uniques(cf.values)  # one scan shared by chooser and encoder
+            enc = resolve_device_encoding(
+                device_encodings, (table, key, m), cf.values, cf.domain,
+                is_key=False, uniques=uq,
+            )
+            measure_cols[m] = build_device_column(cf, enc, torch.float32, device,
+                                                  uniques=uq)
+        dev[(table, key)] = make_device_index(
+            idx.indptr, idx.src_ids(), dst_col, measure_cols, device
+        )
+    if isinstance(device_encodings, dict):
+        unknown = set(device_encodings) - seen_addrs
+        if unknown:
+            raise ValidationError(
+                f"device_encodings keys match no index column: {sorted(unknown)}; "
+                f"valid addresses: {sorted(seen_addrs)}",
+                unknown=sorted(unknown),
+            )
     attrs = {
         (e.name, a): to_device(col, torch.float32, device)
         for e in schema.entities.values()
@@ -207,6 +269,44 @@ def collect_params(plan: ChainPlan) -> list[str]:
 
 def ensure_lowered(db: DeviceDB, plan: ChainPlan | PhysicalPlan) -> PhysicalPlan:
     return plan if isinstance(plan, PhysicalPlan) else lower(db, plan)
+
+
+def densify_plan(phys: PhysicalPlan) -> PhysicalPlan:
+    """Materialize every packed column bound in the IR, once, producing an
+    all-dense twin of the plan — the path for a caller that needs decoded
+    columns (the reference's fragment_loop and distributed strategies, which
+    the port has not ported yet, take it)."""
+
+    def dcol(col: DeviceColumn) -> DeviceColumn:
+        return col if isinstance(col, DenseColumn) else DenseColumn(col.materialize())
+
+    def dexpr(e):
+        if isinstance(e, LCol) and not isinstance(e.col, DenseColumn):
+            return LCol(e.key, dcol(e.col))
+        if isinstance(e, LBin):
+            return LBin(e.op, dexpr(e.left), dexpr(e.right))
+        if isinstance(e, LCall):
+            return LCall(e.fn, tuple(dexpr(a) for a in e.args))
+        return e
+
+    def dop(op):
+        if isinstance(op, HopOp):
+            return dataclasses.replace(
+                op, dst_col=dcol(op.dst_col),
+                measure=dexpr(op.measure) if op.measure is not None else None,
+            )
+        if isinstance(op, SeedOp) and op.programs:
+            return dataclasses.replace(
+                op, programs=tuple(densify_plan(p) for p in op.programs)
+            )
+        if isinstance(op, EntityFilterOp) and op.factor is not None:
+            return dataclasses.replace(op, factor=dexpr(op.factor))
+        return op
+
+    return PhysicalPlan(
+        tuple(dop(op) for op in phys.ops), phys.param_names, phys.agg,
+        phys.out_dom, phys.source,
+    )
 
 
 def _host_scalar(v):
@@ -298,23 +398,40 @@ class _FrontierInterp(_Interp):
     """Dense frontier vectors; each hop is one fused gather⊗measure→scatter-⊕
     kernel call.
 
-    There is no per-hop test for an all-zero frontier: with a frontier of
+    Frontier sparsity: each hop passes the index's per-block src-range
+    metadata to the kernel dispatch, so with ``block_skipping`` 'on' or
+    'auto' the blocks the support cannot reach are never streamed. There is
+    no per-hop test for an all-zero frontier: with a frontier of
     ⊕-identities the kernel's result is already the identity vector under
-    every op, and a test on the host would cost one device sync per hop."""
+    every op (and the block list is empty), and a test on the host would
+    cost one device sync per hop."""
 
     def __init__(self, params: dict[str, Any], sr: Semiring,
                  use_measures: bool = True, use_kernel: bool = True,
-                 device="cuda"):
+                 device="cuda", block_skipping: str = "auto"):
         super().__init__(params, sr, use_measures)
         self.use_kernel = use_kernel
         self.device = torch.device(device)
+        self.block_skipping = block_skipping
 
     def spawn(self) -> "_FrontierInterp":
         """Interpreter for a mask sub-program (always the boolean semiring)."""
         return _FrontierInterp(
             self.params, BOOL_OR_AND, use_kernel=self.use_kernel,
-            device=self.device,
+            device=self.device, block_skipping=self.block_skipping,
         )
+
+    def col(self, c):
+        """Column values for an expression: a packed column decodes whole
+        (``bitunpack``), with the plain version when the kernels are off."""
+        return c.col.materialize(self.use_kernel)
+
+    def blocks_for(self, op: HopOp):
+        """The hop's (src_min, src_max) skip metadata, or None when absent or
+        skipping is off — kernel dispatch treats both as 'full scan'."""
+        if self.block_skipping == "off" or op.block_src_min is None:
+            return None
+        return (op.block_src_min, op.block_src_max)
 
     def seed(self, op: SeedOp, state, cont):
         sr = self.sr
@@ -338,15 +455,70 @@ class _FrontierInterp(_Interp):
 
     def hop(self, op: HopOp, state, cont):
         w = self.sr.binarize(state) if op.semijoin else state
-        m = None  # measure-free hop: the kernel reads measure 1
-        if op.measure is not None and self.use_measures:
-            mv = eval_lexpr(op.measure, self.params, self.scalars, self.col)
-            mv = torch.as_tensor(mv, dtype=torch.float32, device=self.device)
-            m = mv.expand(op.src_ids.shape[0]).contiguous()  # no copy when already [E]
-        return cont(K.fragment_spmv(
-            w, op.src_ids, op.dst_ids, m, n_dst=op.dom_dst, op=self.sr.name,
+        out = self.spmv_fused(w, op)
+        if out is None:
+            out = K.fragment_spmv(
+                w, op.src_ids, op.dst_ids, self._dense_measure(op), n_dst=op.dom_dst,
+                op=self.sr.name, use_kernel=self.use_kernel,
+                blocks=self.blocks_for(op), block_skipping=self.block_skipping,
+            )
+        return cont(out)
+
+    def _dense_measure(self, op: HopOp):
+        """The hop's measure expression evaluated to float32[E] (decoding any
+        packed column it reads), or None for a measure-free hop (the kernel
+        reads measure 1)."""
+        if op.measure is None or not self.use_measures:
+            return None
+        mv = eval_lexpr(op.measure, self.params, self.scalars, self.col)
+        mv = torch.as_tensor(mv, dtype=torch.float32, device=self.device)
+        return mv.expand(op.src_ids.shape[0]).contiguous()  # no copy when already [E]
+
+    def _packed_layout(self, op: HopOp):
+        """Classify the hop's physical layout for the decode-fused kernel:
+        None when nothing is packed (all-dense hop), else ``(dst_packed,
+        m_mode, m_operand, m_width, mdict)``. A ``dense`` m_mode leaves
+        ``m_operand`` None: the caller evaluates the measure expression."""
+        dst_packed = isinstance(op.dst_col, PackedColumn)
+        m = op.measure if self.use_measures else None
+        if m is None:
+            m_mode, m_operand, m_width, mdict = "none", None, 0, None
+        elif isinstance(m, LCol) and isinstance(m.col, PackedColumn):
+            m_mode, m_operand, m_width, mdict = "packed", m.col.words, m.col.width, None
+        elif isinstance(m, LCol) and isinstance(m.col, DictPackedColumn):
+            m_mode, m_operand, m_width, mdict = (
+                "dict", m.col.words, m.col.width, m.col.dictionary,
+            )
+        else:
+            m_mode, m_operand, m_width, mdict = "dense", None, 0, None
+        if not (dst_packed or m_mode in ("packed", "dict")):
+            return None
+        return dst_packed, m_mode, m_operand, m_width, mdict
+
+    def spmv_fused(self, w, op: HopOp):
+        """Decode-fused hop: stream packed columns straight into the kernel.
+        Engaged when the dst column is bit-packed and/or the measure is a
+        single packed column; None when there is nothing to fuse (all-dense
+        hop) and the dense kernel runs instead."""
+        layout = self._packed_layout(op)
+        if layout is None:
+            return None
+        dst_packed, m_mode, m_operand, m_width, mdict = layout
+        if m_mode == "dense":
+            # a measure expression over a packed index: evaluate it (decoding
+            # any packed column it reads) and stream it dense; dst still
+            # decodes inside the hop
+            m_operand = self._dense_measure(op)
+        return K.fragment_spmv_packed(
+            w, op.src_ids,
+            op.dst_col.words if dst_packed else op.dst_col.materialize(),
+            m_operand, mdict,
+            n_dst=op.dom_dst,
+            dst_width=op.dst_col.width if dst_packed else 0,
+            m_mode=m_mode, m_width=m_width, op=self.sr.name,
             use_kernel=self.use_kernel,
-        ))
+            blocks=self.blocks_for(op), block_skipping=self.block_skipping,
+        )
 
     def degree_filter(self, op: DegreeFilterOp, state, cont):
         return cont(self.sr.mask(state, op.degrees > 0))
@@ -378,13 +550,17 @@ def _seed_index(ids: list[int], dom: int, device) -> torch.Tensor:
 
 
 def compile_frontier(
-    db: DeviceDB, plan: ChainPlan | PhysicalPlan, use_kernel: bool = True,
+    db: DeviceDB, plan: ChainPlan | PhysicalPlan, block_skipping: str = "auto",
+    use_kernel: bool = True, fusion: str = "off",
 ) -> Callable[..., torch.Tensor]:
     """Lower once; return ``run(*args)`` that executes the plan with the
     parameters bound positionally (in ``phys.param_names`` order) and returns
     the result tensor on the database's device, without synchronising.
-    ``use_kernel=False`` runs every hop through the plain version instead of
-    the CUDA kernel (the on-card comparison)."""
+    ``use_kernel=False`` runs every hop (and every whole-column decode)
+    through the plain versions instead of the CUDA kernels (the on-card
+    comparison). ``fusion`` takes ``'off'`` only in this port."""
+    require_supported("block_skipping", block_skipping, BLOCK_SKIPPING_MODES)
+    require_supported("fusion", fusion, FUSION_MODES)
     phys = ensure_lowered(db, plan)
     names = list(phys.param_names)
     device = db.device
@@ -395,6 +571,7 @@ def compile_frontier(
             phys,
             lambda sr, um: _FrontierInterp(
                 params, sr, um, use_kernel=use_kernel, device=device,
+                block_skipping=block_skipping,
             ),
         )
 

@@ -1,0 +1,192 @@
+// hop.cuh: the per-edge body shared by every hop kernel of the port
+// (fragment_spmv.cu: dense columns; fragment_spmv_packed.cu: BCA columns
+// decoded in registers), in its two schedules:
+//
+//   scan   one thread per edge in a grid-stride loop over all E edges;
+//   active one CTA per EDGE_BLOCK-edge block: CTA b takes block block_idx[b]
+//          while b < n_active and returns at once past it. n_active is read
+//          from device memory, so the host never waits for the block list.
+//          When n_active > scan_above (the "auto" threshold) the CTAs take
+//          blocks in scan order instead (CTA b takes block b), which gives
+//          the same result: a block the list leaves out holds only edges
+//          whose source carries the identity.
+//
+//   y[dst[e]] ⊕= w[src[e]] ⊗ m[e],   ⊕ ∈ {sum, min, max, bool}
+//
+// y is filled with the ⊕-identity by the wrapper before the launch. The edge
+// product follows the reference's _edge_product: an out-of-range src reads
+// the identity; for min/max an identity weight stays the identity (no ∞·0);
+// for bool the product is (w > 0) & (m != 0). An edge whose product is the
+// identity issues no atomic, and for min/max/bool does not load dst or m.
+//
+// Float min/max atomics use the integer ordering of IEEE-754 floats: for
+// max, a value with its sign bit clear orders like a signed int (atomicMax
+// on int), one with the sign bit set orders in reverse as an unsigned int
+// (atomicMin on unsigned); min is the mirror image. The test is on the sign
+// bit, not on v >= 0, so -0.0 against a -inf identity is right.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "bca.cuh"
+
+namespace hop {
+
+enum Op { kSum = 0, kMin = 1, kMax = 2, kBool = 3 };
+
+constexpr int kEdgeBlock = 4096;  // kernels/params.py EDGE_BLOCK
+constexpr int kThreads = 256;
+constexpr int64_t kMaxScanBlocks = 132 * 16;  // 16 CTAs of 256 per SM of an H100
+
+template <int OP>
+__device__ __forceinline__ float identity() {
+  if (OP == kMin) return __uint_as_float(0x7f800000u);  // +inf
+  if (OP == kMax) return __uint_as_float(0xff800000u);  // -inf
+  return 0.0f;                                           // sum, bool
+}
+
+__device__ __forceinline__ void atomic_max_float(float* p, float v) {
+  if (!(__float_as_uint(v) & 0x80000000u)) {
+    atomicMax(reinterpret_cast<int*>(p), __float_as_int(v));
+  } else {
+    atomicMin(reinterpret_cast<unsigned int*>(p), __float_as_uint(v));
+  }
+}
+
+__device__ __forceinline__ void atomic_min_float(float* p, float v) {
+  if (!(__float_as_uint(v) & 0x80000000u)) {
+    atomicMin(reinterpret_cast<int*>(p), __float_as_int(v));
+  } else {
+    atomicMax(reinterpret_cast<unsigned int*>(p), __float_as_uint(v));
+  }
+}
+
+// -- column accessors: how an edge's dst and measure are read ---------------
+
+struct DenseDst {
+  const int32_t* __restrict__ d;
+  __device__ __forceinline__ int operator()(int64_t e) const { return d[e]; }
+};
+
+struct PackedDst {  // BCA words, decoded in registers
+  const uint32_t* __restrict__ words;
+  int64_t n_words;
+  int width;
+  __device__ __forceinline__ int operator()(int64_t e) const {
+    return (int)bca::get(words, n_words, width, e);
+  }
+};
+
+struct NoMeasure {  // measure 1 on every edge: nothing is streamed
+  __device__ __forceinline__ float operator()(int64_t) const { return 1.0f; }
+};
+
+struct DenseMeasure {
+  const float* __restrict__ m;
+  __device__ __forceinline__ float operator()(int64_t e) const { return m[e]; }
+};
+
+struct PackedMeasure {  // BCA words; the decoded integer is the measure
+  const uint32_t* __restrict__ words;
+  int64_t n_words;
+  int width;
+  __device__ __forceinline__ float operator()(int64_t e) const {
+    return (float)(int)bca::get(words, n_words, width, e);
+  }
+};
+
+struct DictMeasure {  // BCA dictionary indices + the dictionary (read-only path)
+  const uint32_t* __restrict__ words;
+  int64_t n_words;
+  int width;
+  const float* __restrict__ dict;
+  int n_dict;
+  __device__ __forceinline__ float operator()(int64_t e) const {
+    uint32_t i = bca::get(words, n_words, width, e);
+    if (i >= (uint32_t)n_dict) i = (uint32_t)n_dict - 1;  // never read past it
+    return __ldg(dict + i);
+  }
+};
+
+// -- the per-edge body --------------------------------------------------------
+
+template <int OP, class Dst, class M>
+__device__ __forceinline__ void edge(const float* __restrict__ w, int n_src,
+                                     const int32_t* __restrict__ src, int64_t e,
+                                     const Dst& dst, const M& m,
+                                     float* __restrict__ y, int n_dst) {
+  const float zero = identity<OP>();
+  const int s = src[e];
+  const float ws = (s >= 0 && s < n_src) ? __ldg(w + s) : zero;
+  if (OP != kSum && ws == zero) return;  // product is the identity
+  const float mv = m(e);
+  float prod;
+  if (OP == kSum) {
+    prod = ws * mv;
+    if (prod == 0.0f) return;  // adding 0 is the identity
+  } else if (OP == kBool) {
+    if (!(ws > 0.0f && mv != 0.0f)) return;
+    prod = 1.0f;
+  } else {
+    prod = ws * mv;
+  }
+  const int d = dst(e);
+  if (d < 0 || d >= n_dst) return;
+  if (OP == kSum) {
+    atomicAdd(y + d, prod);
+  } else if (OP == kBool) {
+    y[d] = 1.0f;  // every writer stores the same value: the race is benign
+  } else if (OP == kMin) {
+    atomic_min_float(y + d, prod);
+  } else {
+    atomic_max_float(y + d, prod);
+  }
+}
+
+// -- the two schedules --------------------------------------------------------
+
+template <int OP, class Dst, class M>
+__device__ __forceinline__ void scan(const float* __restrict__ w, int n_src,
+                                     const int32_t* __restrict__ src, const Dst& dst,
+                                     const M& m, int64_t E, float* __restrict__ y,
+                                     int n_dst) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < E; e += stride) {
+    edge<OP>(w, n_src, src, e, dst, m, y, n_dst);
+  }
+}
+
+// Grid: one CTA per block of the index (n_blocks); block_idx holds n_cap ids.
+template <int OP, class Dst, class M>
+__device__ __forceinline__ void active(const float* __restrict__ w, int n_src,
+                                       const int32_t* __restrict__ src, const Dst& dst,
+                                       const M& m, int64_t E, float* __restrict__ y,
+                                       int n_dst, const int32_t* __restrict__ block_idx,
+                                       int n_cap, const int32_t* __restrict__ n_active,
+                                       int scan_above) {
+  const int na = __ldg(n_active);
+  int64_t b;
+  if (na > scan_above) {
+    b = blockIdx.x;  // 'auto' above its threshold: every block, in scan order
+  } else if ((int)blockIdx.x < na && (int)blockIdx.x < n_cap) {
+    b = __ldg(block_idx + blockIdx.x);
+  } else {
+    return;
+  }
+  const int64_t e0 = b * kEdgeBlock;
+  const int64_t e1 = e0 + kEdgeBlock < E ? e0 + kEdgeBlock : E;
+  for (int64_t e = e0 + threadIdx.x; e < e1; e += blockDim.x) {
+    edge<OP>(w, n_src, src, e, dst, m, y, n_dst);
+  }
+}
+
+inline int scan_grid(int64_t E) {
+  int64_t blocks = (E + kThreads - 1) / kThreads;
+  return (int)(blocks < kMaxScanBlocks ? blocks : kMaxScanBlocks);
+}
+
+inline int64_t n_edge_blocks(int64_t E) { return (E + kEdgeBlock - 1) / kEdgeBlock; }
+
+}  // namespace hop

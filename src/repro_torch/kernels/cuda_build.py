@@ -1,0 +1,150 @@
+"""Build and load the hand-written CUDA kernels of ``csrc/``.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
+library with a plain C interface, loaded through ``ctypes``. The library goes
+into ``_build/`` beside this file, named by the hash of its source and of the
+headers in ``csrc/``, so an edited kernel rebuilds and an unchanged one loads
+the cached file. ``nvcc`` is found on ``PATH`` or under ``CUDA_HOME`` (default
+``/usr/local/cuda``). Nothing is built when a module is imported: a library is
+built at its first launch, or by :func:`build_all`, which starts one ``nvcc``
+for each source at once and waits for all of them.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+P, I32, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError(
+        "nvcc not found on PATH or under CUDA_HOME; the CUDA kernels are built "
+        "from source at first use"
+    )
+
+
+class CudaLibrary:
+    """One ``csrc/<name>.cu`` and its C entry points ``{fn: argtypes}`` (each
+    returns a CUDA error code as ``int``)."""
+
+    def __init__(self, name: str, functions: dict[str, list]):
+        self.name = name
+        self.source = CSRC / f"{name}.cu"
+        self.functions = functions
+        #: What the build printed (``-Xptxas -v``: registers, spills) and how
+        #: long nvcc took; ``None`` until it was built in this process.
+        self.build_log: str | None = None
+        self.build_seconds: float | None = None
+        self._lib = None
+        self._lock = threading.Lock()
+
+    def _so(self) -> Path:
+        h = hashlib.sha256(self.source.read_bytes())
+        for hdr in sorted(CSRC.glob("*.cuh")):
+            h.update(hdr.read_bytes())
+        return BUILD_DIR / f"{self.name}-{h.hexdigest()[:16]}.so"
+
+    def start(self):
+        """Start nvcc unless the library is loaded or cached: ``(proc, tmp,
+        so, t0)`` or ``None``."""
+        so = self._so()
+        if self._lib is not None or so.exists():
+            return None
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+        proc = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, f"-I{CSRC}", "-o", str(tmp), str(self.source)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        return proc, tmp, so, time.perf_counter()
+
+    def finish(self, started) -> None:
+        proc, tmp, so, t0 = started
+        out, _ = proc.communicate()
+        self.build_seconds = time.perf_counter() - t0
+        self.build_log = out
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed building {self.source.name}:\n{out}")
+        os.replace(tmp, so)  # atomic: a concurrent build sees all or nothing
+
+    def load(self) -> ctypes.CDLL:
+        """Build (if needed) and load the library; idempotent."""
+        with self._lock:
+            if self._lib is not None:
+                return self._lib
+            started = self.start()
+            if started is not None:
+                self.finish(started)
+            lib = ctypes.CDLL(str(self._so()))
+            for fn, argtypes in self.functions.items():
+                f = getattr(lib, fn)
+                f.argtypes = argtypes
+                f.restype = ctypes.c_int
+            self._lib = lib
+            return lib
+
+
+def build_all(libraries) -> None:
+    """Build every library at once (one nvcc each, all started together),
+    then load them; raises on the first that fails."""
+    started = [(lib, lib.start()) for lib in libraries if lib._lib is None]
+    for lib, s in started:
+        if s is not None:
+            lib.finish(s)
+    for lib in libraries:
+        lib.load()
+
+
+def check_tensor(t, name: str, dtype: torch.dtype, device) -> None:
+    """What every kernel wrapper demands of a tensor argument: a contiguous
+    1-D tensor of ``dtype`` on ``device``."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.dim() != 1:
+        raise ValueError(f"{name} must be 1-D, got shape {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous (materialise broadcasts first)")
+
+
+def cuda_device(t, kernel: str) -> torch.device:
+    """The CUDA device of ``t``; anything else raises (no CPU fallback)."""
+    dev = t.device if isinstance(t, torch.Tensor) else None
+    if dev is None or dev.type != "cuda":
+        raise ValueError(f"{kernel}'s CUDA kernel needs CUDA tensors, got {dev}")
+    return dev
+
+
+def stream_of(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def raise_on(err: int, kernel: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")

@@ -1,112 +1,73 @@
-"""CUDA kernel for Hopper: fused fragment join-aggregate (one relationship hop).
+"""CUDA kernels for Hopper: fused fragment join-aggregate (one relationship
+hop) over dense columns, and its block-skipping variant.
 
 y[dst] ⊕= w[src] ⊗ m over the edge list of a GQ-Fast index — the frontier SpMV
 that every ⋈/⋉+γ hop lowers to. The combine op ⊕ is a parameter (``op``:
 'sum' | 'min' | 'max' | 'bool'), matching the executor's semiring plug-in
-point. The kernel is ``csrc/fragment_spmv.cu`` (its header says what bounds it
-and how it is built around that); this module builds it with ``nvcc`` for
-``sm_90a`` at first use, loads it through ``ctypes`` and launches it on the
-current stream.
-
-Build: the source is compiled into ``_build/`` beside this file, named by the
-hash of the source, so an edited kernel rebuilds and an unchanged one loads
-the cached library. ``nvcc`` is found on ``PATH`` or under ``CUDA_HOME``
-(default ``/usr/local/cuda``).
+point. The kernels are ``csrc/fragment_spmv.cu`` (its header says what bounds
+them and how they are built around that), compiled at first use by
+:mod:`.cuda_build` and launched on the current stream.
 """
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-import time
-from pathlib import Path
-
 import torch
 
+from .cuda_build import I32, I64, P, CudaLibrary, check_tensor, cuda_device, raise_on, stream_of
 from .ref import IDENTITY
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "fragment_spmv.cu"
-BUILD_DIR = Path(__file__).resolve().parent / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
-_OP_CODE = {"sum": 0, "min": 1, "max": 2, "bool": 3}
+OP_CODE = {"sum": 0, "min": 1, "max": 2, "bool": 3}
 
-#: Kernel launches since import (or since a caller reset it): one per launch,
-#: counted nowhere else — the evidence that a run went through the kernel.
-LAUNCHES = 0
+LIB = CudaLibrary("fragment_spmv", {
+    "fragment_spmv_launch": [P, I32, P, P, P, I64, P, I32, I32, P],
+    "fragment_spmv_active_launch": [P, I32, P, P, P, I64, P, I32, I32, P, I32, P, I32, P],
+})
 
-#: What the last build printed (``-Xptxas -v``: registers, spills) and how
-#: long it took; ``None`` until the library was built in this process.
-BUILD_LOG: str | None = None
-BUILD_SECONDS: float | None = None
-
-_lib = None
-_lock = threading.Lock()
+#: Launches of each kernel since import (or since a caller reset them): one
+#: per launch, counted nowhere else — the evidence that a run went through it.
+LAUNCHES = 0  # fragment_spmv
+ACTIVE_LAUNCHES = 0  # fragment_spmv_active
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError(
-        "nvcc not found on PATH or under CUDA_HOME; the fragment_spmv CUDA "
-        "kernel is built from source at first use"
-    )
-
-
-def build() -> ctypes.CDLL:
+def build():
     """Compile (if needed) and load the kernel library; idempotent."""
-    global _lib, BUILD_LOG, BUILD_SECONDS
-    with _lock:
-        if _lib is not None:
-            return _lib
-        digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-        so = BUILD_DIR / f"fragment_spmv-{digest}.so"
-        if not so.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-            t0 = time.perf_counter()
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                capture_output=True, text=True,
-            )
-            BUILD_SECONDS = time.perf_counter() - t0
-            BUILD_LOG = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                tmp.unlink(missing_ok=True)
-                raise RuntimeError(f"nvcc failed building {SOURCE.name}:\n{BUILD_LOG}")
-            os.replace(tmp, so)  # atomic: a concurrent builder sees all or nothing
-        lib = ctypes.CDLL(str(so))
-        fn = lib.fragment_spmv_launch
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
-        _lib = lib
-        return lib
+    return LIB.load()
 
 
-def _check(t: torch.Tensor, name: str, dtype: torch.dtype, device) -> None:
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if t.dim() != 1:
-        raise ValueError(f"{name} must be 1-D, got shape {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous (materialise broadcasts first)")
+def check_block_list(block_idx, n_active, E: int, dev) -> None:
+    """A block list for an E-edge index: ``block_idx`` int32 with at most
+    ceil(E / EDGE_BLOCK) entries, ``n_active`` int32[1], both on ``dev``."""
+    from .active import n_edge_blocks
+
+    check_tensor(block_idx, "block_idx", torch.int32, dev)
+    check_tensor(n_active, "n_active", torch.int32, dev)
+    if n_active.shape[0] != 1:
+        raise ValueError(f"n_active must have one entry, got {n_active.shape[0]}")
+    if not 1 <= block_idx.shape[0] <= n_edge_blocks(E):
+        raise ValueError(
+            f"block_idx has {block_idx.shape[0]} entries; an index of {E} edges "
+            f"has {n_edge_blocks(E)} blocks"
+        )
+
+
+def _hop_args(weights, src_ids, dst_ids, measures, n_dst, op, kernel):
+    if op not in OP_CODE:
+        raise ValueError(f"unknown combine op {op!r}")
+    dev = cuda_device(weights, kernel)
+    check_tensor(weights, "weights", torch.float32, dev)
+    check_tensor(src_ids, "src_ids", torch.int32, dev)
+    check_tensor(dst_ids, "dst_ids", torch.int32, dev)
+    E = src_ids.shape[0]
+    if dst_ids.shape[0] != E:
+        raise ValueError(f"dst_ids has {dst_ids.shape[0]} edges, src_ids {E}")
+    if measures is not None:
+        check_tensor(measures, "measures", torch.float32, dev)
+        if measures.shape[0] != E:
+            raise ValueError(f"measures has {measures.shape[0]} edges, src_ids {E}")
+    n_dst = int(n_dst)
+    if n_dst < 0 or n_dst >= 2**31 or weights.shape[0] >= 2**31:
+        raise ValueError(f"domain sizes must fit int32: n_src={weights.shape[0]}, n_dst={n_dst}")
+    y = torch.full((n_dst,), IDENTITY[op], dtype=torch.float32, device=dev)
+    return dev, E, n_dst, y
 
 
 def fragment_spmv(
@@ -117,40 +78,56 @@ def fragment_spmv(
     n_dst: int,
     op: str = "sum",
 ) -> torch.Tensor:
-    """Launch the hop kernel; returns f32[n_dst] starting from the
+    """Launch the scan hop kernel; returns f32[n_dst] starting from the
     ⊕-identity. Raises on anything the kernel does not take — it never falls
     back to the plain version."""
     global LAUNCHES
-    if op not in _OP_CODE:
-        raise ValueError(f"unknown combine op {op!r}")
-    dev = weights.device if isinstance(weights, torch.Tensor) else None
-    if dev is None or dev.type != "cuda":
-        raise ValueError(f"fragment_spmv's CUDA kernel needs CUDA tensors, got {dev}")
-    _check(weights, "weights", torch.float32, dev)
-    _check(src_ids, "src_ids", torch.int32, dev)
-    _check(dst_ids, "dst_ids", torch.int32, dev)
-    E = src_ids.shape[0]
-    if dst_ids.shape[0] != E:
-        raise ValueError(f"dst_ids has {dst_ids.shape[0]} edges, src_ids {E}")
-    if measures is not None:
-        _check(measures, "measures", torch.float32, dev)
-        if measures.shape[0] != E:
-            raise ValueError(f"measures has {measures.shape[0]} edges, src_ids {E}")
-    n_dst = int(n_dst)
-    if n_dst < 0 or n_dst >= 2**31 or weights.shape[0] >= 2**31:
-        raise ValueError(f"domain sizes must fit int32: n_src={weights.shape[0]}, n_dst={n_dst}")
-    y = torch.full((n_dst,), IDENTITY[op], dtype=torch.float32, device=dev)
+    dev, E, n_dst, y = _hop_args(weights, src_ids, dst_ids, measures, n_dst, op,
+                                 "fragment_spmv")
     if E == 0 or n_dst == 0:  # a grid of 0 blocks is an invalid launch
         return y
     lib = build()
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.fragment_spmv_launch(
             weights.data_ptr(), weights.shape[0], src_ids.data_ptr(),
             dst_ids.data_ptr(), measures.data_ptr() if measures is not None else None,
-            E, y.data_ptr(), n_dst, _OP_CODE[op], stream,
+            E, y.data_ptr(), n_dst, OP_CODE[op], stream_of(dev),
         )
-    if err != 0:
-        raise RuntimeError(f"fragment_spmv kernel launch failed: CUDA error {err}")
+    raise_on(err, "fragment_spmv")
     LAUNCHES += 1
+    return y
+
+
+def fragment_spmv_active(
+    weights: torch.Tensor,
+    src_ids: torch.Tensor,
+    dst_ids: torch.Tensor,
+    measures: torch.Tensor | None,
+    block_idx: torch.Tensor,  # i32[C], device-resident block list
+    n_active: torch.Tensor,  # i32[1], device-resident
+    n_dst: int,
+    op: str = "sum",
+    scan_above: int | None = None,
+) -> torch.Tensor:
+    """Launch the block-skipping hop kernel: only the blocks
+    ``block_idx[:n_active]`` are streamed, or every block in scan order when
+    ``n_active > scan_above`` (``None``: never). ``n_active`` is read by the
+    kernel, never by the host."""
+    global ACTIVE_LAUNCHES
+    dev, E, n_dst, y = _hop_args(weights, src_ids, dst_ids, measures, n_dst, op,
+                                 "fragment_spmv_active")
+    if E == 0 or n_dst == 0:
+        return y
+    check_block_list(block_idx, n_active, E, dev)
+    lib = build()
+    with torch.cuda.device(dev):
+        err = lib.fragment_spmv_active_launch(
+            weights.data_ptr(), weights.shape[0], src_ids.data_ptr(),
+            dst_ids.data_ptr(), measures.data_ptr() if measures is not None else None,
+            E, y.data_ptr(), n_dst, OP_CODE[op], block_idx.data_ptr(),
+            block_idx.shape[0], n_active.data_ptr(),
+            2**31 - 1 if scan_above is None else int(scan_above), stream_of(dev),
+        )
+    raise_on(err, "fragment_spmv_active")
+    ACTIVE_LAUNCHES += 1
     return y

@@ -1,8 +1,15 @@
-"""Plain PyTorch versions of the hop kernels: the CPU path, and the yardstick
-every CUDA kernel is compared with on the card."""
+"""Plain PyTorch versions of the kernels: the CPU path, and the yardstick
+every CUDA kernel is compared with on the card.
+
+BCA word streams are ``int32`` tensors holding the bit patterns of the
+reference's little-endian ``uint32`` words (``core.fragments._pack_words``):
+torch's unsigned 32-bit type has too few operations for the decode, and the
+CUDA kernels read the same bytes as ``uint32``."""
 from __future__ import annotations
 
 import torch
+
+from .params import EDGE_BLOCK
 
 # ⊕-identity per combine op ("no path reaches this entity")
 IDENTITY = {
@@ -52,3 +59,118 @@ def fragment_spmv_ref(
     prod = _edge_product(weights, src_ids, measures, op)
     return out.scatter_reduce_(0, dst_ids.to(torch.int64), prod,
                                reduce=_REDUCE[op])
+
+
+def bitgather_ref(packed: torch.Tensor, width: int, ids) -> torch.Tensor:
+    """Decode the little-endian ``width``-bit values at positions ``ids`` from
+    a word stream (int32 bit patterns) — the point decode behind
+    ``storage.DeviceColumn.gather``. Returns int32 (a 32-bit value with its
+    top bit set wraps, as the reference's uint32 → int32 cast does)."""
+    if not 1 <= width <= 32:
+        raise ValueError(f"width must be in 1..32, got {width}")
+    idx = torch.as_tensor(ids, device=packed.device).to(torch.int64)
+    if idx.numel() == 0:
+        return torch.zeros(idx.shape, dtype=torch.int32, device=packed.device)
+    words = packed.to(torch.int64) & 0xFFFFFFFF
+    # the reference's split of the bit offset, 32·q·width + r·width with
+    # q = idx // 32: no intermediate passes the word count, where a plain
+    # idx * width wraps a 32-bit offset past 2^32 bits (int64 here does not
+    # wrap, but the split keeps the two decodes step for step alike)
+    q, r = idx >> 5, idx & 31
+    bitr = r * width
+    w0 = q * width + (bitr >> 5)
+    off = bitr & 31
+    lo = words[w0]
+    hi = words[torch.clamp(w0 + 1, max=words.shape[0] - 1)]
+    val = ((lo | (hi << 32)) >> off) & ((1 << width) - 1)
+    return torch.where(val >= 2**31, val - 2**32, val).to(torch.int32)
+
+
+def bitunpack_ref(packed: torch.Tensor, width: int, count: int) -> torch.Tensor:
+    """Decode ``count`` little-endian ``width``-bit values from a word stream.
+    Value i occupies bits [i*width, (i+1)*width); a value may straddle two
+    words. Returns int32[count]."""
+    return bitgather_ref(
+        packed, width, torch.arange(count, dtype=torch.int64, device=packed.device)
+    )
+
+
+def _measure_values(measure, mdict, m_mode: str, m_width: int, ids, E: int):
+    """The float32 measure of the edges ``ids`` (``None`` = measure 1) under
+    ``m_mode``: none / dense (float32[E]) / packed (the decoded integers) /
+    dict (decoded indices into ``mdict``)."""
+    if m_mode == "none":
+        return None
+    if m_mode == "dense":
+        return measure if ids is None else measure[ids]
+    if m_mode not in ("packed", "dict"):
+        raise ValueError(f"unknown measure mode {m_mode!r}")
+    if ids is None:
+        idx = bitunpack_ref(measure, m_width, E)
+    else:
+        idx = bitgather_ref(measure, m_width, ids)
+    if m_mode == "dict":
+        return mdict[idx.to(torch.int64)]
+    return idx.to(torch.float32)
+
+
+def fragment_spmv_packed_ref(
+    weights: torch.Tensor,
+    src_ids: torch.Tensor,
+    dst,  # words if dst_width else int32[E]
+    measure,  # words | float32[E] | None, per m_mode
+    mdict,  # float32[u] | None
+    n_dst: int,
+    dst_width: int = 0,
+    m_mode: str = "none",
+    m_width: int = 0,
+    op: str = "sum",
+) -> torch.Tensor:
+    """Decode-then-hop: whole-column decode of the packed streams, then the
+    plain hop — the same function as the decode-fused kernel."""
+    E = src_ids.shape[0]
+    d = bitunpack_ref(dst, dst_width, E) if dst_width else dst
+    m = _measure_values(measure, mdict, m_mode, m_width, None, E)
+    return fragment_spmv_ref(weights, src_ids, d, m, n_dst, op=op)
+
+
+def listed_edges(block_idx, n_active, E: int, scan_above: int | None = None):
+    """Edge ids of the blocks ``block_idx[:n_active]`` (every block, in scan
+    order, when ``n_active > scan_above``), clipped to E — what the active
+    kernels stream. Reads ``n_active`` on the host: this is the plain version,
+    never the card's hop path."""
+    na = int(torch.as_tensor(n_active).reshape(-1)[0])
+    nb = max(1, -(-E // EDGE_BLOCK))
+    if scan_above is not None and na > scan_above:
+        blocks = torch.arange(nb, dtype=torch.int64, device=block_idx.device)
+    else:
+        blocks = block_idx[: min(na, block_idx.shape[0])].to(torch.int64)
+    ids = (blocks[:, None] * EDGE_BLOCK
+           + torch.arange(EDGE_BLOCK, device=block_idx.device)).reshape(-1)
+    return ids[ids < E]
+
+
+def fragment_spmv_active_ref(
+    weights, src_ids, dst_ids, measures, block_idx, n_active, n_dst: int,
+    op: str = "sum", scan_above: int | None = None,
+) -> torch.Tensor:
+    """The hop over the listed blocks only: edges outside ``block_idx
+    [:n_active]`` are left out. Equal to :func:`fragment_spmv_ref` whenever
+    the list holds every block the frontier's support reaches."""
+    ids = listed_edges(block_idx, n_active, src_ids.shape[0], scan_above)
+    m = None if measures is None else measures[ids]
+    return fragment_spmv_ref(weights, src_ids[ids], dst_ids[ids], m, n_dst, op=op)
+
+
+def fragment_spmv_packed_active_ref(
+    weights, src_ids, dst, measure, mdict, block_idx, n_active, n_dst: int,
+    dst_width: int = 0, m_mode: str = "none", m_width: int = 0,
+    op: str = "sum", scan_above: int | None = None,
+) -> torch.Tensor:
+    """The decode-fused hop over the listed blocks only: just their edges
+    are decoded (point decodes at the listed edge ids)."""
+    E = src_ids.shape[0]
+    ids = listed_edges(block_idx, n_active, E, scan_above)
+    d = bitgather_ref(dst, dst_width, ids) if dst_width else dst[ids]
+    m = _measure_values(measure, mdict, m_mode, m_width, ids, E)
+    return fragment_spmv_ref(weights, src_ids[ids], d, m, n_dst, op=op)

@@ -1,12 +1,15 @@
-"""Carrying device state across: the JAX package's dense DeviceDB, as numpy,
-loaded into the PyTorch port, equals the port's own build and answers the
-same queries bit for bit (both run the plain version on the CPU)."""
+"""Carrying device state across: the JAX package's DeviceDB, as numpy, loaded
+into the PyTorch port, equals the port's own build and answers the same
+queries bit for bit (both run the plain versions on the CPU). Dense storage,
+and the reference's default packed storage with a dictionary column: packed
+words, widths and dictionaries carry across equal."""
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from repro.core.engine import GQFastDatabase as JDatabase  # noqa: E402
+from repro.core.engine import GQFastEngine as JEngine  # noqa: E402
 from repro.data import synth_graph as JSG  # noqa: E402
 from repro_torch.convert import device_db_from_numpy  # noqa: E402
 from repro_torch.core.engine import GQFastDatabase, GQFastEngine  # noqa: E402
@@ -20,6 +23,17 @@ QUERIES = [
 ]
 
 
+def jax_column(col):
+    """One reference DeviceColumn in convert's column layout."""
+    if col.kind == "dense":
+        return np.asarray(col.array)
+    spec = {"kind": col.kind, "words": np.asarray(col.words), "width": col.width,
+            "count": col.count}
+    if col.kind == "dict":
+        spec["dictionary"] = np.asarray(col.dictionary)
+    return spec
+
+
 def jax_device_arrays(device_db) -> dict:
     """The reference DeviceDB's arrays as numpy, in convert's layout."""
     return {
@@ -27,9 +41,9 @@ def jax_device_arrays(device_db) -> dict:
             k: {
                 "indptr": np.asarray(di.indptr),
                 "src_ids": np.asarray(di.src_ids),
-                "dst_ids": np.asarray(di.dst_ids),
+                "dst_ids": jax_column(di.dst_col),
                 "degrees": np.asarray(di.degrees),
-                "measures": {m: np.asarray(v) for m, v in di.measures.items()},
+                "measures": {m: jax_column(c) for m, c in di.measure_cols.items()},
             }
             for k, di in device_db.indexes.items()
         },
@@ -41,7 +55,8 @@ def jax_device_arrays(device_db) -> dict:
 def dbs():
     kw = dict(n_docs=600, n_terms=50, n_authors=200, seed=4)
     jdb = JDatabase(JSG.make_pubmed(**kw), account_space=False, device_encodings="dense")
-    own = GQFastDatabase(SG.make_pubmed(**kw), account_space=False, device="cpu")
+    own = GQFastDatabase(SG.make_pubmed(**kw), account_space=False, device="cpu",
+                         device_encodings="dense")
     arrays = jax_device_arrays(jdb.device)
     carried = GQFastDatabase.from_parts(
         own.schema, own.host_indexes,
@@ -85,4 +100,71 @@ def test_inconsistent_degrees_are_rejected(dbs):
     bad["indexes"][key] = {**bad["indexes"][key],
                            "degrees": bad["indexes"][key]["degrees"] + 1}
     with pytest.raises(ValidationError, match="degrees"):
+        device_db_from_numpy(own.schema, bad, "cpu")
+
+
+DICT_FRE = {("DT", "Term", "Fre"): "dict"}
+
+
+@pytest.fixture(scope="module")
+def packed_dbs():
+    """The reference's default storage (packed keys and measures) with one
+    dictionary column, carried across, beside the port's own build."""
+    kw = dict(n_docs=600, n_terms=50, n_authors=200, seed=4)
+    jdb = JDatabase(JSG.make_pubmed(**kw), account_space=False, device_encodings=DICT_FRE)
+    own = GQFastDatabase(SG.make_pubmed(**kw), account_space=False, device="cpu",
+                         device_encodings=DICT_FRE)
+    carried = GQFastDatabase.from_parts(
+        own.schema, own.host_indexes,
+        device_db_from_numpy(own.schema, jax_device_arrays(jdb.device), "cpu",
+                             host_indexes=own.host_indexes),
+    )
+    return jdb, own, carried
+
+
+def test_carried_packed_columns_equal_the_reference_and_the_ports_build(packed_dbs):
+    jdb, own, carried = packed_dbs
+    kinds = set()
+    for k, ci in carried.device.indexes.items():
+        ji, oi = jdb.device.indexes[k], own.device.indexes[k]
+        for name in ["__dst__", *ci.measure_cols]:
+            c, j, o = ((x.dst_col if name == "__dst__" else x.measure_cols[name])
+                       for x in (ci, ji, oi))
+            assert c.kind == j.kind == o.kind, (k, name)
+            kinds.add(c.kind)
+            if c.kind in ("packed", "dict"):
+                assert c.width == j.width == o.width and c.count == j.count
+                np.testing.assert_array_equal(c.words.numpy().view(np.uint32), np.asarray(j.words))
+                assert torch.equal(c.words, o.words)
+            if c.kind == "dict":
+                np.testing.assert_array_equal(c.dictionary.numpy(), np.asarray(j.dictionary))
+                assert torch.equal(c.dictionary, o.dictionary)
+            assert c.device_nbytes == j.device_nbytes
+    assert kinds == {"packed", "dict"}
+    assert carried.space_report()["device"] == own.space_report()["device"]
+
+
+@pytest.mark.parametrize("q,params", QUERIES, ids=["SD", "FSD", "AS", "AD", "FAD", "RECENT"])
+def test_queries_over_carried_packed_state_agree(packed_dbs, q, params):
+    jdb, own, carried = packed_dbs
+    a = GQFastEngine(own).query(q, **params)
+    b = GQFastEngine(carried).query(q, **params)
+    np.testing.assert_array_equal(a, b)
+    j = np.asarray(JEngine(jdb).prepare(q, fusion="off")(**params))
+    np.testing.assert_allclose(b, j, rtol=1e-4, atol=1e-4)
+    assert (a != 0).any()
+
+
+def test_malformed_packed_columns_are_rejected(packed_dbs):
+    jdb, own, _ = packed_dbs
+    arrays = jax_device_arrays(jdb.device)
+    key = ("DT", "Doc")
+    spec = arrays["indexes"][key]["dst_ids"]
+    bad = {**arrays, "indexes": dict(arrays["indexes"])}
+    bad["indexes"][key] = {**bad["indexes"][key],
+                           "dst_ids": {**spec, "words": spec["words"][:-1]}}
+    with pytest.raises(ValidationError, match="words cannot hold"):
+        device_db_from_numpy(own.schema, bad, "cpu")
+    bad["indexes"][key] = {**bad["indexes"][key], "dst_ids": {**spec, "kind": "zip"}}
+    with pytest.raises(ValidationError, match="unknown column kind"):
         device_db_from_numpy(own.schema, bad, "cpu")

@@ -1,5 +1,6 @@
-"""Tests that need an NVIDIA GPU: the hand-written CUDA kernel against its
-plain PyTorch version, and the engine on the card against the engine on the
+"""Tests that need an NVIDIA GPU: the hand-written CUDA kernels (the dense
+and packed hops, their block-skipping variants, bitunpack) against their
+plain PyTorch versions, and the engine on the card against the engine on the
 CPU and the numpy oracle. They import no JAX (the GPU machine need not have
 it) and skip where ``torch.cuda.is_available()`` is false: a CUDA kernel has no
 CPU mode. On a card:
@@ -15,10 +16,14 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core.engine import GQFastDatabase, GQFastEngine  # noqa: E402
+from repro_torch.core.fragments import _pack_words  # noqa: E402
 from repro_torch.core.lower import HopOp  # noqa: E402
 from repro_torch.core.reference import run_sql  # noqa: E402
 from repro_torch.data import synth_graph as SG  # noqa: E402
+from repro_torch.kernels import active  # noqa: E402
+from repro_torch.kernels import bitunpack as bkernel  # noqa: E402
 from repro_torch.kernels import fragment_spmv as kernel  # noqa: E402
+from repro_torch.kernels import fragment_spmv_packed as pkernel  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -142,12 +147,185 @@ def test_engine_on_the_card_matches_cpu_and_oracle(cuda, name, q, params):
         schema = SG.make_semmeddb(400, 500, 800, 3000)
     else:
         schema = SG.make_pubmed(n_docs=2000, n_terms=100, n_authors=500, seed=3)
-    gpu = GQFastEngine(GQFastDatabase(schema, account_space=False, device=cuda))
-    cpu = GQFastEngine(GQFastDatabase(schema, account_space=False, device="cpu"))
+    gpu = GQFastEngine(GQFastDatabase(schema, account_space=False, device=cuda,
+                                      device_encodings="dense"))
+    cpu = GQFastEngine(GQFastDatabase(schema, account_space=False, device="cpu",
+                                      device_encodings="dense"))
     before = kernel.LAUNCHES
-    got = gpu.query(q, **params)
+    got = gpu.prepare(q, block_skipping="off")(**params)
     assert kernel.LAUNCHES - before == _hops(gpu.prepare(q).phys)
-    want = cpu.query(q, **params)
+    want = cpu.prepare(q, block_skipping="off")(**params)
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(got, run_sql(schema, q, params), rtol=1e-4, atol=1e-4)
     assert (got != 0).any()
+
+
+def _schema(name):
+    if name == "CS":
+        return SG.make_semmeddb(400, 500, 800, 3000)
+    return SG.make_pubmed(n_docs=2000, n_terms=100, n_authors=500, seed=3)
+
+
+@pytest.mark.parametrize("name,q,params", CASES, ids=[c[0] for c in CASES])
+def test_engine_defaults_on_the_card_go_through_the_packed_kernels(cuda, name, q, params):
+    """Default storage and skipping: every hop launches the packed scan or
+    active kernel, and the result matches the CPU engine and the oracle."""
+    schema = _schema(name)
+    gpu = GQFastEngine(GQFastDatabase(schema, account_space=False, device=cuda))
+    cpu = GQFastEngine(GQFastDatabase(schema, account_space=False, device="cpu"))
+    before = pkernel.LAUNCHES + pkernel.ACTIVE_LAUNCHES
+    got = gpu.query(q, **params)
+    assert pkernel.LAUNCHES + pkernel.ACTIVE_LAUNCHES - before == _hops(gpu.prepare(q).phys)
+    np.testing.assert_allclose(got, cpu.query(q, **params), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got, run_sql(schema, q, params), rtol=1e-4, atol=1e-4)
+    assert (got != 0).any()
+
+
+@pytest.mark.parametrize("width", list(range(1, 33)))
+@pytest.mark.parametrize("count", [1, 33, 4097, 100_003])
+def test_bitunpack_matches_plain(cuda, width, count):
+    rng = np.random.default_rng(width * 7 + count)
+    vals = rng.integers(0, 2**width, size=count, dtype=np.uint64)
+    words = torch.from_numpy(_pack_words(vals, width).view(np.int32)).to(cuda)
+    before = bkernel.LAUNCHES
+    got = bkernel.bitunpack(words, width, count)
+    want = ref.bitunpack_ref(words, width, count)
+    torch.cuda.synchronize()
+    assert bkernel.LAUNCHES == before + 1
+    assert torch.equal(got.cpu(), want.cpu())
+    assert np.array_equal(got.cpu().numpy().view(np.uint32), vals.astype(np.uint32))
+
+
+def test_bitunpack_rejects_bad_inputs_and_empty_is_free(cuda):
+    words = torch.from_numpy(_pack_words(np.arange(100) % 7, 3).view(np.int32)).to(cuda)
+    with pytest.raises(TypeError):
+        bkernel.bitunpack(words.long(), 3, 100)
+    with pytest.raises(ValueError):
+        bkernel.bitunpack(words, 0, 100)
+    with pytest.raises(ValueError):
+        bkernel.bitunpack(words, 33, 100)
+    with pytest.raises(ValueError):
+        bkernel.bitunpack(words[:-1], 3, 100)  # too few words
+    with pytest.raises(ValueError):
+        bkernel.bitunpack(words.cpu(), 3, 100)
+    before = bkernel.LAUNCHES
+    assert bkernel.bitunpack(words, 3, 0).shape == (0,)
+    assert bkernel.LAUNCHES == before
+
+
+def _packed_inputs(op, E, seed, device, n_src=3000, n_dst=700):
+    rng = np.random.default_rng(seed)
+    w = rng.random(n_src).astype(np.float32) * 2
+    if op == "bool":
+        w = (w > 1).astype(np.float32)
+    w[rng.random(n_src) < 0.25] = ZERO[op]
+    src = np.sort(rng.integers(0, n_src, E)).astype(np.int32)
+    dst = rng.integers(0, n_dst, E).astype(np.int32)
+    mint = rng.integers(0, 40, E)
+    mdict = np.array([0.5, 3.0, 0.0, 7.25, 1.0], np.float32)
+    midx = rng.integers(0, 5, E)
+    t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    words = lambda v, b: t(_pack_words(v, b).view(np.int32))  # noqa: E731
+    return dict(w=t(w), src=t(src), dst=t(dst), dst_words=words(dst, 10), n_dst=n_dst,
+                m_dense=t(mint.astype(np.float32)), m_words=words(mint, 6),
+                midx_words=words(midx, 3), mdict=t(mdict))
+
+
+def _packed_operands(x, m_mode, dst_packed):
+    dst, dw = (x["dst_words"], 10) if dst_packed else (x["dst"], 0)
+    m, md, mw = {"none": (None, None, 0), "dense": (x["m_dense"], None, 0),
+                 "packed": (x["m_words"], None, 6),
+                 "dict": (x["midx_words"], x["mdict"], 3)}[m_mode]
+    return dst, m, md, dict(n_dst=x["n_dst"], dst_width=dw, m_mode=m_mode, m_width=mw)
+
+
+M_MODES = ["none", "dense", "packed", "dict"]
+
+
+@pytest.mark.parametrize("E", [0, 1, 4097, 50_000])
+@pytest.mark.parametrize("dst_packed", [True, False], ids=["dst_packed", "dst_dense"])
+@pytest.mark.parametrize("m_mode", M_MODES)
+@pytest.mark.parametrize("op", OPS)
+def test_packed_kernel_matches_plain(cuda, op, m_mode, dst_packed, E):
+    x = _packed_inputs(op, E, E + len(op), cuda)
+    dst, m, md, kw = _packed_operands(x, m_mode, dst_packed)
+    before = pkernel.LAUNCHES
+    got = pkernel.fragment_spmv_packed(x["w"], x["src"], dst, m, md, op=op, **kw)
+    want = ref.fragment_spmv_packed_ref(x["w"], x["src"], dst, m, md, op=op, **kw)
+    torch.cuda.synchronize()
+    assert pkernel.LAUNCHES == before + (1 if E else 0)  # E == 0 never launches
+    _assert_match(got, want, op)
+
+
+@pytest.mark.parametrize("support", [0.0, 0.001, 0.1, 0.5, 1.0])
+@pytest.mark.parametrize("op", OPS)
+def test_active_kernels_match_scan_and_plain(cuda, op, support):
+    """Both active kernels over device-built lists, at several supports, with
+    the list followed ('on') and with 'auto''s scan order forced."""
+    E = 40_000
+    x = _packed_inputs(op, E, 11, cuda)
+    w = x["w"].clone()
+    keep = torch.rand(w.shape[0], generator=torch.Generator().manual_seed(3)) < support
+    w[~keep.to(cuda)] = ZERO[op]
+    bmin, bmax = (torch.from_numpy(b).to(cuda) for b in active.block_ranges(x["src"].cpu()))
+    bi, na = active.active_block_list(w, ZERO[op], bmin, bmax)
+    nb = active.n_edge_blocks(E)
+    for scan_above in (nb, 0):
+        dense_before = kernel.ACTIVE_LAUNCHES
+        got = kernel.fragment_spmv_active(w, x["src"], x["dst"], x["m_dense"], bi, na,
+                                          x["n_dst"], op=op, scan_above=scan_above)
+        assert kernel.ACTIVE_LAUNCHES == dense_before + 1
+        scan = kernel.fragment_spmv(w, x["src"], x["dst"], x["m_dense"], x["n_dst"], op=op)
+        plain = ref.fragment_spmv_active_ref(w, x["src"], x["dst"], x["m_dense"], bi, na,
+                                             x["n_dst"], op=op, scan_above=scan_above)
+        _assert_match(got, scan, op)
+        _assert_match(got, plain, op)
+        for m_mode in M_MODES:
+            dst, m, md, kw = _packed_operands(x, m_mode, True)
+            before = pkernel.ACTIVE_LAUNCHES
+            got = pkernel.fragment_spmv_packed_active(w, x["src"], dst, m, md, bi, na,
+                                                      op=op, scan_above=scan_above, **kw)
+            assert pkernel.ACTIVE_LAUNCHES == before + 1
+            _assert_match(got, ref.fragment_spmv_packed_ref(w, x["src"], dst, m, md,
+                                                            op=op, **kw), op)
+    torch.cuda.synchronize()
+
+
+def test_packed_wrappers_reject_bad_inputs(cuda):
+    x = _packed_inputs("sum", 5000, 5, cuda)
+    args = (x["w"], x["src"], x["dst_words"], x["m_words"], None)
+    kw = dict(n_dst=x["n_dst"], dst_width=10, m_mode="packed", m_width=6)
+    with pytest.raises(TypeError):
+        pkernel.fragment_spmv_packed(x["w"], x["src"].long(), *args[2:], **kw)
+    with pytest.raises(ValueError):
+        pkernel.fragment_spmv_packed(*args, **{**kw, "dst_width": 33})
+    with pytest.raises(ValueError):
+        pkernel.fragment_spmv_packed(x["w"], x["src"], x["dst_words"][:10], *args[3:], **kw)
+    with pytest.raises(ValueError):
+        pkernel.fragment_spmv_packed(*args, **{**kw, "m_mode": "zip"})
+    with pytest.raises(ValueError):
+        pkernel.fragment_spmv_packed(x["w"].cpu(), *args[1:], **kw)
+    bi = torch.zeros(100, dtype=torch.int32, device=cuda)  # more entries than blocks
+    na = torch.ones(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        pkernel.fragment_spmv_packed_active(*args, bi, na, **kw)
+    with pytest.raises(ValueError):
+        kernel.fragment_spmv_active(x["w"], x["src"], x["dst"], None, bi[:2],
+                                    torch.ones(2, dtype=torch.int32, device=cuda), 700)
+
+
+def test_dispatch_counts_each_new_kernel_on_cuda(cuda):
+    x = _packed_inputs("max", 20_000, 9, cuda)
+    bmin, bmax = (torch.from_numpy(b).to(cuda) for b in active.block_ranges(x["src"].cpu()))
+    counts = lambda: (kernel.ACTIVE_LAUNCHES, pkernel.LAUNCHES,  # noqa: E731
+                      pkernel.ACTIVE_LAUNCHES, bkernel.LAUNCHES)
+    c0 = counts()
+    ops.fragment_spmv(x["w"], x["src"], x["dst"], None, x["n_dst"], op="max",
+                      blocks=(bmin, bmax), block_skipping="auto")
+    ops.fragment_spmv_packed(x["w"], x["src"], x["dst_words"], n_dst=x["n_dst"],
+                             dst_width=10, op="max")
+    ops.fragment_spmv_packed(x["w"], x["src"], x["dst_words"], n_dst=x["n_dst"],
+                             dst_width=10, op="max", blocks=(bmin, bmax), block_skipping="on")
+    ops.bitunpack(x["dst_words"], 10, 20_000)
+    torch.cuda.synchronize()
+    assert [b - a for a, b in zip(c0, counts())] == [1, 1, 1, 1]

@@ -1,7 +1,10 @@
-"""The slice end to end: SQL → plan → lowered IR → frontier interpreter →
-one fragment_spmv per hop → dense γ, in the PyTorch port on the CPU, against
+"""The dense path end to end: SQL → plan → lowered IR → frontier interpreter
+→ one fragment_spmv per hop → dense γ, in the PyTorch port on the CPU, against
 the JAX engine (dense device encodings, block skipping and fusion off, Pallas
 in interpret mode) and the numpy oracle ``run_sql``, on the same seeded graphs.
+Both sides ask for the dense path explicitly; the default settings (packed
+storage, block skipping) are covered by tests/test_torch_storage.py and
+tests/test_torch_sparsity.py.
 
 sum, count and avg use the repo's tolerance (rtol=atol=1e-4,
 tests/test_system.py); min, max and exists are exact.
@@ -50,7 +53,8 @@ def _pair(make, **kw):
     into each package's engine with dense device storage."""
     pschema = getattr(SG, make)(**kw)
     jschema = getattr(JSG, make)(**kw)
-    port = GQFastEngine(GQFastDatabase(pschema, account_space=False, device="cpu"))
+    port = GQFastEngine(GQFastDatabase(pschema, account_space=False, device="cpu",
+                                       device_encodings="dense"))
     jax_ = JEngine(JDatabase(jschema, account_space=False, device_encodings="dense"))
     return pschema, port, jax_
 
@@ -75,6 +79,10 @@ def _jax_query(eng, sql, params):
     return np.asarray(eng.prepare(sql, block_skipping="off", fusion="off")(**params))
 
 
+def _port_query(eng, sql, params):
+    return eng.prepare(sql, block_skipping="off")(**params)
+
+
 def _check(got, jgot, ref, exact):
     assert got.shape == ref.shape == jgot.shape and got.dtype == np.float32
     if exact:
@@ -90,7 +98,7 @@ def _check(got, jgot, ref, exact):
                          ids=[c[0] for c in CASES] + ["CS"])
 def test_query_matches_jax_and_oracle(pubmed, semmed, name, q, params):
     schema, port, jax_ = semmed if name == "CS" else pubmed
-    got = port.query(q, **params)
+    got = _port_query(port, q, params)
     # COUNT, EXISTS and the mask-seeded queries are integers: exact
     exact = name in ("SD", "AD", "RECENT", "CS")
     _check(got, _jax_query(jax_, q, params), run_sql(schema, q, params), exact)
@@ -100,7 +108,7 @@ def test_query_matches_jax_and_oracle(pubmed, semmed, name, q, params):
 def test_aggregates_match_jax_and_oracle(small, agg):
     schema, port, jax_ = small
     q = Q_EXISTS if agg == "EXISTS" else Q_SCORE.format(agg=agg)
-    got = port.query(q, d0=5)
+    got = _port_query(port, q, {"d0": 5})
     _check(got, _jax_query(jax_, q, {"d0": 5}), run_sql(schema, q, {"d0": 5}),
            agg in EXACT)
     if agg == "EXISTS":
@@ -113,11 +121,11 @@ def test_duplicate_seed_ids_accumulate(small):
            FROM DT dt1 JOIN DT dt2 ON dt1.Term = dt2.Term
            WHERE dt1.Doc = :x AND dt1.Doc = :y
            GROUP BY dt2.Doc"""
-    got = port.query(q, x=5, y=5)
+    got = _port_query(port, q, {"x": 5, "y": 5})
     _check(got, _jax_query(jax_, q, {"x": 5, "y": 5}),
            run_sql(schema, q, {"x": 5, "y": 5}), exact=True)
-    single = port.query(Q_SCORE.format(agg="SUM").replace(
-        "SUM(dt1.Fre * dt2.Fre)", "COUNT(*)"), d0=5)
+    single = _port_query(port, Q_SCORE.format(agg="SUM").replace(
+        "SUM(dt1.Fre * dt2.Fre)", "COUNT(*)"), {"d0": 5})
     np.testing.assert_array_equal(got, 2 * single)
 
 
@@ -152,10 +160,15 @@ def test_query_topk_matches_reference(pubmed):
 @pytest.mark.parametrize("name,q", [(c[0], c[1]) for c in CASES])
 def test_explain_matches_jax(pubmed, name, q):
     _, port, jax_ = pubmed
-    pq = port.prepare(q)
+    pq = port.prepare(q, block_skipping="off")
     jpq = jax_.prepare(q, block_skipping="off", fusion="off")
     assert pq.explain() == jpq.explain()
     assert pq.phys.op_signature() == jpq.phys.op_signature()
+
+
+#: Options whose slice has landed: they run now (storage and skipping).
+PORTED = ("device_encodings=auto", "device_encodings=packed", "block_skipping=on",
+          "block_skipping=auto", "space_report")
 
 
 @pytest.mark.parametrize("call", [
@@ -165,6 +178,8 @@ def test_explain_matches_jax(pubmed, name, q):
     "space_report",
 ])
 def test_unported_options_raise(pubmed, call):
+    """Every option of the reference either runs (its slice has landed) or
+    raises ValidationError naming the ROADMAP item that brings it."""
     schema, port, _ = pubmed
     pq = port.prepare(SG.QUERY_SD)
     calls = {
@@ -184,6 +199,9 @@ def test_unported_options_raise(pubmed, call):
         "profile": lambda: pq.profile(d0=5),
         "space_report": lambda: port.db.space_report(),
     }
+    if call in PORTED:
+        assert calls[call]() is not None
+        return
     err = pytest.raises(ValidationError, calls[call]).value
     assert "ROADMAP Queue 1 item" in str(err)
 
