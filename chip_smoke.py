@@ -20,32 +20,50 @@ Phases (any failure exits non-zero; nothing is caught while the run goes on):
     ``bitunpack`` at widths 1–32; the packed hop for every op × measure mode ×
     packed/dense dst at E ∈ {0, 1, 4097} and at I_DT.Term / I_DA.Doc (the
     dict mode through a per-column override); both active kernels at support
-    fractions from one seed to 100%, equal to the scan and the plain version.
+    fractions from one seed to 100%, equal to the scan and the plain version;
+    both fused-region kernels (fused1: hop + output mask; fused2: hop1 → mask
+    → binarize → hop2, one cooperative launch) against the plain region and
+    the unfused composition through the port's own kernels, for every op ×
+    packed/dense dst × measure mode × mask × binarize at E ∈ {1, 4097}, and
+    at the main path's region shapes (SD's I_DT.Doc → I_DT.Term at supports
+    from one seed to 100%, AS-recent's I_DT.Term + mask + I_DA.Doc over a
+    dense frontier, SD-recent's degenerate I_DT.Term + mask) over the
+    device-built block lists.
  4. The main paths, each driven through ``GQFastEngine.query`` /
     ``query_topk`` with every launch counter set to 0 just before and read
     just after:
-      a. dense storage, skipping off (slice 1): fragment_spmv launches equal
-         the HopOps executed;
-      b. the defaults (auto storage, auto skipping): packed-hop launches
-         (scan + active) equal the HopOps; per hop the n_active / n_blocks
-         the list gave;
+      a. dense storage, skipping off, fusion off (slice 1): fragment_spmv
+         launches equal the HopOps executed;
+      b. auto storage, auto skipping, fusion off (slice 2's defaults), the
+         nine queries: packed-hop launches (scan + active) equal the HopOps;
+         per hop the n_active / n_blocks the list gave;
       c. auto storage, skipping off: packed scan launches equal the HopOps;
       d. dense storage, auto skipping: dense hop launches (scan + active)
          equal the HopOps;
       e. a composite measure over a packed column (SUM(dt2.Fre * dt2.Fre) in
          SD's shape): it decodes through bitunpack (its planner path is the
-         reference's: tests/test_torch_storage.py runs it in both packages).
+         reference's: tests/test_torch_storage.py runs it in both packages);
+      f. the defaults (auto storage, auto skipping, ``fusion="auto"``) over
+         the seven queries plus SD-recent and AS-recent, and ``query_topk``:
+         fused1/fused2 launches equal the regions executed by kind, packed-hop
+         launches the HopOps outside them; the regions that formed and each
+         fused plan's prepare time and reach bytes on the card;
+      g. ``fusion="on"`` over the same nine queries, accounted the same way.
     Each result is compared with the same lowered plan run through the plain
     versions on the card, the defaults with the dense path (exact for
-    SD/AD/RECENT/CS), SD with the numpy oracle ``run_sql`` at full scale, and
-    all seven with ``run_sql`` at the quickstart scale under both storages.
+    SD/AD/RECENT/CS), the fused paths with fusion off, SD with the numpy
+    oracle ``run_sql`` at full scale, and all nine with ``run_sql`` at the
+    quickstart scale under dense/off, the defaults and fusion on.
  5. Times: per query the median wall time of 20 runs and the profiler's
-    device breakdown, under the defaults beside the dense path; per kernel
-    at the main path's shapes its CUDA-event time beside its bound, the plain
-    version's time and one library call computing the same function where
-    there is one (``torch.mv`` on a CSR matrix; none for bitunpack); scan
-    against skip and the cost of the block list at support fractions from
-    one seed to 100%, which set ``SKIP_BLOCK_FRACTION``.
+    device breakdown, under the defaults beside the dense path and under
+    fusion on beside off (those three in turns); per kernel at the main path's shapes its CUDA-event
+    time beside its bound, the plain version's time and one library call
+    computing the same function where there is one (``torch.mv`` on a CSR
+    matrix, two of them and the mask for a fused region; none for
+    bitunpack); scan against skip and the cost of the block list at support
+    fractions from one seed to 100%, which set ``SKIP_BLOCK_FRACTION``;
+    fused against the unfused composition at each region shape, which sets
+    ``FUSED_SCRATCH_BUDGET_BYTES``.
 
 Output: progress lines, then the card line, the ``{"kernels": [...]}`` line and
 last ``{"ok": true, "device": {...}}``. Everything measured is also written to
@@ -81,7 +99,9 @@ FP32_FLOP_PER_S = 67e12
 
 OPS = ("sum", "min", "max", "bool")
 M_MODES = ("none", "dense", "packed", "dict")
-EXACT_QUERIES = ("SD", "AD", "RECENT", "CS")  # counts and memberships
+EXACT_QUERIES = ("SD", "AD", "RECENT", "CS", "SD_RECENT")  # counts and memberships
+#: The H100's L2: a fused region's intermediate up to this size stays in it.
+L2_BYTES = 50 * 2**20
 
 Q_COMPOSITE = """
 SELECT dt2.Doc, SUM(dt2.Fre * dt2.Fre)
@@ -103,7 +123,14 @@ KERNELS = {
     "fragment_spmv_packed_active": ("fragment_spmv_packed", "ACTIVE_LAUNCHES",
                                     "fragment_spmv_packed.cu",
                                     "src/repro/kernels/fragment_spmv_packed.py:287"),
+    "fragment_spmv_fused1": ("fragment_spmv_fused", "FUSED1_LAUNCHES",
+                             "fragment_spmv_fused.cu",
+                             "src/repro/kernels/fragment_spmv_fused.py:297"),
+    "fragment_spmv_fused2": ("fragment_spmv_fused", "FUSED2_LAUNCHES",
+                             "fragment_spmv_fused.cu",
+                             "src/repro/kernels/fragment_spmv_fused.py:331"),
 }
+PACKED_HOPS = ["fragment_spmv_packed", "fragment_spmv_packed_active"]
 
 
 def log(msg: str) -> None:
@@ -470,29 +497,263 @@ def check_active_kernels(db, db_dense, device) -> tuple[dict, list[dict]]:
     return worst, rows
 
 
+def small_regions(device):
+    """Fused-region inputs at E ∈ {1, 4097}: hop1 5000 → 700, hop2 700 → 500
+    (E + 3 edges), for packed and dense dst and every measure mode; a mid
+    mask over the 700 and an output mask over them for the degenerate
+    region."""
+    import torch
+
+    from repro_torch.core.fragments import _pack_words
+    from repro_torch.kernels.ref import HopStreams
+
+    rng = np.random.default_rng(12)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    words = lambda v, b: t(_pack_words(v, b).view(np.int32))  # noqa: E731
+    mdict = t(np.array([0.5, 3.0, 0.0, 7.25, 1.0], np.float32))
+    out = []
+    for E in (1, 4097):
+        hops = []
+        for n_src, n_dst, n in ((5000, 700, E), (700, 500, E + 3)):
+            src = t(np.sort(rng.integers(0, n_src, n)).astype(np.int32))
+            dst = rng.integers(0, n_dst, n)
+            mint, midx = rng.integers(0, 40, n), rng.integers(0, 5, n)
+            hops.append({(dp, mm): HopStreams(
+                src, words(dst, 10) if dp else t(dst.astype(np.int32)),
+                {"none": None, "dense": t(mint.astype(np.float32)), "packed": words(mint, 6),
+                 "dict": words(midx, 3)}[mm], mdict if mm == "dict" else None,
+                10 if dp else 0, mm, {"none": 0, "dense": 0, "packed": 6, "dict": 3}[mm])
+                for dp in (True, False) for mm in M_MODES})
+        keep = t((rng.random(700) < 0.6).astype(np.float32))
+        out.append((E, hops[0], hops[1], keep))
+    return out
+
+
+def full_lists(E: int, device):
+    import torch
+
+    from repro_torch.kernels.active import n_edge_blocks
+
+    nb = n_edge_blocks(E)
+    return (torch.arange(nb, dtype=torch.int32, device=device),
+            torch.full((1,), nb, dtype=torch.int32, device=device))
+
+
+def unfused_region(w, s1, s2, mask, lists, n_mid, n_dst, op, binz):
+    """A region through the port's own unfused kernels: the packed hop over
+    each list (lists=None: the scan kernel), the mask and binarize between."""
+    from repro_torch.kernels import fragment_spmv_packed as pk
+    from repro_torch.kernels import ref
+
+    def hop(x, h, n, bl):
+        kw = dict(dst_width=h.dst_width, m_mode=h.m_mode, m_width=h.m_width, op=op)
+        if bl is None:
+            return pk.fragment_spmv_packed(x, h.src, h.dst, h.measure, h.mdict, n, **kw)
+        return pk.fragment_spmv_packed_active(x, h.src, h.dst, h.measure, h.mdict, *bl, n, **kw)
+
+    u = hop(w, s1, n_mid, None if lists is None else lists[:2])
+    if mask is not None:
+        u = ref.apply_mask(u, mask, op)
+    if s2 is None:
+        return u
+    if binz:
+        u = ref.binarize(u, op)
+    return hop(u, s2, n_dst, None if lists is None else lists[2:])
+
+
+def check_fused_small(device) -> tuple[dict, int]:
+    """Phase 3f: both fused kernels at E ∈ {1, 4097} for every op × dst ×
+    measure mode × mask × binarize, against the plain region and the unfused
+    composition through the port's kernels."""
+    from repro_torch.kernels import fragment_spmv_fused as fk
+    from repro_torch.kernels import ref
+
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(13)
+    worst = {"fragment_spmv_fused1": 0.0, "fragment_spmv_fused2": 0.0}
+    n = 0
+    for E, h1s, h2s, keep in small_regions(device):
+        l1, l2 = full_lists(E, device), full_lists(E + 3, device)
+        for (dp, mm), s1 in h1s.items():
+            s2 = h2s[(dp, mm)]
+            for op in OPS:
+                w = frontier(5000, op, gen, device)
+                for two, mask, binz in ((True, False, False), (True, True, False),
+                                        (True, False, True), (True, True, True),
+                                        (False, False, False), (False, True, False)):
+                    mk = keep if mask else None
+                    if two:
+                        got = fk.fragment_spmv_fused2(w, s1, s2, mk, *l1, *l2, 700, 500, op=op,
+                                                      mid_binarize=binz)
+                    else:
+                        got = fk.fragment_spmv_fused1(w, s1, mk, *l1, 700, op=op)
+                    what = (f"fused{2 if two else 1} E={E} dst {'packed' if dp else 'dense'}"
+                            f" {mm} {op} mask={mask} binarize={binz}")
+                    want = ref.fragment_spmv_fused_ref(w, s1, s2 if two else None, mk, 700, 500,
+                                                       op=op, mid_binarize=binz)
+                    e1 = compare(got, want, op != "sum", f"{what} vs plain")
+                    e2 = compare(got, unfused_region(w, s1, s2 if two else None, mk, None, 700,
+                                                     500, op, binz),
+                                 op != "sum", f"{what} vs unfused kernels")
+                    k = f"fragment_spmv_fused{2 if two else 1}"
+                    worst[k] = max(worst[k], e1, e2)
+                    n += 1
+    sync()
+    log(f"  fused kernels: {n} small regions (E 1 and 4097 × dst × measure mode × op ×"
+        f" mask × binarize) equal the plain region and the unfused kernels")
+    return worst, n
+
+
+def region_specs(db, SG, device) -> list[dict]:
+    """The main path's fused regions at full scale, each taken from a plan
+    prepared on the auto database (so its operands, mask and reach are the
+    engine's): SD's two-hop region under 'on', AS-recent's masked two-hop
+    region under 'on', SD-recent's degenerate region under 'auto'."""
+    from repro_torch.core import executor as X
+    from repro_torch.core.engine import GQFastEngine
+    from repro_torch.core.semiring import semiring_for
+
+    eng = GQFastEngine(db)
+    out = []
+    for name, q, fusion, pick in (
+        ("SD I_DT.Doc->I_DT.Term", SG.QUERY_SD, "on", 0),
+        ("AS-recent I_DT.Term+mask+I_DA.Doc", SG.QUERY_AS_RECENT, "on", -1),
+        ("SD-recent I_DT.Term+mask", SG.QUERY_SD_RECENT, "auto", -1),
+    ):
+        t0 = time.perf_counter()
+        pq = eng.prepare(q, fusion=fusion)
+        t_prep = time.perf_counter() - t0
+        region = [op for op in pq.phys.ops if type(op).__name__ == "FusedHopOp"][pick]
+        interp = X._FrontierInterp({}, semiring_for("sum"), device=device,
+                                   block_skipping="on", fusion=fusion, reach=pq.fn.reach)
+        h1_op, hop1, hop2, mask, binz = interp._fused_region_args(region)
+        out.append(dict(name=name, region=region, hop1=hop1, hop2=hop2, mask=mask,
+                        binarize=binz,
+                        n_src=int(db.device.index(h1_op.table, h1_op.src_key).degrees.shape[0]),
+                        degrees=db.device.index(h1_op.table, h1_op.src_key).degrees,
+                        prepare_s=t_prep,
+                        reach_bytes=sum(r.numel() for r in pq.fn.reach.values())))
+    return out
+
+
+def region_call(spec, w, op, lists, device):
+    """The fused kernel of ``spec``'s region over ``lists``."""
+    from repro_torch.kernels import fragment_spmv_fused as fk
+    from repro_torch.kernels import ops as K
+
+    s1 = K._streams(spec["hop1"], device)
+    n_mid = spec["hop1"].n_dst
+    if spec["hop2"] is None:
+        return lambda: fk.fragment_spmv_fused1(w, s1, spec["mask"], *lists[:2], n_mid, op=op)
+    s2 = K._streams(spec["hop2"], device)
+    return lambda: fk.fragment_spmv_fused2(w, s1, s2, spec["mask"], *lists, n_mid,
+                                           spec["hop2"].n_dst, op=op,
+                                           mid_binarize=spec["binarize"])
+
+
+def check_fused_regions(specs, device) -> dict:
+    """Phase 3g: both fused kernels at the main path's region shapes over the
+    device-built lists, against the plain region and the unfused scan
+    composition through the port's kernels: SD's region at supports from one
+    seed to 100%, AS-recent's over a dense frontier, SD-recent's at one seed
+    and 100%."""
+    import torch
+
+    from repro_torch.kernels import ops as K
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=device).manual_seed(14)
+    worst = {"fragment_spmv_fused1": 0.0, "fragment_spmv_fused2": 0.0}
+    rows = []
+    for spec, supports in zip(specs, (SUPPORTS, (1.0,), ("one_seed", 1.0))):
+        h1, h2 = spec["hop1"], spec["hop2"]
+        E1 = int(h1.src_ids.shape[0])
+        E2 = int(h2.src_ids.shape[0]) if h2 is not None else 0
+        k = "fragment_spmv_fused2" if h2 is not None else "fragment_spmv_fused1"
+        s1 = K._streams(h1, device)
+        s2 = K._streams(h2, device) if h2 is not None else None
+        n_dst = h2.n_dst if h2 is not None else h1.n_dst
+        for support in supports:
+            for op in OPS:
+                w = sparse_frontier(frontier(spec["n_src"], op, gen, device), spec["degrees"],
+                                    support, op, 15)
+                lists = K._fused_block_lists(w, op, h1, h2, E1, E2, "on")
+                got = region_call(spec, w, op, lists, device)()
+                exact = op != "sum"
+                what = f"{k} {spec['name']} {support} {op}"
+                e1 = compare(got, ref.fragment_spmv_fused_ref(
+                    w, s1, s2, spec["mask"], h1.n_dst, n_dst, op=op,
+                    mid_binarize=spec["binarize"], lists=lists), exact, f"{what} vs plain")
+                e2 = compare(got, K.fragment_spmv_fused(
+                    w, h1, h2, spec["mask"], op=op, mid_binarize=spec["binarize"],
+                    fusion="off", block_skipping="off"), exact, f"{what} vs unfused scan")
+                worst[k] = max(worst[k], e1, e2)
+            na = [int(lists[1][0])] + ([int(lists[3][0])] if h2 is not None else [])
+            rows.append({"region": spec["name"], "support": support, "n_active": na,
+                         "n_blocks": [-(-E1 // 4096)] + ([-(-E2 // 4096)] if E2 else [])})
+            log(f"  {k} {spec['name']}: support {support}: lists {na} of"
+                f" {rows[-1]['n_blocks']} blocks; fused == plain == unfused for every op")
+    sync()
+    return worst, rows
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the main paths
 # ---------------------------------------------------------------------------
 
 
 def hop_count(phys) -> int:
-    """HopOps one execution of ``phys`` runs, mask sub-programs included;
-    AVG walks the plan twice."""
-    from repro_torch.core.lower import HopOp, SeedOp
+    """HopOps one execution of ``phys`` runs, inside fused regions and mask
+    sub-programs included; AVG walks the plan twice."""
+    from repro_torch.core.lower import iter_flat_ops
 
     n = 0
-    for op in phys.ops:
-        if isinstance(op, HopOp):
+    for op in iter_flat_ops(phys):
+        if type(op).__name__ == "HopOp":
             n += 1
-        elif isinstance(op, SeedOp):
-            n += sum(hop_count(p) for p in op.programs)
+        n += sum(hop_count(p) for p in getattr(op, "programs", ()))
     return 2 * n if phys.agg == "avg" else n
 
 
-def cases(SG, c0: int):
-    """The seven queries and their parameters; ``c0`` is a concept of the
-    SemMedDB graph at hand (see :func:`busy_concept`)."""
-    return [
+def expected_launches(phys, fusion: str) -> list[int]:
+    """[hop-kernel launches, fused1 launches, fused2 launches] one execution
+    of ``phys`` makes: a region runs in one fused launch unless fusion is off
+    or 'auto' finds a two-hop region's intermediate over the scratch budget,
+    when its hops run unfused."""
+    from repro_torch.kernels import ops as K
+
+    n = [0, 0, 0]
+    for op in phys.ops:
+        kind = type(op).__name__
+        if kind == "HopOp":
+            n[0] += 1
+        elif kind == "FusedHopOp":
+            if fusion == "off" or K._fusion_unfusable(fusion, op.n_mid, len(op.hops) == 2):
+                n[0] += len(op.hops)
+            else:
+                n[len(op.hops)] += 1
+        for p in getattr(op, "programs", ()):
+            n = [a + b for a, b in zip(n, expected_launches(p, fusion))]
+    return [2 * x for x in n] if phys.agg == "avg" else n
+
+
+def region_sigs(phys) -> list[str]:
+    """The fused regions of a plan, mask sub-programs included."""
+    from repro_torch.core.fuse import fusion_groups
+
+    out = list(fusion_groups(phys))
+    for op in phys.ops:
+        for p in getattr(op, "programs", ()):
+            out.extend(region_sigs(p))
+    return out
+
+
+def cases(SG, c0: int, nine: bool = False):
+    """The seven queries and their parameters (``nine``: and SD-recent,
+    AS-recent); ``c0`` is a concept of the SemMedDB graph at hand (see
+    :func:`busy_concept`)."""
+    out = [
         ("SD", SG.QUERY_SD, {"d0": 5}),
         ("FSD", SG.QUERY_FSD, {"d0": 5}),
         ("AS", SG.QUERY_AS, {"a0": 7}),
@@ -501,6 +762,10 @@ def cases(SG, c0: int):
         ("RECENT", SG.QUERY_RECENT_AUTHORS, {"t1": 3, "t2": 9, "y": 2005}),
         ("CS", SG.QUERY_CS, {"c0": c0}),
     ]
+    if nine:
+        out += [("SD_RECENT", SG.QUERY_SD_RECENT, {"d0": 5}),
+                ("AS_RECENT", SG.QUERY_AS_RECENT, {"a0": 7})]
+    return out
 
 
 def busy_concept(sem) -> int:
@@ -509,22 +774,32 @@ def busy_concept(sem) -> int:
     return int(sem.relationships["CS"].columns["CID"][0])
 
 
-def drive_path(label, engines, SG, c0, block_skipping, kernels, topk: bool):
-    """One main path: the seven queries (and ``query_topk`` for AS when the
-    path runs the engine's default skipping) with every counter set to 0
-    just before and read just after. ``kernels`` are the hop kernels of the
-    path: their launches must equal the HopOps executed, and the last of them
-    must have launched. Returns (results, counts, hop_ops, per-hop skip
-    records)."""
+def drive_path(label, engines, SG, c0, block_skipping, fusion, kernels, topk: bool,
+               nine: bool = False, must: tuple = ()):
+    """One main path: the seven queries (``nine``: and the two variants) and
+    ``query_topk`` for AS when ``topk``, with every counter set to 0 just
+    before and read just after. ``kernels`` are the hop kernels of the path:
+    their launches must equal the HopOps executed outside fused regions, the
+    last of them must have launched, and the fused kernels' launches must
+    equal the regions executed by kind; every kernel in ``must`` must have
+    launched. Returns (results, counts, expected launches, per-hop skip
+    records, per-query plan records)."""
     from repro_torch.kernels import ops as K
 
-    prepared = {n: engines[n].prepare(q, block_skipping=block_skipping)
-                for n, q, _ in cases(SG, c0)}
-    expected = sum(hop_count(prepared[n].phys) for n, _, _ in cases(SG, c0))
-    if topk:
-        expected += hop_count(prepared["AS"].phys)
+    qs = cases(SG, c0, nine)
+    prepared, plans = {}, {}
+    for n, q, _ in qs:
+        t0 = time.perf_counter()
+        pq = engines[n].prepare(q, block_skipping=block_skipping, fusion=fusion)
+        prepared[n] = pq
+        plans[n] = {"prepare_s": time.perf_counter() - t0, "regions": region_sigs(pq.phys),
+                    "reach_bytes": sum(t.numel() for t in getattr(pq.fn, "reach", {}).values()),
+                    "hops": hop_count(pq.phys)}
+    expected = [0, 0, 0]
+    for n, _, _ in qs + ([("AS", None, None)] if topk else []):
+        expected = [a + b for a, b in zip(expected, expected_launches(prepared[n].phys, fusion))]
     skips = []
-    plan_skip = K._plan_skip
+    plan_skip, fused_lists = K._plan_skip, K._fused_block_lists
 
     def recorded(w, op, E, blocks, mode):  # the smoke reads n_active after the run
         plan = plan_skip(w, op, E, blocks, mode)
@@ -532,27 +807,37 @@ def drive_path(label, engines, SG, c0, block_skipping, kernels, topk: bool):
             skips.append((current[0], plan[1], plan[2], E))
         return plan
 
+    def recorded_lists(w, op, h1, h2, E1, E2, mode):
+        lists = fused_lists(w, op, h1, h2, E1, E2, mode)
+        skips.append((current[0] + " fused hop1", lists[1], 2**31 - 1, E1))
+        if h2 is not None:
+            skips.append((current[0] + " fused hop2", lists[3], 2**31 - 1, E2))
+        return lists
+
     current = [None]
     results = {}
-    K._plan_skip = recorded
+    defaults = block_skipping == "auto" and fusion == "auto"
+    K._plan_skip, K._fused_block_lists = recorded, recorded_lists
     try:
         reset_counts()
-        for name, q, params in cases(SG, c0):
+        for name, q, params in qs:
             current[0] = name
-            results[name] = (engines[name].query(q, **params) if block_skipping == "auto"
+            results[name] = (engines[name].query(q, **params) if defaults
                              else prepared[name](**params))
         if topk:
             current[0] = "AS topk"
             top = engines["AS"].query_topk(SG.QUERY_AS, k=10, a0=7)
         counts = read_counts()
     finally:
-        K._plan_skip = plan_skip
+        K._plan_skip, K._fused_block_lists = plan_skip, fused_lists
     launched = sum(counts[k] for k in kernels)
-    if launched != expected:
-        raise AssertionError(f"path {label}: {kernels} launched {launched} times,"
-                             f" HopOps executed {expected} ({counts})")
-    if counts[kernels[-1]] < 1:
-        raise AssertionError(f"path {label}: {kernels[-1]} never launched ({counts})")
+    got = [launched, counts["fragment_spmv_fused1"], counts["fragment_spmv_fused2"]]
+    if got != expected:
+        raise AssertionError(f"path {label}: [{kernels}, fused1, fused2] launched {got} times,"
+                             f" expected {expected} ({counts})")
+    for k in [kernels[-1], *must]:
+        if counts[k] < 1:
+            raise AssertionError(f"path {label}: {k} never launched ({counts})")
     if topk:
         want = engines["AS"]._topk(results["AS"], 10)
         if not top or [i for i, _ in top] != [i for i, _ in want]:
@@ -561,25 +846,27 @@ def drive_path(label, engines, SG, c0, block_skipping, kernels, topk: bool):
                 "query_topk scores")
     hops = [{"query": q, "n_active": int(na[0]), "n_blocks": -(-E // 4096),
              "scan_above": int(sa)} for q, na, sa, E in skips]
-    log(f"  path {label}: launches {counts} (HopOps executed {expected})")
-    return results, counts, expected, hops
+    log(f"  path {label}: launches {counts} (expected [hops, fused1, fused2] {expected})")
+    return results, counts, expected, hops, plans
 
 
-def check_results(label, results, engines, SG, c0, block_skipping) -> dict:
+def check_results(label, results, engines, SG, c0, block_skipping, fusion="auto",
+                  nine=False) -> dict:
     """Each result against the same lowered plan run through the plain
     versions on the card; finite, of the domain's shape, not empty."""
     from repro_torch.core import executor as X
 
     errs = {}
-    for name, q, params in cases(SG, c0):
+    for name, q, params in cases(SG, c0, nine):
         got = results[name]
-        pq = engines[name].prepare(q, block_skipping=block_skipping)
+        pq = engines[name].prepare(q, block_skipping=block_skipping, fusion=fusion)
         if got.shape != (pq.phys.out_dom,) or not np.isfinite(got).all():
             raise AssertionError(f"{label} {name}: shape {got.shape} or non-finite values")
         if not (got != 0).any():
             raise AssertionError(f"{label} {name}: empty result")
         plain = X.compile_frontier(engines[name].db.device, pq.phys,
-                                   block_skipping=block_skipping, use_kernel=False)
+                                   block_skipping=block_skipping, use_kernel=False,
+                                   fusion=fusion)
         want = plain(*[params[n] for n in pq.param_names]).cpu().numpy()
         errs[name] = compare(got, want, name in EXACT_QUERIES, f"{label} {name} vs plain")
     log(f"  path {label}: every result matches the plain versions on the card"
@@ -587,25 +874,28 @@ def check_results(label, results, engines, SG, c0, block_skipping) -> dict:
     return errs
 
 
-def check_quickstart(SG, run_sql, GQFastDatabase, GQFastEngine, device, encodings) -> None:
-    """All seven queries against run_sql at the quickstart scale."""
+def check_quickstart(SG, run_sql, GQFastDatabase, GQFastEngine, device, encodings,
+                     fusion) -> None:
+    """All nine queries against run_sql at the quickstart scale."""
     pub = SG.make_pubmed(**QUICKSTART_PUBMED)
     sem = SG.make_semmeddb()  # the generator's defaults
     c0 = busy_concept(sem)
     kw = dict(account_space=False, device=device, device_encodings=encodings)
     eng_p = GQFastEngine(GQFastDatabase(pub, **kw))
     eng_s = GQFastEngine(GQFastDatabase(sem, **kw))
-    worst = 0.0
-    for name, q, params in cases(SG, c0):
+    worst, regions = 0.0, 0
+    for name, q, params in cases(SG, c0, nine=True):
         schema, eng = (sem, eng_s) if name == "CS" else (pub, eng_p)
-        got = eng.query(q, **params)
+        pq = eng.prepare(q, fusion=fusion)
+        regions += len(region_sigs(pq.phys))
+        got = pq(**params)
         ref = run_sql(schema, q, params)
         worst = max(worst, compare(got, ref.astype(np.float32), name in EXACT_QUERIES,
-                                   f"{name} vs run_sql (quickstart, {encodings})"))
+                                   f"{name} vs run_sql (quickstart, {encodings}, {fusion})"))
         if not (got != 0).any():
             raise AssertionError(f"{name}: empty result at quickstart scale")
-    log(f"  all seven match run_sql at quickstart scale, device_encodings={encodings!r}"
-        f" (max abs err {worst:.3g})")
+    log(f"  all nine match run_sql at quickstart scale, device_encodings={encodings!r},"
+        f" fusion={fusion!r} ({regions} regions; max abs err {worst:.3g})")
 
 
 # ---------------------------------------------------------------------------
@@ -613,11 +903,11 @@ def check_quickstart(SG, run_sql, GQFastDatabase, GQFastEngine, device, encoding
 # ---------------------------------------------------------------------------
 
 
-def time_queries(label, engines, SG, c0, block_skipping) -> dict:
+def time_queries(label, engines, SG, c0, block_skipping, fusion="auto", nine=False) -> dict:
     """Median wall ms of QUERY_REPS executions per query."""
     out = {}
-    for name, q, params in cases(SG, c0):
-        pq = engines[name].prepare(q, block_skipping=block_skipping)
+    for name, q, params in cases(SG, c0, nine):
+        pq = engines[name].prepare(q, block_skipping=block_skipping, fusion=fusion)
         pq(**params)
         ts = []
         for _ in range(QUERY_REPS):
@@ -631,7 +921,33 @@ def time_queries(label, engines, SG, c0, block_skipping) -> dict:
     return out
 
 
-def breakdown(label, engines, SG, c0, block_skipping) -> dict:
+def time_modes(engines, SG, c0, modes: dict) -> dict:
+    """Median wall ms of QUERY_REPS executions per query under each of
+    ``modes`` ({label: (block_skipping, fusion)}), taken in turns — the
+    modes' order rotates from one repetition to the next — so that the
+    shared host's drift falls on every mode alike."""
+    out = {label: {} for label in modes}
+    labels = list(modes)
+    for name, q, params in cases(SG, c0, nine=True):
+        pqs = {lb: engines[name].prepare(q, block_skipping=bs, fusion=fu)
+               for lb, (bs, fu) in modes.items()}
+        ts = {lb: [] for lb in labels}
+        for pq in pqs.values():
+            pq(**params)
+        for i in range(QUERY_REPS):
+            for lb in labels[i % len(labels):] + labels[:i % len(labels)]:
+                t0 = time.perf_counter()
+                pqs[lb](**params)  # returns host numpy: waits for the device
+                ts[lb].append((time.perf_counter() - t0) * 1e3)
+        for lb in labels:
+            out[lb][name] = {"median_ms": statistics.median(ts[lb]), "min_ms": min(ts[lb]),
+                             "max_ms": max(ts[lb]), "hops": hop_count(pqs[lb].phys)}
+        log(f"  {name:10s} median ms over {QUERY_REPS} runs in turns: " + ", ".join(
+            f"{lb} {out[lb][name]['median_ms']:.4f}" for lb in labels))
+    return out
+
+
+def breakdown(label, engines, SG, c0, block_skipping, fusion="auto", nine=False) -> dict:
     """Where a query's time goes. torch.profiler over PROFILE_REPS runs gives
     the device's busy time per run, split into the hop kernels, bitunpack,
     copies (the result to the host) and everything else (fills, seeds,
@@ -642,8 +958,8 @@ def breakdown(label, engines, SG, c0, block_skipping) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     out = {}
-    for name, q, params in cases(SG, c0):
-        pq = engines[name].prepare(q, block_skipping=block_skipping)
+    for name, q, params in cases(SG, c0, nine):
+        pq = engines[name].prepare(q, block_skipping=block_skipping, fusion=fusion)
         pq(**params)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -774,6 +1090,138 @@ def time_kernels(db, db_dense, device) -> dict:
             log(f"  {'bitunpack':28s} {name} dst {width} bits, {count} values {ms:.4f} ms"
                 f"  bound {b:.4f} ms ({by})  plain {plain:.4f} ms  library none")
     return rows
+
+
+def stream_bytes(h, E: int) -> float:
+    """Bytes an edge of ``h`` streams: src, dst and measure as stored."""
+    b = 4 * E + (4 * h.dst.shape[0] if h.dst_width else 4 * E)
+    if h.m_mode == "dense":
+        b += 4 * E
+    elif h.m_mode in ("packed", "dict"):
+        b += 4 * h.measure.shape[0]
+    return b / max(E, 1)
+
+
+def decoded(h, device):
+    """(src, dst, measure) of a hop as decoded tensors, for a CSR matrix."""
+    import torch
+
+    from repro_torch.kernels import ref
+
+    E = int(h.src_ids.shape[0])
+    s = torch.as_tensor(h.src_ids, device=device)
+    d = ref.bitunpack_ref(h.dst, h.dst_width, E) if h.dst_width else h.dst
+    m = ref._measure_values(h.measure, h.mdict, h.m_mode, h.m_width, None, E)
+    return s, d, m if m is not None else torch.ones(E, device=device)
+
+
+def time_fused(specs, device) -> tuple[dict, list[dict], int]:
+    """Rows 5 and 6 at the region shapes, sum: the fused kernel over its
+    prebuilt lists by CUDA events; the unfused composition of the port's
+    kernels over lists built beforehand from the same frontier and from the
+    intermediate; the whole dispatch (lists included) with fusion on and off;
+    the plain region; two ``torch.mv`` on CSR matrices and the mask (the
+    library yardstick); the bytes bound of the listed blocks' streams + w +
+    keep + out (u, 4·n_mid bytes, not counted while it fits the L2). Returns
+    the rows by kernel, the fused-vs-unfused rows and the scratch budget they
+    support: the largest 4·n_mid up to which fused was no slower (within
+    SKIP_TIE) than unfused, end to end through the dispatch, at every shape
+    with every source live."""
+    import torch
+
+    from repro_torch.kernels import active
+    from repro_torch.kernels import ops as K
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=device).manual_seed(16)
+    rows = {"fragment_spmv_fused1": [], "fragment_spmv_fused2": []}
+    budget_rows = []
+    for spec, supports in zip(specs, (("one_seed", 1.0), (1.0,), ("one_seed", 1.0))):
+        h1, h2 = spec["hop1"], spec["hop2"]
+        E1 = int(h1.src_ids.shape[0])
+        E2 = int(h2.src_ids.shape[0]) if h2 is not None else 0
+        n_mid = h1.n_dst
+        n_dst = h2.n_dst if h2 is not None else n_mid
+        k = "fragment_spmv_fused2" if h2 is not None else "fragment_spmv_fused1"
+        s1 = K._streams(h1, device)
+        s2 = K._streams(h2, device) if h2 is not None else None
+        mask, binz = spec["mask"], spec["binarize"]
+        for support in supports:
+            w = sparse_frontier(frontier(spec["n_src"], "sum", gen, device), spec["degrees"],
+                                support, "sum", 17)
+            lists = K._fused_block_lists(w, "sum", h1, h2, E1, E2, "on")
+            fused = region_call(spec, w, "sum", lists, device)
+            got = fused()
+            # the unfused kernels over lists of their own: hop2's from the
+            # intermediate's support, as the unfused active hop builds it
+            u = unfused_region(w, s1, None, mask, None, n_mid, n_dst, "sum", False)
+            ul = list(lists[:2])
+            if h2 is not None:
+                ul += list(active.active_block_list(ref.binarize(u, "sum") if binz else u, 0.0,
+                                                    *(torch.as_tensor(b, device=device)
+                                                      for b in h2.blocks)))
+            unf = lambda: unfused_region(w, s1, s2, mask, ul, n_mid, n_dst, "sum",  # noqa: E731
+                                         binz)
+            compare(got, unf(), False, f"{k} {spec['name']} vs unfused kernels (timing inputs)")
+            na1 = int(lists[1][0])
+            na2 = int(lists[3][0]) if h2 is not None else 0
+            e1, e2 = min(E1, na1 * 4096), min(E2, na2 * 4096)
+            nbytes = (stream_bytes(s1, E1) * e1 + (stream_bytes(s2, E2) * e2 if s2 else 0)
+                      + 4 * spec["n_src"] + (4 * n_mid if mask is not None else 0) + 4 * n_dst
+                      + 4 * (lists[0].shape[0] + (lists[2].shape[0] if s2 else 0)))
+            if 4 * n_mid > L2_BYTES:
+                nbytes += 8 * n_mid  # u written and read once through HBM
+            b, by = bound_ms(int(nbytes), 2 * (e1 + e2))
+            hp1, hp2 = h1, h2
+            disp = lambda f: K.fragment_spmv_fused(  # noqa: E731
+                w, hp1, hp2, mask, op="sum", mid_binarize=binz, fusion=f, block_skipping="auto")
+            r = dict(shape=f"{spec['name']} support {support}", E=e1 + e2, n_mid=n_mid,
+                     support=support,
+                     n_active=[na1] + ([na2] if s2 else []),
+                     ms=time_device_ms(fused, KERNEL_REPS),
+                     unfused_ms=time_device_ms(unf, KERNEL_REPS),
+                     dispatch_on_ms=time_device_ms(lambda: disp("on"), KERNEL_REPS),
+                     dispatch_off_ms=time_device_ms(lambda: disp("off"), KERNEL_REPS),
+                     plain_ms=time_device_ms(lambda: ref.fragment_spmv_fused_ref(
+                         w, s1, s2, mask, n_mid, n_dst, op="sum", mid_binarize=binz,
+                         lists=lists), KERNEL_REPS),
+                     bound_ms=b, bound_by=by)
+            A1 = csr_matrix(*decoded(h1, device), spec["n_src"], n_mid)
+            A2 = csr_matrix(*decoded(h2, device), n_mid, n_dst) if h2 is not None else None
+
+            def lib():
+                x = torch.mv(A1, w)
+                if mask is not None:
+                    x = torch.where(mask > 0, x, 0.0)
+                if A2 is None:
+                    return x
+                return torch.mv(A2, (x > 0).to(torch.float32) if binz else x)
+
+            compare(got, lib(), False, f"{k} {spec['name']} vs torch.mv(CSR) composition")
+            r["library_ms"] = time_device_ms(lib, KERNEL_REPS)
+            del A1, A2
+            rows[k].append(r)
+            budget_rows.append(r)
+            log(f"  {k:22s} {r['shape']}: {r['ms']:.4f} ms (lists"
+                f" {r['n_active']}) unfused kernels {r['unfused_ms']:.4f} ms; dispatch on"
+                f" {r['dispatch_on_ms']:.4f} / off {r['dispatch_off_ms']:.4f} ms; bound"
+                f" {b:.4f} ms ({by}); plain {r['plain_ms']:.4f} ms; torch.mv(CSR) x2"
+                f" {r['library_ms']:.4f} ms")
+    # the budget is read where both sides stream the same blocks (every
+    # source live): what differs there is the scratch and the launches, not
+    # the lists (a coarse reach list is REACH_DENSITY_MAX's business)
+    full = [r for r in budget_rows if r["support"] == 1.0]
+    ok = sorted({r["n_mid"] for r in full})
+    budget = 0
+    for n in ok:
+        if all(r["dispatch_on_ms"] <= SKIP_TIE * r["dispatch_off_ms"]
+               for r in full if r["n_mid"] == n):
+            budget = 4 * n
+        else:
+            break
+    log(f"  fused no slower than unfused (within {SKIP_TIE}x, through the dispatch, every"
+        f" source live) up to 4·n_mid = {budget} bytes (n_mid measured: {ok})")
+    return rows, budget_rows, budget
 
 
 def device_busy(fn) -> tuple[float, float]:
@@ -933,10 +1381,9 @@ def run(device) -> None:
     from repro_torch.core.reference import run_sql
     from repro_torch.data import synth_graph as SG
     from repro_torch.kernels import active
-    from repro_torch.kernels import bitunpack as bk
-    from repro_torch.kernels import fragment_spmv as dk
-    from repro_torch.kernels import fragment_spmv_packed as pk
+    from repro_torch.kernels import fragment_spmv_fused as fk
     from repro_torch.kernels.cuda_build import build_all
+    from repro_torch.kernels.params import FUSED_SCRATCH_BUDGET_BYTES
 
     t_start = time.perf_counter()
     card = card_line()
@@ -945,9 +1392,8 @@ def run(device) -> None:
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     # phase 1: build every kernel library at once
-    libs = [dk.LIB, pk.LIB, bk.LIB]
     t0 = time.perf_counter()
-    build_all(libs)
+    libs = build_all()
     t_build = time.perf_counter() - t0
     log(f"[1] built {len(libs)} kernel libraries in {t_build:.2f} s (parallel nvcc)")
     builds = {}
@@ -957,6 +1403,7 @@ def run(device) -> None:
         for line in (lib.build_log or "").splitlines():
             if "registers" in line or "spill" in line:
                 log(f"    ptxas: {line.strip()}")
+    log(f"  fragment_spmv_fused2: {fk.max_grid('sum')} CTAs of 256 threads co-resident")
 
     # phase 2: data, dense and auto storage over the same host indexes
     t0 = time.perf_counter()
@@ -1004,30 +1451,38 @@ def run(device) -> None:
     act_worst, active_checks = check_active_kernels(db, db_dense, device)
     worst.update(act_worst)
     del dict_db
+    fused_small, n_small = check_fused_small(device)
+    specs = region_specs(db, SG, device)
+    for sp in specs:
+        log(f"  region {sp['name']}: prepared in {sp['prepare_s']:.2f} s, reach on the card"
+            f" {sp['reach_bytes']} B")
+    fused_big, fused_checks = check_fused_regions(specs, device)
+    for k in fused_small:
+        worst[k] = max(fused_small[k], fused_big[k])
 
     # phase 4: the main paths
     c0 = busy_concept(sem)
     engines = {}
     for label, (p, s) in {"dense": (db_dense, dbs_dense), "auto": (db, dbs)}.items():
         ep, es = GQFastEngine(p), GQFastEngine(s)
-        engines[label] = {n: (es if n == "CS" else ep) for n, _, _ in cases(SG, c0)}
+        engines[label] = {n: (es if n == "CS" else ep) for n, _, _ in cases(SG, c0, True)}
     log("[4] main paths through GQFastEngine.query / query_topk")
-    paths = {}
-    res_a, *rest = drive_path("a: dense, skipping off", engines["dense"], SG, c0, "off",
-                              ["fragment_spmv"], topk=False)
+    paths, plans = {}, {}
+    res_a, *rest, _ = drive_path("a: dense, skipping off, fusion off", engines["dense"], SG, c0,
+                                 "off", "off", ["fragment_spmv"], topk=False)
     paths["a_dense_off"] = dict(zip(("counts", "hop_ops", "skip"), rest))
-    res_b, *rest = drive_path("b: defaults (auto storage, auto skipping)", engines["auto"], SG,
-                              c0, "auto", ["fragment_spmv_packed", "fragment_spmv_packed_active"],
-                              topk=True)
-    paths["b_defaults"] = dict(zip(("counts", "hop_ops", "skip"), rest))
+    res_b, *rest, _ = drive_path("b: auto storage, auto skipping, fusion off", engines["auto"],
+                                 SG, c0, "auto", "off", PACKED_HOPS, topk=False, nine=True)
+    paths["b_auto_auto_off"] = dict(zip(("counts", "hop_ops", "skip"), rest))
     for h in rest[2]:
-        log(f"    {h['query']:8s} hop: {h['n_active']}/{h['n_blocks']} blocks active"
+        log(f"    {h['query']:10s} hop: {h['n_active']}/{h['n_blocks']} blocks active"
             f" (scan order above {h['scan_above']})")
-    res_c, *rest = drive_path("c: auto storage, skipping off", engines["auto"], SG, c0, "off",
-                              ["fragment_spmv_packed"], topk=False)
+    res_c, *rest, _ = drive_path("c: auto storage, skipping off, fusion off", engines["auto"],
+                                 SG, c0, "off", "off", ["fragment_spmv_packed"], topk=False)
     paths["c_auto_off"] = dict(zip(("counts", "hop_ops", "skip"), rest))
-    res_d, *rest = drive_path("d: dense storage, auto skipping", engines["dense"], SG, c0,
-                              "auto", ["fragment_spmv", "fragment_spmv_active"], topk=True)
+    res_d, *rest, _ = drive_path("d: dense storage, auto skipping, fusion off", engines["dense"],
+                                 SG, c0, "auto", "off", ["fragment_spmv", "fragment_spmv_active"],
+                                 topk=False)
     paths["d_dense_auto"] = dict(zip(("counts", "hop_ops", "skip"), rest))
     # e: a composite measure over a packed column decodes through bitunpack
     fre = db.device.index("DT", "Term").measure_cols["Fre"]
@@ -1040,44 +1495,80 @@ def run(device) -> None:
         raise AssertionError(f"path e: bitunpack never launched ({counts_e})")
     paths["e_composite"] = {"counts": counts_e}
     log(f"  path e: composite measure SUM(dt2.Fre * dt2.Fre): launches {counts_e}")
-    errs = {"dense": check_results("a", res_a, engines["dense"], SG, c0, "off"),
-            "defaults": check_results("b", res_b, engines["auto"], SG, c0, "auto")}
-    check_results("c", res_c, engines["auto"], SG, c0, "off")
-    check_results("d", res_d, engines["dense"], SG, c0, "auto")
+    fused_res = {}
+    for key, label, fusion, must in (
+        ("f_defaults", "f: the defaults (auto storage, auto skipping, fusion auto)", "auto",
+         ("fragment_spmv_fused1",)),
+        ("g_fusion_on", "g: auto storage, auto skipping, fusion on", "on",
+         ("fragment_spmv_fused2",)),
+    ):
+        res, *rest, plan = drive_path(label, engines["auto"], SG, c0, "auto", fusion, PACKED_HOPS,
+                                      topk=fusion == "auto", nine=True, must=must)
+        fused_res[fusion] = res
+        paths[key] = dict(zip(("counts", "hop_ops", "skip"), rest))
+        plans[key] = plan
+        for name, pr in plan.items():
+            log(f"    {name:10s} prepare {pr['prepare_s']:.3f} s, reach on the card"
+                f" {pr['reach_bytes']} B, regions {pr['regions'] or 'none'}")
+        for h in rest[2]:
+            if "fused" in h["query"]:
+                log(f"    {h['query']:22s}: {h['n_active']}/{h['n_blocks']} blocks listed")
+    errs = {"dense": check_results("a", res_a, engines["dense"], SG, c0, "off", "off"),
+            "auto_auto_off": check_results("b", res_b, engines["auto"], SG, c0, "auto", "off",
+                                           nine=True),
+            "defaults": check_results("f", fused_res["auto"], engines["auto"], SG, c0, "auto",
+                                      "auto", nine=True),
+            "fusion_on": check_results("g", fused_res["on"], engines["auto"], SG, c0, "auto",
+                                       "on", nine=True)}
+    check_results("c", res_c, engines["auto"], SG, c0, "off", "off")
+    check_results("d", res_d, engines["dense"], SG, c0, "auto", "off")
     for name, _, _ in cases(SG, c0):
         for other, lbl in ((res_a, "dense/off"), (res_c, "auto/off"), (res_d, "dense/auto")):
-            compare(res_b[name], other[name], name in EXACT_QUERIES, f"defaults {name} vs {lbl}")
-    log("  defaults equal the dense path (exact for SD/AD/RECENT/CS) and every other path")
+            compare(res_b[name], other[name], name in EXACT_QUERIES, f"auto/auto {name} vs {lbl}")
+    for name, _, _ in cases(SG, c0, True):
+        for fusion, res in fused_res.items():
+            compare(res[name], res_b[name], name in EXACT_QUERIES,
+                    f"fusion {fusion} {name} vs fusion off")
+    log("  auto/auto equals the dense path (exact for SD/AD/RECENT/CS) and every other path;"
+        " fusion auto and on equal fusion off for all nine (exact for the counts)")
     pq = eng.prepare(Q_COMPOSITE)
     plain = X.compile_frontier(db.device, pq.phys, use_kernel=False)(5).cpu().numpy()
     compare(comp, plain, False, "composite vs plain")
     compare(comp, engines["dense"]["SD"].query(Q_COMPOSITE, d0=5), False, "composite vs dense")
     t0 = time.perf_counter()
     want = run_sql(pub, SG.QUERY_SD, {"d0": 5})
-    compare(res_b["SD"], want.astype(np.float32), True, "SD vs run_sql (full scale)")
-    compare(res_a["SD"], want.astype(np.float32), True, "dense SD vs run_sql (full scale)")
-    log(f"  SD matches run_sql at full scale on both storages"
+    for res, lbl in ((res_b, "auto"), (res_a, "dense"), (fused_res["on"], "fusion on")):
+        compare(res["SD"], want.astype(np.float32), True, f"{lbl} SD vs run_sql (full scale)")
+    log(f"  SD matches run_sql at full scale on both storages and fused"
         f" ({time.perf_counter() - t0:.1f} s oracle)")
-    check_quickstart(SG, run_sql, GQFastDatabase, GQFastEngine, device, "dense")
-    check_quickstart(SG, run_sql, GQFastDatabase, GQFastEngine, device, "auto")
+    for enc, fusion in (("dense", "off"), ("auto", "auto"), ("auto", "on")):
+        check_quickstart(SG, run_sql, GQFastDatabase, GQFastEngine, device, enc, fusion)
 
     # phase 5: times
     log("[5] times")
-    qtimes = {"defaults": time_queries("defaults", engines["auto"], SG, c0, "auto"),
-              "dense": time_queries("dense", engines["dense"], SG, c0, "off")}
-    split = {"defaults": breakdown("defaults", engines["auto"], SG, c0, "auto"),
-             "dense": breakdown("dense", engines["dense"], SG, c0, "off")}
+    qtimes = time_modes(engines["auto"], SG, c0, {"defaults": ("auto", "auto"),
+                                                  "fusion_on": ("auto", "on"),
+                                                  "fusion_off": ("auto", "off")})
+    qtimes["dense"] = time_queries("dense", engines["dense"], SG, c0, "off", "off")
+    split = {"defaults": breakdown("defaults", engines["auto"], SG, c0, "auto", "auto", True),
+             "dense": breakdown("dense", engines["dense"], SG, c0, "off", "off"),
+             "fusion_on": breakdown("on", engines["auto"], SG, c0, "auto", "on", True),
+             "fusion_off": breakdown("off", engines["auto"], SG, c0, "auto", "off", True)}
     ktimes = time_kernels(db, db_dense, device)
+    fused_rows, budget_rows, budget = time_fused(specs, device)
+    ktimes.update(fused_rows)
     skipping, skip_fraction = time_skipping(db, db_dense, device)
     state = card_state()
     log(f"  card state after timing (clocks.sm, power.draw, power.limit, temp): {state}")
     log(f"  SKIP_BLOCK_FRACTION in use: {active.SKIP_BLOCK_FRACTION}; measured here:"
         f" {skip_fraction:.4f}")
+    log(f"  FUSED_SCRATCH_BUDGET_BYTES in use: {FUSED_SCRATCH_BUDGET_BYTES}; fused no slower"
+        f" up to 4·n_mid = {budget} bytes here")
 
     launches = {k: sum(p["counts"][k] for p in paths.values()) for k in KERNELS}
     entries = []
     for k, (_, _, src, replaces) in KERNELS.items():
-        primary = ktimes[k][0]
+        primary = ktimes[k][-1] if k.startswith("fragment_spmv_fused") else ktimes[k][0]
         entries.append({
             "name": k, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{src}",
             "replaces": replaces, "launches": launches[k], "max_abs_err": worst[k],
@@ -1096,11 +1587,15 @@ def run(device) -> None:
         "setup_seconds": {"generate": t_gen, "index_and_load_dense": t_load,
                           "load_auto": t_auto},
         "checks": {"dense": dense_checks, "packed": packed_checks, "active": active_checks,
-                   "round_trip": round_trip},
-        "paths": paths, "query_max_abs_err_vs_plain": errs, "queries": qtimes,
-        "query_device_breakdown": split, "kernel_times": ktimes, "skipping": skipping,
-        "skip_block_fraction": active.SKIP_BLOCK_FRACTION,
-        "skip_block_fraction_measured": skip_fraction, "kernels": entries,
+                   "round_trip": round_trip, "fused_small": n_small,
+                   "fused_regions": fused_checks},
+        "regions": [{k: sp[k] for k in ("name", "prepare_s", "reach_bytes")} for sp in specs],
+        "paths": paths, "fused_plans": plans, "query_max_abs_err_vs_plain": errs,
+        "queries": qtimes, "query_device_breakdown": split, "kernel_times": ktimes,
+        "skipping": skipping, "skip_block_fraction": active.SKIP_BLOCK_FRACTION,
+        "skip_block_fraction_measured": skip_fraction, "fused_vs_unfused": budget_rows,
+        "fused_scratch_budget_bytes": FUSED_SCRATCH_BUDGET_BYTES,
+        "fused_scratch_budget_measured": budget, "kernels": entries,
         "total_seconds": time.perf_counter() - t_start,
     }
     out_dir = ROOT / "chiprun_out"

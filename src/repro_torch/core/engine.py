@@ -7,12 +7,12 @@ tensors (prepare once / execute many, as JDBC-style prepared statements).
 
 Entry points run on ``"cuda"`` unless the caller passes ``device="cpu"``; a
 request for CUDA on a machine without it raises rather than running on the CPU.
-The defaults are the reference's storage and skipping: ``device_encodings=
-"auto"`` (bit-packed keys, decoded inside the hop kernel) and
-``prepare(block_skipping="auto")``. Settings the reference has and this port
-does not run yet (fusion, other strategies, meshes, batched execution,
-profiling) raise :class:`ValidationError` naming the ROADMAP item that brings
-them.
+The defaults are the reference's storage, skipping and fusion:
+``device_encodings="auto"`` (bit-packed keys, decoded inside the hop kernel)
+and ``prepare(block_skipping="auto", fusion="auto")``. Settings the reference
+has and this port does not run yet (other strategies, meshes, batched
+execution, profiling) raise :class:`ValidationError` naming the ROADMAP item
+that brings them.
 """
 from __future__ import annotations
 
@@ -28,6 +28,7 @@ from ..robust.errors import QueryError, ValidationError
 from . import executor as X
 from .algebra import ChainPlan, RelHop, SeedIds
 from .fragments import FragmentIndex, build_index
+from .fuse import fuse_plan, fusion_groups, has_fused
 from .lower import PhysicalPlan, lower
 from .planner import plan_query
 from .schema import Schema
@@ -137,7 +138,7 @@ class PreparedQuery:
     phys: PhysicalPlan | None = None  # lowered IR
     strategy: str = "frontier"
     block_skipping: str = "auto"  # frontier-sparsity mode baked into fn
-    fusion: str = "off"  # multi-hop fusion mode baked into fn
+    fusion: str = "auto"  # multi-hop fusion mode baked into fn
     hop_estimates: list[dict] | None = None  # per-hop selectivity estimates
 
     def validate_params(self, params: dict) -> None:
@@ -190,6 +191,8 @@ class PreparedQuery:
         if self.phys is not None:
             sig = " -> ".join(type(op).__name__ for op in self.phys.ops)
             lines.append(f"ops: {sig}")
+            for g in fusion_groups(self.phys):
+                lines.append(f"  fused region: {g}")
         for h in self.hop_estimates or []:
             lines.append(
                 f"  hop I_{h['table']}.{h['src_key']}: "
@@ -217,13 +220,16 @@ class GQFastEngine:
         self._cache: PreparedCache = PreparedCache(max_prepared)
 
     def prepare(self, sql: str, block_skipping: str = "auto",
-                fusion: str = "off") -> PreparedQuery:
+                fusion: str = "auto") -> PreparedQuery:
         """Parse, plan and lower ``sql`` once for repeated execution.
         ``block_skipping`` ('auto' | 'on' | 'off') sets the frontier-sparsity
         mode of every hop: 'auto' follows the active-block list while few
         blocks survive and scans otherwise (decided on the device), 'on'
-        always follows it, 'off' always scans. ``fusion`` takes ``'off'`` only
-        in this port."""
+        always follows it, 'off' always scans. ``fusion`` ('auto' | 'on' |
+        'off') collapses adjacent hops (and constant-mask filters) into
+        pipelined regions run in one launch each: 'on' every eligible region,
+        'auto' those whose reach matrix is sparse and whose intermediate fits
+        the scratch budget, 'off' none."""
         X.require_supported("block_skipping", block_skipping, X.BLOCK_SKIPPING_MODES)
         X.require_supported("fusion", fusion, X.FUSION_MODES)
         key = (sql, self.strategy, block_skipping, fusion)
@@ -243,10 +249,14 @@ class GQFastEngine:
             except QueryError as e:
                 # every prepare-stage failure carries the query text
                 raise e.with_context(query=" ".join(sql.split()))
+            if fusion != "off":
+                with T.span("fuse"):
+                    phys = fuse_plan(phys, fusion)
             with T.span("compile") as csp:
                 fn = X.compile_frontier(self.db.device, phys,
                                         block_skipping=block_skipping, fusion=fusion)
-                csp.annotate(strategy=self.strategy, n_ops=len(phys.ops))
+                csp.annotate(strategy=self.strategy, n_ops=len(phys.ops),
+                             fused=has_fused(phys))
             pq = PreparedQuery(
                 sql, plan, fn, list(phys.param_names), plan.group_entity, phys,
                 strategy=self.strategy, block_skipping=block_skipping,

@@ -12,9 +12,12 @@ the index's columns are stored bit-packed by the device column store
 measures inside the hop (the paper's compression-inside-the-operator design)
 — hand-written CUDA kernels on the card, their plain PyTorch versions on the
 CPU. With block skipping engaged each hop runs the ``*_active`` variant over
-the blocks its frontier reaches. Intermediates are vectors, never materialized
-join tables. PyTorch runs eagerly, so a compiled query is a plain Python
-closure over the lowered plan.
+the blocks its frontier reaches. A pipelined region of the plan (a
+:class:`repro_torch.core.lower.FusedHopOp`, formed at prepare by
+:mod:`repro_torch.core.fuse`) runs as one launch of
+:func:`repro_torch.kernels.ops.fragment_spmv_fused`. Intermediates are
+vectors, never materialized join tables. PyTorch runs eagerly, so a compiled
+query is a plain Python closure over the lowered plan.
 
 Aggregation semantics are pluggable: the walker is parameterized by a
 :class:`repro_torch.core.semiring.Semiring`, so SUM/COUNT, MIN/MAX, EXISTS and
@@ -48,6 +51,7 @@ from .fragments import FragmentIndex
 from .lower import (
     DegreeFilterOp,
     EntityFilterOp,
+    FusedHopOp,
     GroupOp,
     HopOp,
     LBin,
@@ -63,13 +67,10 @@ from .schema import Schema
 from .semiring import BOOL_OR_AND, Semiring, semiring_for
 
 #: The global device-encoding modes (a per-column dict is the other form),
-#: block-skipping modes and fusion modes this port runs. The reference's
-#: other fusion modes arrive with the ROADMAP item named in ``_NOT_YET``;
-#: until then they raise instead of quietly running something else.
+#: block-skipping modes and fusion modes this port runs.
 DEVICE_ENCODING_MODES = ("auto", "dense", "packed")
 BLOCK_SKIPPING_MODES = K.BLOCK_SKIPPING_MODES
-FUSION_MODES = ("off",)
-_NOT_YET = {"fusion": ("6 (pipelined fusion)", ("on", "auto"))}
+FUSION_MODES = K.FUSION_MODES
 
 
 def not_ported(what: str, item: str) -> ValidationError:
@@ -83,14 +84,9 @@ def not_ported(what: str, item: str) -> ValidationError:
 
 
 def require_supported(option: str, value, supported: tuple) -> None:
-    """Raise unless ``value`` is one of ``supported``: a value the reference
-    has and the port does not run yet names the ROADMAP item that brings it;
-    any other value is unknown."""
+    """Raise unless ``value`` is one of ``supported``."""
     if value in supported:
         return
-    item, later = _NOT_YET.get(option, (None, ()))
-    if value in later:
-        raise not_ported(f"{option}={value!r}", item)
     raise ValidationError(
         f"{option} must be one of {supported}, got {value!r}",
         **{option: value, "valid": supported},
@@ -368,11 +364,26 @@ class _Interp:
             return self.entity_filter(op, state, cont)
         if isinstance(op, GroupOp):
             return self.group(op, state, cont)
+        if isinstance(op, FusedHopOp):
+            return self.fused_hop(op, state, cont)
         raise ExecutionError(
             f"no interpreter rule for op {type(op).__name__}",
             retryable=False, op=type(op).__name__,
             strategy=type(self).__name__,
         )
+
+    def fused_hop(self, op: FusedHopOp, state, cont):
+        """Default semantics of a fused region: replay its member ops through
+        the ordinary per-op rules. The frontier strategy overrides this with
+        the single-launch kernel."""
+        members = op.members
+
+        def go(i: int, st):
+            if i == len(members):
+                return cont(st)
+            return self.apply(members[i], st, lambda s2: go(i + 1, s2))
+
+        return go(0, state)
 
     def resolve(self, v):
         return self.params[v.name] if isinstance(v, LParam) else v
@@ -404,21 +415,29 @@ class _FrontierInterp(_Interp):
     no per-hop test for an all-zero frontier: with a frontier of
     ⊕-identities the kernel's result is already the identity vector under
     every op (and the block list is empty), and a test on the host would
-    cost one device sync per hop."""
+    cost one device sync per hop. A fused region gets none either.
+
+    Fused regions (``fusion`` 'on' or 'auto'): one launch per region, its
+    reach matrix taken from ``reach`` (the device copies made once per
+    compiled plan, keyed by the region's ``id``)."""
 
     def __init__(self, params: dict[str, Any], sr: Semiring,
                  use_measures: bool = True, use_kernel: bool = True,
-                 device="cuda", block_skipping: str = "auto"):
+                 device="cuda", block_skipping: str = "auto",
+                 fusion: str = "auto", reach: dict | None = None):
         super().__init__(params, sr, use_measures)
         self.use_kernel = use_kernel
         self.device = torch.device(device)
         self.block_skipping = block_skipping
+        self.fusion = fusion
+        self.reach = reach or {}
 
     def spawn(self) -> "_FrontierInterp":
         """Interpreter for a mask sub-program (always the boolean semiring)."""
         return _FrontierInterp(
             self.params, BOOL_OR_AND, use_kernel=self.use_kernel,
             device=self.device, block_skipping=self.block_skipping,
+            fusion=self.fusion, reach=self.reach,
         )
 
     def col(self, c):
@@ -520,6 +539,67 @@ class _FrontierInterp(_Interp):
             blocks=self.blocks_for(op), block_skipping=self.block_skipping,
         )
 
+    # -- pipelined fused regions ---------------------------------------------
+
+    def _hop_operands(self, op: HopOp, reach=None) -> K.FusedHopOperands:
+        """One HopOp → the fused entry's operand bundle (packed columns stream
+        as words; a measure expression is evaluated to float32[E])."""
+        layout = self._packed_layout(op)
+        if layout is None:
+            dst_packed, m_operand, m_width, mdict = False, None, 0, None
+            m_mode = "dense" if op.measure is not None and self.use_measures else "none"
+        else:
+            dst_packed, m_mode, m_operand, m_width, mdict = layout
+        if m_mode == "dense":
+            m_operand = self._dense_measure(op)
+        return K.FusedHopOperands(
+            src_ids=op.src_ids,
+            dst=op.dst_col.words if dst_packed else op.dst_col.materialize(),
+            measure=m_operand, mdict=mdict, n_dst=op.dom_dst,
+            dst_width=op.dst_col.width if dst_packed else 0,
+            m_mode=m_mode, m_width=m_width,
+            blocks=self.blocks_for(op), reach=reach,
+        )
+
+    def _fused_region_args(self, op: FusedHopOp):
+        """The region's kernel arguments: the two hop bundles, the product of
+        the member filters' constant masks, and whether hop2's semijoin entry
+        binarizes the intermediate."""
+        hops = op.hops
+        h1_op = hops[0]
+        h2_op = hops[1] if len(hops) > 1 else None
+        hop1 = self._hop_operands(h1_op)
+        hop2 = (self._hop_operands(h2_op, reach=self.reach.get(id(op)))
+                if h2_op is not None else None)
+        mid_mask = None
+        for f in op.mid_filters:
+            if f.const_mask is None:
+                continue
+            m = torch.as_tensor(f.const_mask, dtype=torch.float32, device=self.device)
+            mid_mask = m if mid_mask is None else mid_mask * m
+        mid_binarize = bool(h2_op.semijoin) if h2_op is not None else False
+        return h1_op, hop1, hop2, mid_mask, mid_binarize
+
+    def fused_hop(self, op: FusedHopOp, state, cont):
+        """A fused region in one launch: hop1 accumulates into the kernel's
+        scratch frontier, hop2 gathers from it through the member filters'
+        constant mask (binarized for a semijoin); a degenerate region masks
+        at its hop's scatter. A region whose group has no entity ends in the
+        membership mask."""
+        if self.fusion == "off":
+            return super().fused_hop(op, state, cont)
+        h1_op, hop1, hop2, mid_mask, mid_binarize = self._fused_region_args(op)
+        w = self.sr.binarize(state) if h1_op.semijoin else state
+        out = K.fragment_spmv_fused(
+            w, hop1, hop2, mid_mask, op=self.sr.name, mid_binarize=mid_binarize,
+            use_kernel=self.use_kernel, fusion=self.fusion,
+            block_skipping=self.block_skipping,
+        )
+        g = op.group
+        if g is not None and g.entity is None:
+            out = self.sr.to_mask(out)
+        return cont(out)
+
     def degree_filter(self, op: DegreeFilterOp, state, cont):
         return cont(self.sr.mask(state, op.degrees > 0))
 
@@ -549,21 +629,38 @@ def _seed_index(ids: list[int], dom: int, device) -> torch.Tensor:
     return torch.tensor(kept, dtype=torch.int64).to(device)
 
 
+def device_reach(phys: PhysicalPlan, device) -> dict[int, torch.Tensor]:
+    """Every fused region's reach matrix (mask sub-programs included) copied
+    to ``device`` once, keyed by the region's ``id``."""
+    out: dict[int, torch.Tensor] = {}
+    for op in phys.ops:
+        if isinstance(op, FusedHopOp) and op.reach is not None:
+            out[id(op)] = torch.as_tensor(np.asarray(op.reach, dtype=bool), device=device)
+        elif isinstance(op, SeedOp):
+            for p in op.programs:
+                out.update(device_reach(p, device))
+    return out
+
+
 def compile_frontier(
     db: DeviceDB, plan: ChainPlan | PhysicalPlan, block_skipping: str = "auto",
-    use_kernel: bool = True, fusion: str = "off",
+    use_kernel: bool = True, fusion: str = "auto",
 ) -> Callable[..., torch.Tensor]:
     """Lower once; return ``run(*args)`` that executes the plan with the
     parameters bound positionally (in ``phys.param_names`` order) and returns
     the result tensor on the database's device, without synchronising.
     ``use_kernel=False`` runs every hop (and every whole-column decode)
     through the plain versions instead of the CUDA kernels (the on-card
-    comparison). ``fusion`` takes ``'off'`` only in this port."""
+    comparison). The plan's fused regions (made by
+    :func:`repro_torch.core.fuse.fuse_plan`) run in one launch each unless
+    ``fusion`` is 'off'; their reach matrices reach the device here, once
+    (``run.reach`` holds the copies)."""
     require_supported("block_skipping", block_skipping, BLOCK_SKIPPING_MODES)
     require_supported("fusion", fusion, FUSION_MODES)
     phys = ensure_lowered(db, plan)
     names = list(phys.param_names)
     device = db.device
+    reach = device_reach(phys, device) if fusion != "off" else {}
 
     def run(*args):
         params = {n: _host_scalar(a) for n, a in zip(names, args)}
@@ -571,8 +668,9 @@ def compile_frontier(
             phys,
             lambda sr, um: _FrontierInterp(
                 params, sr, um, use_kernel=use_kernel, device=device,
-                block_skipping=block_skipping,
+                block_skipping=block_skipping, fusion=fusion, reach=reach,
             ),
         )
 
+    run.reach = reach
     return run

@@ -207,6 +207,9 @@ class HopOp:
     # None when the index was built without it → hop always full-scans
     block_src_min: Any = None
     block_src_max: Any = None
+    # the dst column's host values (the FragmentIndex column), read by the
+    # fusion pass's reach matrix; None when the database has no host index
+    host_dst: Any = None
 
     @property
     def dst_ids(self):
@@ -240,7 +243,56 @@ class GroupOp:
     dom: int
 
 
-Op = Union[SeedOp, HopOp, DegreeFilterOp, EntityFilterOp, GroupOp]
+@dataclass(eq=False)
+class FusedHopOp:
+    """A pipelined region: up to two adjacent HopOps plus any interleaved
+    constant-mask EntityFilterOps and the trailing GroupOp, executed as ONE
+    kernel launch (:mod:`repro_torch.kernels.fragment_spmv_fused`). The first
+    hop accumulates the intermediate frontier ``u[n_mid]`` in a global-memory
+    scratch buffer (L2-resident at the path's sizes); after a grid-wide
+    barrier the second hop gathers from ``u``, applying the mid filter mask
+    and a semijoin's binarize in registers — the intermediate is never read
+    back by a second launch. A degenerate region (one hop and its filters)
+    applies the mask at the hop's scatter.
+
+    ``members`` is the original op sub-sequence (order preserved), so any
+    interpreter without a fused kernel path replays them one by one and gets
+    the same result. ``reach`` is an optional host-precomputed
+    ``bool[nb1, nb2]`` block-to-block reachability matrix: hop2's active block
+    list is derived from hop1's by OR-ing the rows of hop1's active blocks
+    (conservative: a skipped hop2 block provably reads only ⊕-identity)."""
+
+    members: tuple  # (HopOp | EntityFilterOp | GroupOp, ...)
+    n_mid: int  # intermediate entity domain (hop1.dom_dst)
+    reach: Any = None  # np.bool_[nb1, nb2] | None
+
+    @property
+    def hops(self) -> tuple:
+        return tuple(m for m in self.members if isinstance(m, HopOp))
+
+    @property
+    def mid_filters(self) -> tuple:
+        """Constant-mask EntityFilterOps between hop1 and hop2 (or after the
+        sole hop of a degenerate 1-hop region)."""
+        return tuple(m for m in self.members if isinstance(m, EntityFilterOp))
+
+    @property
+    def group(self):
+        last = self.members[-1]
+        return last if isinstance(last, GroupOp) else None
+
+
+Op = Union[SeedOp, HopOp, DegreeFilterOp, EntityFilterOp, GroupOp, FusedHopOp]
+
+
+def iter_flat_ops(phys: "PhysicalPlan"):
+    """Yield the plan's ops with FusedHopOp regions expanded to their members
+    (top level only — SeedOp sub-programs are separate plans)."""
+    for op in phys.ops:
+        if isinstance(op, FusedHopOp):
+            yield from op.members
+        else:
+            yield op
 
 
 @dataclass(eq=False)
@@ -275,6 +327,8 @@ class PhysicalPlan:
                     ) if c
                 )
                 return f"EntityFilter({op.entity}{flags})"
+            if isinstance(op, FusedHopOp):
+                return "Fused[" + "+".join(sig(m) for m in op.members) + "]"
             return f"Group({op.entity})"
 
         return [sig(op) for op in self.ops]
@@ -302,6 +356,7 @@ def lower(db, plan: ChainPlan) -> PhysicalPlan:
                 _lower_expr(db, s.measure_expr, s, plan)
                 if s.measure_expr is not None else None
             )
+            hidx = (getattr(db, "host_indexes", None) or {}).get((s.table, s.src_key))
             ops.append(HopOp(
                 s.table, s.src_key, s.dst_entity,
                 db.schema.domain_size(s.dst_entity),
@@ -309,6 +364,7 @@ def lower(db, plan: ChainPlan) -> PhysicalPlan:
                 measure=measure, semijoin=s.semijoin,
                 block_src_min=getattr(di, "block_src_min", None),
                 block_src_max=getattr(di, "block_src_max", None),
+                host_dst=hidx.columns[s.dst_key].values if hidx is not None else None,
             ))
         else:  # EntityStep
             factor = (

@@ -196,6 +196,29 @@ WHERE s2.PID = p2.PID AND p2.CSID = c2.CSID AND s2.SID IN (
 GROUP BY CID
 """
 
+# Two variants that carry a constant filter on the last hop's Document, the
+# shape that forms fused regions with a mask (core/fuse.py): SD restricted to
+# recent documents (under fusion="auto" a degenerate hop + filter region), and
+# AS restricted to recent documents without the year factor (under
+# fusion="on" a two-hop region with a mid mask).
+QUERY_SD_RECENT = """
+SELECT dt2.Doc, COUNT(*)
+FROM ((DT dt1 JOIN DT dt2 ON dt1.Term = dt2.Term)
+  JOIN Document d ON dt2.Doc = d.ID)
+WHERE dt1.Doc = :d0 AND d.Year >= 2005
+GROUP BY dt2.Doc
+"""
+
+QUERY_AS_RECENT = """
+SELECT da2.Author, SUM(dt1.Fre * dt2.Fre)
+FROM ((((DA da1 JOIN DT dt1 ON da1.Doc = dt1.Doc)
+  JOIN DT dt2 ON dt1.Term = dt2.Term)
+  JOIN Document d ON dt2.Doc = d.ID)
+  JOIN DA da2 ON dt2.Doc = da2.Doc)
+WHERE da1.Author = :a0 AND d.Year >= 2005
+GROUP BY da2.ID
+"""
+
 PUBMED_QUERIES = {
     "SD": QUERY_SD,
     "FSD": QUERY_FSD,

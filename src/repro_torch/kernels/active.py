@@ -15,6 +15,8 @@ block granularity:
     (``block_idx[n_blocks]``, ``n_active[1]``), the tail repeating the last
     active id. Both stay on the device: the active kernels read ``n_active``
     there, so a hop never waits for the host.
+  * :func:`reach_flags` — a fused region's hop2 flags from hop1's, through
+    the fuse-time reach matrix, on the device;
   * :func:`active_block_list_np` — the host twin for a concrete frontier, with
     its capacity bucketed to a power of two (:func:`bucket_capacity`); the
     lists are equal to the reference's for the same frontier.
@@ -90,6 +92,14 @@ def compact_blocks(flags: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     n_active = flags.sum(dtype=torch.int32).reshape(1)
     last = order.index_select(0, (n_active - 1).clamp_(min=0))
     return torch.where(inactive, last, order), n_active
+
+
+def reach_flags(reach: torch.Tensor, flags1: torch.Tensor) -> torch.Tensor:
+    """bool[nb2]: the hop2 blocks a fused region's hop1 can reach from its
+    active blocks — the OR of the rows of ``reach[nb1, nb2]`` (the fuse-time
+    block reachability matrix) where ``flags1`` is set. On the device, with
+    no host read."""
+    return (reach & flags1[:, None]).any(dim=0)
 
 
 def active_block_list(w: torch.Tensor, zero: float, src_min: torch.Tensor,

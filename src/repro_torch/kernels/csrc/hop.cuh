@@ -1,6 +1,8 @@
 // hop.cuh: the per-edge body shared by every hop kernel of the port
 // (fragment_spmv.cu: dense columns; fragment_spmv_packed.cu: BCA columns
-// decoded in registers), in its two schedules:
+// decoded in registers; fragment_spmv_fused.cu: the fused regions, which
+// read their weight through another gather and mask at the scatter), in its
+// two schedules:
 //
 //   scan   one thread per edge in a grid-stride loop over all E edges;
 //   active one CTA per EDGE_BLOCK-edge block: CTA b takes block block_idx[b]
@@ -110,16 +112,31 @@ struct DictMeasure {  // BCA dictionary indices + the dictionary (read-only path
   }
 };
 
+// -- how an edge's source weight is read, and which dst may take a write ----
+
+template <int OP>
+struct Frontier {  // the hop's input frontier: read-only for the whole launch
+  const float* __restrict__ w;
+  int n_src;
+  __device__ __forceinline__ float operator()(int s) const {
+    return (s >= 0 && s < n_src) ? __ldg(w + s) : identity<OP>();
+  }
+};
+
+struct KeepAll {
+  __device__ __forceinline__ bool operator()(int) const { return true; }
+};
+
 // -- the per-edge body --------------------------------------------------------
 
-template <int OP, class Dst, class M>
-__device__ __forceinline__ void edge(const float* __restrict__ w, int n_src,
-                                     const int32_t* __restrict__ src, int64_t e,
-                                     const Dst& dst, const M& m,
-                                     float* __restrict__ y, int n_dst) {
+// y[dst(e)] ⊕= weight(src[e]) ⊗ m(e), unless keep(dst(e)) is false: then no
+// write, so y keeps the identity there (the fused region's mask at scatter).
+template <int OP, class W, class Dst, class M, class Keep>
+__device__ __forceinline__ void edge_with(const W& weight, const int32_t* __restrict__ src,
+                                          int64_t e, const Dst& dst, const M& m,
+                                          float* __restrict__ y, int n_dst, const Keep& keep) {
   const float zero = identity<OP>();
-  const int s = src[e];
-  const float ws = (s >= 0 && s < n_src) ? __ldg(w + s) : zero;
+  const float ws = weight(src[e]);
   if (OP != kSum && ws == zero) return;  // product is the identity
   const float mv = m(e);
   float prod;
@@ -133,7 +150,7 @@ __device__ __forceinline__ void edge(const float* __restrict__ w, int n_src,
     prod = ws * mv;
   }
   const int d = dst(e);
-  if (d < 0 || d >= n_dst) return;
+  if (d < 0 || d >= n_dst || !keep(d)) return;
   if (OP == kSum) {
     atomicAdd(y + d, prod);
   } else if (OP == kBool) {
@@ -143,6 +160,14 @@ __device__ __forceinline__ void edge(const float* __restrict__ w, int n_src,
   } else {
     atomic_max_float(y + d, prod);
   }
+}
+
+template <int OP, class Dst, class M>
+__device__ __forceinline__ void edge(const float* __restrict__ w, int n_src,
+                                     const int32_t* __restrict__ src, int64_t e,
+                                     const Dst& dst, const M& m,
+                                     float* __restrict__ y, int n_dst) {
+  edge_with<OP>(Frontier<OP>{w, n_src}, src, e, dst, m, y, n_dst, KeepAll{});
 }
 
 // -- the two schedules --------------------------------------------------------

@@ -7,7 +7,9 @@ headers in ``csrc/``, so an edited kernel rebuilds and an unchanged one loads
 the cached file. ``nvcc`` is found on ``PATH`` or under ``CUDA_HOME`` (default
 ``/usr/local/cuda``). Nothing is built when a module is imported: a library is
 built at its first launch, or by :func:`build_all`, which starts one ``nvcc``
-for each source at once and waits for all of them.
+for each source at once (every library of the package by default:
+``fragment_spmv``, ``fragment_spmv_packed``, ``fragment_spmv_fused``,
+``bitunpack``) and waits for all of them.
 """
 from __future__ import annotations
 
@@ -30,6 +32,9 @@ NVCC_FLAGS = (
 )
 
 P, I32, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+
+#: Every CudaLibrary made so far, in the order the kernel modules made them.
+LIBRARIES: list["CudaLibrary"] = []
 
 
 def _nvcc() -> str:
@@ -59,6 +64,7 @@ class CudaLibrary:
         self.build_seconds: float | None = None
         self._lib = None
         self._lock = threading.Lock()
+        LIBRARIES.append(self)
 
     def _so(self) -> Path:
         h = hashlib.sha256(self.source.read_bytes())
@@ -107,15 +113,21 @@ class CudaLibrary:
             return lib
 
 
-def build_all(libraries) -> None:
+def build_all(libraries=None) -> list[CudaLibrary]:
     """Build every library at once (one nvcc each, all started together),
-    then load them; raises on the first that fails."""
+    then load them; raises on the first that fails. ``None`` means every
+    library of the package. Returns the libraries."""
+    if libraries is None:
+        from . import ops  # noqa: F401  (imports every kernel module)
+
+        libraries = list(LIBRARIES)
     started = [(lib, lib.start()) for lib in libraries if lib._lib is None]
     for lib, s in started:
         if s is not None:
             lib.finish(s)
     for lib in libraries:
         lib.load()
+    return libraries
 
 
 def check_tensor(t, name: str, dtype: torch.dtype, device) -> None:

@@ -2,7 +2,8 @@
 
   * CPU tensors take the plain PyTorch versions (:mod:`.ref`);
   * CUDA tensors with ``use_kernel=True`` launch the CUDA kernels
-    (:mod:`.fragment_spmv`, :mod:`.fragment_spmv_packed`, :mod:`.bitunpack`).
+    (:mod:`.fragment_spmv`, :mod:`.fragment_spmv_packed`,
+    :mod:`.fragment_spmv_fused`, :mod:`.bitunpack`).
     A kernel that fails to build or launch raises: there is no quiet fallback;
   * ``use_kernel=False`` is the explicit plain-version path on any device —
     what the tests and the on-card check compare the kernels with.
@@ -15,8 +16,18 @@ the ``*_active`` kernel over it. 'auto' never asks the host: the kernel reads
 ``n_active`` and takes every block in scan order when more than
 ``SKIP_BLOCK_FRACTION`` of them survive (the reference's runtime ``lax.cond``).
 Both choices give the scan's result.
+
+Pipelined fusion (:func:`fragment_spmv_fused`): a fused region of the plan
+runs as one launch of :mod:`.fragment_spmv_fused` — hop1's block list from
+the frontier's support, hop2's from the fuse-time reach matrix, both built
+on the device. ``fusion`` 'off' (or 'auto' over the scratch budget, or an
+empty relation) runs the region as the unfused composition of the hop
+kernels instead.
 """
 from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any
 
 import numpy as np
 import torch
@@ -25,11 +36,17 @@ from ..robust.errors import ValidationError
 from . import active as _active
 from . import bitunpack as _bitunpack
 from . import fragment_spmv as _dense
+from . import fragment_spmv_fused as _fused
 from . import fragment_spmv_packed as _packed
 from . import ref
-from .ref import IDENTITY
+from .params import FUSED_SCRATCH_BUDGET_BYTES
+from .ref import IDENTITY, HopStreams
 
 BLOCK_SKIPPING_MODES = ("off", "on", "auto")
+#: 'on' runs every fused region in one launch; 'auto' a two-hop region only
+#: while its intermediate (4 · n_mid bytes) fits FUSED_SCRATCH_BUDGET_BYTES;
+#: 'off' replays regions hop by hop.
+FUSION_MODES = ("off", "on", "auto")
 
 
 def _plain(t: torch.Tensor, use_kernel: bool) -> bool:
@@ -77,6 +94,25 @@ def _words(a, device=None) -> torch.Tensor:
     return torch.as_tensor(a, dtype=torch.int32, device=device)
 
 
+def _hop_streams(src_ids, dst, measure, mdict, dst_width: int, m_mode: str,
+                 m_width: int, device) -> HopStreams:
+    """A hop's streams as ``device`` tensors of the kernels' types: word
+    streams stay words, the measure follows ``m_mode``."""
+    s = torch.as_tensor(src_ids, dtype=torch.int32, device=device)
+    d = _words(dst, device) if dst_width else torch.as_tensor(
+        dst, dtype=torch.int32, device=device)
+    m, md = None, None
+    if m_mode == "dense":
+        m = torch.as_tensor(measure, dtype=torch.float32, device=device)
+    elif m_mode in ("packed", "dict"):
+        m = _words(measure, device)
+        if m_mode == "dict":
+            md = torch.as_tensor(mdict, dtype=torch.float32, device=device)
+    elif m_mode != "none":
+        raise ValidationError(f"unknown measure mode {m_mode!r}", m_mode=m_mode)
+    return HopStreams(s, d, m, md, dst_width, m_mode, m_width)
+
+
 def bitunpack(words, width: int, count: int, use_kernel: bool = True) -> torch.Tensor:
     """Decode ``count`` ``width``-bit values from a word stream; int32."""
     wt = _words(words)
@@ -122,18 +158,8 @@ def fragment_spmv_packed(weights, src_ids, dst, measure=None, mdict=None, *,
     if op not in IDENTITY:
         raise ValueError(f"unknown combine op {op!r}")
     w = torch.as_tensor(weights, dtype=torch.float32)
-    s = torch.as_tensor(src_ids, dtype=torch.int32, device=w.device)
-    d = _words(dst, w.device) if dst_width else torch.as_tensor(
-        dst, dtype=torch.int32, device=w.device)
-    m, md = None, None
-    if m_mode == "dense":
-        m = torch.as_tensor(measure, dtype=torch.float32, device=w.device)
-    elif m_mode in ("packed", "dict"):
-        m = _words(measure, w.device)
-        if m_mode == "dict":
-            md = torch.as_tensor(mdict, dtype=torch.float32, device=w.device)
-    elif m_mode != "none":
-        raise ValidationError(f"unknown measure mode {m_mode!r}", m_mode=m_mode)
+    s, d, m, md, *_ = _hop_streams(src_ids, dst, measure, mdict, dst_width, m_mode,
+                                   m_width, w.device)
     kw = dict(dst_width=dst_width, m_mode=m_mode, m_width=m_width, op=op)
     plain = _plain(w, use_kernel)
     plan = _plan_skip(w, op, s.shape[0], blocks, block_skipping)
@@ -147,3 +173,153 @@ def fragment_spmv_packed(weights, src_ids, dst, measure=None, mdict=None, *,
                                                    scan_above=scan_above, **kw)
     return _packed.fragment_spmv_packed_active(w, s, d, m, md, bi, na, n_dst,
                                                scan_above=scan_above, **kw)
+
+
+# ---------------------------------------------------------------------------
+# Pipelined fused regions (fragment_spmv_fused.py)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(eq=False)
+class FusedHopOperands:
+    """One hop's streams for the fused entry. The frontier is *not* here:
+    hop1 reads the caller's ``weights``, hop2 the kernel's scratch. ``reach``
+    (hop2 only) is the fuse-time block reachability matrix ``bool[nb1, nb2]``,
+    on the device, that derives hop2's active block list from hop1's."""
+
+    src_ids: Any
+    dst: Any
+    measure: Any = None
+    mdict: Any = None
+    n_dst: int = 0
+    dst_width: int = 0
+    m_mode: str = "none"
+    m_width: int = 0
+    blocks: Any = None  # (src_min, src_max) | None
+    reach: Any = None
+
+
+def _streams(h: FusedHopOperands, device) -> HopStreams:
+    return _hop_streams(h.src_ids, h.dst, h.measure, h.mdict, h.dst_width, h.m_mode,
+                        h.m_width, device)
+
+
+def _fusion_unfusable(fusion: str, n_mid: int, two_hop: bool = True) -> bool:
+    """Whether a region runs as the unfused composition. Only the two-hop
+    kernel keeps an intermediate (``4 · n_mid`` bytes of scratch); the
+    degenerate region writes its output directly, so no budget applies."""
+    if fusion not in FUSION_MODES:
+        raise ValidationError(
+            f"unknown fusion mode {fusion!r}", fusion=fusion, valid=FUSION_MODES,
+        )
+    if fusion == "off":
+        return True
+    if fusion == "on" or not two_hop:
+        return False
+    return 4 * n_mid > FUSED_SCRATCH_BUDGET_BYTES
+
+
+def _full_blocks(nb: int, device):
+    return (torch.arange(nb, dtype=torch.int32, device=device),
+            torch.full((1,), nb, dtype=torch.int32, device=device))
+
+
+def _fused_block_lists(w, op: str, h1: FusedHopOperands, h2: FusedHopOperands | None,
+                       E1: int, E2: int, block_skipping: str):
+    """The region's two block lists, built on the device; no value is read
+    on the host. hop1's comes from the incoming frontier's support, as in
+    the unfused active hops; hop2's is derived WITHOUT reading the
+    intermediate, by OR-ing the reach rows of hop1's active blocks
+    (:func:`.active.reach_flags` — a conservative superset, so the result is
+    the scan's). Skipping off or unavailable passes full lists: one
+    kernel body serves every mode. 'auto' follows the lists like 'on' (the
+    reference's traced tier; on the H100 ``SKIP_BLOCK_FRACTION`` is 1.0)."""
+    if block_skipping not in BLOCK_SKIPPING_MODES:
+        raise ValidationError(
+            f"unknown block_skipping mode {block_skipping!r}",
+            block_skipping=block_skipping, valid=BLOCK_SKIPPING_MODES,
+        )
+    dev = w.device
+    nb1 = _active.n_edge_blocks(E1)
+    skip1 = (
+        block_skipping != "off" and h1.blocks is not None
+        and not (nb1 <= 1 and block_skipping != "on")
+    )
+    flags1 = None
+    if skip1:
+        smin1, smax1 = (torch.as_tensor(b, device=dev) for b in h1.blocks)
+        flags1 = _active.active_flags(_active.support_mask(w, IDENTITY[op]), smin1, smax1)
+        bi1, na1 = _active.compact_blocks(flags1)
+    else:
+        bi1, na1 = _full_blocks(nb1, dev)
+    if h2 is None:
+        return bi1, na1, None, None
+    nb2 = _active.n_edge_blocks(E2)
+    reach = h2.reach
+    if flags1 is not None and reach is not None and tuple(reach.shape) == (nb1, nb2):
+        reach = torch.as_tensor(reach, dtype=torch.bool, device=dev)
+        bi2, na2 = _active.compact_blocks(_active.reach_flags(reach, flags1))
+    else:
+        bi2, na2 = _full_blocks(nb2, dev)
+    return bi1, na1, bi2, na2
+
+
+def _compose_unfused(w, hop1: FusedHopOperands, hop2: FusedHopOperands | None,
+                     mid_mask, mid_binarize: bool, op: str, use_kernel: bool,
+                     block_skipping: str) -> torch.Tensor:
+    """The member hops through the unfused hop kernels (fusion off, over the
+    scratch budget, or an empty relation): the semantics the fused kernels
+    must match."""
+    def hop(x, h):
+        return fragment_spmv_packed(
+            x, h.src_ids, h.dst, h.measure, h.mdict, n_dst=h.n_dst,
+            dst_width=h.dst_width, m_mode=h.m_mode, m_width=h.m_width, op=op,
+            use_kernel=use_kernel, blocks=h.blocks, block_skipping=block_skipping,
+        )
+
+    u = hop(w, hop1)
+    if mid_mask is not None:
+        u = ref.apply_mask(u, mid_mask, op)
+    if hop2 is None:
+        return u
+    if mid_binarize:
+        u = ref.binarize(u, op)
+    return hop(u, hop2)
+
+
+def fragment_spmv_fused(weights, hop1: FusedHopOperands,
+                        hop2: FusedHopOperands | None = None, mid_mask=None, *,
+                        op: str = "sum", mid_binarize: bool = False,
+                        use_kernel: bool = True, fusion: str = "auto",
+                        block_skipping: str = "off") -> torch.Tensor:
+    """A pipelined region: hop1 → mask → binarize → hop2 in one kernel
+    launch (``hop2=None`` ⇒ the degenerate 1-hop+filter region, whose mask
+    applies to the output). Equal to the unfused composition: exactly for
+    min/max/bool, within float reordering for sum."""
+    if op not in IDENTITY:
+        raise ValueError(f"unknown combine op {op!r}")
+    w = torch.as_tensor(weights, dtype=torch.float32)
+    mm = None if mid_mask is None else torch.as_tensor(
+        mid_mask, dtype=torch.float32, device=w.device)
+    E1 = hop1.src_ids.shape[0]
+    E2 = hop2.src_ids.shape[0] if hop2 is not None else 0
+    n_mid = hop1.n_dst
+    n_dst = hop2.n_dst if hop2 is not None else hop1.n_dst
+    mid_binarize = mid_binarize and hop2 is not None
+    if (_fusion_unfusable(fusion, n_mid, hop2 is not None) or E1 == 0
+            or (hop2 is not None and E2 == 0)):
+        return _compose_unfused(w, hop1, hop2, mm, mid_binarize, op, use_kernel,
+                                block_skipping)
+    s1 = _streams(hop1, w.device)
+    s2 = _streams(hop2, w.device) if hop2 is not None else None
+    bi1, na1, bi2, na2 = _fused_block_lists(w, op, hop1, hop2, E1, E2, block_skipping)
+    if _plain(w, use_kernel):
+        return ref.fragment_spmv_fused_ref(w, s1, s2, mm, n_mid, n_dst, op=op,
+                                           mid_binarize=mid_binarize,
+                                           lists=(bi1, na1, bi2, na2))
+    if mm is not None:
+        mm = mm.contiguous()
+    if s2 is None:
+        return _fused.fragment_spmv_fused1(w, s1, mm, bi1, na1, n_dst, op=op)
+    return _fused.fragment_spmv_fused2(w, s1, s2, mm, bi1, na1, bi2, na2, n_mid, n_dst,
+                                       op=op, mid_binarize=mid_binarize)

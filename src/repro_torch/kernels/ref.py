@@ -7,6 +7,8 @@ torch's unsigned 32-bit type has too few operations for the decode, and the
 CUDA kernels read the same bytes as ``uint32``."""
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from .params import EDGE_BLOCK
@@ -174,3 +176,65 @@ def fragment_spmv_packed_active_ref(
     d = bitgather_ref(dst, dst_width, ids) if dst_width else dst[ids]
     m = _measure_values(measure, mdict, m_mode, m_width, ids, E)
     return fragment_spmv_ref(weights, src_ids[ids], d, m, n_dst, op=op)
+
+
+class HopStreams(NamedTuple):
+    """One hop's edge streams as the fused kernels take them: src ids, dst
+    (int32 ids, or BCA words when ``dst_width``) and the measure in ``m_mode``
+    (none / dense float32[E] / packed words / dict words + ``mdict``)."""
+
+    src: torch.Tensor
+    dst: torch.Tensor
+    measure: torch.Tensor | None = None
+    mdict: torch.Tensor | None = None
+    dst_width: int = 0
+    m_mode: str = "none"
+    m_width: int = 0
+
+
+def apply_mask(u: torch.Tensor, keep: torch.Tensor, op: str) -> torch.Tensor:
+    """The fused region's filter: keep where ``keep > 0``, else the
+    ⊕-identity (``Semiring.mask``)."""
+    return torch.where(keep > 0, u, IDENTITY[op])
+
+
+def binarize(u: torch.Tensor, op: str) -> torch.Tensor:
+    """hop2's semijoin entry on the intermediate (``Semiring.binarize``):
+    ``u > 0`` for sum; ``u ≠ 0̄ → 1``, else 0̄, for the others."""
+    if op == "sum":
+        return (u > 0).to(torch.float32)
+    zero = IDENTITY[op]
+    return torch.where(u != zero, 1.0, zero)
+
+
+def _listed_hop_ref(w, h: HopStreams, n_dst: int, op: str, block_idx, n_active):
+    kw = dict(dst_width=h.dst_width, m_mode=h.m_mode, m_width=h.m_width, op=op)
+    if block_idx is None:
+        return fragment_spmv_packed_ref(w, h.src, h.dst, h.measure, h.mdict, n_dst, **kw)
+    return fragment_spmv_packed_active_ref(w, h.src, h.dst, h.measure, h.mdict,
+                                           block_idx, n_active, n_dst, **kw)
+
+
+def fragment_spmv_fused_ref(
+    weights: torch.Tensor,
+    hop1: HopStreams,
+    hop2: HopStreams | None,  # None ⇒ the degenerate 1-hop+filter region
+    mid_mask: torch.Tensor | None,
+    n_mid: int,
+    n_dst: int,
+    op: str = "sum",
+    mid_binarize: bool = False,
+    lists=None,  # (block_idx1, n_active1, block_idx2, n_active2) | None: scan
+) -> torch.Tensor:
+    """A fused region as its plain composition: hop1 → mask → binarize →
+    hop2, each hop through the plain packed hop (over the block lists when
+    given). In the degenerate region the mask applies to the output."""
+    bi1, na1, bi2, na2 = lists if lists is not None else (None,) * 4
+    u = _listed_hop_ref(weights, hop1, n_mid, op, bi1, na1)
+    if mid_mask is not None:
+        u = apply_mask(u, mid_mask, op)
+    if hop2 is None:
+        return u
+    if mid_binarize:
+        u = binarize(u, op)
+    return _listed_hop_ref(u, hop2, n_dst, op, bi2, na2)

@@ -1,9 +1,9 @@
 """Tests that need an NVIDIA GPU: the hand-written CUDA kernels (the dense
-and packed hops, their block-skipping variants, bitunpack) against their
-plain PyTorch versions, and the engine on the card against the engine on the
-CPU and the numpy oracle. They import no JAX (the GPU machine need not have
-it) and skip where ``torch.cuda.is_available()`` is false: a CUDA kernel has no
-CPU mode. On a card:
+and packed hops, their block-skipping variants, bitunpack, both fused-region
+kernels) against their plain PyTorch versions, and the engine on the card
+against the engine on the CPU and the numpy oracle. They import no JAX (the
+GPU machine need not have it) and skip where ``torch.cuda.is_available()`` is
+false: a CUDA kernel has no CPU mode. On a card:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
@@ -17,12 +17,13 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core.engine import GQFastDatabase, GQFastEngine  # noqa: E402
 from repro_torch.core.fragments import _pack_words  # noqa: E402
-from repro_torch.core.lower import HopOp  # noqa: E402
+from repro_torch.core.lower import FusedHopOp, HopOp  # noqa: E402
 from repro_torch.core.reference import run_sql  # noqa: E402
 from repro_torch.data import synth_graph as SG  # noqa: E402
 from repro_torch.kernels import active  # noqa: E402
 from repro_torch.kernels import bitunpack as bkernel  # noqa: E402
 from repro_torch.kernels import fragment_spmv as kernel  # noqa: E402
+from repro_torch.kernels import fragment_spmv_fused as fkernel  # noqa: E402
 from repro_torch.kernels import fragment_spmv_packed as pkernel  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 
@@ -133,12 +134,23 @@ CASES = [
 ]
 
 
-def _hops(phys) -> int:
-    """HopOps one execution runs, mask sub-programs included."""
-    return sum(
-        1 if isinstance(op, HopOp) else sum(_hops(p) for p in getattr(op, "programs", ()))
-        for op in phys.ops
-    )
+def _launches(phys) -> tuple[int, int, int]:
+    """(HopOps outside fused regions, degenerate regions, two-hop regions)
+    one execution runs, mask sub-programs included: the hop-kernel and the
+    two fused kernels' launches."""
+    n = [0, 0, 0]
+    for op in phys.ops:
+        if isinstance(op, HopOp):
+            n[0] += 1
+        elif isinstance(op, FusedHopOp):
+            n[len(op.hops)] += 1
+        for p in getattr(op, "programs", ()):
+            n = [a + b for a, b in zip(n, _launches(p))]
+    return tuple(n)
+
+
+def _fused_counts():
+    return fkernel.FUSED1_LAUNCHES, fkernel.FUSED2_LAUNCHES
 
 
 @pytest.mark.parametrize("name,q,params", CASES, ids=[c[0] for c in CASES])
@@ -151,9 +163,12 @@ def test_engine_on_the_card_matches_cpu_and_oracle(cuda, name, q, params):
                                       device_encodings="dense"))
     cpu = GQFastEngine(GQFastDatabase(schema, account_space=False, device="cpu",
                                       device_encodings="dense"))
-    before = kernel.LAUNCHES
-    got = gpu.prepare(q, block_skipping="off")(**params)
-    assert kernel.LAUNCHES - before == _hops(gpu.prepare(q).phys)
+    before, fbefore = kernel.LAUNCHES, _fused_counts()
+    pq = gpu.prepare(q, block_skipping="off")
+    got = pq(**params)
+    hops, f1, f2 = _launches(pq.phys)
+    assert kernel.LAUNCHES - before == hops
+    assert [b - a for a, b in zip(fbefore, _fused_counts())] == [f1, f2]
     want = cpu.prepare(q, block_skipping="off")(**params)
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(got, run_sql(schema, q, params), rtol=1e-4, atol=1e-4)
@@ -173,9 +188,11 @@ def test_engine_defaults_on_the_card_go_through_the_packed_kernels(cuda, name, q
     schema = _schema(name)
     gpu = GQFastEngine(GQFastDatabase(schema, account_space=False, device=cuda))
     cpu = GQFastEngine(GQFastDatabase(schema, account_space=False, device="cpu"))
-    before = pkernel.LAUNCHES + pkernel.ACTIVE_LAUNCHES
+    before, fbefore = pkernel.LAUNCHES + pkernel.ACTIVE_LAUNCHES, _fused_counts()
     got = gpu.query(q, **params)
-    assert pkernel.LAUNCHES + pkernel.ACTIVE_LAUNCHES - before == _hops(gpu.prepare(q).phys)
+    hops, f1, f2 = _launches(gpu.prepare(q).phys)
+    assert pkernel.LAUNCHES + pkernel.ACTIVE_LAUNCHES - before == hops
+    assert [b - a for a, b in zip(fbefore, _fused_counts())] == [f1, f2]
     np.testing.assert_allclose(got, cpu.query(q, **params), rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(got, run_sql(schema, q, params), rtol=1e-4, atol=1e-4)
     assert (got != 0).any()
@@ -329,3 +346,164 @@ def test_dispatch_counts_each_new_kernel_on_cuda(cuda):
     ops.bitunpack(x["dst_words"], 10, 20_000)
     torch.cuda.synchronize()
     assert [b - a for a, b in zip(c0, counts())] == [1, 1, 1, 1]
+
+
+# ---------------------------------------------------------------------------
+# The fused-region kernels
+# ---------------------------------------------------------------------------
+
+
+def _streams(x, m_mode, dst_packed, src, dst, dst_words, dst_width):
+    """A HopStreams bundle over the arrays of _packed_inputs."""
+    m, md, mw = {"none": (None, None, 0), "dense": (x["m_dense"], None, 0),
+                 "packed": (x["m_words"], None, 6),
+                 "dict": (x["midx_words"], x["mdict"], 3)}[m_mode]
+    d, dw = (dst_words, dst_width) if dst_packed else (dst, 0)
+    return ref.HopStreams(src, d, m, md, dw, m_mode, mw)
+
+
+def _region(op, E, m_mode, dst_packed, seed, device):
+    """hop1 E0 (3000) → E1 (700) from _packed_inputs; hop2 E1 → E2 (500) with
+    E + 3 edges, the same measure mode; a mid mask over E1."""
+    x = _packed_inputs(op, E, seed, device)
+    h1 = _streams(x, m_mode, dst_packed, x["src"], x["dst"], x["dst_words"], 10)
+    rng = np.random.default_rng(seed + 1)
+    E2 = E + 3
+    t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    src2 = np.sort(rng.integers(0, 700, E2)).astype(np.int32)
+    dst2 = rng.integers(0, 500, E2).astype(np.int32)
+    y = _packed_inputs(op, E2, seed + 2, device)
+    h2 = _streams(y, m_mode, dst_packed, t(src2), t(dst2), t(_pack_words(dst2, 9).view(np.int32)),
+                  9)
+    keep = t((rng.random(700) < 0.6).astype(np.float32))
+    return x["w"], h1, h2, keep
+
+
+def _full(E, device):
+    nb = active.n_edge_blocks(E)
+    return (torch.arange(nb, dtype=torch.int32, device=device),
+            torch.full((1,), nb, dtype=torch.int32, device=device))
+
+
+@pytest.mark.parametrize("variant", ["two_hop", "two_hop_mask_binarize", "degenerate",
+                                     "degenerate_mask"])
+@pytest.mark.parametrize("E", [1, 4097, 50_000])
+@pytest.mark.parametrize("dst_packed", [True, False], ids=["dst_packed", "dst_dense"])
+@pytest.mark.parametrize("m_mode", M_MODES)
+@pytest.mark.parametrize("op", OPS)
+def test_fused_kernels_match_plain_and_unfused(cuda, op, m_mode, dst_packed, E, variant):
+    """Both fused kernels over full block lists against the plain region and
+    against the unfused composition through the port's packed hop kernel."""
+    w, h1, h2, keep = _region(op, E, m_mode, dst_packed, E + len(op), cuda)
+    two = variant.startswith("two_hop")
+    mask = keep if variant.endswith(("mask", "binarize")) else None
+    if not two and mask is not None:
+        mask = (torch.arange(700, device=cuda) % 3 != 0).to(torch.float32)
+    binz = variant.endswith("binarize")
+    bi1, na1 = _full(E, cuda)
+    bi2, na2 = _full(E + 3, cuda)
+    before = _fused_counts()
+    if two:
+        got = fkernel.fragment_spmv_fused2(w, h1, h2, mask, bi1, na1, bi2, na2, 700, 500,
+                                           op=op, mid_binarize=binz)
+    else:
+        got = fkernel.fragment_spmv_fused1(w, h1, mask, bi1, na1, 700, op=op)
+    torch.cuda.synchronize()
+    assert [b - a for a, b in zip(before, _fused_counts())] == ([0, 1] if two else [1, 0])
+    want = ref.fragment_spmv_fused_ref(w, h1, h2 if two else None, mask, 700, 500, op=op,
+                                       mid_binarize=binz)
+    _assert_match(got, want, op)
+
+    def hop(x, h, n):
+        return pkernel.fragment_spmv_packed(x, h.src, h.dst, h.measure, h.mdict, n,
+                                            dst_width=h.dst_width, m_mode=h.m_mode,
+                                            m_width=h.m_width, op=op)
+
+    u = hop(w, h1, 700)
+    if mask is not None:
+        u = ref.apply_mask(u, mask, op)
+    if two:
+        u = hop(ref.binarize(u, op) if binz else u, h2, 500)
+    _assert_match(got, u, op)
+
+
+@pytest.mark.parametrize("support", [0.0, 0.001, 0.1, 0.5, 1.0])
+@pytest.mark.parametrize("op", OPS)
+def test_fused_kernels_follow_device_lists(cuda, op, support):
+    """The dispatch's device-built lists (hop2's through the reach matrix) at
+    several supports: fused equals the scan composition and the plain region,
+    and each kernel launches once."""
+    from repro_torch.core.fuse import _block_reach
+
+    E = 60_000
+    w, h1, h2, keep = _region(op, E, "packed", True, 21, cuda)
+    drop = torch.rand(w.shape[0], generator=torch.Generator().manual_seed(4)) >= support
+    w = w.clone()
+    w[drop.to(cuda)] = ZERO[op]
+    smin2, smax2 = active.block_ranges(h2.src.cpu())
+    hop1 = HopOp("T", "A", "E1", 700, None, h1.src, None,
+                 host_dst=ref.bitunpack_ref(h1.dst.cpu(), h1.dst_width, E).numpy())
+    hop2 = HopOp("T", "B", "E2", 500, None, h2.src, None, block_src_min=smin2,
+                 block_src_max=smax2)
+    reach = torch.from_numpy(_block_reach(hop1, hop2)).to(cuda)
+    blocks = lambda h: tuple(torch.from_numpy(b).to(cuda)  # noqa: E731
+                             for b in active.block_ranges(h.src.cpu()))
+    mk = lambda h, n, r=None: ops.FusedHopOperands(  # noqa: E731
+        h.src, h.dst, h.measure, h.mdict, n, h.dst_width, h.m_mode, h.m_width,
+        blocks=blocks(h), reach=r)
+    o1, o2 = mk(h1, 700), mk(h2, 500, reach)
+    for two in (True, False):
+        before = _fused_counts()
+        got = ops.fragment_spmv_fused(w, o1, o2 if two else None, keep, op=op,
+                                      mid_binarize=two, fusion="on", block_skipping="on")
+        off = ops.fragment_spmv_fused(w, o1, o2 if two else None, keep, op=op,
+                                      mid_binarize=two, fusion="off", block_skipping="off")
+        plain = ops.fragment_spmv_fused(w, o1, o2 if two else None, keep, op=op,
+                                        mid_binarize=two, fusion="on", block_skipping="on",
+                                        use_kernel=False)
+        torch.cuda.synchronize()
+        assert [b - a for a, b in zip(before, _fused_counts())] == ([0, 1] if two else [1, 0])
+        _assert_match(got, off, op)
+        _assert_match(got, plain, op)
+
+
+def test_fused_wrappers_reject_bad_inputs(cuda):
+    w, h1, h2, keep = _region("sum", 5000, "packed", True, 5, cuda)
+    bi1, na1 = _full(5000, cuda)
+    bi2, na2 = _full(5003, cuda)
+    args = (bi1, na1, bi2, na2, 700, 500)
+    with pytest.raises(TypeError):
+        fkernel.fragment_spmv_fused2(w, h1._replace(src=h1.src.long()), h2, keep, *args)
+    with pytest.raises(ValueError):
+        fkernel.fragment_spmv_fused2(w, h1._replace(dst_width=33), h2, keep, *args)
+    with pytest.raises(ValueError):
+        fkernel.fragment_spmv_fused2(w, h1, h2, keep[:10], *args)
+    with pytest.raises(ValueError):
+        fkernel.fragment_spmv_fused2(w.cpu(), h1, h2, keep, *args)
+    with pytest.raises(ValueError):
+        fkernel.fragment_spmv_fused1(w, h1._replace(m_mode="zip"), None, bi1, na1, 700)
+    big = torch.zeros(100, dtype=torch.int32, device=cuda)  # more entries than blocks
+    with pytest.raises(ValueError):
+        fkernel.fragment_spmv_fused2(w, h1, h2, keep, big, na1, bi2, na2, 700, 500)
+    assert fkernel.max_grid("sum") >= 132  # at least one CTA per SM of an H100
+
+
+@pytest.mark.parametrize("fusion", ["auto", "on"])
+@pytest.mark.parametrize("name,q,params", CASES + [
+    ("SD_RECENT", SG.QUERY_SD_RECENT, {"d0": 5}), ("AS_RECENT", SG.QUERY_AS_RECENT, {"a0": 7})],
+    ids=[c[0] for c in CASES] + ["SD_RECENT", "AS_RECENT"])
+def test_engine_fusion_on_the_card(cuda, name, q, params, fusion):
+    """Fused plans on the card: one fused launch per region, the other hops
+    through the packed kernels; the result equals fusion off and the oracle."""
+    schema = _schema(name)
+    gpu = GQFastEngine(GQFastDatabase(schema, account_space=False, device=cuda))
+    pq = gpu.prepare(q, fusion=fusion)
+    hops, f1, f2 = _launches(pq.phys)
+    before, fbefore = pkernel.LAUNCHES + pkernel.ACTIVE_LAUNCHES, _fused_counts()
+    got = pq(**params)
+    assert pkernel.LAUNCHES + pkernel.ACTIVE_LAUNCHES - before == hops
+    assert [b - a for a, b in zip(fbefore, _fused_counts())] == [f1, f2]
+    off = gpu.prepare(q, fusion="off")(**params)
+    np.testing.assert_allclose(got, off, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got, run_sql(schema, q, params), rtol=1e-4, atol=1e-4)
+    assert (got != 0).any()

@@ -160,15 +160,15 @@ def test_query_topk_matches_reference(pubmed):
 @pytest.mark.parametrize("name,q", [(c[0], c[1]) for c in CASES])
 def test_explain_matches_jax(pubmed, name, q):
     _, port, jax_ = pubmed
-    pq = port.prepare(q, block_skipping="off")
-    jpq = jax_.prepare(q, block_skipping="off", fusion="off")
+    pq = port.prepare(q, block_skipping="off")  # both packages' default fusion
+    jpq = jax_.prepare(q, block_skipping="off")
     assert pq.explain() == jpq.explain()
     assert pq.phys.op_signature() == jpq.phys.op_signature()
 
 
-#: Options whose slice has landed: they run now (storage and skipping).
+#: Options whose slice has landed: they run now (storage, skipping, fusion).
 PORTED = ("device_encodings=auto", "device_encodings=packed", "block_skipping=on",
-          "block_skipping=auto", "space_report")
+          "block_skipping=auto", "fusion=on", "fusion=auto", "space_report")
 
 
 @pytest.mark.parametrize("call", [

@@ -301,7 +301,7 @@ def test_explain_and_cache_key_by_mode(engines):
     _, port, _ = engines[("pubmed", "auto")]
     q = Q_SCORE.format(call="COUNT(*)")
     pq = port.prepare(q)
-    assert "block_skipping: auto" in pq.explain() and "fusion: off" in pq.explain()
+    assert "block_skipping: auto" in pq.explain() and "fusion: auto" in pq.explain()
     # distinct modes are distinct cache entries, not silently shared
     assert port.prepare(q, block_skipping="off") is not pq
     assert port.prepare(q, block_skipping="off").block_skipping == "off"

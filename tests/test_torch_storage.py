@@ -389,8 +389,7 @@ def test_typed_errors_for_unknown_modes_addresses_and_fusion():
     with pytest.raises(ValidationError, match="block_skipping must be one of"):
         eng.prepare(SG.QUERY_SD, block_skipping="sometimes")
     for fusion in ("on", "auto"):
-        err = pytest.raises(ValidationError, eng.prepare, SG.QUERY_SD, fusion=fusion).value
-        assert "ROADMAP Queue 1 item 6" in str(err)
+        assert eng.prepare(SG.QUERY_SD, fusion=fusion).fusion == fusion
     with pytest.raises(ValidationError, match="fusion must be one of"):
         eng.prepare(SG.QUERY_SD, fusion="bogus")
 
