@@ -9,10 +9,12 @@ Entry points run on ``"cuda"`` unless the caller passes ``device="cpu"``; a
 request for CUDA on a machine without it raises rather than running on the CPU.
 The defaults are the reference's storage, skipping and fusion:
 ``device_encodings="auto"`` (bit-packed keys, decoded inside the hop kernel)
-and ``prepare(block_skipping="auto", fusion="auto")``. Settings the reference
-has and this port does not run yet (other strategies, meshes, batched
-execution, profiling) raise :class:`ValidationError` naming the ROADMAP item
-that brings them.
+and ``prepare(block_skipping="auto", fusion="auto")``. Batched serving
+(``PreparedQuery.execute_batch``, ``GQFastEngine.query_topk_batch``) answers
+B parameter bindings in one pass whose hops each stream the edges once for
+the whole batch. Settings the reference has and this port does not run yet
+(other strategies, meshes, profiling) raise :class:`ValidationError` naming
+the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -128,6 +130,19 @@ class GQFastDatabase:
         return rep
 
 
+#: Ragged batches pad up to one of these sizes, as the reference's do: powers
+#: of two up to 64, then multiples of 64 (a B = 65 burst runs the 128 bucket).
+BATCH_BUCKET_CAP = 64
+
+
+def batch_bucket(b: int) -> int:
+    """Smallest bucket ≥ b: the next power of two up to BATCH_BUCKET_CAP,
+    then the next multiple of BATCH_BUCKET_CAP."""
+    if b <= BATCH_BUCKET_CAP:
+        return 1 << (b - 1).bit_length()
+    return -(-b // BATCH_BUCKET_CAP) * BATCH_BUCKET_CAP
+
+
 @dataclass
 class PreparedQuery:
     sql: str
@@ -140,6 +155,7 @@ class PreparedQuery:
     block_skipping: str = "auto"  # frontier-sparsity mode baked into fn
     fusion: str = "auto"  # multi-hop fusion mode baked into fn
     hop_estimates: list[dict] | None = None  # per-hop selectivity estimates
+    batched_fn: Callable[..., Any] | None = None  # the batched (SpMM) entry
 
     def validate_params(self, params: dict) -> None:
         """Typed parameter-binding validation: every declared parameter bound,
@@ -200,8 +216,66 @@ class PreparedQuery:
             )
         return "\n".join(lines)
 
+    def _batch_args(self, param_arrays: dict) -> tuple[list[np.ndarray], int]:
+        """Validate one ``[B]`` array (or Python list) per parameter: every
+        parameter present, none scalar, all 1-D and of the same length, not
+        empty."""
+        if not self.param_names:
+            raise ValidationError(
+                "execute_batch needs a parameterized query (this one has none);"
+                " call the prepared query directly instead"
+            )
+        missing = [n for n in self.param_names if n not in param_arrays]
+        if missing:
+            raise ValidationError(
+                f"execute_batch missing parameter arrays: {missing}",
+                missing=missing, expected=list(self.param_names),
+            )
+        args, B = [], None
+        for n in self.param_names:
+            a = np.asarray(param_arrays[n])
+            if a.ndim == 0:
+                raise ValidationError(
+                    f"execute_batch parameter {n!r} is a scalar; pass a list or"
+                    " 1-D array with one value per query (a scalar would"
+                    " silently broadcast to every query in the batch)",
+                    param=n,
+                )
+            if a.ndim != 1:
+                raise ValidationError(
+                    f"execute_batch parameter {n!r} must be 1-D, got shape {a.shape}",
+                    param=n, shape=a.shape,
+                )
+            if B is None:
+                B = a.shape[0]
+            elif a.shape[0] != B:
+                raise ValidationError(
+                    f"ragged batch: parameter {n!r} has length {a.shape[0]} but"
+                    f" {self.param_names[0]!r} has length {B}; all parameter"
+                    " arrays must have one entry per query",
+                    param=n,
+                )
+            args.append(a)
+        if B == 0:
+            raise ValidationError("execute_batch got empty parameter arrays")
+        return args, B
+
     def execute_batch(self, **param_arrays) -> np.ndarray:
-        raise X.not_ported("execute_batch()", "7 (batched serving)")
+        """Answer B parameter bindings of this query in one pass → ``[B,
+        out_dom]`` on the host. Each hop streams the index's edges once for
+        the whole batch (``compile_frontier_batched``). A ragged B pads up
+        to its bucket (:func:`batch_bucket`) by repeating the last row; the
+        pad rows are sliced off on the device, before the copy to the host."""
+        args, B = self._batch_args(param_arrays)
+        bucket = batch_bucket(B)
+        if bucket != B:
+            args = [np.concatenate([a, np.repeat(a[-1:], bucket - B)]) for a in args]
+        if T.current() is None:
+            return self.batched_fn(*args)[:B].cpu().numpy()
+        with T.span("execute_batch", strategy=self.strategy, batch=B, bucket=bucket,
+                    query=" ".join(self.sql.split())) as sp:
+            out = sp.fence(self.batched_fn(*args)[:B])
+            return out.cpu().numpy()
 
 
 class GQFastEngine:
@@ -255,12 +329,18 @@ class GQFastEngine:
             with T.span("compile") as csp:
                 fn = X.compile_frontier(self.db.device, phys,
                                         block_skipping=block_skipping, fusion=fusion)
+                # the batched serving entry, sharing the reach copies
+                bfn = X.compile_frontier_batched(
+                    self.db.device, phys, block_skipping=block_skipping, fusion=fusion,
+                    reach=fn.reach,
+                ) if phys.param_names else None
                 csp.annotate(strategy=self.strategy, n_ops=len(phys.ops),
                              fused=has_fused(phys))
             pq = PreparedQuery(
                 sql, plan, fn, list(phys.param_names), plan.group_entity, phys,
                 strategy=self.strategy, block_skipping=block_skipping,
                 fusion=fusion, hop_estimates=self._hop_fractions(plan),
+                batched_fn=bfn,
             )
         self._cache.put(key, pq)
         return pq
@@ -306,6 +386,14 @@ class GQFastEngine:
     def query_topk(self, sql: str, k: int = 10, **params) -> list[tuple[int, float]]:
         scores = self.query(sql, **params)
         return self._topk(scores, k)
+
+    def query_topk_batch(self, sql: str, k: int = 10,
+                         **param_arrays) -> list[list[tuple[int, float]]]:
+        """Batched :meth:`query_topk`: one ``[B]`` array per parameter, one
+        pass, one top-k list per row (ranked on the host, as the reference
+        ranks them, so ties order alike)."""
+        scores = self.prepare(sql).execute_batch(**param_arrays)
+        return [self._topk(row, k) for row in scores]
 
     @staticmethod
     def _topk(scores: np.ndarray, k: int) -> list[tuple[int, float]]:

@@ -17,7 +17,12 @@ the blocks its frontier reaches. A pipelined region of the plan (a
 :mod:`repro_torch.core.fuse`) runs as one launch of
 :func:`repro_torch.kernels.ops.fragment_spmv_fused`. Intermediates are
 vectors, never materialized join tables. PyTorch runs eagerly, so a compiled
-query is a plain Python closure over the lowered plan.
+query is a plain Python closure over the lowered plan. The batched form
+(:func:`compile_frontier_batched`, behind ``PreparedQuery.execute_batch``)
+carries ``[B, dom]`` frontier matrices through the same walker, and each
+HopOp becomes one batched hop (:func:`repro_torch.kernels.ops.fragment_spmm`
+and its decode-fused and fused-region forms) that reads the edges once for
+all B parameter bindings.
 
 Aggregation semantics are pluggable: the walker is parameterized by a
 :class:`repro_torch.core.semiring.Semiring`, so SUM/COUNT, MIN/MAX, EXISTS and
@@ -474,14 +479,19 @@ class _FrontierInterp(_Interp):
 
     def hop(self, op: HopOp, state, cont):
         w = self.sr.binarize(state) if op.semijoin else state
+        return cont(self._hop_body(w, op))
+
+    def _hop_body(self, w, op: HopOp):
+        """One hop: the decode-fused kernel when a column is packed, else the
+        dense one."""
         out = self.spmv_fused(w, op)
-        if out is None:
-            out = K.fragment_spmv(
-                w, op.src_ids, op.dst_ids, self._dense_measure(op), n_dst=op.dom_dst,
-                op=self.sr.name, use_kernel=self.use_kernel,
-                blocks=self.blocks_for(op), block_skipping=self.block_skipping,
-            )
-        return cont(out)
+        if out is not None:
+            return out
+        return K.fragment_spmv(
+            w, op.src_ids, op.dst_ids, self._dense_measure(op), n_dst=op.dom_dst,
+            op=self.sr.name, use_kernel=self.use_kernel,
+            blocks=self.blocks_for(op), block_skipping=self.block_skipping,
+        )
 
     def _dense_measure(self, op: HopOp):
         """The hop's measure expression evaluated to float32[E] (decoding any
@@ -541,9 +551,11 @@ class _FrontierInterp(_Interp):
 
     # -- pipelined fused regions ---------------------------------------------
 
-    def _hop_operands(self, op: HopOp, reach=None) -> K.FusedHopOperands:
+    def _hop_operands(self, op: HopOp, reach=None) -> K.FusedHopOperands | None:
         """One HopOp → the fused entry's operand bundle (packed columns stream
-        as words; a measure expression is evaluated to float32[E])."""
+        as words; a measure expression is evaluated to float32[E]), or None
+        when the hop's measure differs from row to row of a batch (the fused
+        kernels take one shared measure stream)."""
         layout = self._packed_layout(op)
         if layout is None:
             dst_packed, m_operand, m_width, mdict = False, None, 0, None
@@ -552,6 +564,8 @@ class _FrontierInterp(_Interp):
             dst_packed, m_mode, m_operand, m_width, mdict = layout
         if m_mode == "dense":
             m_operand = self._dense_measure(op)
+            if m_operand.dim() == 2:
+                return None
         return K.FusedHopOperands(
             src_ids=op.src_ids,
             dst=op.dst_col.words if dst_packed else op.dst_col.materialize(),
@@ -564,13 +578,16 @@ class _FrontierInterp(_Interp):
     def _fused_region_args(self, op: FusedHopOp):
         """The region's kernel arguments: the two hop bundles, the product of
         the member filters' constant masks, and whether hop2's semijoin entry
-        binarizes the intermediate."""
+        binarizes the intermediate. None when a hop has no bundle: the region
+        then replays its members."""
         hops = op.hops
         h1_op = hops[0]
         h2_op = hops[1] if len(hops) > 1 else None
         hop1 = self._hop_operands(h1_op)
         hop2 = (self._hop_operands(h2_op, reach=self.reach.get(id(op)))
                 if h2_op is not None else None)
+        if hop1 is None or (h2_op is not None and hop2 is None):
+            return None
         mid_mask = None
         for f in op.mid_filters:
             if f.const_mask is None:
@@ -588,17 +605,23 @@ class _FrontierInterp(_Interp):
         membership mask."""
         if self.fusion == "off":
             return super().fused_hop(op, state, cont)
-        h1_op, hop1, hop2, mid_mask, mid_binarize = self._fused_region_args(op)
+        args = self._fused_region_args(op)
+        if args is None:
+            return super().fused_hop(op, state, cont)
+        h1_op, hop1, hop2, mid_mask, mid_binarize = args
         w = self.sr.binarize(state) if h1_op.semijoin else state
-        out = K.fragment_spmv_fused(
-            w, hop1, hop2, mid_mask, op=self.sr.name, mid_binarize=mid_binarize,
-            use_kernel=self.use_kernel, fusion=self.fusion,
-            block_skipping=self.block_skipping,
-        )
+        out = self._fused_call(w, hop1, hop2, mid_mask, mid_binarize)
         g = op.group
         if g is not None and g.entity is None:
             out = self.sr.to_mask(out)
         return cont(out)
+
+    def _fused_call(self, w, hop1, hop2, mid_mask, mid_binarize):
+        return K.fragment_spmv_fused(
+            w, hop1, hop2, mid_mask, op=self.sr.name, mid_binarize=mid_binarize,
+            use_kernel=self.use_kernel, fusion=self.fusion,
+            block_skipping=self.block_skipping,
+        )
 
     def degree_filter(self, op: DegreeFilterOp, state, cont):
         return cont(self.sr.mask(state, op.degrees > 0))
@@ -669,6 +692,194 @@ def compile_frontier(
             lambda sr, um: _FrontierInterp(
                 params, sr, um, use_kernel=use_kernel, device=device,
                 block_skipping=block_skipping, fusion=fusion, reach=reach,
+            ),
+        )
+
+    run.reach = reach
+    return run
+
+
+# ---------------------------------------------------------------------------
+# Batched frontier strategy (the multi-query SpMM serving path)
+# ---------------------------------------------------------------------------
+
+
+def _seed_rows(ids: np.ndarray, dom: int) -> tuple[np.ndarray, np.ndarray]:
+    """``[B, k]`` seed ids → ``(index, kept)``, :func:`_seed_index`'s rules
+    row by row: a negative id counts from the end of the domain and an id
+    outside it is dropped. A dropped slot keeps index 0 with ``kept`` False,
+    so it scatters the ⊕-identity and the array stays rectangular."""
+    ids = np.where((ids < 0) & (ids >= -dom), ids + dom, ids)
+    kept = (ids >= 0) & (ids < dom)
+    return np.where(kept, ids, 0), kept
+
+
+class _BatchedFrontierInterp(_FrontierInterp):
+    """Frontier semantics with a leading batch axis: frontiers are ``[B,
+    dom]`` matrices, and each HopOp is one batched hop
+    (:func:`repro_torch.kernels.ops.fragment_spmm` or its decode-fused form),
+    which streams the index's edges once for all B rows — not a loop over
+    rows, so the kernel sees the batch as a unit. Parameters arrive as ``[B,
+    1]`` device columns, so expressions over per-entity ``[dom]`` or
+    per-edge ``[E]`` arrays broadcast to ``[B, ·]``; the seed ids come from
+    the same parameters on the host (``host_params``). Per-op rules:
+
+      * SeedOp — one 2-D scatter for the B rows' seed ids; mask seeds run
+        their sub-programs batched; seed scalars are ``[B, 1]`` columns;
+      * HopOp — the block list is the union of the rows' supports; a measure
+        that depends on the row (a parameter or a seed scalar) is a ``[B,
+        E]`` stream for the dense kernel's row stride;
+      * FusedHopOp — one launch of the region's SpMM form, unless a hop's
+        measure depends on the row (the members replay then);
+      * EntityFilter / DegreeFilter / GroupOp — masks and factors are
+        ``[dom]`` or ``[B, dom]`` and broadcast over the rows.
+    """
+
+    def __init__(self, params: dict[str, Any], sr: Semiring, use_measures: bool = True,
+                 *, batch: int, host_params: dict[str, np.ndarray], **kw):
+        super().__init__(params, sr, use_measures, **kw)
+        self.batch = batch
+        self.host_params = host_params
+
+    def spawn(self) -> "_BatchedFrontierInterp":
+        return _BatchedFrontierInterp(
+            self.params, BOOL_OR_AND, batch=self.batch, host_params=self.host_params,
+            use_kernel=self.use_kernel, device=self.device,
+            block_skipping=self.block_skipping, fusion=self.fusion, reach=self.reach,
+        )
+
+    def _seed_ids(self, i) -> np.ndarray:
+        """One seed slot → int64[B] on the host (a constant for every row)."""
+        v = self.host_params[i.name] if isinstance(i, LParam) else i
+        return np.broadcast_to(np.asarray(v).astype(np.int64), (self.batch,))
+
+    def capture_scalars(self, op: SeedOp, sid):
+        """Seed scalars as ``[B, 1]`` columns: row b reads the attribute at
+        its first seed id, indexed as the single query indexes it (a negative
+        id counts from the end; an id outside the domain raises)."""
+        out = {}
+        for s in op.scalars.values():
+            col = self.attr_col(s)
+            n = col.shape[0]
+            if ((sid < -n) | (sid >= n)).any():
+                raise IndexError(f"seed id outside the domain of size {n}: {sid.tolist()}")
+            idx = torch.from_numpy(np.where(sid < 0, sid + n, sid)).to(self.device)
+            out[s.key] = col[idx][:, None]
+        self.scalars = out
+
+    def seed(self, op: SeedOp, state, cont):
+        sr, B = self.sr, self.batch
+        if op.ids is not None:
+            cols = [self._seed_ids(i) for i in op.ids]
+            idx, kept = _seed_rows(np.stack(cols, axis=1), op.dom)
+            val = np.where(kept, sr.one, sr.zero).astype(np.float32)
+            w = torch.full((B, op.dom), sr.zero, dtype=torch.float32, device=self.device)
+            w = sr.scatter(w, torch.from_numpy(idx).to(self.device),
+                           torch.from_numpy(val).to(self.device))
+            if op.scalars:
+                self.capture_scalars(op, cols[0])
+            return cont(w)
+        m = torch.ones((B, op.dom), dtype=torch.float32, device=self.device)
+        for prog in op.programs:
+            m = m * walk_ir(prog, self.spawn())
+        if op.const_mask is not None:
+            m = m * op.const_mask
+        for c in op.param_conds:
+            m = m * c.mask(self.params, self.attr_col).to(torch.float32)
+        return cont(sr.from_mask(m))
+
+    def _dense_measure(self, op: HopOp):
+        """The hop's measure as float32 ``[E]`` when the rows share it, or
+        ``[B, E]`` when it depends on the row; None for a measure-free hop."""
+        if op.measure is None or not self.use_measures:
+            return None
+        mv = eval_lexpr(op.measure, self.params, self.scalars, self.col)
+        mv = torch.as_tensor(mv, dtype=torch.float32, device=self.device)
+        E = op.src_ids.shape[0]
+        if mv.dim() >= 2:
+            return mv.expand(self.batch, E).contiguous()
+        return mv.expand(E).contiguous()
+
+    def _hop_body(self, w, op: HopOp):
+        out = self.spmm_fused(w, op)
+        if out is not None:
+            return out
+        return K.fragment_spmm(
+            w, op.src_ids, op.dst_ids, self._dense_measure(op), n_dst=op.dom_dst,
+            op=self.sr.name, use_kernel=self.use_kernel,
+            blocks=self.blocks_for(op), block_skipping=self.block_skipping,
+        )
+
+    def spmm_fused(self, w, op: HopOp):
+        """Batched decode-fused hop: packed columns stream into the SpMM
+        kernel and decode once an edge for all rows (``_packed_layout``'s
+        classification). None for an all-dense hop, and for a measure that
+        depends on the row: the dense kernel takes that stream."""
+        layout = self._packed_layout(op)
+        if layout is None:
+            return None
+        dst_packed, m_mode, m_operand, m_width, mdict = layout
+        if m_mode == "dense":
+            m_operand = self._dense_measure(op)
+            if m_operand.dim() == 2:
+                return None
+        return K.fragment_spmm_packed(
+            w, op.src_ids,
+            op.dst_col.words if dst_packed else op.dst_col.materialize(),
+            m_operand, mdict,
+            n_dst=op.dom_dst,
+            dst_width=op.dst_col.width if dst_packed else 0,
+            m_mode=m_mode, m_width=m_width, op=self.sr.name,
+            use_kernel=self.use_kernel,
+            blocks=self.blocks_for(op), block_skipping=self.block_skipping,
+        )
+
+    def _fused_call(self, w, hop1, hop2, mid_mask, mid_binarize):
+        return K.fragment_spmm_fused(
+            w, hop1, hop2, mid_mask, op=self.sr.name, mid_binarize=mid_binarize,
+            use_kernel=self.use_kernel, fusion=self.fusion,
+            block_skipping=self.block_skipping,
+        )
+
+
+def _param_column(a: np.ndarray, device) -> torch.Tensor:
+    """One parameter's ``[B]`` values as a ``[B, 1]`` device column: float32
+    for floats (a Python float meets a float32 column as float32 in the
+    single query), int64 otherwise."""
+    dtype = torch.float32 if np.issubdtype(a.dtype, np.floating) else torch.int64
+    return torch.as_tensor(a, dtype=dtype).to(device)[:, None]
+
+
+def compile_frontier_batched(
+    db: DeviceDB, plan: ChainPlan | PhysicalPlan, block_skipping: str = "auto",
+    use_kernel: bool = True, fusion: str = "auto", reach: dict | None = None,
+) -> Callable[..., torch.Tensor]:
+    """The batched serving entry: ``run(*arrays)`` takes one ``[B]`` array
+    per query parameter (in ``phys.param_names`` order) and returns the
+    ``[B, out_dom]`` result on the database's device, without synchronising:
+    every HopOp is one batched hop that streams the edges once for the whole
+    batch, and a fused region one launch of its SpMM form. ``reach``: the
+    single-query entry's device copies of the reach matrices (made here when
+    None). A plan without parameters raises :class:`ValidationError`."""
+    require_supported("block_skipping", block_skipping, BLOCK_SKIPPING_MODES)
+    require_supported("fusion", fusion, FUSION_MODES)
+    phys = ensure_lowered(db, plan)
+    names = list(phys.param_names)
+    if not names:
+        raise ValidationError("batched execution needs at least one query parameter")
+    device = db.device
+    if reach is None:
+        reach = device_reach(phys, device) if fusion != "off" else {}
+
+    def run(*arrays):
+        host = {n: np.asarray(a) for n, a in zip(names, arrays)}
+        B = host[names[0]].shape[0]
+        params = {n: _param_column(a, device) for n, a in host.items()}
+        return execute_ir(
+            phys,
+            lambda sr, um: _BatchedFrontierInterp(
+                params, sr, um, batch=B, host_params=host, use_kernel=use_kernel,
+                device=device, block_skipping=block_skipping, fusion=fusion, reach=reach,
             ),
         )
 

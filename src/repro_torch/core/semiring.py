@@ -98,10 +98,18 @@ class Semiring:
     def scatter(self, acc, idx, val):
         """⊕-update of ``acc`` at ``idx`` by ``val`` (a tensor aligned with
         ``idx`` or a scalar). Duplicate indices accumulate under ⊕; returns a
-        new tensor."""
+        new tensor. A ``[B, dom]`` accumulator takes a ``[B, k]`` index, row b
+        updating row b (flattened to ``b·dom + id``: one scatter for all
+        rows)."""
         idx = torch.as_tensor(idx, device=acc.device).to(torch.int64)
         val = torch.as_tensor(val, dtype=torch.float32, device=acc.device)
         val = val.expand(idx.shape)
+        if acc.dim() == 2:
+            B, dom = acc.shape
+            rows = torch.arange(B, dtype=torch.int64, device=acc.device)[:, None] * dom
+            flat = (idx + rows).reshape(-1)
+            return acc.reshape(-1).scatter_reduce(
+                0, flat, val.reshape(-1), reduce=_REDUCE[self.name]).reshape(B, dom)
         return acc.scatter_reduce(0, idx, val, reduce=_REDUCE[self.name])
 
 

@@ -49,6 +49,15 @@
 //     hop.cuh's edge_with and the decode bca.cuh's, so fused and unfused hops
 //     cannot drift apart. The operand modes are chosen at run time (a uniform
 //     branch) rather than by template, which keeps to 4 instantiations a kernel.
+//
+// The batched form (the SpMM form, the reference's fragment_spmm_fused: the
+// same two pallas_call sites with batched=True) runs B frontier rows through
+// one region: w[B, n_src], u[B, n_mid], out[B, n_dst], row-major, with the
+// mask shared by the rows. Each listed edge is read and decoded once and
+// applied to every row (hop.cuh's edge_rows), so the streams are read once a
+// batch; the row offsets are int64. fused2's scratch is 4·B·n_mid bytes: at
+// B = 8 it leaves the 50 MB L2 beyond n_mid ≈ 1.6M, which is one reason
+// fusion="auto" budgets 4·n_mid·B (kernels/ops.py) and does not pick it there.
 // This file allocates nothing and does not synchronise.
 
 #include <cooperative_groups.h>
@@ -131,25 +140,42 @@ Hop make_hop(const HopArgs& a) {
 // others → u ≠ 0̄ ? 1 : 0̄). A src past n_mid reads the identity, which both
 // leave the identity.
 template <int OP>
-struct MidGather {
+__device__ __forceinline__ float mid_value(const float* u, const float* __restrict__ keep,
+                                           int n_mid, int binarize, int s, int64_t row) {
+  const float zero = identity<OP>();
+  float v = zero;
+  if (s >= 0 && s < n_mid && (keep == nullptr || __ldg(keep + s) > 0.0f)) {
+    v = __ldcg(u + row + s);
+  }
+  if (binarize) {
+    if (OP == kSum) {
+      v = v > 0.0f ? 1.0f : 0.0f;
+    } else {
+      v = v != zero ? 1.0f : zero;
+    }
+  }
+  return v;
+}
+
+template <int OP>
+struct MidGather {  // u[n_mid]
   const float* u;
   const float* __restrict__ keep;
   int n_mid;
   int binarize;
   __device__ __forceinline__ float operator()(int s) const {
-    const float zero = identity<OP>();
-    float v = zero;
-    if (s >= 0 && s < n_mid && (keep == nullptr || __ldg(keep + s) > 0.0f)) {
-      v = __ldcg(u + s);
-    }
-    if (binarize) {
-      if (OP == kSum) {
-        v = v > 0.0f ? 1.0f : 0.0f;
-      } else {
-        v = v != zero ? 1.0f : zero;
-      }
-    }
-    return v;
+    return mid_value<OP>(u, keep, n_mid, binarize, s, 0);
+  }
+};
+
+template <int OP>
+struct MidGatherRows {  // u[B, n_mid]; the mask is shared by the rows
+  const float* u;
+  const float* __restrict__ keep;
+  int n_mid;
+  int binarize;
+  __device__ __forceinline__ float operator()(int b, int s) const {
+    return mid_value<OP>(u, keep, n_mid, binarize, s, (int64_t)b * n_mid);
   }
 };
 
@@ -160,16 +186,35 @@ struct KeepMask {  // keep == nullptr: no mask
   }
 };
 
+// The per-edge body of a region: one frontier (the SpMV form) or B rows.
+struct One {
+  template <int OP, class W, class Keep>
+  static __device__ __forceinline__ void edge(const W& weight, const Hop& h, int64_t e,
+                                              float* __restrict__ y, int n_dst, int,
+                                              const Keep& keep) {
+    edge_with<OP>(weight, h.src, e, h.dst, h.m, y, n_dst, keep);
+  }
+};
+
+struct Rows {
+  template <int OP, class W, class Keep>
+  static __device__ __forceinline__ void edge(const W& weight, const Hop& h, int64_t e,
+                                              float* __restrict__ y, int n_dst, int B,
+                                              const Keep& keep) {
+    edge_rows<OP>(weight, h.src, e, h.dst, SharedRows<AnyMeasure>{h.m}, y, n_dst, B, keep);
+  }
+};
+
 // One listed block, streamed by the CTA's threads.
-template <int OP, class W, class Keep>
+template <int OP, class Body, class W, class Keep>
 __device__ __forceinline__ void one_block(const W& weight, const Hop& h, int64_t b,
-                                          float* __restrict__ y, int n_dst,
+                                          float* __restrict__ y, int n_dst, int B,
                                           const Keep& keep) {
   if (b < 0) return;
   const int64_t e0 = b * kEdgeBlock;
   const int64_t e1 = e0 + kEdgeBlock < h.E ? e0 + kEdgeBlock : h.E;
   for (int64_t e = e0 + threadIdx.x; e < e1; e += blockDim.x) {
-    edge_with<OP>(weight, h.src, e, h.dst, h.m, y, n_dst, keep);
+    Body::template edge<OP>(weight, h, e, y, n_dst, B, keep);
   }
 }
 
@@ -180,9 +225,9 @@ __device__ __forceinline__ int listed(const int32_t* __restrict__ n_active, int 
 
 // The listed blocks bi[0..n_active), each taken by the next CTA to ask the
 // counter `next` (zero before the phase).
-template <int OP, class W, class Keep>
+template <int OP, class Body, class W, class Keep>
 __device__ __forceinline__ void queued_blocks(const W& weight, const Hop& h,
-                                              float* __restrict__ y, int n_dst,
+                                              float* __restrict__ y, int n_dst, int B,
                                               const Keep& keep,
                                               const int32_t* __restrict__ bi, int cap,
                                               const int32_t* __restrict__ n_active,
@@ -195,55 +240,95 @@ __device__ __forceinline__ void queued_blocks(const W& weight, const Hop& h,
     const int t = slot;
     __syncthreads();  // every thread has read slot before it is drawn again
     if (t >= na) return;
-    one_block<OP>(weight, h, __ldg(bi + t), y, n_dst, keep);
+    one_block<OP, Body>(weight, h, __ldg(bi + t), y, n_dst, B, keep);
+  }
+}
+
+// A region's launch arguments (B = 1 for the SpMV form).
+struct Region {
+  const float* w;
+  int n_src;
+  int B;
+  Hop h1, h2;
+  const float* keep;
+  int mid_binarize;
+  float* u;
+  int n_mid;
+  float* out;
+  int n_dst;
+  const int32_t* bi1;
+  int cap1;
+  const int32_t* na1;
+  const int32_t* bi2;
+  int cap2;
+  const int32_t* na2;
+  int* next;
+};
+
+template <int OP>
+__global__ void __launch_bounds__(kThreads) fragment_spmv_fused1_kernel(Region r) {
+  if ((int)blockIdx.x < listed(r.na1, r.cap1)) {
+    one_block<OP, One>(Frontier<OP>{r.w, r.n_src}, r.h1, __ldg(r.bi1 + blockIdx.x), r.out,
+                       r.n_dst, 1, KeepMask{r.keep});
   }
 }
 
 template <int OP>
-__global__ void __launch_bounds__(kThreads)
-    fragment_spmv_fused1_kernel(const float* __restrict__ w, int n_src, Hop h1,
-                                const float* __restrict__ keep, float* __restrict__ out,
-                                int n_dst, const int32_t* __restrict__ bi1, int cap1,
-                                const int32_t* __restrict__ na1) {
-  if ((int)blockIdx.x < listed(na1, cap1)) {
-    one_block<OP>(Frontier<OP>{w, n_src}, h1, __ldg(bi1 + blockIdx.x), out, n_dst,
-                  KeepMask{keep});
+__global__ void __launch_bounds__(kThreads) fragment_spmm_fused1_kernel(Region r) {
+  if ((int)blockIdx.x < listed(r.na1, r.cap1)) {
+    one_block<OP, Rows>(FrontierRows<OP>{r.w, r.n_src}, r.h1, __ldg(r.bi1 + blockIdx.x), r.out,
+                        r.n_dst, r.B, KeepMask{r.keep});
   }
 }
 
-template <int OP>
-__global__ void __launch_bounds__(kThreads)
-    fragment_spmv_fused2_kernel(const float* __restrict__ w, int n_src, Hop h1, Hop h2,
-                                const float* __restrict__ keep, int mid_binarize, float* u,
-                                int n_mid, float* __restrict__ out, int n_dst,
-                                const int32_t* __restrict__ bi1, int cap1,
-                                const int32_t* __restrict__ na1,
-                                const int32_t* __restrict__ bi2, int cap2,
-                                const int32_t* __restrict__ na2, int* next) {
+// fused2's three phases: fill u[B·n_mid] and out[B·n_dst] with the identity,
+// hop1 into u, grid.sync(), hop2 from u (through `mid`) into out.
+template <int OP, class Body, class W, class Mid>
+__device__ __forceinline__ void fused2_phases(const Region& r, const W& w, const Mid& mid) {
   cg::grid_group grid = cg::this_grid();
   const float zero = identity<OP>();
   const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int64_t nthreads = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = tid; i < n_mid; i += nthreads) u[i] = zero;
-  for (int64_t i = tid; i < n_dst; i += nthreads) out[i] = zero;
-  if (tid < 2) next[tid] = 0;  // the two phases' block counters
+  const int64_t nu = (int64_t)r.B * r.n_mid, no = (int64_t)r.B * r.n_dst;
+  for (int64_t i = tid; i < nu; i += nthreads) r.u[i] = zero;
+  for (int64_t i = tid; i < no; i += nthreads) r.out[i] = zero;
+  if (tid < 2) r.next[tid] = 0;  // the two phases' block counters
   grid.sync();
-  queued_blocks<OP>(Frontier<OP>{w, n_src}, h1, u, n_mid, KeepAll{}, bi1, cap1, na1, next);
+  queued_blocks<OP, Body>(w, r.h1, r.u, r.n_mid, r.B, KeepAll{}, r.bi1, r.cap1, r.na1, r.next);
   grid.sync();  // every hop1 edge has landed in u
-  queued_blocks<OP>(MidGather<OP>{u, keep, n_mid, mid_binarize}, h2, out, n_dst, KeepAll{},
-                    bi2, cap2, na2, next + 1);
+  queued_blocks<OP, Body>(mid, r.h2, r.out, r.n_dst, r.B, KeepAll{}, r.bi2, r.cap2, r.na2,
+                          r.next + 1);
 }
 
-// CTAs of fused2 that can be resident at once on the current device.
 template <int OP>
+__global__ void __launch_bounds__(kThreads) fragment_spmv_fused2_kernel(Region r) {
+  fused2_phases<OP, One>(r, Frontier<OP>{r.w, r.n_src},
+                         MidGather<OP>{r.u, r.keep, r.n_mid, r.mid_binarize});
+}
+
+template <int OP>
+__global__ void __launch_bounds__(kThreads) fragment_spmm_fused2_kernel(Region r) {
+  fused2_phases<OP, Rows>(r, FrontierRows<OP>{r.w, r.n_src},
+                          MidGatherRows<OP>{r.u, r.keep, r.n_mid, r.mid_binarize});
+}
+
+template <int OP, bool ROWS>
+const void* fused2_fn() {
+  return ROWS ? (const void*)fragment_spmm_fused2_kernel<OP>
+              : (const void*)fragment_spmv_fused2_kernel<OP>;
+}
+
+// CTAs of fused2 (ROWS: its batched form) that can be resident at once on the
+// current device.
+template <int OP, bool ROWS>
 int coresident_grid(int* grid) {
   static int cached = -1;
   if (cached < 0) {
     int dev = 0, per_sm = 0, sms = 0;
     cudaError_t err = cudaGetDevice(&dev);
     if (err == cudaSuccess) {
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, fragment_spmv_fused2_kernel<OP>, kThreads, 0);
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fused2_fn<OP, ROWS>(),
+                                                          kThreads, 0);
     }
     if (err == cudaSuccess) {
       err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -255,35 +340,99 @@ int coresident_grid(int* grid) {
   return 0;
 }
 
-template <int OP>
-int launch2(const float* w, int n_src, const Hop& h1, const Hop& h2, const float* keep,
-            int mid_binarize, float* u, int n_mid, float* out, int n_dst,
-            const int32_t* bi1, int cap1, const int32_t* na1, const int32_t* bi2, int cap2,
-            const int32_t* na2, int* next, cudaStream_t s) {
+template <int OP, bool ROWS>
+int launch2(Region r, cudaStream_t s) {
   int max_grid = 0;
-  int err = coresident_grid<OP>(&max_grid);
+  int err = coresident_grid<OP, ROWS>(&max_grid);
   if (err != 0) return err;
   if (max_grid <= 0) return (int)cudaErrorCooperativeLaunchTooLarge;
   // no more CTAs than the larger block list or the fill needs (8 values a
   // thread), and no more than can be co-resident
-  const int64_t fill = ((int64_t)(n_mid > n_dst ? n_mid : n_dst) + kThreads * 8 - 1) /
-                       (kThreads * 8);
-  int64_t want = cap1 > cap2 ? cap1 : cap2;
+  const int64_t cells = (int64_t)r.B * (r.n_mid > r.n_dst ? r.n_mid : r.n_dst);
+  const int64_t fill = (cells + kThreads * 8 - 1) / (kThreads * 8);
+  int64_t want = r.cap1 > r.cap2 ? r.cap1 : r.cap2;
   if (fill > want) want = fill;
   if (want < 1) want = 1;
   const int grid = (int)(want < max_grid ? want : max_grid);
-  Hop a1 = h1, a2 = h2;
-  void* args[] = {(void*)&w,   (void*)&n_src, (void*)&a1,  (void*)&a2,   (void*)&keep,
-                  (void*)&mid_binarize, (void*)&u, (void*)&n_mid, (void*)&out, (void*)&n_dst,
-                  (void*)&bi1, (void*)&cap1, (void*)&na1, (void*)&bi2, (void*)&cap2,
-                  (void*)&na2, (void*)&next};
-  cudaError_t e = cudaLaunchCooperativeKernel((const void*)fragment_spmv_fused2_kernel<OP>,
-                                              dim3(grid), dim3(kThreads), args, 0, s);
+  void* args[] = {(void*)&r};
+  cudaError_t e = cudaLaunchCooperativeKernel(fused2_fn<OP, ROWS>(), dim3(grid), dim3(kThreads),
+                                              args, 0, s);
   if (e != cudaSuccess) {
     cudaGetLastError();  // clear the launch error; the wrapper raises
     return (int)e;
   }
   return (int)cudaGetLastError();
+}
+
+template <bool ROWS>
+int fused1(const Region& r, int op, cudaStream_t s) {
+  switch (op) {
+#define FUSED1_CASE(OPV)                                                                  \
+  case OPV:                                                                               \
+    if (ROWS) {                                                                           \
+      fragment_spmm_fused1_kernel<OPV><<<r.cap1, kThreads, 0, s>>>(r);                    \
+    } else {                                                                              \
+      fragment_spmv_fused1_kernel<OPV><<<r.cap1, kThreads, 0, s>>>(r);                    \
+    }                                                                                     \
+    break;
+    FUSED1_CASE(kSum)
+    FUSED1_CASE(kMin)
+    FUSED1_CASE(kMax)
+    FUSED1_CASE(kBool)
+#undef FUSED1_CASE
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+template <bool ROWS>
+int fused2(const Region& r, int op, cudaStream_t s) {
+  switch (op) {
+    case kSum: return launch2<kSum, ROWS>(r, s);
+    case kMin: return launch2<kMin, ROWS>(r, s);
+    case kMax: return launch2<kMax, ROWS>(r, s);
+    case kBool: return launch2<kBool, ROWS>(r, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <bool ROWS>
+int max_grid(int op) {
+  int grid = 0, err = 0;
+  switch (op) {
+    case kSum: err = coresident_grid<kSum, ROWS>(&grid); break;
+    case kMin: err = coresident_grid<kMin, ROWS>(&grid); break;
+    case kMax: err = coresident_grid<kMax, ROWS>(&grid); break;
+    case kBool: err = coresident_grid<kBool, ROWS>(&grid); break;
+    default: return -(int)cudaErrorInvalidValue;
+  }
+  return err != 0 ? -err : grid;
+}
+
+Region region(const float* w, int n_src, int B, const HopArgs* hop1, const HopArgs* hop2,
+              const float* keep, int mid_binarize, float* u, int n_mid, float* out, int n_dst,
+              const int32_t* bi1, int cap1, const int32_t* na1, const int32_t* bi2, int cap2,
+              const int32_t* na2, int* next) {
+  Region r;
+  r.w = w;
+  r.n_src = n_src;
+  r.B = B;
+  r.h1 = make_hop(*hop1);
+  r.h2 = hop2 != nullptr ? make_hop(*hop2) : r.h1;
+  r.keep = keep;
+  r.mid_binarize = mid_binarize;
+  r.u = u;
+  r.n_mid = n_mid;
+  r.out = out;
+  r.n_dst = n_dst;
+  r.bi1 = bi1;
+  r.cap1 = cap1;
+  r.na1 = na1;
+  r.bi2 = bi2;
+  r.cap2 = cap2;
+  r.na2 = na2;
+  r.next = next;
+  return r;
 }
 
 }  // namespace
@@ -296,28 +445,9 @@ extern "C" int fragment_spmv_fused1_launch(const float* w, int n_src, const HopA
                                            const float* keep, float* out, int n_dst, int op,
                                            const int32_t* bi1, int cap1, const int32_t* na1,
                                            void* stream) {
-  const Hop h1 = make_hop(*hop1);
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  switch (op) {
-    case kSum:
-      fragment_spmv_fused1_kernel<kSum><<<cap1, kThreads, 0, s>>>(w, n_src, h1, keep, out, n_dst,
-                                                                  bi1, cap1, na1);
-      break;
-    case kMin:
-      fragment_spmv_fused1_kernel<kMin><<<cap1, kThreads, 0, s>>>(w, n_src, h1, keep, out, n_dst,
-                                                                  bi1, cap1, na1);
-      break;
-    case kMax:
-      fragment_spmv_fused1_kernel<kMax><<<cap1, kThreads, 0, s>>>(w, n_src, h1, keep, out, n_dst,
-                                                                  bi1, cap1, na1);
-      break;
-    case kBool:
-      fragment_spmv_fused1_kernel<kBool><<<cap1, kThreads, 0, s>>>(w, n_src, h1, keep, out,
-                                                                   n_dst, bi1, cap1, na1);
-      break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  const Region r = region(w, n_src, 1, hop1, nullptr, keep, 0, nullptr, 0, out, n_dst, bi1,
+                          cap1, na1, nullptr, 0, nullptr, nullptr);
+  return fused1<false>(r, op, reinterpret_cast<cudaStream_t>(stream));
 }
 
 // The two-hop region on `stream`, one cooperative launch: fills u[n_mid] and
@@ -333,35 +463,44 @@ extern "C" int fragment_spmv_fused2_launch(const float* w, int n_src, const HopA
                                            int n_dst, int op, const int32_t* bi1, int cap1,
                                            const int32_t* na1, const int32_t* bi2, int cap2,
                                            const int32_t* na2, int* next, void* stream) {
-  const Hop h1 = make_hop(*hop1), h2 = make_hop(*hop2);
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  switch (op) {
-    case kSum:
-      return launch2<kSum>(w, n_src, h1, h2, keep, mid_binarize, u, n_mid, out, n_dst, bi1, cap1,
-                           na1, bi2, cap2, na2, next, s);
-    case kMin:
-      return launch2<kMin>(w, n_src, h1, h2, keep, mid_binarize, u, n_mid, out, n_dst, bi1, cap1,
-                           na1, bi2, cap2, na2, next, s);
-    case kMax:
-      return launch2<kMax>(w, n_src, h1, h2, keep, mid_binarize, u, n_mid, out, n_dst, bi1, cap1,
-                           na1, bi2, cap2, na2, next, s);
-    case kBool:
-      return launch2<kBool>(w, n_src, h1, h2, keep, mid_binarize, u, n_mid, out, n_dst, bi1,
-                            cap1, na1, bi2, cap2, na2, next, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  const Region r = region(w, n_src, 1, hop1, hop2, keep, mid_binarize, u, n_mid, out, n_dst,
+                          bi1, cap1, na1, bi2, cap2, na2, next);
+  return fused2<false>(r, op, reinterpret_cast<cudaStream_t>(stream));
 }
 
 // The co-resident grid of fused2 for `op` on the current device (> 0), or
 // minus a CUDA error code.
-extern "C" int fragment_spmv_fused2_max_grid(int op) {
-  int grid = 0, err = 0;
-  switch (op) {
-    case kSum: err = coresident_grid<kSum>(&grid); break;
-    case kMin: err = coresident_grid<kMin>(&grid); break;
-    case kMax: err = coresident_grid<kMax>(&grid); break;
-    case kBool: err = coresident_grid<kBool>(&grid); break;
-    default: return -(int)cudaErrorInvalidValue;
-  }
-  return err != 0 ? -err : grid;
+extern "C" int fragment_spmv_fused2_max_grid(int op) { return max_grid<false>(op); }
+
+// The batched degenerate region (the SpMM form of fused1): w is float32[B,
+// n_src] and out float32[B, n_dst] (holding the ⊕-identity), row-major; the
+// mask keep[n_dst] is shared by the rows. Each listed edge is read and
+// decoded once for all B rows.
+extern "C" int fragment_spmm_fused1_launch(const float* w, int n_src, int B,
+                                           const HopArgs* hop1, const float* keep, float* out,
+                                           int n_dst, int op, const int32_t* bi1, int cap1,
+                                           const int32_t* na1, void* stream) {
+  const Region r = region(w, n_src, B, hop1, nullptr, keep, 0, nullptr, 0, out, n_dst, bi1,
+                          cap1, na1, nullptr, 0, nullptr, nullptr);
+  return fused1<true>(r, op, reinterpret_cast<cudaStream_t>(stream));
 }
+
+// The batched two-hop region (the SpMM form of fused2), one cooperative
+// launch: w float32[B, n_src], scratch u float32[B, n_mid], out float32[B,
+// n_dst], all row-major and filled by the kernel; keep[n_mid] is shared by
+// the rows. As fragment_spmv_fused2_launch otherwise.
+extern "C" int fragment_spmm_fused2_launch(const float* w, int n_src, int B,
+                                           const HopArgs* hop1, const HopArgs* hop2,
+                                           const float* keep, int mid_binarize, float* u,
+                                           int n_mid, float* out, int n_dst, int op,
+                                           const int32_t* bi1, int cap1, const int32_t* na1,
+                                           const int32_t* bi2, int cap2, const int32_t* na2,
+                                           int* next, void* stream) {
+  const Region r = region(w, n_src, B, hop1, hop2, keep, mid_binarize, u, n_mid, out, n_dst,
+                          bi1, cap1, na1, bi2, cap2, na2, next);
+  return fused2<true>(r, op, reinterpret_cast<cudaStream_t>(stream));
+}
+
+// The co-resident grid of the batched fused2 for `op` (> 0), or minus a CUDA
+// error code.
+extern "C" int fragment_spmm_fused2_max_grid(int op) { return max_grid<true>(op); }

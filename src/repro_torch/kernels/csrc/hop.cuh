@@ -1,7 +1,9 @@
 // hop.cuh: the per-edge body shared by every hop kernel of the port
 // (fragment_spmv.cu: dense columns; fragment_spmv_packed.cu: BCA columns
 // decoded in registers; fragment_spmv_fused.cu: the fused regions, which
-// read their weight through another gather and mask at the scatter), in its
+// read their weight through another gather and mask at the scatter), and its
+// batched form edge_rows (fragment_spmm.cu, fragment_spmm_packed.cu and the
+// fused regions' SpMM form: B frontier rows over one read of the edge), in
 // two schedules:
 //
 //   scan   one thread per edge in a grid-stride loop over all E edges;
@@ -170,27 +172,21 @@ __device__ __forceinline__ void edge(const float* __restrict__ w, int n_src,
   edge_with<OP>(Frontier<OP>{w, n_src}, src, e, dst, m, y, n_dst, KeepAll{});
 }
 
-// -- the two schedules --------------------------------------------------------
+// -- the two schedules, over a per-edge body ----------------------------------
 
-template <int OP, class Dst, class M>
-__device__ __forceinline__ void scan(const float* __restrict__ w, int n_src,
-                                     const int32_t* __restrict__ src, const Dst& dst,
-                                     const M& m, int64_t E, float* __restrict__ y,
-                                     int n_dst) {
+template <class Body>
+__device__ __forceinline__ void scan_edges(int64_t E, const Body& body) {
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < E; e += stride) {
-    edge<OP>(w, n_src, src, e, dst, m, y, n_dst);
+    body(e);
   }
 }
 
 // Grid: one CTA per block of the index (n_blocks); block_idx holds n_cap ids.
-template <int OP, class Dst, class M>
-__device__ __forceinline__ void active(const float* __restrict__ w, int n_src,
-                                       const int32_t* __restrict__ src, const Dst& dst,
-                                       const M& m, int64_t E, float* __restrict__ y,
-                                       int n_dst, const int32_t* __restrict__ block_idx,
-                                       int n_cap, const int32_t* __restrict__ n_active,
-                                       int scan_above) {
+template <class Body>
+__device__ __forceinline__ void active_edges(int64_t E, const int32_t* __restrict__ block_idx,
+                                             int n_cap, const int32_t* __restrict__ n_active,
+                                             int scan_above, const Body& body) {
   const int na = __ldg(n_active);
   int64_t b;
   if (na > scan_above) {
@@ -203,8 +199,134 @@ __device__ __forceinline__ void active(const float* __restrict__ w, int n_src,
   const int64_t e0 = b * kEdgeBlock;
   const int64_t e1 = e0 + kEdgeBlock < E ? e0 + kEdgeBlock : E;
   for (int64_t e = e0 + threadIdx.x; e < e1; e += blockDim.x) {
-    edge<OP>(w, n_src, src, e, dst, m, y, n_dst);
+    body(e);
   }
+}
+
+template <int OP, class Dst, class M>
+__device__ __forceinline__ void scan(const float* __restrict__ w, int n_src,
+                                     const int32_t* __restrict__ src, const Dst& dst,
+                                     const M& m, int64_t E, float* __restrict__ y,
+                                     int n_dst) {
+  scan_edges(E, [&](int64_t e) { edge<OP>(w, n_src, src, e, dst, m, y, n_dst); });
+}
+
+template <int OP, class Dst, class M>
+__device__ __forceinline__ void active(const float* __restrict__ w, int n_src,
+                                       const int32_t* __restrict__ src, const Dst& dst,
+                                       const M& m, int64_t E, float* __restrict__ y,
+                                       int n_dst, const int32_t* __restrict__ block_idx,
+                                       int n_cap, const int32_t* __restrict__ n_active,
+                                       int scan_above) {
+  active_edges(E, block_idx, n_cap, n_active, scan_above,
+               [&](int64_t e) { edge<OP>(w, n_src, src, e, dst, m, y, n_dst); });
+}
+
+// -- the batched body (the multi-query SpMM): B frontier rows, one edge stream --
+//
+//   Y[b·n_dst + dst(e)] ⊕= W[b·n_src + src[e]] ⊗ m_b(e)   for b < B
+//
+// An edge's src, dst and shared measure are read (and BCA words decoded) once
+// for all B rows; each row then applies edge_with's rules: the identity guard
+// row by row (a row whose weight is the identity issues no write), the ∞·0
+// guard, bool as (w > 0) & (m != 0), no atomic for an identity product, and
+// the float min/max atomics. dst is decoded at the first row that writes, and
+// an out-of-range or unkept dst ends the edge for every row. Row offsets are
+// int64: b·n_dst passes 2^31 at B = 640 over 4M documents.
+
+// The measure of a batched hop: a shared column (every accessor above) read
+// once an edge, or a per-row dense stream m[b·stride + e] (stride E: [B, E]).
+template <class M>
+struct SharedRows {
+  M m;
+  __device__ __forceinline__ float edge(int64_t e) const { return m(e); }
+  __device__ __forceinline__ float row(float shared, int64_t, int) const { return shared; }
+};
+
+struct PerRowMeasure {
+  const float* __restrict__ m;
+  int64_t stride;
+  __device__ __forceinline__ float edge(int64_t) const { return 0.0f; }
+  __device__ __forceinline__ float row(float, int64_t e, int b) const {
+    return m[(int64_t)b * stride + e];
+  }
+};
+
+template <int OP>
+struct FrontierRows {  // W[B, n_src], read-only for the whole launch
+  const float* __restrict__ w;
+  int n_src;
+  __device__ __forceinline__ float operator()(int b, int s) const {
+    return (s >= 0 && s < n_src) ? __ldg(w + (int64_t)b * n_src + s) : identity<OP>();
+  }
+};
+
+template <int OP, class W, class Dst, class M, class Keep>
+__device__ __forceinline__ void edge_rows(const W& weight, const int32_t* __restrict__ src,
+                                          int64_t e, const Dst& dst, const M& m,
+                                          float* __restrict__ y, int n_dst, int B,
+                                          const Keep& keep) {
+  const float zero = identity<OP>();
+  const int s = src[e];
+  float shared = 0.0f;
+  bool have_m = false;
+  int d = -1;
+  for (int b = 0; b < B; ++b) {
+    const float ws = weight(b, s);
+    if (OP != kSum && ws == zero) continue;  // this row's product is the identity
+    if (!have_m) {
+      shared = m.edge(e);
+      have_m = true;
+    }
+    const float mv = m.row(shared, e, b);
+    float prod;
+    if (OP == kSum) {
+      prod = ws * mv;
+      if (prod == 0.0f) continue;  // adding 0 is the identity
+    } else if (OP == kBool) {
+      if (!(ws > 0.0f && mv != 0.0f)) continue;
+      prod = 1.0f;
+    } else {
+      prod = ws * mv;
+    }
+    if (d < 0) {
+      d = dst(e);
+      if (d < 0 || d >= n_dst || !keep(d)) return;  // no row writes this edge
+    }
+    float* yb = y + (int64_t)b * n_dst + d;
+    if (OP == kSum) {
+      atomicAdd(yb, prod);
+    } else if (OP == kBool) {
+      *yb = 1.0f;
+    } else if (OP == kMin) {
+      atomic_min_float(yb, prod);
+    } else {
+      atomic_max_float(yb, prod);
+    }
+  }
+}
+
+template <int OP, class Dst, class M>
+__device__ __forceinline__ void scan_rows(const FrontierRows<OP>& w,
+                                          const int32_t* __restrict__ src, const Dst& dst,
+                                          const M& m, int64_t E, float* __restrict__ y,
+                                          int n_dst, int B) {
+  scan_edges(E, [&](int64_t e) { edge_rows<OP>(w, src, e, dst, m, y, n_dst, B, KeepAll{}); });
+}
+
+// The active schedule over the union of the rows' active blocks, so each
+// listed block is streamed once for all B rows.
+template <int OP, class Dst, class M>
+__device__ __forceinline__ void active_rows(const FrontierRows<OP>& w,
+                                            const int32_t* __restrict__ src, const Dst& dst,
+                                            const M& m, int64_t E, float* __restrict__ y,
+                                            int n_dst, int B,
+                                            const int32_t* __restrict__ block_idx, int n_cap,
+                                            const int32_t* __restrict__ n_active,
+                                            int scan_above) {
+  active_edges(E, block_idx, n_cap, n_active, scan_above, [&](int64_t e) {
+    edge_rows<OP>(w, src, e, dst, m, y, n_dst, B, KeepAll{});
+  });
 }
 
 inline int scan_grid(int64_t E) {

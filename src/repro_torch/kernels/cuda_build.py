@@ -9,7 +9,8 @@ the cached file. ``nvcc`` is found on ``PATH`` or under ``CUDA_HOME`` (default
 built at its first launch, or by :func:`build_all`, which starts one ``nvcc``
 for each source at once (every library of the package by default:
 ``fragment_spmv``, ``fragment_spmv_packed``, ``fragment_spmv_fused``,
-``bitunpack``) and waits for all of them.
+``fragment_spmm``, ``fragment_spmm_packed``, ``bitunpack``) and waits for
+all of them.
 """
 from __future__ import annotations
 
@@ -130,17 +131,17 @@ def build_all(libraries=None) -> list[CudaLibrary]:
     return libraries
 
 
-def check_tensor(t, name: str, dtype: torch.dtype, device) -> None:
+def check_tensor(t, name: str, dtype: torch.dtype, device, ndim: int = 1) -> None:
     """What every kernel wrapper demands of a tensor argument: a contiguous
-    1-D tensor of ``dtype`` on ``device``."""
+    ``ndim``-D tensor (1-D unless said) of ``dtype`` on ``device``."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
         raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if t.dim() != 1:
-        raise ValueError(f"{name} must be 1-D, got shape {tuple(t.shape)}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name} must be {ndim}-D, got shape {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous (materialise broadcasts first)")
 

@@ -1,0 +1,133 @@
+"""CUDA kernels for Hopper: the batched hop (the multi-query SpMM) over dense
+columns, and its block-skipping variant.
+
+``Y[b, dst] ⊕= W[b, src] ⊗ m`` over the edge list of a GQ-Fast index for all
+B frontier rows at once: the serving path's hop, where B queries that differ
+only in their parameters share one pass over the edges. The combine op ⊕ is
+``op`` ('sum' | 'min' | 'max' | 'bool'), as in :mod:`.fragment_spmv`. The
+measure is shared by the rows (``[E]``), absent (measure 1), or per row
+(``[B, E]``: a measure that depends on the row's parameters), passed to the
+kernel as a row stride. The kernels are ``csrc/fragment_spmm.cu`` (its header
+says what bounds them and how they are built around that), compiled at first
+use by :mod:`.cuda_build` and launched on the current stream.
+"""
+from __future__ import annotations
+
+import torch
+
+from .cuda_build import I32, I64, P, CudaLibrary, check_tensor, cuda_device, raise_on, stream_of
+from .fragment_spmv import OP_CODE, check_block_list
+from .ref import IDENTITY
+
+LIB = CudaLibrary("fragment_spmm", {
+    "fragment_spmm_launch": [P, I32, I32, P, P, P, I64, I64, P, I32, I32, P, I32, P, I32, P],
+})
+
+#: Launches of each kernel since import (or since a caller reset them): one
+#: per launch, counted nowhere else.
+LAUNCHES = 0  # fragment_spmm
+ACTIVE_LAUNCHES = 0  # fragment_spmm_active
+
+
+def build():
+    """Compile (if needed) and load the kernel library; idempotent."""
+    return LIB.load()
+
+
+def check_rows(weights, n_dst, dev) -> tuple[int, int, int]:
+    """A batched hop's frontier ``f32[B, n_src]`` on ``dev`` and its domain
+    sizes: ``(B, n_src, n_dst)``, each within int32 (the row offsets the
+    kernels form from them are int64)."""
+    check_tensor(weights, "weights", torch.float32, dev, ndim=2)
+    B, n_src = weights.shape
+    n_dst = int(n_dst)
+    if n_dst < 0 or n_dst >= 2**31 or n_src >= 2**31 or B >= 2**31:
+        raise ValueError(f"sizes must fit int32: B={B}, n_src={n_src}, n_dst={n_dst}")
+    return B, n_src, n_dst
+
+
+def measure_stride(measures, B: int, E: int, dev) -> int:
+    """The kernel's row stride of a dense measure: 0 for one ``[E]`` column
+    shared by the rows, E for a per-row ``[B, E]`` stream."""
+    if measures.dim() == 1:
+        check_tensor(measures, "measures", torch.float32, dev)
+        if measures.shape[0] != E:
+            raise ValueError(f"measures has {measures.shape[0]} edges, src_ids {E}")
+        return 0
+    check_tensor(measures, "measures", torch.float32, dev, ndim=2)
+    if tuple(measures.shape) != (B, E):
+        raise ValueError(f"per-row measures must be [B, E] = [{B}, {E}], got "
+                         f"{tuple(measures.shape)}")
+    return E
+
+
+def _launch(weights, src_ids, dst_ids, measures, n_dst, op, blocks, scan_above, kernel):
+    if op not in OP_CODE:
+        raise ValueError(f"unknown combine op {op!r}")
+    dev = cuda_device(weights, kernel)
+    B, n_src, n_dst = check_rows(weights, n_dst, dev)
+    check_tensor(src_ids, "src_ids", torch.int32, dev)
+    check_tensor(dst_ids, "dst_ids", torch.int32, dev)
+    E = src_ids.shape[0]
+    if dst_ids.shape[0] != E:
+        raise ValueError(f"dst_ids has {dst_ids.shape[0]} edges, src_ids {E}")
+    stride = 0 if measures is None else measure_stride(measures, B, E, dev)
+    y = torch.full((B, n_dst), IDENTITY[op], dtype=torch.float32, device=dev)
+    if E == 0 or n_dst == 0 or B == 0:  # a grid of 0 blocks is an invalid launch
+        return y, False
+    block_idx = n_active = None
+    if blocks is not None:
+        block_idx, n_active = blocks
+        check_block_list(block_idx, n_active, E, dev)
+    lib = build()
+    with torch.cuda.device(dev):
+        err = lib.fragment_spmm_launch(
+            weights.data_ptr(), n_src, B, src_ids.data_ptr(), dst_ids.data_ptr(),
+            measures.data_ptr() if measures is not None else None, stride, E,
+            y.data_ptr(), n_dst, OP_CODE[op],
+            block_idx.data_ptr() if blocks is not None else None,
+            block_idx.shape[0] if blocks is not None else 0,
+            n_active.data_ptr() if blocks is not None else None,
+            2**31 - 1 if scan_above is None else int(scan_above), stream_of(dev),
+        )
+    raise_on(err, kernel)
+    return y, True
+
+
+def fragment_spmm(
+    weights: torch.Tensor,  # f32[B, n_src], CUDA
+    src_ids: torch.Tensor,  # i32[E], src-sorted CSR order
+    dst_ids: torch.Tensor,  # i32[E]
+    measures: torch.Tensor | None,  # f32[E] shared | f32[B, E] per row | None
+    n_dst: int,
+    op: str = "sum",
+) -> torch.Tensor:
+    """Launch the batched scan hop; f32[B, n_dst] from the ⊕-identity.
+    Raises on anything the kernel does not take (no plain fallback)."""
+    global LAUNCHES
+    y, launched = _launch(weights, src_ids, dst_ids, measures, n_dst, op, None, None,
+                          "fragment_spmm")
+    LAUNCHES += launched
+    return y
+
+
+def fragment_spmm_active(
+    weights: torch.Tensor,
+    src_ids: torch.Tensor,
+    dst_ids: torch.Tensor,
+    measures: torch.Tensor | None,
+    block_idx: torch.Tensor,  # i32[C], the union of the rows' active blocks
+    n_active: torch.Tensor,  # i32[1], device-resident
+    n_dst: int,
+    op: str = "sum",
+    scan_above: int | None = None,
+) -> torch.Tensor:
+    """Launch the batched block-skipping hop: only the blocks
+    ``block_idx[:n_active]`` are streamed, each once for all rows, or every
+    block in scan order when ``n_active > scan_above``. ``n_active`` is read
+    by the kernel, never by the host."""
+    global ACTIVE_LAUNCHES
+    y, launched = _launch(weights, src_ids, dst_ids, measures, n_dst, op,
+                          (block_idx, n_active), scan_above, "fragment_spmm_active")
+    ACTIVE_LAUNCHES += launched
+    return y

@@ -11,7 +11,11 @@ bounds it and how the TPU's VMEM-resident intermediate maps onto Hopper):
     between grid-wide barriers;
   * :func:`fragment_spmv_fused1`, the degenerate 1-hop+filter region: one hop
     with the mask applied at its scatter, writing the output directly (no
-    scratch).
+    scratch);
+  * :func:`fragment_spmm_fused1` / :func:`fragment_spmm_fused2`, the same two
+    regions for B frontier rows at once (the batched serving path): each
+    listed edge is read and decoded once for every row, the mask is shared
+    by the rows, and fused2's intermediate is ``u[B, n_mid]``.
 
 Both take each hop's streams as a :class:`repro_torch.kernels.ref.HopStreams`
 (dst as int32 ids or BCA words, the measure in any of the packed hop's
@@ -25,8 +29,9 @@ import ctypes
 import torch
 
 from .cuda_build import I32, P, CudaLibrary, check_tensor, cuda_device, raise_on, stream_of
+from .fragment_spmm import check_rows
 from .fragment_spmv import OP_CODE, check_block_list
-from .fragment_spmv_packed import M_MODES, _check_words
+from .fragment_spmv_packed import M_MODES, check_streams
 from .ref import IDENTITY, HopStreams
 
 
@@ -48,11 +53,17 @@ LIB = CudaLibrary("fragment_spmv_fused", {
     "fragment_spmv_fused2_launch": [P, I32, P, P, P, I32, P, I32, P, I32, I32, P, I32, P,
                                     P, I32, P, P, P],
     "fragment_spmv_fused2_max_grid": [I32],
+    "fragment_spmm_fused1_launch": [P, I32, I32, P, P, P, I32, I32, P, I32, P, P],
+    "fragment_spmm_fused2_launch": [P, I32, I32, P, P, P, I32, P, I32, P, I32, I32, P, I32,
+                                    P, P, I32, P, P, P],
+    "fragment_spmm_fused2_max_grid": [I32],
 })
 
 #: Launches of each kernel since import (or since a caller reset them).
 FUSED1_LAUNCHES = 0  # the degenerate 1-hop+filter region
 FUSED2_LAUNCHES = 0  # the two-hop region
+SPMM_FUSED1_LAUNCHES = 0  # the degenerate region, B rows
+SPMM_FUSED2_LAUNCHES = 0  # the two-hop region, B rows
 
 
 def build():
@@ -60,9 +71,12 @@ def build():
     return LIB.load()
 
 
-def max_grid(op: str = "sum") -> int:
-    """The CTAs of the two-hop kernel that can be resident at once."""
-    g = build().fragment_spmv_fused2_max_grid(OP_CODE[op])
+def max_grid(op: str = "sum", batched: bool = False) -> int:
+    """The CTAs of the two-hop kernel (``batched``: its SpMM form) that can
+    be resident at once."""
+    lib = build()
+    fn = lib.fragment_spmm_fused2_max_grid if batched else lib.fragment_spmv_fused2_max_grid
+    g = fn(OP_CODE[op])
     if g <= 0:
         raise RuntimeError(f"fragment_spmv_fused2: no co-resident grid (CUDA error {-g})")
     return g
@@ -72,26 +86,8 @@ def _hop_args(h: HopStreams, n: str, dev) -> HopArgs:
     """Check one hop's streams and lay them out for the kernel."""
     check_tensor(h.src, f"{n}.src", torch.int32, dev)
     E = h.src.shape[0]
-    if h.dst_width:
-        _check_words(h.dst, f"{n}.dst", h.dst_width, E, dev)
-    else:
-        check_tensor(h.dst, f"{n}.dst", torch.int32, dev)
-        if h.dst.shape[0] != E:
-            raise ValueError(f"{n}.dst has {h.dst.shape[0]} edges, src {E}")
-    if h.m_mode not in M_MODES:
-        raise ValueError(f"unknown measure mode {h.m_mode!r}")
-    n_dict = 0
-    if h.m_mode == "dense":
-        check_tensor(h.measure, f"{n}.measure", torch.float32, dev)
-        if h.measure.shape[0] != E:
-            raise ValueError(f"{n}.measure has {h.measure.shape[0]} edges, src {E}")
-    elif h.m_mode in ("packed", "dict"):
-        _check_words(h.measure, f"{n}.measure", h.m_width, E, dev)
-        if h.m_mode == "dict":
-            check_tensor(h.mdict, f"{n}.mdict", torch.float32, dev)
-            n_dict = h.mdict.shape[0]
-            if n_dict == 0:
-                raise ValueError(f"{n}.mdict is empty")
+    n_dict = check_streams(h.dst, h.measure, h.mdict, E, h.dst_width, h.m_mode, h.m_width,
+                           dev, name=f"{n}.")
     return HopArgs(
         h.src.data_ptr(), E, h.dst.data_ptr(), h.dst.shape[0] if h.dst_width else 0,
         int(h.dst_width), M_MODES[h.m_mode],
@@ -117,6 +113,76 @@ def _keep(mask, n: int, dev):
     return mask.data_ptr()
 
 
+def _frontier(weights, n_dst: int, dev, rows: bool) -> tuple[int, int, int, tuple]:
+    """The region's frontier ``f32[n_src]`` (``rows``: ``f32[B, n_src]``) and
+    sizes: ``(B, n_src, n_dst, output shape)``, B = 1 for the SpMV form."""
+    if rows:
+        B, n_src, n_dst = check_rows(weights, n_dst, dev)
+        return B, n_src, n_dst, (B, n_dst)
+    check_tensor(weights, "weights", torch.float32, dev)
+    n_src = _check_domain(weights.shape[0], "n_src")
+    n_dst = _check_domain(n_dst, "n_dst")
+    return 1, n_src, n_dst, (n_dst,)
+
+
+def _fused1(kernel: str, rows: bool, weights, hop1, mid_mask, block_idx1, n_active1,
+            n_dst, op):
+    """Launch the degenerate region (SpMV or SpMM form); ``(out, launched)``."""
+    if op not in OP_CODE:
+        raise ValueError(f"unknown combine op {op!r}")
+    dev = cuda_device(weights, kernel)
+    B, n_src, n_dst, shape = _frontier(weights, n_dst, dev, rows)
+    h1 = _hop_args(hop1, "hop1", dev)
+    keep = _keep(mid_mask, n_dst, dev)
+    out = torch.full(shape, IDENTITY[op], dtype=torch.float32, device=dev)
+    if h1.E == 0 or n_dst == 0 or B == 0:  # a grid of 0 blocks is an invalid launch
+        return out, False
+    check_block_list(block_idx1, n_active1, h1.E, dev)
+    lib = build()
+    head = (weights.data_ptr(), n_src) + ((B,) if rows else ())
+    launch = lib.fragment_spmm_fused1_launch if rows else lib.fragment_spmv_fused1_launch
+    with torch.cuda.device(dev):
+        err = launch(*head, ctypes.byref(h1), keep, out.data_ptr(), n_dst, OP_CODE[op],
+                     block_idx1.data_ptr(), block_idx1.shape[0], n_active1.data_ptr(),
+                     stream_of(dev))
+    raise_on(err, kernel)
+    return out, True
+
+
+def _fused2(kernel: str, rows: bool, weights, hop1, hop2, mid_mask, block_idx1, n_active1,
+            block_idx2, n_active2, n_mid, n_dst, op, mid_binarize):
+    """Launch the two-hop region (SpMV or SpMM form); ``(out, launched)``."""
+    if op not in OP_CODE:
+        raise ValueError(f"unknown combine op {op!r}")
+    dev = cuda_device(weights, kernel)
+    B, n_src, n_dst, shape = _frontier(weights, n_dst, dev, rows)
+    n_mid = _check_domain(n_mid, "n_mid")
+    h1 = _hop_args(hop1, "hop1", dev)
+    h2 = _hop_args(hop2, "hop2", dev)
+    keep = _keep(mid_mask, n_mid, dev)
+    if h1.E == 0 or h2.E == 0 or n_mid == 0 or n_dst == 0 or B == 0:
+        # nothing reaches the output: no launch
+        return torch.full(shape, IDENTITY[op], dtype=torch.float32, device=dev), False
+    check_block_list(block_idx1, n_active1, h1.E, dev)
+    check_block_list(block_idx2, n_active2, h2.E, dev)
+    u = torch.empty(shape[:-1] + (n_mid,), dtype=torch.float32, device=dev)
+    out = torch.empty(shape, dtype=torch.float32, device=dev)
+    counters = torch.empty(2, dtype=torch.int32, device=dev)  # zeroed by the kernel
+    lib = build()
+    head = (weights.data_ptr(), n_src) + ((B,) if rows else ())
+    launch = lib.fragment_spmm_fused2_launch if rows else lib.fragment_spmv_fused2_launch
+    with torch.cuda.device(dev):
+        err = launch(
+            *head, ctypes.byref(h1), ctypes.byref(h2), keep, int(bool(mid_binarize)),
+            u.data_ptr(), n_mid, out.data_ptr(), n_dst, OP_CODE[op],
+            block_idx1.data_ptr(), block_idx1.shape[0], n_active1.data_ptr(),
+            block_idx2.data_ptr(), block_idx2.shape[0], n_active2.data_ptr(),
+            counters.data_ptr(), stream_of(dev),
+        )
+    raise_on(err, kernel)
+    return out, True
+
+
 def fragment_spmv_fused1(
     weights: torch.Tensor,  # f32[n_src], CUDA
     hop1: HopStreams,
@@ -129,27 +195,9 @@ def fragment_spmv_fused1(
     """The degenerate region in one launch: ``out[d] ⊕= w[src] ⊗ m`` over
     the listed blocks, ⊕-identity wherever ``mid_mask[d] ≤ 0``."""
     global FUSED1_LAUNCHES
-    if op not in OP_CODE:
-        raise ValueError(f"unknown combine op {op!r}")
-    dev = cuda_device(weights, "fragment_spmv_fused1")
-    check_tensor(weights, "weights", torch.float32, dev)
-    _check_domain(weights.shape[0], "n_src")
-    n_dst = _check_domain(n_dst, "n_dst")
-    h1 = _hop_args(hop1, "hop1", dev)
-    keep = _keep(mid_mask, n_dst, dev)
-    out = torch.full((n_dst,), IDENTITY[op], dtype=torch.float32, device=dev)
-    if h1.E == 0 or n_dst == 0:  # a grid of 0 blocks is an invalid launch
-        return out
-    check_block_list(block_idx1, n_active1, h1.E, dev)
-    lib = build()
-    with torch.cuda.device(dev):
-        err = lib.fragment_spmv_fused1_launch(
-            weights.data_ptr(), weights.shape[0], ctypes.byref(h1), keep, out.data_ptr(),
-            n_dst, OP_CODE[op], block_idx1.data_ptr(), block_idx1.shape[0],
-            n_active1.data_ptr(), stream_of(dev),
-        )
-    raise_on(err, "fragment_spmv_fused1")
-    FUSED1_LAUNCHES += 1
+    out, launched = _fused1("fragment_spmv_fused1", False, weights, hop1, mid_mask,
+                            block_idx1, n_active1, n_dst, op)
+    FUSED1_LAUNCHES += launched
     return out
 
 
@@ -170,33 +218,51 @@ def fragment_spmv_fused2(
     block counters). Raises on anything the kernel does not take, and when
     the launch is refused (a grid that cannot be co-resident included)."""
     global FUSED2_LAUNCHES
-    if op not in OP_CODE:
-        raise ValueError(f"unknown combine op {op!r}")
-    dev = cuda_device(weights, "fragment_spmv_fused2")
-    check_tensor(weights, "weights", torch.float32, dev)
-    _check_domain(weights.shape[0], "n_src")
-    n_mid = _check_domain(n_mid, "n_mid")
-    n_dst = _check_domain(n_dst, "n_dst")
-    h1 = _hop_args(hop1, "hop1", dev)
-    h2 = _hop_args(hop2, "hop2", dev)
-    keep = _keep(mid_mask, n_mid, dev)
-    if h1.E == 0 or h2.E == 0 or n_mid == 0 or n_dst == 0:
-        # nothing reaches the output: no launch
-        return torch.full((n_dst,), IDENTITY[op], dtype=torch.float32, device=dev)
-    check_block_list(block_idx1, n_active1, h1.E, dev)
-    check_block_list(block_idx2, n_active2, h2.E, dev)
-    u = torch.empty(n_mid, dtype=torch.float32, device=dev)
-    out = torch.empty(n_dst, dtype=torch.float32, device=dev)
-    counters = torch.empty(2, dtype=torch.int32, device=dev)  # zeroed by the kernel
-    lib = build()
-    with torch.cuda.device(dev):
-        err = lib.fragment_spmv_fused2_launch(
-            weights.data_ptr(), weights.shape[0], ctypes.byref(h1), ctypes.byref(h2), keep,
-            int(bool(mid_binarize)), u.data_ptr(), n_mid, out.data_ptr(), n_dst, OP_CODE[op],
-            block_idx1.data_ptr(), block_idx1.shape[0], n_active1.data_ptr(),
-            block_idx2.data_ptr(), block_idx2.shape[0], n_active2.data_ptr(),
-            counters.data_ptr(), stream_of(dev),
-        )
-    raise_on(err, "fragment_spmv_fused2")
-    FUSED2_LAUNCHES += 1
+    out, launched = _fused2("fragment_spmv_fused2", False, weights, hop1, hop2, mid_mask,
+                            block_idx1, n_active1, block_idx2, n_active2, n_mid, n_dst, op,
+                            mid_binarize)
+    FUSED2_LAUNCHES += launched
+    return out
+
+
+def fragment_spmm_fused1(
+    weights: torch.Tensor,  # f32[B, n_src], CUDA
+    hop1: HopStreams,
+    mid_mask: torch.Tensor | None,  # f32[n_dst] | None, shared by the rows
+    block_idx1: torch.Tensor,  # i32[C1], the union of the rows' active blocks
+    n_active1: torch.Tensor,  # i32[1], device-resident
+    n_dst: int,
+    op: str = "sum",
+) -> torch.Tensor:
+    """The batched degenerate region in one launch: ``out[b, d] ⊕= w[b, src]
+    ⊗ m`` over the listed blocks, each edge read once for all rows;
+    ⊕-identity wherever ``mid_mask[d] ≤ 0``. f32[B, n_dst]."""
+    global SPMM_FUSED1_LAUNCHES
+    out, launched = _fused1("fragment_spmm_fused1", True, weights, hop1, mid_mask,
+                            block_idx1, n_active1, n_dst, op)
+    SPMM_FUSED1_LAUNCHES += launched
+    return out
+
+
+def fragment_spmm_fused2(
+    weights: torch.Tensor,  # f32[B, n_src], CUDA
+    hop1: HopStreams,
+    hop2: HopStreams,
+    mid_mask: torch.Tensor | None,  # f32[n_mid] | None, shared by the rows
+    block_idx1: torch.Tensor, n_active1: torch.Tensor,  # hop1's list, device-resident
+    block_idx2: torch.Tensor, n_active2: torch.Tensor,  # hop2's list, device-resident
+    n_mid: int,
+    n_dst: int,
+    op: str = "sum",
+    mid_binarize: bool = False,
+) -> torch.Tensor:
+    """The batched two-hop region in one cooperative launch; f32[B, n_dst].
+    The intermediate is ``4 · B · n_mid`` bytes of scratch allocated here.
+    Raises on anything the kernel does not take, and when the launch is
+    refused (a grid that cannot be co-resident included)."""
+    global SPMM_FUSED2_LAUNCHES
+    out, launched = _fused2("fragment_spmm_fused2", True, weights, hop1, hop2, mid_mask,
+                            block_idx1, n_active1, block_idx2, n_active2, n_mid, n_dst, op,
+                            mid_binarize)
+    SPMM_FUSED2_LAUNCHES += launched
     return out

@@ -60,6 +60,33 @@ def _check_words(words, name: str, width: int, E: int, dev) -> None:
         )
 
 
+def check_streams(dst, measure, mdict, E: int, dst_width: int, m_mode: str,
+                  m_width: int, dev, name: str = "") -> int:
+    """An E-edge hop's dst (int32 ids, or words when ``dst_width``) and
+    measure (per ``m_mode``) on ``dev``; returns the dictionary's length (0
+    outside the dict mode). ``name`` prefixes the argument names."""
+    if dst_width:
+        _check_words(dst, f"{name}dst", dst_width, E, dev)
+    else:
+        check_tensor(dst, f"{name}dst", torch.int32, dev)
+        if dst.shape[0] != E:
+            raise ValueError(f"{name}dst has {dst.shape[0]} edges, src {E}")
+    if m_mode not in M_MODES:
+        raise ValueError(f"unknown measure mode {m_mode!r}")
+    if m_mode == "dense":
+        check_tensor(measure, f"{name}measure", torch.float32, dev)
+        if measure.shape[0] != E:
+            raise ValueError(f"{name}measure has {measure.shape[0]} edges, src {E}")
+    elif m_mode in ("packed", "dict"):
+        _check_words(measure, f"{name}measure", m_width, E, dev)
+        if m_mode == "dict":
+            check_tensor(mdict, f"{name}mdict", torch.float32, dev)
+            if mdict.shape[0] == 0:
+                raise ValueError(f"{name}mdict is empty")
+            return mdict.shape[0]
+    return 0
+
+
 def _launch(weights, src_ids, dst, measure, mdict, n_dst, dst_width, m_mode,
             m_width, op, blocks, scan_above, kernel):
     if op not in OP_CODE:
@@ -70,24 +97,7 @@ def _launch(weights, src_ids, dst, measure, mdict, n_dst, dst_width, m_mode,
     check_tensor(weights, "weights", torch.float32, dev)
     check_tensor(src_ids, "src_ids", torch.int32, dev)
     E = src_ids.shape[0]
-    if dst_width:
-        _check_words(dst, "dst", dst_width, E, dev)
-    else:
-        check_tensor(dst, "dst", torch.int32, dev)
-        if dst.shape[0] != E:
-            raise ValueError(f"dst has {dst.shape[0]} edges, src_ids {E}")
-    n_dict = 0
-    if m_mode == "dense":
-        check_tensor(measure, "measure", torch.float32, dev)
-        if measure.shape[0] != E:
-            raise ValueError(f"measure has {measure.shape[0]} edges, src_ids {E}")
-    elif m_mode in ("packed", "dict"):
-        _check_words(measure, "measure", m_width, E, dev)
-        if m_mode == "dict":
-            check_tensor(mdict, "mdict", torch.float32, dev)
-            n_dict = mdict.shape[0]
-            if n_dict == 0:
-                raise ValueError("mdict is empty")
+    n_dict = check_streams(dst, measure, mdict, E, dst_width, m_mode, m_width, dev)
     n_dst = int(n_dst)
     if n_dst < 0 or n_dst >= 2**31 or weights.shape[0] >= 2**31:
         raise ValueError(f"domain sizes must fit int32: n_src={weights.shape[0]}, n_dst={n_dst}")

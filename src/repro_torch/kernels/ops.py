@@ -3,7 +3,9 @@
   * CPU tensors take the plain PyTorch versions (:mod:`.ref`);
   * CUDA tensors with ``use_kernel=True`` launch the CUDA kernels
     (:mod:`.fragment_spmv`, :mod:`.fragment_spmv_packed`,
-    :mod:`.fragment_spmv_fused`, :mod:`.bitunpack`).
+    :mod:`.fragment_spmv_fused`, :mod:`.bitunpack`, and for a batch of B
+    frontier rows :mod:`.fragment_spmm`, :mod:`.fragment_spmm_packed` and the
+    fused regions' SpMM form).
     A kernel that fails to build or launch raises: there is no quiet fallback;
   * ``use_kernel=False`` is the explicit plain-version path on any device —
     what the tests and the on-card check compare the kernels with.
@@ -35,6 +37,8 @@ import torch
 from ..robust.errors import ValidationError
 from . import active as _active
 from . import bitunpack as _bitunpack
+from . import fragment_spmm as _dense_rows
+from . import fragment_spmm_packed as _packed_rows
 from . import fragment_spmv as _dense
 from . import fragment_spmv_fused as _fused
 from . import fragment_spmv_packed as _packed
@@ -44,8 +48,8 @@ from .ref import IDENTITY, HopStreams
 
 BLOCK_SKIPPING_MODES = ("off", "on", "auto")
 #: 'on' runs every fused region in one launch; 'auto' a two-hop region only
-#: while its intermediate (4 · n_mid bytes) fits FUSED_SCRATCH_BUDGET_BYTES;
-#: 'off' replays regions hop by hop.
+#: while its intermediate (4 · n_mid · B bytes for B rows) fits
+#: FUSED_SCRATCH_BUDGET_BYTES; 'off' replays regions hop by hop.
 FUSION_MODES = ("off", "on", "auto")
 
 
@@ -176,6 +180,77 @@ def fragment_spmv_packed(weights, src_ids, dst, measure=None, mdict=None, *,
 
 
 # ---------------------------------------------------------------------------
+# Batched hops (fragment_spmm.py, fragment_spmm_packed.py): B frontier rows,
+# one pass over the edges; the block list is the union of the rows' supports
+# (active.support_mask ORs the rows of a [B, n_src] frontier)
+# ---------------------------------------------------------------------------
+
+
+def _frontier_rows(weights) -> torch.Tensor:
+    w = torch.as_tensor(weights, dtype=torch.float32)
+    if w.dim() != 2:
+        raise ValidationError(f"a batched hop takes a [B, n_src] frontier, got shape "
+                              f"{tuple(w.shape)}", shape=tuple(w.shape))
+    return w
+
+
+def fragment_spmm(weights, src_ids, dst_ids, measures, n_dst: int,
+                  op: str = "sum", use_kernel: bool = True,
+                  blocks=None, block_skipping: str = "off") -> torch.Tensor:
+    """Batched hop ``Y[b, dst] ⊕= W[b, src] ⊗ m`` with one edge stream for
+    all B rows; ``f32[B, n_dst]``. ``measures``: None (measure 1), ``[E]``
+    shared by the rows, or ``[B, E]`` per row — the kernel takes both
+    streams through a row stride (the reference sends the per-row one to its
+    XLA fallback; on the card no plain version runs)."""
+    if op not in IDENTITY:
+        raise ValueError(f"unknown combine op {op!r}")
+    w = _frontier_rows(weights)
+    s = torch.as_tensor(src_ids, dtype=torch.int32, device=w.device)
+    d = torch.as_tensor(dst_ids, dtype=torch.int32, device=w.device)
+    m = None if measures is None else torch.as_tensor(
+        measures, dtype=torch.float32, device=w.device)
+    plain = _plain(w, use_kernel)
+    plan = _plan_skip(w, op, s.shape[0], blocks, block_skipping)
+    if plan is None:
+        if plain:
+            return ref.fragment_spmm_ref(w, s, d, m, n_dst, op=op)
+        return _dense_rows.fragment_spmm(w, s, d, m, n_dst, op=op)
+    bi, na, scan_above = plan
+    if plain:
+        return ref.fragment_spmm_active_ref(w, s, d, m, bi, na, n_dst, op=op,
+                                            scan_above=scan_above)
+    return _dense_rows.fragment_spmm_active(w, s, d, m, bi, na, n_dst, op=op,
+                                            scan_above=scan_above)
+
+
+def fragment_spmm_packed(weights, src_ids, dst, measure=None, mdict=None, *,
+                         n_dst: int, dst_width: int = 0, m_mode: str = "none",
+                         m_width: int = 0, op: str = "sum",
+                         use_kernel: bool = True,
+                         blocks=None, block_skipping: str = "off") -> torch.Tensor:
+    """Decode-fused batched hop: packed dst/measure words decode once an edge
+    for all B rows. The measure is shared by the rows."""
+    if op not in IDENTITY:
+        raise ValueError(f"unknown combine op {op!r}")
+    w = _frontier_rows(weights)
+    s, d, m, md, *_ = _hop_streams(src_ids, dst, measure, mdict, dst_width, m_mode,
+                                   m_width, w.device)
+    kw = dict(dst_width=dst_width, m_mode=m_mode, m_width=m_width, op=op)
+    plain = _plain(w, use_kernel)
+    plan = _plan_skip(w, op, s.shape[0], blocks, block_skipping)
+    if plan is None:
+        if plain:
+            return ref.fragment_spmm_packed_ref(w, s, d, m, md, n_dst, **kw)
+        return _packed_rows.fragment_spmm_packed(w, s, d, m, md, n_dst, **kw)
+    bi, na, scan_above = plan
+    if plain:
+        return ref.fragment_spmm_packed_active_ref(w, s, d, m, md, bi, na, n_dst,
+                                                   scan_above=scan_above, **kw)
+    return _packed_rows.fragment_spmm_packed_active(w, s, d, m, md, bi, na, n_dst,
+                                                    scan_above=scan_above, **kw)
+
+
+# ---------------------------------------------------------------------------
 # Pipelined fused regions (fragment_spmv_fused.py)
 # ---------------------------------------------------------------------------
 
@@ -204,10 +279,12 @@ def _streams(h: FusedHopOperands, device) -> HopStreams:
                         h.m_width, device)
 
 
-def _fusion_unfusable(fusion: str, n_mid: int, two_hop: bool = True) -> bool:
+def _fusion_unfusable(fusion: str, n_mid: int, two_hop: bool = True,
+                      batch: int = 1) -> bool:
     """Whether a region runs as the unfused composition. Only the two-hop
-    kernel keeps an intermediate (``4 · n_mid`` bytes of scratch); the
-    degenerate region writes its output directly, so no budget applies."""
+    kernel keeps an intermediate (``4 · n_mid · batch`` bytes of scratch for
+    ``batch`` frontier rows, as the reference budgets it); the degenerate
+    region writes its output directly, so no budget applies."""
     if fusion not in FUSION_MODES:
         raise ValidationError(
             f"unknown fusion mode {fusion!r}", fusion=fusion, valid=FUSION_MODES,
@@ -216,7 +293,7 @@ def _fusion_unfusable(fusion: str, n_mid: int, two_hop: bool = True) -> bool:
         return True
     if fusion == "on" or not two_hop:
         return False
-    return 4 * n_mid > FUSED_SCRATCH_BUDGET_BYTES
+    return 4 * n_mid * max(batch, 1) > FUSED_SCRATCH_BUDGET_BYTES
 
 
 def _full_blocks(nb: int, device):
@@ -269,9 +346,12 @@ def _compose_unfused(w, hop1: FusedHopOperands, hop2: FusedHopOperands | None,
                      block_skipping: str) -> torch.Tensor:
     """The member hops through the unfused hop kernels (fusion off, over the
     scratch budget, or an empty relation): the semantics the fused kernels
-    must match."""
+    must match. A ``[B, n]`` frontier takes the batched hops, the mask
+    broadcast over the rows."""
+    packed = fragment_spmm_packed if w.dim() == 2 else fragment_spmv_packed
+
     def hop(x, h):
-        return fragment_spmv_packed(
+        return packed(
             x, h.src_ids, h.dst, h.measure, h.mdict, n_dst=h.n_dst,
             dst_width=h.dst_width, m_mode=h.m_mode, m_width=h.m_width, op=op,
             use_kernel=use_kernel, blocks=h.blocks, block_skipping=block_skipping,
@@ -296,9 +376,30 @@ def fragment_spmv_fused(weights, hop1: FusedHopOperands,
     launch (``hop2=None`` ⇒ the degenerate 1-hop+filter region, whose mask
     applies to the output). Equal to the unfused composition: exactly for
     min/max/bool, within float reordering for sum."""
+    return _fused_dispatch(False, weights, hop1, hop2, mid_mask, op=op,
+                           mid_binarize=mid_binarize, use_kernel=use_kernel,
+                           fusion=fusion, block_skipping=block_skipping)
+
+
+def fragment_spmm_fused(weights, hop1: FusedHopOperands,
+                        hop2: FusedHopOperands | None = None, mid_mask=None, *,
+                        op: str = "sum", mid_binarize: bool = False,
+                        use_kernel: bool = True, fusion: str = "auto",
+                        block_skipping: str = "off") -> torch.Tensor:
+    """The batched region: B frontier rows ``[B, n_src]`` through one launch
+    of the region's SpMM form (one read of each listed edge for every row,
+    the intermediate ``[B, n_mid]``, the mask shared by the rows);
+    ``f32[B, n_dst]``. ``fusion='auto'`` budgets the scratch of B rows."""
+    return _fused_dispatch(True, weights, hop1, hop2, mid_mask, op=op,
+                           mid_binarize=mid_binarize, use_kernel=use_kernel,
+                           fusion=fusion, block_skipping=block_skipping)
+
+
+def _fused_dispatch(batched: bool, weights, hop1, hop2, mid_mask, *, op, mid_binarize,
+                    use_kernel, fusion, block_skipping) -> torch.Tensor:
     if op not in IDENTITY:
         raise ValueError(f"unknown combine op {op!r}")
-    w = torch.as_tensor(weights, dtype=torch.float32)
+    w = _frontier_rows(weights) if batched else torch.as_tensor(weights, dtype=torch.float32)
     mm = None if mid_mask is None else torch.as_tensor(
         mid_mask, dtype=torch.float32, device=w.device)
     E1 = hop1.src_ids.shape[0]
@@ -306,7 +407,8 @@ def fragment_spmv_fused(weights, hop1: FusedHopOperands,
     n_mid = hop1.n_dst
     n_dst = hop2.n_dst if hop2 is not None else hop1.n_dst
     mid_binarize = mid_binarize and hop2 is not None
-    if (_fusion_unfusable(fusion, n_mid, hop2 is not None) or E1 == 0
+    batch = w.shape[0] if batched else 1
+    if (_fusion_unfusable(fusion, n_mid, hop2 is not None, batch) or E1 == 0
             or (hop2 is not None and E2 == 0)):
         return _compose_unfused(w, hop1, hop2, mm, mid_binarize, op, use_kernel,
                                 block_skipping)
@@ -314,12 +416,14 @@ def fragment_spmv_fused(weights, hop1: FusedHopOperands,
     s2 = _streams(hop2, w.device) if hop2 is not None else None
     bi1, na1, bi2, na2 = _fused_block_lists(w, op, hop1, hop2, E1, E2, block_skipping)
     if _plain(w, use_kernel):
-        return ref.fragment_spmv_fused_ref(w, s1, s2, mm, n_mid, n_dst, op=op,
-                                           mid_binarize=mid_binarize,
-                                           lists=(bi1, na1, bi2, na2))
+        plain_fn = ref.fragment_spmm_fused_ref if batched else ref.fragment_spmv_fused_ref
+        return plain_fn(w, s1, s2, mm, n_mid, n_dst, op=op, mid_binarize=mid_binarize,
+                        lists=(bi1, na1, bi2, na2))
     if mm is not None:
         mm = mm.contiguous()
     if s2 is None:
-        return _fused.fragment_spmv_fused1(w, s1, mm, bi1, na1, n_dst, op=op)
-    return _fused.fragment_spmv_fused2(w, s1, s2, mm, bi1, na1, bi2, na2, n_mid, n_dst,
-                                       op=op, mid_binarize=mid_binarize)
+        fn1 = _fused.fragment_spmm_fused1 if batched else _fused.fragment_spmv_fused1
+        return fn1(w, s1, mm, bi1, na1, n_dst, op=op)
+    fn2 = _fused.fragment_spmm_fused2 if batched else _fused.fragment_spmv_fused2
+    return fn2(w, s1, s2, mm, bi1, na1, bi2, na2, n_mid, n_dst, op=op,
+               mid_binarize=mid_binarize)

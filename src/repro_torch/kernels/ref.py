@@ -178,6 +178,80 @@ def fragment_spmv_packed_active_ref(
     return fragment_spmv_ref(weights, src_ids[ids], d, m, n_dst, op=op)
 
 
+# ---------------------------------------------------------------------------
+# Batched hops (the multi-query SpMM): B frontier rows over one edge list
+# ---------------------------------------------------------------------------
+
+
+def _row_measure(measures, b: int):
+    """Row ``b``'s measure: a shared ``[E]`` stream (or None) is every row's;
+    a per-row ``[B, E]`` stream gives its row."""
+    if measures is None or measures.dim() < 2:
+        return measures
+    return measures[b]
+
+
+def _rows(weights, hop) -> torch.Tensor:
+    """``[B, n_dst]`` from one SpMV per row: ``hop(row_weights, b)``. Row by
+    row, so no ``[B, E]`` temporary is built (at B = 64 over 29M edges one
+    such tensor is 7.4 GB)."""
+    return torch.stack([hop(weights[b], b) for b in range(weights.shape[0])])
+
+
+def fragment_spmm_ref(
+    weights: torch.Tensor,  # f32[B, n_src]
+    src_ids: torch.Tensor,  # i32[E]
+    dst_ids: torch.Tensor,  # i32[E]
+    measures: torch.Tensor | None,  # f32[E] shared | f32[B, E] per row | None
+    n_dst: int,
+    op: str = "sum",
+) -> torch.Tensor:
+    """The batched hop ``Y[b, dst] ⊕= W[b, src] ⊗ m``: B independent SpMVs,
+    each row through :func:`fragment_spmv_ref`. ``f32[B, n_dst]``."""
+    return _rows(weights, lambda w, b: fragment_spmv_ref(
+        w, src_ids, dst_ids, _row_measure(measures, b), n_dst, op=op))
+
+
+def fragment_spmm_active_ref(
+    weights, src_ids, dst_ids, measures, block_idx, n_active, n_dst: int,
+    op: str = "sum", scan_above: int | None = None,
+) -> torch.Tensor:
+    """The batched hop over the listed blocks only (one list for all rows:
+    the union of the rows' supports)."""
+    ids = listed_edges(block_idx, n_active, src_ids.shape[0], scan_above)
+    s, d = src_ids[ids], dst_ids[ids]
+    return _rows(weights, lambda w, b: fragment_spmv_ref(
+        w, s, d, None if measures is None else _row_measure(measures, b)[..., ids],
+        n_dst, op=op))
+
+
+def fragment_spmm_packed_ref(
+    weights, src_ids, dst, measure, mdict, n_dst: int,
+    dst_width: int = 0, m_mode: str = "none", m_width: int = 0,
+    op: str = "sum",
+) -> torch.Tensor:
+    """Decode-then-hop for B rows: the packed streams decode once, then the
+    rows go through the plain hop. The measure is shared by the rows."""
+    E = src_ids.shape[0]
+    d = bitunpack_ref(dst, dst_width, E) if dst_width else dst
+    m = _measure_values(measure, mdict, m_mode, m_width, None, E)
+    return fragment_spmm_ref(weights, src_ids, d, m, n_dst, op=op)
+
+
+def fragment_spmm_packed_active_ref(
+    weights, src_ids, dst, measure, mdict, block_idx, n_active, n_dst: int,
+    dst_width: int = 0, m_mode: str = "none", m_width: int = 0,
+    op: str = "sum", scan_above: int | None = None,
+) -> torch.Tensor:
+    """The decode-fused batched hop over the listed blocks only: just their
+    edges are decoded, once for all rows."""
+    E = src_ids.shape[0]
+    ids = listed_edges(block_idx, n_active, E, scan_above)
+    d = bitgather_ref(dst, dst_width, ids) if dst_width else dst[ids]
+    m = _measure_values(measure, mdict, m_mode, m_width, ids, E)
+    return fragment_spmm_ref(weights, src_ids[ids], d, m, n_dst, op=op)
+
+
 class HopStreams(NamedTuple):
     """One hop's edge streams as the fused kernels take them: src ids, dst
     (int32 ids, or BCA words when ``dst_width``) and the measure in ``m_mode``
@@ -208,11 +282,15 @@ def binarize(u: torch.Tensor, op: str) -> torch.Tensor:
 
 
 def _listed_hop_ref(w, h: HopStreams, n_dst: int, op: str, block_idx, n_active):
+    """One region hop through the plain packed hop: the SpMV for a ``[n]``
+    frontier, the SpMM for ``[B, n]``."""
     kw = dict(dst_width=h.dst_width, m_mode=h.m_mode, m_width=h.m_width, op=op)
+    batched = w.dim() == 2
     if block_idx is None:
-        return fragment_spmv_packed_ref(w, h.src, h.dst, h.measure, h.mdict, n_dst, **kw)
-    return fragment_spmv_packed_active_ref(w, h.src, h.dst, h.measure, h.mdict,
-                                           block_idx, n_active, n_dst, **kw)
+        fn = fragment_spmm_packed_ref if batched else fragment_spmv_packed_ref
+        return fn(w, h.src, h.dst, h.measure, h.mdict, n_dst, **kw)
+    fn = fragment_spmm_packed_active_ref if batched else fragment_spmv_packed_active_ref
+    return fn(w, h.src, h.dst, h.measure, h.mdict, block_idx, n_active, n_dst, **kw)
 
 
 def fragment_spmv_fused_ref(
@@ -238,3 +316,21 @@ def fragment_spmv_fused_ref(
     if mid_binarize:
         u = binarize(u, op)
     return _listed_hop_ref(u, hop2, n_dst, op, bi2, na2)
+
+
+def fragment_spmm_fused_ref(
+    weights: torch.Tensor,  # f32[B, n_src]
+    hop1: HopStreams,
+    hop2: HopStreams | None,
+    mid_mask: torch.Tensor | None,  # f32[n_mid], shared by the rows
+    n_mid: int,
+    n_dst: int,
+    op: str = "sum",
+    mid_binarize: bool = False,
+    lists=None,
+) -> torch.Tensor:
+    """The batched fused region as its plain composition: B rows through
+    :func:`fragment_spmv_fused_ref`'s steps (the mask broadcast over the
+    rows). ``f32[B, n_dst]``."""
+    return fragment_spmv_fused_ref(weights, hop1, hop2, mid_mask, n_mid, n_dst, op=op,
+                                   mid_binarize=mid_binarize, lists=lists)

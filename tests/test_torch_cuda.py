@@ -1,7 +1,9 @@
 """Tests that need an NVIDIA GPU: the hand-written CUDA kernels (the dense
 and packed hops, their block-skipping variants, bitunpack, both fused-region
-kernels) against their plain PyTorch versions, and the engine on the card
-against the engine on the CPU and the numpy oracle. They import no JAX (the
+kernels, and the batched forms of all of them: the SpMM kernels and the
+fused regions' SpMM form) against their plain PyTorch versions, and the
+engine on the card (single queries and execute_batch) against the engine on
+the CPU and the numpy oracle. They import no JAX (the
 GPU machine need not have it) and skip where ``torch.cuda.is_available()`` is
 false: a CUDA kernel has no CPU mode. On a card:
 
@@ -10,6 +12,8 @@ false: a CUDA kernel has no CPU mode. On a card:
 sum within rtol=atol=1e-4 (atomics reorder the float adds); min, max and bool
 exact.
 """
+import ctypes
+
 import numpy as np
 import pytest
 
@@ -507,3 +511,272 @@ def test_engine_fusion_on_the_card(cuda, name, q, params, fusion):
     np.testing.assert_allclose(got, off, rtol=1e-4, atol=1e-4)
     np.testing.assert_allclose(got, run_sql(schema, q, params), rtol=1e-4, atol=1e-4)
     assert (got != 0).any()
+
+
+# ---------------------------------------------------------------------------
+# Batched serving: the SpMM kernels and the fused regions' SpMM form
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels import fragment_spmm as skernel  # noqa: E402
+from repro_torch.kernels import fragment_spmm_packed as spkernel  # noqa: E402
+
+BATCHES = [1, 3, 64]
+
+
+def _rows(w, B, op, seed):
+    """B frontier rows: row 0 is ``w``, the others random with identity
+    entries (a quarter), so rows differ and the per-row identity guard runs."""
+    rng = np.random.default_rng(seed)
+    W = rng.random((B, w.shape[0])).astype(np.float32) * 2
+    if op == "bool":
+        W = (W > 1).astype(np.float32)
+    W[rng.random(W.shape) < 0.25] = ZERO[op]
+    W = torch.from_numpy(W).to(w.device)
+    W[0] = w
+    return W.contiguous()
+
+
+def _union_list(W, src, op, device):
+    """The device-built union list of W's rows (a full one-block list for an
+    empty index, which has no blocks to list)."""
+    if src.shape[0] == 0:
+        return _full(0, device)
+    bmin, bmax = (torch.from_numpy(b).to(device) for b in active.block_ranges(src.cpu()))
+    return active.active_block_list(W, ZERO[op], bmin, bmax)
+
+
+def _spmm_counts():
+    return (skernel.LAUNCHES, skernel.ACTIVE_LAUNCHES, spkernel.LAUNCHES,
+            spkernel.ACTIVE_LAUNCHES, fkernel.SPMM_FUSED1_LAUNCHES,
+            fkernel.SPMM_FUSED2_LAUNCHES)
+
+
+def _delta(before):
+    return [b - a for a, b in zip(before, _spmm_counts())]
+
+
+@pytest.mark.parametrize("measure", ["none", "shared", "per_row"])
+@pytest.mark.parametrize("E", [0, 1, 4097])
+@pytest.mark.parametrize("B", BATCHES)
+@pytest.mark.parametrize("op", OPS)
+def test_spmm_kernels_match_plain(cuda, op, B, E, measure):
+    """The dense SpMM (scan and active over a device-built union list) against
+    the plain version, with a shared, a per-row ([B, E], row stride E) and no
+    measure; each row also against the port's SpMV kernel."""
+    x = _packed_inputs(op, E, E + B + len(op), cuda)
+    W = _rows(x["w"], B, op, E + B)
+    m = {"none": None, "shared": x["m_dense"],
+         "per_row": torch.rand((B, E), generator=torch.Generator().manual_seed(B)).to(cuda)
+         }[measure]
+    bi, na = _union_list(W, x["src"], op, cuda)
+    before = _spmm_counts()
+    got = skernel.fragment_spmm(W, x["src"], x["dst"], m, x["n_dst"], op=op)
+    got_a = skernel.fragment_spmm_active(W, x["src"], x["dst"], m, bi, na, x["n_dst"], op=op)
+    torch.cuda.synchronize()
+    assert _delta(before) == ([1, 1, 0, 0, 0, 0] if E else [0] * 6)
+    want = ref.fragment_spmm_ref(W, x["src"], x["dst"], m, x["n_dst"], op=op)
+    _assert_match(got, want, op)
+    _assert_match(got_a, want, op)
+    for b in range(B):
+        mb = m[b].contiguous() if measure == "per_row" else m
+        _assert_match(got[b], kernel.fragment_spmv(W[b], x["src"], x["dst"], mb, x["n_dst"],
+                                                   op=op), op)
+
+
+@pytest.mark.parametrize("E", [0, 1, 4097])
+@pytest.mark.parametrize("dst_packed", [True, False], ids=["dst_packed", "dst_dense"])
+@pytest.mark.parametrize("m_mode", M_MODES)
+@pytest.mark.parametrize("B", BATCHES)
+@pytest.mark.parametrize("op", OPS)
+def test_spmm_packed_kernels_match_plain(cuda, op, B, m_mode, dst_packed, E):
+    """The decode-fused SpMM, scan and active (the list followed, and in scan
+    order), against the plain version and each row against the SpMV kernel."""
+    x = _packed_inputs(op, E, E + B + len(op), cuda)
+    W = _rows(x["w"], B, op, E + 2 * B)
+    dst, m, md, kw = _packed_operands(x, m_mode, dst_packed)
+    bi, na = _union_list(W, x["src"], op, cuda)
+    nb = active.n_edge_blocks(E)
+    before = _spmm_counts()
+    got = spkernel.fragment_spmm_packed(W, x["src"], dst, m, md, op=op, **kw)
+    acts = [spkernel.fragment_spmm_packed_active(W, x["src"], dst, m, md, bi, na, op=op,
+                                                 scan_above=sa, **kw) for sa in (nb, 0)]
+    torch.cuda.synchronize()
+    assert _delta(before) == ([0, 0, 1, 2, 0, 0] if E else [0] * 6)
+    want = ref.fragment_spmm_packed_ref(W, x["src"], dst, m, md, op=op, **kw)
+    for g in [got, *acts]:
+        _assert_match(g, want, op)
+    for b in range(B):
+        _assert_match(got[b], pkernel.fragment_spmv_packed(W[b], x["src"], dst, m, md, op=op,
+                                                           **kw), op)
+
+
+@pytest.mark.parametrize("variant", ["two_hop", "two_hop_mask_binarize", "degenerate",
+                                     "degenerate_mask"])
+@pytest.mark.parametrize("m_mode", M_MODES)
+@pytest.mark.parametrize("B", BATCHES)
+@pytest.mark.parametrize("op", OPS)
+def test_spmm_fused_kernels_match_plain_and_unfused(cuda, op, B, m_mode, variant):
+    """The fused regions' SpMM form over full lists against the plain batched
+    region and the unfused composition through the port's SpMM kernels."""
+    E = 4097
+    w, h1, h2, keep = _region(op, E, m_mode, True, E + B + len(op), cuda)
+    W = _rows(w, B, op, B + 17)
+    two = variant.startswith("two_hop")
+    mask = keep if variant.endswith(("mask", "binarize")) else None
+    if not two and mask is not None:
+        mask = (torch.arange(700, device=cuda) % 3 != 0).to(torch.float32)
+    binz = variant.endswith("binarize")
+    bi1, na1 = _full(E, cuda)
+    bi2, na2 = _full(E + 3, cuda)
+    before = _spmm_counts()
+    if two:
+        got = fkernel.fragment_spmm_fused2(W, h1, h2, mask, bi1, na1, bi2, na2, 700, 500,
+                                           op=op, mid_binarize=binz)
+    else:
+        got = fkernel.fragment_spmm_fused1(W, h1, mask, bi1, na1, 700, op=op)
+    torch.cuda.synchronize()
+    assert _delta(before) == ([0, 0, 0, 0, 0, 1] if two else [0, 0, 0, 0, 1, 0])
+    want = ref.fragment_spmm_fused_ref(W, h1, h2 if two else None, mask, 700, 500, op=op,
+                                       mid_binarize=binz)
+    _assert_match(got, want, op)
+
+    def hop(x, h, n):
+        return spkernel.fragment_spmm_packed(x, h.src, h.dst, h.measure, h.mdict, n,
+                                             dst_width=h.dst_width, m_mode=h.m_mode,
+                                             m_width=h.m_width, op=op)
+
+    u = hop(W, h1, 700)
+    if mask is not None:
+        u = ref.apply_mask(u, mask, op)
+    if two:
+        u = hop(ref.binarize(u, op) if binz else u, h2, 500)
+    _assert_match(got, u, op)
+
+
+@pytest.mark.parametrize("B", BATCHES)
+@pytest.mark.parametrize("op", OPS)
+def test_spmm_fused_dispatch_follows_union_lists(cuda, op, B):
+    """The batched dispatch with device-built lists (the union of the rows'
+    supports; hop2's through the reach matrix): one launch of the SpMM form,
+    equal to the unfused scan composition and the plain region."""
+    from repro_torch.core.fuse import _block_reach
+
+    E = 60_000
+    w, h1, h2, keep = _region(op, E, "packed", True, 21, cuda)
+    W = _rows(w, B, op, 5)
+    W[:, 200:] = ZERO[op]  # a sparse union: hop1's list skips blocks
+    smin2, smax2 = active.block_ranges(h2.src.cpu())
+    hop1 = HopOp("T", "A", "E1", 700, None, h1.src, None,
+                 host_dst=ref.bitunpack_ref(h1.dst.cpu(), h1.dst_width, E).numpy())
+    hop2 = HopOp("T", "B", "E2", 500, None, h2.src, None, block_src_min=smin2,
+                 block_src_max=smax2)
+    reach = torch.from_numpy(_block_reach(hop1, hop2)).to(cuda)
+    blocks = lambda h: tuple(torch.from_numpy(b).to(cuda)  # noqa: E731
+                             for b in active.block_ranges(h.src.cpu()))
+    mk = lambda h, n, r=None: ops.FusedHopOperands(  # noqa: E731
+        h.src, h.dst, h.measure, h.mdict, n, h.dst_width, h.m_mode, h.m_width,
+        blocks=blocks(h), reach=r)
+    o1, o2 = mk(h1, 700), mk(h2, 500, reach)
+    for two in (True, False):
+        before = _spmm_counts()
+        got = ops.fragment_spmm_fused(W, o1, o2 if two else None, keep, op=op,
+                                      mid_binarize=two, fusion="on", block_skipping="on")
+        torch.cuda.synchronize()
+        assert _delta(before) == ([0, 0, 0, 0, 0, 1] if two else [0, 0, 0, 0, 1, 0])
+        off = ops.fragment_spmm_fused(W, o1, o2 if two else None, keep, op=op,
+                                      mid_binarize=two, fusion="off", block_skipping="off")
+        plain = ops.fragment_spmm_fused(W, o1, o2 if two else None, keep, op=op,
+                                        mid_binarize=two, fusion="on", block_skipping="on",
+                                        use_kernel=False)
+        _assert_match(got, off, op)
+        _assert_match(got, plain, op)
+
+
+def test_spmm_wrappers_reject_bad_inputs(cuda):
+    x = _packed_inputs("sum", 5000, 5, cuda)
+    W = _rows(x["w"], 3, "sum", 1)
+    with pytest.raises(ValueError):  # a 1-D frontier is the SpMV's
+        skernel.fragment_spmm(x["w"], x["src"], x["dst"], None, 700)
+    with pytest.raises(ValueError):  # rows must be contiguous
+        skernel.fragment_spmm(W.t().contiguous().t(), x["src"], x["dst"], None, 700)
+    with pytest.raises(ValueError):  # a per-row measure of the wrong shape
+        skernel.fragment_spmm(W, x["src"], x["dst"], torch.rand(2, 5000, device=cuda), 700)
+    with pytest.raises(TypeError):
+        spkernel.fragment_spmm_packed(W, x["src"].long(), x["dst_words"], None, None, 700,
+                                      dst_width=10)
+    with pytest.raises(ValueError):
+        spkernel.fragment_spmm_packed(W.cpu(), x["src"], x["dst_words"], None, None, 700,
+                                      dst_width=10)
+    assert fkernel.max_grid("sum", batched=True) >= 132
+
+
+def test_spmm_row_offsets_are_int64(cuda):
+    """B · n_dst and B · n_src past 2^31: row 1's offsets wrap a 32-bit int.
+    Two 8 GiB tensors, so it runs only where the card has room."""
+    n = 2**30 + 7
+    free, _ = torch.cuda.mem_get_info(cuda)
+    if free < 20 * 2**30:
+        pytest.skip("needs 20 GiB of free device memory for B · n > 2^31")
+    assert skernel.LIB.functions["fragment_spmm_launch"][6] is ctypes.c_int64  # m_stride
+    W = torch.zeros((2, n), device=cuda)
+    W[1, n - 3] = 2.0
+    src = torch.tensor([5, n - 3, n - 3], dtype=torch.int32, device=cuda)
+    dst = torch.tensor([0, n - 1, 4], dtype=torch.int32, device=cuda)
+    m = torch.tensor([1.0, 3.0, 0.5], device=cuda)
+    for packed in (False, True):
+        if packed:
+            words = torch.from_numpy(
+                _pack_words(dst.cpu().numpy().astype(np.int64), 31).view(np.int32)).to(cuda)
+            y = spkernel.fragment_spmm_packed(W, src, words, m, None, n, dst_width=31,
+                                              m_mode="dense")
+        else:
+            y = skernel.fragment_spmm(W, src, dst, m, n)
+        torch.cuda.synchronize()
+        assert float(y[1, n - 1]) == 6.0 and float(y[1, 4]) == 1.0
+        assert float(y[0].abs().sum()) == 0.0 and float(y[1].sum()) == 7.0
+        del y
+
+
+def _batched_launches(phys, B):
+    """(HopOps, degenerate regions, two-hop regions) one batched execution
+    runs at B rows: a two-hop region over the scratch budget of B rows runs
+    its hops unfused under 'auto'. Once a batch, whatever B is."""
+    n = [0, 0, 0]
+    for op in phys.ops:
+        if isinstance(op, HopOp):
+            n[0] += 1
+        elif isinstance(op, FusedHopOp):
+            if ops._fusion_unfusable("auto", op.n_mid, len(op.hops) == 2, B):
+                n[0] += len(op.hops)
+            else:
+                n[len(op.hops)] += 1
+        for p in getattr(op, "programs", ()):
+            n = [a + b for a, b in zip(n, _batched_launches(p, B))]
+    return n
+
+
+@pytest.mark.parametrize("name,q,params", CASES + [
+    ("SD_RECENT", SG.QUERY_SD_RECENT, {"d0": 5}), ("AS_RECENT", SG.QUERY_AS_RECENT, {"a0": 7})],
+    ids=[c[0] for c in CASES] + ["SD_RECENT", "AS_RECENT"])
+def test_execute_batch_on_the_card_matches_single_calls(cuda, name, q, params):
+    """The defaults through execute_batch at B ∈ {1, 5 (pads to 8), 64}: each
+    row equals its single call, and the SpMM and batched fused launches equal
+    the HopOps and regions of one execution, once a batch."""
+    schema = _schema(name)
+    gpu = GQFastEngine(GQFastDatabase(schema, account_space=False, device=cuda))
+    pq = gpu.prepare(q)
+    rng = np.random.default_rng(len(name))
+    for B in (1, 5, 64):
+        arrays = {k: (rng.integers(1995, 2015, B) if k == "y" else
+                      np.full(B, v) if name == "CS" else rng.integers(0, 60, B))
+                  for k, v in params.items()}
+        before = _spmm_counts()
+        got = pq.execute_batch(**arrays)
+        torch.cuda.synchronize()
+        d = _delta(before)
+        hops, f1, f2 = _batched_launches(pq.phys, 8 if B == 5 else B)
+        assert [d[0] + d[1] + d[2] + d[3], d[4], d[5]] == [hops, f1, f2]
+        assert got.shape == (B, pq.phys.out_dom)
+        for i in range(B):
+            row = pq(**{k: int(v[i]) for k, v in arrays.items()})
+            np.testing.assert_allclose(got[i], row, rtol=1e-4, atol=1e-4)

@@ -166,9 +166,11 @@ def test_explain_matches_jax(pubmed, name, q):
     assert pq.phys.op_signature() == jpq.phys.op_signature()
 
 
-#: Options whose slice has landed: they run now (storage, skipping, fusion).
+#: Options whose slice has landed: they run now (storage, skipping, fusion,
+#: batching).
 PORTED = ("device_encodings=auto", "device_encodings=packed", "block_skipping=on",
-          "block_skipping=auto", "fusion=on", "fusion=auto", "space_report")
+          "block_skipping=auto", "fusion=on", "fusion=auto", "space_report",
+          "execute_batch")
 
 
 @pytest.mark.parametrize("call", [

@@ -46,3 +46,30 @@ def test_port_sources_import_neither_jax_nor_repro():
         for f in files for m in FORBIDDEN.finditer(f.read_text())
     ]
     assert not offenders, offenders
+
+
+def test_port_batched_serving_loads_neither_jax_nor_repro():
+    """execute_batch and query_topk_batch (the batched kernels' modules
+    included) run without JAX or the JAX package."""
+    code = textwrap.dedent("""
+        import sys
+        from repro_torch.core.engine import GQFastDatabase, GQFastEngine
+        from repro_torch.data import synth_graph as SG
+        schema = SG.make_pubmed(n_docs=200, n_terms=20, n_authors=50, seed=1)
+        eng = GQFastEngine(GQFastDatabase(schema, account_space=False, device="cpu"))
+        out = eng.prepare(SG.QUERY_AS_RECENT, fusion="on").execute_batch(a0=[3, 4, 5])
+        assert out.shape == (3, 50)
+        assert len(eng.query_topk_batch(SG.QUERY_SD, k=3, d0=[1, 2])) == 2
+        for m in ("fragment_spmm", "fragment_spmm_packed", "fragment_spmv_fused"):
+            assert f"repro_torch.kernels.{m}" in sys.modules, m
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+        print("LOADED", bad)
+        assert not bad, bad
+    """)
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")}, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LOADED []" in proc.stdout
