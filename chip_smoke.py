@@ -6,8 +6,9 @@
 Phases (any failure exits non-zero; nothing is caught while the run goes on):
 
  1. Card, power limit, torch/CUDA versions; build every CUDA kernel from
-    ``src/repro_torch/kernels/csrc`` (one nvcc per source, all started
-    together) and report the build times and ptxas register/spill lines.
+    ``src/repro_torch/kernels/csrc`` (seven libraries, one nvcc per source,
+    all started together) and report the build times and ptxas
+    register/spill lines.
  2. Load a PubMed-shaped graph (4M documents, 27,000 terms, 2M authors) and a
     SemMedDB-shaped graph at 10× the generator's defaults, each twice on the
     card: dense device encodings, and the reference's default
@@ -28,7 +29,11 @@ Phases (any failure exits non-zero; nothing is caught while the run goes on):
     at the main path's region shapes (SD's I_DT.Doc → I_DT.Term at supports
     from one seed to 100%, AS-recent's I_DT.Term + mask + I_DA.Doc over a
     dense frontier, SD-recent's degenerate I_DT.Term + mask) over the
-    device-built block lists.
+    device-built block lists. The packed pair's per-CTA aggregation on hot
+    destinations: every edge on one destination, more distinct destinations
+    in a block than the table has slots, Zipf-hot ones, for every op, scan
+    and active, with the table and without. The bitmap AND and popcount at n ∈ {0, 1, 3, 4, 5, 1023,
+    1024, 1025, 2^20 + 3} words and on views off a 16-byte boundary, exact.
     3h. The batched kernels: the four SpMM kernels at E ∈ {0, 1, 4097} ×
     B ∈ {1, 3, 8} for every op and measure (none, shared, per-row [B, E];
     packed/dense dst × every mode), scan and active over the union list, and
@@ -63,22 +68,39 @@ Phases (any failure exits non-zero; nothing is caught while the run goes on):
          whatever B is, and no single-query kernel launches; at B = 8 the
          dense SpMM (skipping off and auto) and the packed scan SpMM
          (skipping off) paths, equal to the defaults. Every row equals its
-         single call, B = 8 equals the plain versions run batched, and all
-         nine at the quickstart scale match ``run_sql`` row by row;
+         single call (AS and AS-recent reported: DRIFT_QUERIES), B = 8
+         equals the plain versions run batched and the float queries at B = 8
+         hold to the plain versions' float64 sums, and all nine at the
+         quickstart scale match ``run_sql`` row by row;
       i. the same batches under ``fusion="on"`` (the fused regions' SpMM
-         form), equal to h.
+         form), equal to h;
+      j. the intersection a user asks for (AD's merge intersection, paper
+         §6.1): the document sets of terms 3 and 9 as bitmaps built on the
+         card from I_DT.Term (32 documents a word), their AND and its
+         popcount through ``ops.bitmap_and`` / ``bitmap_and_popcount`` (one
+         launch each), equal to the plain versions, the count equal to
+         ``np.intersect1d`` of the two terms' document lists on the host.
     Each result is compared with the same lowered plan run through the plain
-    versions on the card, the defaults with the dense path (exact for
-    SD/AD/RECENT/CS), the fused paths with fusion off, SD with the numpy
-    oracle ``run_sql`` at full scale, and all nine with ``run_sql`` at the
-    quickstart scale under dense/off, the defaults and fusion on.
+    versions on the card, the defaults with skipping off and with the dense
+    paths (exact for SD/AD/RECENT/CS), the fused paths with fusion off, SD
+    with the numpy oracle ``run_sql`` at full scale, and all nine with
+    ``run_sql`` at the quickstart scale under dense/off, the defaults and
+    fusion on. Where per-edge float32 atomics on I_DA.Doc's hot authors meet
+    the packed pair's table (AS and AS-recent: the table paths against the
+    plain scatter and the dense paths, batched rows against single calls)
+    the comparison is reported, not gated, and every path's float sums
+    (FSD, AS, FAD, AS-recent) are held instead to the same plan through the
+    plain versions with float64 sums, within FLOAT64_LIMIT.
  5. Times: per query the median wall time of 20 runs and the profiler's
     device breakdown, under the defaults beside the dense path and under
     fusion on beside off (those three in turns); per kernel at the main path's shapes its CUDA-event
     time beside its bound, the plain version's time and one library call
     computing the same function where there is one (``torch.mv`` on a CSR
     matrix, two of them and the mask for a fused region; none for
-    bitunpack); scan against skip and the cost of the block list at support
+    bitunpack and the popcount; ``torch.bitwise_and`` for the AND, timed at
+    path j's 125,000 words and at 2^26 words); the float32 error of each hop
+    kernel's sum on I_DA.Doc's hottest author against float64; scan against
+    skip and the cost of the block list at support
     fractions from one seed to 100%, which set ``SKIP_BLOCK_FRACTION``;
     fused against the unfused composition at each region shape, which sets
     ``FUSED_SCRATCH_BUDGET_BYTES``. Batched (5h): per query and B ∈ {1, 8,
@@ -168,6 +190,10 @@ KERNELS = {
     "fragment_spmm_fused2": ("fragment_spmv_fused", "SPMM_FUSED2_LAUNCHES",
                              "fragment_spmv_fused.cu",
                              "src/repro/kernels/fragment_spmv_fused.py:331"),
+    "bitmap_and": ("bitmap_ops", "AND_LAUNCHES", "bitmap_ops.cu",
+                   "src/repro/kernels/bitmap_ops.py:45"),
+    "bitmap_and_popcount": ("bitmap_ops", "POPCOUNT_LAUNCHES", "bitmap_ops.cu",
+                            "src/repro/kernels/bitmap_ops.py:63"),
 }
 PACKED_HOPS = ["fragment_spmv_packed", "fragment_spmv_packed_active"]
 
@@ -246,6 +272,102 @@ def hop_bound(E: int, n_src: int, n_dst: int, dst_bytes: int, m_bytes: int,
     """One hop: src (4 B an edge), the dst and measure streams as stored,
     the frontier and the output once each; a multiply and a combine an edge."""
     return bound_ms(4 * E + dst_bytes + m_bytes + 4 * n_src + 4 * n_dst + extra, 2 * E)
+
+
+def uses_table(di) -> bool:
+    """Whether the main path's packed hop on index ``di`` aggregates per CTA
+    (``ops.uses_table`` of its hot share)."""
+    from repro_torch.kernels import ops as K
+
+    return K.uses_table(di.hot_share)
+
+
+#: Queries whose float32 sums over I_DA.Doc's hot authors differ between the
+#: per-edge kernels (the dense pair, fused2's hop 2, the SpMM kernels and the
+#: plain scatter: one float32 atomic an edge) and the packed pair's table by
+#: more than rtol = atol = 1e-4 (AS single calls 1.02-1.11 times the gate
+#: against the dense path, AS and AS-recent batched rows 6.4-11.1 times it
+#: against single calls; probe, PERF.md). The per-edge sums drift (ROADMAP
+#: Queue 3). A comparison across the two is reported for these queries; each
+#: side is held to FLOAT64_LIMIT instead.
+DRIFT_QUERIES = ("AS", "AS_RECENT")
+#: The largest relative difference allowed between a float query's result
+#: and the same plan through the plain versions with float64 sums
+#: (:class:`float64_sums`): single calls, and execute_batch's rows at B = 8.
+#: About twice the largest reading of scripts/hop_table_probe.py on the H100
+#: (PERF.md): single calls 1.12e-4 (the dense path's AS; the table paths
+#: 2.2e-6), rows 4.32e-4 (AS-recent through the SpMM kernels).
+FLOAT64_LIMIT = {"single": 2.5e-4, "batched": 1e-3}
+
+
+class float64_sums:
+    """Within the block the plain hop (``ref.fragment_spmv_ref``, under every
+    plain hop, active, packed, fused and batched version) adds a sum's
+    products in float64 and rounds each destination's sum to float32 once;
+    min, max and bool are left as they are. A plan run with
+    ``use_kernel=False`` then gives the float32 chain with exact per-hop
+    sums: the yardstick of the kernels' float32 atomics."""
+
+    def __enter__(self):
+        import torch
+
+        from repro_torch.kernels import ref
+
+        self.saved = plain = ref.fragment_spmv_ref
+
+        def hop(weights, src_ids, dst_ids, measures, n_dst, op="sum"):
+            if op != "sum":
+                return plain(weights, src_ids, dst_ids, measures, n_dst, op=op)
+            m = measures.double() if isinstance(measures, torch.Tensor) else measures
+            prod = ref._edge_product(weights.double(), src_ids, m, op)
+            out = torch.zeros(n_dst, dtype=torch.float64, device=weights.device)
+            return out.index_add_(0, dst_ids.to(torch.int64), prod).float()
+
+        ref.fragment_spmv_ref = hop
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ref
+
+        ref.fragment_spmv_ref = self.saved
+
+
+def gate_ratio(got, want) -> float:
+    """max |got - want| / (1e-4 + 1e-4 |want|): at most 1 passes compare's
+    rtol = atol = 1e-4."""
+    a, b = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float((np.abs(a - b) / (1e-4 + 1e-4 * np.abs(b))).max()) if a.size else 0.0
+
+
+def compare_or_drift(got, want, name: str, what: str, drift: list) -> float:
+    """:func:`compare`, except for a DRIFT_QUERIES query, whose gate ratio is
+    logged and appended to ``drift`` (the caller holds both sides to the
+    float64 sums)."""
+    if name not in DRIFT_QUERIES:
+        return compare(got, want, name in EXACT_QUERIES, what)
+    drift.append({"query": name, "what": what, "gate_ratio": gate_ratio(got, want)})
+    return float(np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64)).max())
+
+
+def log_drift(label: str, drift: list, n0: int) -> None:
+    """Log the worst gate ratio per query of ``drift[n0:]``."""
+    worst = {}
+    for d in drift[n0:]:
+        worst[d["query"]] = max(worst.get(d["query"], 0.0), d["gate_ratio"])
+    if worst:
+        log(f"  {label}: reported, not gated (per-edge float32 drift, ROADMAP Queue 3):"
+            f" largest gate ratio " + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
+
+
+def rel_to_f64(got, want) -> float:
+    """Largest |got - want| / |want|; where ``want`` is 0, ``got`` must be 0
+    too (inf otherwise)."""
+    a, b = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if a.shape != b.shape or not np.isfinite(a).all():
+        return float("inf")
+    nz = b != 0
+    if (a[~nz] != 0).any():
+        return float("inf")
+    return float((np.abs(a - b)[nz] / np.abs(b[nz])).max()) if nz.any() else 0.0
 
 
 def compare(got, want, exact: bool, what: str) -> float:
@@ -538,6 +660,122 @@ def check_active_kernels(db, db_dense, device) -> tuple[dict, list[dict]]:
         log(f"  active kernels, support {support}: {n_act}/{nb} blocks active;"
             f" skip == scan order == scan == plain for every op")
     return worst, rows
+
+
+#: Phase 3's bitmap lengths, in words: a CTA's vector words are 1024.
+BITMAP_SIZES = (0, 1, 3, 4, 5, 1023, 1024, 1025, 2**20 + 3)
+#: Phase 5's bandwidth shape for the bitmap kernels: 256 MB an operand.
+BITMAP_BIG_WORDS = 2**26
+
+
+def check_bitmap(device) -> dict:
+    """Phase 3i: the bitmap AND and popcount against their plain versions,
+    exact, at every length of BITMAP_SIZES (0: no launch) and on views off a
+    16-byte boundary (one operand: scalar words; both alike: scalar head and
+    tail around uint4 words)."""
+    import torch
+
+    from repro_torch.kernels import bitmap_ops as bm
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=device).manual_seed(21)
+
+    def words(n):
+        return torch.randint(-2**31, 2**31, (n,), dtype=torch.int32, generator=gen,
+                             device=device)
+
+    def both(a, b, what):
+        got = bm.bitmap_and(a, b)
+        compare(got, ref.bitmap_and_ref(a, b), True, f"bitmap_and {what}")
+        pc = bm.bitmap_and_popcount(a, b)
+        if pc.shape != () or pc.dtype != torch.int32:
+            raise AssertionError(f"bitmap_and_popcount {what}: {pc.dtype} {tuple(pc.shape)}")
+        compare(pc, ref.bitmap_and_popcount_ref(a, b), True, f"bitmap_and_popcount {what}")
+
+    n_cases = 0
+    for n in BITMAP_SIZES:
+        a, b = words(n), words(n)
+        both(a, b, f"n={n}")
+        n_cases += 1
+        if n == 2**20 + 3:
+            both(a[1:], b[:-1], f"n={n - 1} a[1:] beside b[:-1]")
+            both(a[3:], b[3:], f"n={n - 3} a[3:] beside b[3:]")
+            n_cases += 2
+    if int(bm.bitmap_and_popcount(*(torch.full((70_001,), -1, dtype=torch.int32,
+                                                 device=device),) * 2)) != 32 * 70_001:
+        raise AssertionError("bitmap_and_popcount: full words do not count 32 bits each")
+    sync()
+    log(f"  bitmap_and, bitmap_and_popcount: {n_cases + 1} cases (n {list(BITMAP_SIZES)},"
+        f" views off 16 bytes, full words) equal the plain versions exactly")
+    return {"bitmap_and": 0.0, "bitmap_and_popcount": 0.0}
+
+
+def hot_cases(device):
+    """Packed-hop streams whose destinations stress the aggregation table:
+    every edge on one destination; more distinct destinations in each
+    4096-edge block than the table has slots; Zipf-hot destinations."""
+    import torch
+
+    from repro_torch.core.fragments import _pack_words
+
+    rng = np.random.default_rng(22)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    n_src, n_dst, E = 50_000, 20_000, 3 * 4096 + 5
+    out = []
+    for name, dst in (
+        ("one destination", np.full(E, 11)),
+        ("4096 distinct a block", np.concatenate([rng.permutation(n_dst)
+                                                  for _ in range(E // n_dst + 1)])[:E]),
+        ("Zipf", np.minimum(rng.zipf(1.3, E) - 1, n_dst - 1)),
+    ):
+        src = np.sort(rng.integers(0, n_src, E)).astype(np.int32)
+        mint = rng.integers(0, 40, E)
+        for dst_packed in (True, False):
+            d, dw = ((t(_pack_words(dst, 15).view(np.int32)), 15) if dst_packed
+                     else (t(dst.astype(np.int32)), 0))
+            out.append((f"{name}, dst {'packed' if dst_packed else 'dense'}", n_src, t(src),
+                        d, dw, t(_pack_words(mint, 6).view(np.int32)), n_dst))
+    return out
+
+
+def check_hot_packed(device) -> float:
+    """Phase 3j: the packed pair's per-CTA aggregation on hot_cases, every op,
+    measure none and packed, scan and active (the list followed, and scan
+    order with n_active above scan_above), against the plain versions, with
+    the table and without it."""
+    import torch
+
+    from repro_torch.kernels import fragment_spmv_packed as pk
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=device).manual_seed(23)
+    worst, n = 0.0, 0
+    for name, n_src, src, dst, dw, mwords, n_dst in hot_cases(device):
+        E = int(src.shape[0])
+        nb = -(-E // 4096)
+        bi = torch.arange(nb, dtype=torch.int32, device=device)
+        na = torch.full((1,), nb, dtype=torch.int32, device=device)
+        for m_mode, m, mw in (("none", None, 0), ("packed", mwords, 6)):
+            for op in OPS:
+                w = frontier(n_src, op, gen, device)
+                kw = dict(dst_width=dw, m_mode=m_mode, m_width=mw, op=op)
+                want = ref.fragment_spmv_packed_ref(w, src, dst, m, None, n_dst, **kw)
+                for table in (True, False):
+                    got = [pk.fragment_spmv_packed(w, src, dst, m, None, n_dst, table=table,
+                                                   **kw)]
+                    got += [pk.fragment_spmv_packed_active(w, src, dst, m, None, bi, na, n_dst,
+                                                           scan_above=sa, table=table, **kw)
+                            for sa in (nb, 0)]
+                    sync()
+                    for g, sched in zip(got, ("scan", "active", "active in scan order")):
+                        worst = max(worst, compare(
+                            g, want, op != "sum",
+                            f"packed {sched} {name} {m_mode} {op} table={table}"))
+                        n += 1
+    log(f"  packed pair on hot destinations: {n} cases (one destination, more destinations"
+        f" a block than table slots, Zipf; every op; scan and active; the table on and off)"
+        f" equal the plain versions")
+    return worst
 
 
 def small_regions(device):
@@ -904,12 +1142,15 @@ def drive_path(label, engines, SG, c0, block_skipping, fusion, kernels, topk: bo
 
 
 def check_results(label, results, engines, SG, c0, block_skipping, fusion="auto",
-                  nine=False) -> dict:
+                  nine=False, drift=None) -> dict:
     """Each result against the same lowered plan run through the plain
-    versions on the card; finite, of the domain's shape, not empty."""
+    versions on the card; finite, of the domain's shape, not empty. With
+    ``drift`` (a path whose packed hops take the table) a DRIFT_QUERIES
+    result is reported against the plain scatter's per-edge sums, not gated
+    (see :func:`compare_or_drift`)."""
     from repro_torch.core import executor as X
 
-    errs = {}
+    errs, n0 = {}, len(drift or [])
     for name, q, params in cases(SG, c0, nine):
         got = results[name]
         pq = engines[name].prepare(q, block_skipping=block_skipping, fusion=fusion)
@@ -921,10 +1162,70 @@ def check_results(label, results, engines, SG, c0, block_skipping, fusion="auto"
                                    block_skipping=block_skipping, use_kernel=False,
                                    fusion=fusion)
         want = plain(*[params[n] for n in pq.param_names]).cpu().numpy()
-        errs[name] = compare(got, want, name in EXACT_QUERIES, f"{label} {name} vs plain")
+        what = f"{label} {name} vs plain"
+        errs[name] = (compare(got, want, name in EXACT_QUERIES, what) if drift is None
+                      else compare_or_drift(got, want, name, what, drift))
     log(f"  path {label}: every result matches the plain versions on the card"
         f" (max abs err {max(errs.values()):.3g})")
+    if drift is not None:
+        log_drift(f"path {label} vs plain", drift, n0)
     return errs
+
+
+def float_queries(SG, c0) -> list:
+    """The nine queries whose results are float sums (not EXACT_QUERIES)."""
+    return [c for c in cases(SG, c0, True) if c[0] not in EXACT_QUERIES]
+
+
+def truth_single(engines, SG, c0) -> dict:
+    """Each float query through the plain versions with float64 sums
+    (:class:`float64_sums`; skipping and fusion off)."""
+    from repro_torch.core import executor as X
+
+    out = {}
+    with float64_sums():
+        for name, q, params in float_queries(SG, c0):
+            pq = engines[name].prepare(q, block_skipping="off", fusion="off")
+            run = X.compile_frontier(engines[name].db.device, pq.phys, block_skipping="off",
+                                     use_kernel=False, fusion="off")
+            out[name] = run(*[params[n] for n in pq.param_names]).cpu().numpy()
+    return out
+
+
+def truth_batched(engines, SG, c0, results, B: int = 8) -> dict:
+    """Each float query's B-row batch of ``results`` through the plain
+    versions run batched with float64 sums."""
+    from repro_torch.core import executor as X
+
+    out = {}
+    with float64_sums():
+        for name, q, _ in float_queries(SG, c0):
+            params = results[(name, B)][0]
+            pq = engines[name].prepare(q, block_skipping="off", fusion="off")
+            run = X.compile_frontier_batched(engines[name].db.device, pq.phys,
+                                             block_skipping="off", use_kernel=False,
+                                             fusion="off")
+            out[name] = run(*[params[n] for n in pq.param_names]).cpu().numpy()
+    return out
+
+
+def hold_f64(label, results, truth, kind: str, key=lambda name: name) -> dict:
+    """Each float query's result (``results[key(name)]``) against the float64
+    sums ``truth[name]``: fails past FLOAT64_LIMIT[kind] (where it is set);
+    returns the relative differences."""
+    limit = FLOAT64_LIMIT[kind]
+    rel = {}
+    for name, want in truth.items():
+        got = results[key(name)]
+        if isinstance(got, tuple):
+            got = got[1]
+        rel[name] = rel_to_f64(got, want)
+        if limit is not None and not rel[name] <= limit:
+            raise AssertionError(f"{label} {name}: relative difference {rel[name]:.3g} to the"
+                                 f" float64 sums beyond {limit:g}")
+    log(f"  path {label}: float sums against the plain versions' float64 sums (relative,"
+        f" limit {limit}): " + ", ".join(f"{k} {v:.3g}" for k, v in rel.items()))
+    return rel
 
 
 def check_quickstart(SG, run_sql, GQFastDatabase, GQFastEngine, device, encodings,
@@ -949,6 +1250,53 @@ def check_quickstart(SG, run_sql, GQFastDatabase, GQFastEngine, device, encoding
             raise AssertionError(f"{name}: empty result at quickstart scale")
     log(f"  all nine match run_sql at quickstart scale, device_encodings={encodings!r},"
         f" fusion={fusion!r} ({regions} regions; max abs err {worst:.3g})")
+
+
+#: Path j's two terms (AD's parameters).
+INTERSECT_TERMS = (3, 9)
+
+
+def drive_intersection(db_dense, device) -> tuple[dict, tuple]:
+    """Path j: the document sets of INTERSECT_TERMS as bitmaps built on the
+    card from I_DT.Term (32 documents a word), intersected through
+    ``ops.bitmap_and`` and counted through ``ops.bitmap_and_popcount`` with
+    every counter set to 0 just before and read just after: one launch of
+    each, results equal to the plain versions, the count equal to
+    ``np.intersect1d`` of the two document lists on the host index.
+    Returns the record and the two masks."""
+    from repro_torch.kernels import ops as K
+    from repro_torch.kernels import ref
+
+    di = db_dense.device.index("DT", "Term")
+    host = db_dense.host_indexes[("DT", "Term")]
+    n_doc = db_dense.schema.domain_size("Document")
+    t1, t2 = INTERSECT_TERMS
+    masks = tuple(K.membership_bitmap(di.dst_ids[int(host.indptr[t]):int(host.indptr[t + 1])],
+                                      n_doc) for t in (t1, t2))
+    sync()
+    reset_counts()
+    both = K.bitmap_and(*masks)
+    count = K.bitmap_and_popcount(*masks)
+    counts = read_counts()
+    sync()
+    want = {k: 1 if k in ("bitmap_and", "bitmap_and_popcount") else 0 for k in KERNELS}
+    if counts != want:
+        raise AssertionError(f"path j: launches {counts}, expected {want}")
+    compare(both, ref.bitmap_and_ref(*masks), True, "path j bitmap_and vs plain")
+    compare(count, ref.bitmap_and_popcount_ref(*masks), True, "path j popcount vs plain")
+    docs = np.intersect1d(host.fragment(t1, "Doc"), host.fragment(t2, "Doc"))
+    if int(count) != docs.shape[0]:
+        raise AssertionError(f"path j: popcount {int(count)} != np.intersect1d's {docs.shape[0]}")
+    compare(both, K.membership_bitmap(docs, n_doc).to(both.device), True,
+            "path j: the AND vs the bitmap of np.intersect1d")
+    rec = {"counts": counts, "terms": [t1, t2], "words": int(masks[0].shape[0]),
+           "docs": [int(host.indptr[t + 1] - host.indptr[t]) for t in (t1, t2)],
+           "intersection": int(count)}
+    log(f"  path j: terms {t1} and {t2} ({rec['docs'][0]} and {rec['docs'][1]} documents,"
+        f" {rec['words']} words a bitmap): intersection {int(count)} documents, equal to"
+        f" np.intersect1d; launches bitmap_and {counts['bitmap_and']}, bitmap_and_popcount"
+        f" {counts['bitmap_and_popcount']}")
+    return rec, masks
 
 
 # ---------------------------------------------------------------------------
@@ -1104,28 +1452,32 @@ def time_kernels(db, db_dense, device) -> dict:
         mw, m_mode = (pm.words, "packed") if pm is not None else (None, "none")
         kw = dict(dst_width=pi.dst_col.width, m_mode=m_mode,
                   m_width=pm.width if pm is not None else 0)
+        table = uses_table(pi)
         dwords = pi.dst_col.words
         pb = 4 * dwords.shape[0] + (4 * mw.shape[0] if mw is not None else 0)
         b, by = hop_bound(E, n_src, n_dst, 4 * dwords.shape[0],
                           4 * mw.shape[0] if mw is not None else 0)
         ms = time_device_ms(lambda: pk.fragment_spmv_packed(w, src, dwords, mw, None, n_dst,
-                                                            **kw), KERNEL_REPS)
-        plain = time_device_ms(lambda: ref.fragment_spmv_packed_ref(w, src, dwords, mw, None,
-                                                                    n_dst, **kw), KERNEL_REPS)
+                                                            table=table, **kw), KERNEL_REPS)
+        plain = time_device_ms(lambda: ref.fragment_spmv_packed_ref(
+            w, src, dwords, mw, None, n_dst, **kw), KERNEL_REPS)
         rows["fragment_spmv_packed"].append(dict(shape=name, E=E, ms=ms, plain_ms=plain,
                                                  bound_ms=b, bound_by=by,
                                                  library_ms=library_ms, packed_bytes=pb,
                                                  dst_width=kw["dst_width"],
-                                                 m_width=kw["m_width"]))
+                                                 m_width=kw["m_width"],
+                                                 table=table, hot_share=pi.hot_share))
         ms = time_device_ms(lambda: pk.fragment_spmv_packed_active(
-            w, src, dwords, mw, None, bi, na, n_dst, scan_above=nb, **kw), KERNEL_REPS)
+            w, src, dwords, mw, None, bi, na, n_dst, scan_above=nb, table=table, **kw),
+            KERNEL_REPS)
         plain = time_device_ms(lambda: ref.fragment_spmv_packed_active_ref(
             w, src, dwords, mw, None, bi, na, n_dst, **kw), KERNEL_REPS)
         b, by = hop_bound(E, n_src, n_dst, 4 * dwords.shape[0],
                           4 * mw.shape[0] if mw is not None else 0, extra=4 * nb + 4)
         rows["fragment_spmv_packed_active"].append(dict(shape=name, E=E, ms=ms, plain_ms=plain,
                                                         bound_ms=b, bound_by=by,
-                                                        library_ms=library_ms, support=1.0))
+                                                        library_ms=library_ms, support=1.0,
+                                                        table=table))
         for k in KERNELS:
             if rows[k] and rows[k][-1]["shape"] == name:
                 r = rows[k][-1]
@@ -1142,6 +1494,93 @@ def time_kernels(db, db_dense, device) -> dict:
                                           library_ms=None))
             log(f"  {'bitunpack':28s} {name} dst {width} bits, {count} values {ms:.4f} ms"
                 f"  bound {b:.4f} ms ({by})  plain {plain:.4f} ms  library none")
+    return rows
+
+
+def hot_author_error(db, db_dense, device) -> dict:
+    """The float32 sum of each SpMV hop kernel on I_DA.Doc over a dense random
+    frontier against float64, on the hottest author (the most edges) and over
+    every author: the per-edge atomics of the dense kernel and of the plain
+    scatter against the packed pair's per-CTA partial sums."""
+    import torch
+
+    from repro_torch.kernels import fragment_spmv as dk
+    from repro_torch.kernels import fragment_spmv_packed as pk
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=device).manual_seed(24)
+    di, pi = db_dense.device.index("DA", "Doc"), db.device.index("DA", "Doc")
+    n_src, n_dst = di.indptr.shape[0] - 1, db.schema.domain_size("Author")
+    src, dst = di.src_ids, di.dst_ids
+    E = int(src.shape[0])
+    nb = -(-E // 4096)
+    bi = torch.arange(nb, dtype=torch.int32, device=device)
+    na = torch.full((1,), nb, dtype=torch.int32, device=device)
+    w = frontier(n_src, "sum", gen, device)
+    truth = torch.zeros(n_dst, dtype=torch.float64, device=device).index_add_(
+        0, dst.long(), w.double()[src.long()])
+    deg = torch.bincount(dst.long(), minlength=n_dst)
+    hot = int(torch.argmax(deg))
+    kw = dict(dst_width=pi.dst_col.width)
+    out = {"author": hot, "edges": int(deg[hot]), "E": E}
+    for name, fn in (
+        ("fragment_spmv", lambda: dk.fragment_spmv(w, src, dst, None, n_dst)),
+        ("fragment_spmv_packed", lambda: pk.fragment_spmv_packed(
+            w, src, pi.dst_col.words, None, None, n_dst, **kw)),
+        ("fragment_spmv_packed_active", lambda: pk.fragment_spmv_packed_active(
+            w, src, pi.dst_col.words, None, None, bi, na, n_dst, scan_above=nb, **kw)),
+        ("plain", lambda: ref.fragment_spmv_ref(w, src, dst, None, n_dst)),
+    ):
+        y = fn().double()
+        rel = (y - truth).abs() / truth.abs().clamp_min(1e-30)
+        rel[truth == 0] = 0.0
+        out[name] = {"rel_err_hottest": float(rel[hot]), "rel_err_max": float(rel.max())}
+    log(f"  float32 sums on I_DA.Doc against float64: hottest author {hot} ({out['edges']}"
+        f" edges) " + ", ".join(f"{k} {v['rel_err_hottest']:.3g}" for k, v in out.items()
+                                if isinstance(v, dict))
+        + "; largest over all authors " + ", ".join(
+            f"{k} {v['rel_err_max']:.3g}" for k, v in out.items() if isinstance(v, dict)))
+    return out
+
+
+def time_bitmap(masks, device) -> dict:
+    """The bitmap kernels at path j's shape and at 2^26 words an operand (the
+    popcount at one word fewer, its most): CUDA-event ms, the bound (12 bytes
+    a word for the AND, 8 for the popcount), the plain version's ms and
+    ``torch.bitwise_and``'s (none counts bits in one PyTorch call)."""
+    import torch
+
+    from repro_torch.kernels import bitmap_ops as bm
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=device).manual_seed(25)
+    big = tuple(torch.randint(-2**31, 2**31, (BITMAP_BIG_WORDS,), dtype=torch.int32,
+                              generator=gen, device=device) for _ in range(2))
+    rows = {"bitmap_and": [], "bitmap_and_popcount": []}
+    for shape, (a, b) in (("path j masks", masks), ("bandwidth shape", big)):
+        n = int(a.shape[0])
+        bnd, by = bound_ms(12 * n, 0)
+        rows["bitmap_and"].append(dict(
+            shape=shape, E=n, ms=time_device_ms(lambda: bm.bitmap_and(a, b), KERNEL_REPS),
+            plain_ms=time_device_ms(lambda: ref.bitmap_and_ref(a, b), KERNEL_REPS),
+            library_ms=time_device_ms(lambda: torch.bitwise_and(a, b), KERNEL_REPS),
+            bound_ms=bnd, bound_by=by))
+        a, b = a[:bm.MAX_POPCOUNT_WORDS], b[:bm.MAX_POPCOUNT_WORDS]
+        n = int(a.shape[0])
+        bnd, by = bound_ms(8 * n + 4, 0)
+        rows["bitmap_and_popcount"].append(dict(
+            shape=shape, E=n,
+            ms=time_device_ms(lambda: bm.bitmap_and_popcount(a, b), KERNEL_REPS),
+            plain_ms=time_device_ms(lambda: ref.bitmap_and_popcount_ref(a, b), KERNEL_REPS),
+            library_ms=None, bound_ms=bnd, bound_by=by))
+        for k in rows:
+            r = rows[k][-1]
+            lib = (f"torch.bitwise_and {r['library_ms']:.4f} ms"
+                   if r["library_ms"] is not None else "library none")
+            log(f"  {k:20s} {shape} ({r['E']} words): {r['ms']:.4f} ms  bound"
+                f" {r['bound_ms']:.4f} ms ({r['bound_by']})  plain {r['plain_ms']:.4f} ms"
+                f"  {lib}")
+    del big
     return rows
 
 
@@ -1330,6 +1769,7 @@ def time_skipping(db, db_dense, device) -> tuple[list[dict], float]:
     nb = active.n_edge_blocks(E)
     blocks = (pt.block_src_min, pt.block_src_max)
     kw = dict(dst_width=pt.dst_col.width, m_mode="packed", m_width=fre.width)
+    table = uses_table(pt)
     per_edge = {"packed": (4 * pt.dst_col.words.shape[0] + 4 * fre.words.shape[0]) / E + 4,
                 "dense": 12}
     base = frontier(n_src, "sum", gen, device)
@@ -1349,13 +1789,14 @@ def time_skipping(db, db_dense, device) -> tuple[list[dict], float]:
         for layout in ("packed", "dense"):
             if layout == "packed":
                 scan = lambda: pk.fragment_spmv_packed(w, pt.src_ids, pt.dst_col.words,  # noqa: E731
-                                                       fre.words, None, n_dst, **kw)
+                                                       fre.words, None, n_dst, table=table,
+                                                       **kw)
                 act = lambda sa: pk.fragment_spmv_packed_active(  # noqa: E731
                     w, pt.src_ids, pt.dst_col.words, fre.words, None, bi, na, n_dst,
-                    scan_above=sa, **kw)
+                    scan_above=sa, table=table, **kw)
                 hop = lambda mode: K.fragment_spmv_packed(  # noqa: E731
                     w, pt.src_ids, pt.dst_col.words, fre.words, n_dst=n_dst, blocks=blocks,
-                    block_skipping=mode, **kw)
+                    block_skipping=mode, hot_share=pt.hot_share, **kw)
             else:
                 scan = lambda: dk.fragment_spmv(w, dt.src_ids, dt.dst_ids,  # noqa: E731
                                                 dt.measures["Fre"], n_dst)
@@ -1736,11 +2177,13 @@ def drive_batched(label, engines, SG, c0, draws, block_skipping, fusion, hop_ker
     return results, counts, records
 
 
-def check_batched_rows(label, results, engines, SG, c0, block_skipping, fusion,
+def check_batched_rows(label, results, engines, SG, c0, block_skipping, fusion, drift,
                        sizes=None) -> float:
     """Each row of each batch against the single call ``pq(**row)`` of the
-    same prepared query (exact for counts and memberships)."""
-    worst = 0.0
+    same prepared query (exact for counts and memberships). The SpMM adds an
+    atomic an edge and the single calls' packed hops take the table, so a
+    DRIFT_QUERIES row is reported, not gated (:func:`compare_or_drift`)."""
+    worst, n0 = 0.0, len(drift)
     for (name, B), (params, out) in results.items():
         if sizes is not None and B not in sizes:
             continue
@@ -1748,9 +2191,12 @@ def check_batched_rows(label, results, engines, SG, c0, block_skipping, fusion,
                                    block_skipping=block_skipping, fusion=fusion)
         for i in range(B):
             single = pq(**{k: int(v[i]) for k, v in params.items()})
-            worst = max(worst, compare(out[i], single, name in EXACT_QUERIES,
-                                       f"{label} {name} B={B} row {i} vs single call"))
-    log(f"  path {label}: every row equals its single call (max abs err {worst:.3g})")
+            worst = max(worst, compare_or_drift(out[i], single, name,
+                                                f"{label} {name} B={B} row {i} vs single call",
+                                                drift))
+    log(f"  path {label}: every row equals its single call, the DRIFT_QUERIES reported"
+        f" (max abs err {worst:.3g})")
+    log_drift(f"path {label} rows vs single calls", drift, n0)
     return worst
 
 
@@ -1934,9 +2380,10 @@ def time_spmm_kernels(db, db_dense, device) -> dict:
                 "fragment_spmm_active": lambda: dk.fragment_spmv_active(
                     W[0], src, dst, m, bi, na, n_dst, scan_above=nb),
                 "fragment_spmm_packed": lambda: pk.fragment_spmv_packed(
-                    W[0], src, dwords, mw, None, n_dst, **kw),
+                    W[0], src, dwords, mw, None, n_dst, table=uses_table(pi), **kw),
                 "fragment_spmm_packed_active": lambda: pk.fragment_spmv_packed_active(
-                    W[0], src, dwords, mw, None, bi, na, n_dst, scan_above=nb, **kw),
+                    W[0], src, dwords, mw, None, bi, na, n_dst, scan_above=nb,
+                    table=uses_table(pi), **kw),
             }
             calls = {
                 "fragment_spmm": (lambda: sk.fragment_spmm(W, src, dst, m, n_dst),
@@ -2047,10 +2494,19 @@ def time_spmm_fused(specs, device) -> dict:
         compare(lib32.double(), want64, False,
                 f"{k} {spec['name']} B=8: torch.sparse.mm float32 vs float64")
         r_kernel = max_rel(got, want64)
+        # the same rows one at a time through the SpMV hops, whose packed
+        # pair sums per CTA in its table on a hot index (I_DA.Doc)
+        single = torch.stack([K.fragment_spmv_fused(
+            W[i], h1, h2, mask, op="sum", mid_binarize=binz, fusion="off",
+            block_skipping="off") for i in range(B)])
+        r_single = max_rel(single, want64)
+        del single
         log(f"    {spec['name']} B=8: max relative difference to the float64 sums:"
-            f" kernel {r_kernel:.3g}, float32 torch.sparse.mm {max_rel(lib32, want64):.3g}")
+            f" kernel {r_kernel:.3g}, the rows through the SpMV hops {r_single:.3g}, float32"
+            f" torch.sparse.mm {max_rel(lib32, want64):.3g}")
         del want64, lib32
         r = dict(shape=spec["name"], E=e1 + e2, B=B, n_mid=n_mid, max_rel_vs_float64=r_kernel,
+                 spmv_hops_max_rel_vs_float64=r_single,
                  n_active=[na1] + ([na2] if s2 else []),
                  ms=time_device_ms(fused, KERNEL_REPS),
                  unfused_ms=time_device_ms(unf, KERNEL_REPS),
@@ -2165,6 +2621,14 @@ def run(device) -> None:
             f" (ratio {s['ratio']:.4f})")
         for k, v in s["indexes"].items():
             log(f"    {k}: {v['device_bytes']} B (dense {v['dense_bytes']} B) columns {v['columns']}")
+    # each index's hot share and the packed hop's choice from it
+    tables = {}
+    for label, d in (("pubmed", db), ("semmed", dbs)):
+        for (table, key), di in d.device.indexes.items():
+            tables[f"{label} I_{table}.{key}"] = {"hot_share": di.hot_share,
+                                                  "table": uses_table(di)}
+    log("  packed hop per index (hot share: table on/off): " + ", ".join(
+        f"{k} {v['hot_share']:.3g}: {'on' if v['table'] else 'off'}" for k, v in tables.items()))
 
     # phase 3: kernels against their plain versions
     phase("[3] kernels against their plain versions on the card", t_start)
@@ -2176,6 +2640,10 @@ def run(device) -> None:
         packed_cases(db, dict_db, device), device)
     act_worst, active_checks = check_active_kernels(db, db_dense, device)
     worst.update(act_worst)
+    hot = check_hot_packed(device)
+    for k in PACKED_HOPS:
+        worst[k] = max(worst[k], hot)
+    worst.update(check_bitmap(device))
     del dict_db
     fused_small, n_small = check_fused_small(device)
     specs = region_specs(db, SG, device)
@@ -2246,24 +2714,36 @@ def run(device) -> None:
         for h in rest[2]:
             if "fused" in h["query"]:
                 log(f"    {h['query']:22s}: {h['n_active']}/{h['n_blocks']} blocks listed")
+    drift = []  # cross-kernel comparisons reported for DRIFT_QUERIES
     errs = {"dense": check_results("a", res_a, engines["dense"], SG, c0, "off", "off"),
             "auto_auto_off": check_results("b", res_b, engines["auto"], SG, c0, "auto", "off",
-                                           nine=True),
+                                           nine=True, drift=drift),
             "defaults": check_results("f", fused_res["auto"], engines["auto"], SG, c0, "auto",
-                                      "auto", nine=True),
+                                      "auto", nine=True, drift=drift),
             "fusion_on": check_results("g", fused_res["on"], engines["auto"], SG, c0, "auto",
-                                       "on", nine=True)}
-    check_results("c", res_c, engines["auto"], SG, c0, "off", "off")
+                                       "on", nine=True, drift=drift)}
+    check_results("c", res_c, engines["auto"], SG, c0, "off", "off", drift=drift)
     check_results("d", res_d, engines["dense"], SG, c0, "auto", "off")
+    # every path's float sums against the plain versions' float64 sums
+    truth = truth_single(engines["auto"], SG, c0)
+    float64_rel = {
+        lbl: hold_f64(lbl, res, {k: v for k, v in truth.items() if k in res}, "single")
+        for lbl, res in (("a", res_a), ("b", res_b), ("c", res_c), ("d", res_d),
+                         ("f", fused_res["auto"]), ("g", fused_res["on"]))}
+    n0 = len(drift)
     for name, _, _ in cases(SG, c0):
-        for other, lbl in ((res_a, "dense/off"), (res_c, "auto/off"), (res_d, "dense/auto")):
-            compare(res_b[name], other[name], name in EXACT_QUERIES, f"auto/auto {name} vs {lbl}")
+        compare(res_b[name], res_c[name], name in EXACT_QUERIES, f"auto/auto {name} vs auto/off")
+        for other, lbl in ((res_a, "dense/off"), (res_d, "dense/auto")):
+            compare_or_drift(res_b[name], other[name], name, f"auto/auto {name} vs {lbl}",
+                             drift)
+    log_drift("auto/auto vs the dense paths", drift, n0)
     for name, _, _ in cases(SG, c0, True):
         for fusion, res in fused_res.items():
             compare(res[name], res_b[name], name in EXACT_QUERIES,
                     f"fusion {fusion} {name} vs fusion off")
-    log("  auto/auto equals the dense path (exact for SD/AD/RECENT/CS) and every other path;"
-        " fusion auto and on equal fusion off for all nine (exact for the counts)")
+    log("  auto/auto equals auto/off and the dense paths (exact for SD/AD/RECENT/CS; AS"
+        " and AS-recent against the dense paths reported, every path held to the float64"
+        " sums); fusion auto and on equal fusion off for all nine (exact for the counts)")
     pq = eng.prepare(Q_COMPOSITE)
     plain = X.compile_frontier(db.device, pq.phys, use_kernel=False)(5).cpu().numpy()
     compare(comp, plain, False, "composite vs plain")
@@ -2301,7 +2781,10 @@ def run(device) -> None:
             compare(res[(name, 8)][1], res_h[(name, 8)][1], name in EXACT_QUERIES,
                     f"{label} {name} B=8 vs the defaults")
     batched["rows_vs_single_defaults"] = check_batched_rows(
-        "4h", res_h, engines["auto"], SG, c0, "auto", "auto")
+        "4h", res_h, engines["auto"], SG, c0, "auto", "auto", drift)
+    truth8 = truth_batched(engines["auto"], SG, c0, res_h)
+    float64_rel["h_B8"] = hold_f64("4h B=8", res_h, truth8, "batched",
+                                   key=lambda name: (name, 8))
     batched["plain_defaults"] = check_batched_plain("4h", res_h, engines["auto"], SG, c0,
                                                     "auto", "auto")
     log("  the dense and skipping-off batched paths equal the defaults at B = 8 (exact for"
@@ -2314,12 +2797,18 @@ def run(device) -> None:
     for key, (params, out) in res_i.items():
         compare(out, res_h[key][1], key[0] in EXACT_QUERIES, f"4i {key} vs 4h")
     batched["rows_vs_single_fusion_on"] = check_batched_rows(
-        "4i", res_i, engines["auto"], SG, c0, "auto", "on", sizes=(5,))
+        "4i", res_i, engines["auto"], SG, c0, "auto", "on", drift, sizes=(5,))
+    float64_rel["i_B8"] = hold_f64("4i B=8", res_i, truth8, "batched",
+                                   key=lambda name: (name, 8))
     batched["plain_fusion_on"] = check_batched_plain("4i", res_i, engines["auto"], SG, c0,
                                                      "auto", "on")
     for fusion in ("auto", "on"):
         batched[f"quickstart_{fusion}"] = check_batched_quickstart(
             SG, run_sql, GQFastDatabase, GQFastEngine, device, fusion)
+
+    # phase 4j: the intersection a user asks for
+    phase("[4j] the merge intersection through ops.bitmap_and / bitmap_and_popcount", t_start)
+    paths["j_intersection"], masks = drive_intersection(db_dense, device)
 
     # phase 5: times
     phase("[5] times", t_start)
@@ -2332,6 +2821,14 @@ def run(device) -> None:
              "fusion_on": breakdown("on", engines["auto"], SG, c0, "auto", "on", True),
              "fusion_off": breakdown("off", engines["auto"], SG, c0, "auto", "off", True)}
     ktimes = time_kernels(db, db_dense, device)
+    for shape in ("I_DA.Doc", "I_DT.Term"):
+        t = {k: next(r["ms"] for r in ktimes[k] if r["shape"] == shape)
+             for k in ("fragment_spmv", *PACKED_HOPS)}
+        log(f"  {shape}: packed pair against the dense fragment_spmv (one atomic an edge):"
+            f" scan {t['fragment_spmv_packed'] / t['fragment_spmv']:.3f}x, active"
+            f" {t['fragment_spmv_packed_active'] / t['fragment_spmv']:.3f}x its time")
+    hot_err = hot_author_error(db, db_dense, device)
+    ktimes.update(time_bitmap(masks, device))
     fused_rows, budget_rows, budget = time_fused(specs, device)
     ktimes.update(fused_rows)
     skipping, skip_fraction = time_skipping(db, db_dense, device)
@@ -2358,14 +2855,17 @@ def run(device) -> None:
             primary = next(r for r in ktimes[k] if r["B"] == 8)  # I_DT.Term at B = 8
         else:
             primary = ktimes[k][0]
+        if k.startswith("bitmap"):
+            timed = f"{primary['shape']}, {primary['E']} words"
+        else:
+            timed = (f"{primary['shape']} sum, E={primary['E']}"
+                     + (f", B={primary['B']}" if "B" in primary else ""))
         entries.append({
             "name": k, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{src}",
             "replaces": replaces, "launches": launches[k], "max_abs_err": worst[k],
             "ms": primary["ms"], "plain_ms": primary["plain_ms"],
             "bound_ms": primary["bound_ms"], "bound_by": primary["bound_by"],
-            "library_ms": primary["library_ms"],
-            "timed_shape": (f"{primary['shape']} sum, E={primary['E']}"
-                            + (f", B={primary['B']}" if "B" in primary else "")),
+            "library_ms": primary["library_ms"], "timed_shape": timed,
         })
     record = {
         "card": card, "card_state": state, "torch": torch.__version__,
@@ -2382,6 +2882,8 @@ def run(device) -> None:
         "regions": [{k: sp[k] for k in ("name", "prepare_s", "reach_bytes")} for sp in specs],
         "paths": paths, "fused_plans": plans, "query_max_abs_err_vs_plain": errs,
         "queries": qtimes, "query_device_breakdown": split, "kernel_times": ktimes,
+        "hot_author_float32": hot_err, "query_float64_rel": float64_rel,
+        "float64_limit": FLOAT64_LIMIT, "drift_reported": drift, "index_tables": tables,
         "skipping": skipping, "skip_block_fraction": active.SKIP_BLOCK_FRACTION,
         "skip_block_fraction_measured": skip_fraction, "fused_vs_unfused": budget_rows,
         "fused_scratch_budget_bytes": FUSED_SCRATCH_BUDGET_BYTES,

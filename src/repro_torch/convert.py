@@ -75,12 +75,18 @@ def device_db_from_numpy(schema: Schema, arrays: dict, device="cuda",
             raise ValidationError(
                 f"{where}: degrees disagree with indptr", table=table, key=key,
             )
+        dst_col = column_from_numpy(a["dst_ids"], torch.int32, device, where)
+        # the dst column's host values, for the index's hot share: the host
+        # index's column under the relationship's other key, else decoded
+        host = (host_indexes or {}).get((table, key))
+        dst_values = (host.columns[schema.relationships[table].other_fk(key)].values
+                      if host is not None
+                      else dst_col.materialize(use_kernel=False).cpu().numpy())
         indexes[(table, key)] = make_device_index(
-            indptr, a["src_ids"],
-            column_from_numpy(a["dst_ids"], torch.int32, device, where),
+            indptr, a["src_ids"], dst_col,
             {m: column_from_numpy(v, torch.float32, device, f"{where}/{m}")
              for m, v in a["measures"].items()},
-            device,
+            device, dst_values,
         )
     attrs = {
         k: to_device(v, torch.float32, device)

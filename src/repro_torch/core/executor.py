@@ -114,6 +114,10 @@ class DeviceIndex:
     # metadata; None disables skipping for this index
     block_src_min: torch.Tensor | None = None
     block_src_max: torch.Tensor | None = None
+    # the hottest destination's share of the edges (largest dst degree / E),
+    # from the host dst column where the index is built: the packed hop
+    # aggregates per CTA from kernels.params.HOP_TABLE_HOT_SHARE up
+    hot_share: float = field(kw_only=True)
 
     @property
     def dst_ids(self) -> torch.Tensor:
@@ -151,11 +155,20 @@ def to_device(a, dtype: torch.dtype, device) -> torch.Tensor:
     return torch.tensor(np.asarray(a, dtype=np_dtype), device=device)
 
 
+def dst_hot_share(dst_values) -> float:
+    """The largest destination degree over the edge count of a host dst
+    column (0.0 for an empty one)."""
+    d = np.asarray(dst_values)
+    return float(np.bincount(d.astype(np.int64)).max()) / d.shape[0] if d.shape[0] else 0.0
+
+
 def make_device_index(indptr, src_ids, dst_col: DeviceColumn,
-                      measure_cols: dict[str, DeviceColumn], device) -> DeviceIndex:
+                      measure_cols: dict[str, DeviceColumn], device,
+                      dst_values) -> DeviceIndex:
     """One index on ``device`` from host structure arrays and its columns
     (already on ``device``): int32 structure and the block-range metadata,
-    moved to the device once here."""
+    moved to the device once here, and the hot share of ``dst_values`` (the
+    host dst column)."""
     src = np.asarray(src_ids)
     bmin, bmax = block_ranges(src)
     indptr = np.asarray(indptr)
@@ -167,6 +180,7 @@ def make_device_index(indptr, src_ids, dst_col: DeviceColumn,
         measure_cols=dict(measure_cols),
         block_src_min=to_device(bmin, torch.int32, device),
         block_src_max=to_device(bmax, torch.int32, device),
+        hot_share=dst_hot_share(dst_values),
     )
 
 
@@ -195,7 +209,7 @@ def build_device_db(
     seen_addrs: set[tuple[str, str, str]] = set()
     for (table, key), idx in host_indexes.items():
         other = next(c for c in idx.columns if c != key and _is_fk(schema, table, c))
-        cf = idx.columns[other]
+        cf = cf_dst = idx.columns[other]
         seen_addrs.add((table, key, other))
         enc = resolve_device_encoding(
             device_encodings, (table, key, other), cf.values, cf.domain, is_key=True
@@ -214,7 +228,7 @@ def build_device_db(
             measure_cols[m] = build_device_column(cf, enc, torch.float32, device,
                                                   uniques=uq)
         dev[(table, key)] = make_device_index(
-            idx.indptr, idx.src_ids(), dst_col, measure_cols, device
+            idx.indptr, idx.src_ids(), dst_col, measure_cols, device, cf_dst.values,
         )
     if isinstance(device_encodings, dict):
         unknown = set(device_encodings) - seen_addrs
@@ -547,6 +561,7 @@ class _FrontierInterp(_Interp):
             m_mode=m_mode, m_width=m_width, op=self.sr.name,
             use_kernel=self.use_kernel,
             blocks=self.blocks_for(op), block_skipping=self.block_skipping,
+            hot_share=op.hot_share,
         )
 
     # -- pipelined fused regions ---------------------------------------------
@@ -572,7 +587,7 @@ class _FrontierInterp(_Interp):
             measure=m_operand, mdict=mdict, n_dst=op.dom_dst,
             dst_width=op.dst_col.width if dst_packed else 0,
             m_mode=m_mode, m_width=m_width,
-            blocks=self.blocks_for(op), reach=reach,
+            blocks=self.blocks_for(op), reach=reach, hot_share=op.hot_share,
         )
 
     def _fused_region_args(self, op: FusedHopOp):

@@ -210,6 +210,9 @@ class HopOp:
     # the dst column's host values (the FragmentIndex column), read by the
     # fusion pass's reach matrix; None when the database has no host index
     host_dst: Any = None
+    # DeviceIndex.hot_share: the packed hop aggregates per CTA from
+    # kernels.params.HOP_TABLE_HOT_SHARE up (keyword only, no default)
+    hot_share: float = field(kw_only=True)
 
     @property
     def dst_ids(self):
@@ -364,6 +367,7 @@ def lower(db, plan: ChainPlan) -> PhysicalPlan:
                 measure=measure, semijoin=s.semijoin,
                 block_src_min=getattr(di, "block_src_min", None),
                 block_src_max=getattr(di, "block_src_max", None),
+                hot_share=di.hot_share,
                 host_dst=hidx.columns[s.dst_key].values if hidx is not None else None,
             ))
         else:  # EntityStep

@@ -30,7 +30,19 @@
 //     have) is not staged in shared memory: it is read through the read-only
 //     path (__ldg), where the entries a column really uses stay in L1/L2;
 //   * the word streams are not padded to whole blocks: the decode guards the
-//     straddle read of the last word, and the grid bounds on E.
+//     straddle read of the last word, and the grid bounds on E;
+//   * the scatter aggregates per CTA (hop.cuh's scan_agg / active_agg): a
+//     CTA combines its products per destination in a shared-memory table and
+//     issues one global atomic per distinct destination, so a Zipf-hot
+//     destination costs an atomic a CTA, not an atomic an edge (I_DA.Doc's
+//     hop falls about sevenfold on the H100, PERF.md). Where no destination
+//     is hot the table only costs (I_DT.Term's active hop ~30%), so the
+//     caller passes table = 0 for such an index (kernels/ops.py uses_table)
+//     and the hop takes hop.cuh's per-edge schedules (scan / active), which
+//     the dense hop keeps. The aggregating kernels launch one wave: as many
+//     CTAs as are co-resident with the table's shared memory (no more than
+//     the index has blocks), the scan each over one contiguous range of
+//     edges, the active kernel each over every gridDim.x-th listed block.
 // This file allocates nothing and does not synchronise.
 
 #include "hop.cuh"
@@ -44,17 +56,29 @@ enum MMode { kNone = 0, kDense = 1, kPacked = 2, kDict = 3 };
 template <int OP, class Dst, class M>
 __global__ void fragment_spmv_packed_kernel(const float* __restrict__ w, int n_src,
                                             const int32_t* __restrict__ src, Dst dst, M m,
-                                            int64_t E, float* __restrict__ y, int n_dst) {
-  scan<OP, Dst, M>(w, n_src, src, dst, m, E, y, n_dst);
+                                            int64_t E, float* __restrict__ y, int n_dst,
+                                            int table) {
+  if (!table) {
+    scan<OP, Dst, M>(w, n_src, src, dst, m, E, y, n_dst);
+    return;
+  }
+  extern __shared__ float smem[];
+  scan_agg<OP, Dst, M>(smem, w, n_src, src, dst, m, E, y, n_dst);
 }
 
 template <int OP, class Dst, class M>
 __global__ void fragment_spmv_packed_active_kernel(
     const float* __restrict__ w, int n_src, const int32_t* __restrict__ src, Dst dst, M m,
     int64_t E, float* __restrict__ y, int n_dst, const int32_t* __restrict__ block_idx,
-    int n_cap, const int32_t* __restrict__ n_active, int scan_above) {
-  active<OP, Dst, M>(w, n_src, src, dst, m, E, y, n_dst, block_idx, n_cap, n_active,
-                     scan_above);
+    int n_cap, const int32_t* __restrict__ n_active, int scan_above, int table) {
+  if (!table) {
+    active<OP, Dst, M>(w, n_src, src, dst, m, E, y, n_dst, block_idx, n_cap, n_active,
+                       scan_above);
+    return;
+  }
+  extern __shared__ float smem[];
+  active_agg<OP, Dst, M>(smem, w, n_src, src, dst, m, E, y, n_dst, block_idx, n_cap,
+                         n_active, scan_above);
 }
 
 struct Launch {
@@ -68,32 +92,67 @@ struct Launch {
   int n_cap;
   const int32_t* n_active;
   int scan_above;
+  int table;
   cudaStream_t s;
 };
 
-template <int OP, class Dst, class M>
-void launch(const Launch& a, Dst dst, M m) {
-  if (a.block_idx == nullptr) {
-    fragment_spmv_packed_kernel<OP, Dst, M><<<scan_grid(a.E), kThreads, 0, a.s>>>(
-        a.w, a.n_src, a.src, dst, m, a.E, a.y, a.n_dst);
-  } else {
-    fragment_spmv_packed_active_kernel<OP, Dst, M>
-        <<<(int)n_edge_blocks(a.E), kThreads, 0, a.s>>>(a.w, a.n_src, a.src, dst, m, a.E, a.y,
-                                                        a.n_dst, a.block_idx, a.n_cap,
-                                                        a.n_active, a.scan_above);
+// An aggregating kernel's grid: one wave (the CTAs co-resident with the
+// table's shared memory), but no more CTAs than EDGE_BLOCK-edge blocks.
+template <auto Kernel>
+int agg_grid(int64_t E, int* grid) {
+  static int cached = 0;  // one per kernel instantiation
+  if (cached == 0) {
+    int dev = 0, per_sm = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, Kernel, kThreads,
+                                                          kTableBytes);
+    }
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    if (per_sm * sms <= 0) return (int)cudaErrorInvalidConfiguration;
+    cached = per_sm * sms;
   }
+  const int64_t nb = n_edge_blocks(E);
+  *grid = (int)(nb < cached ? nb : cached);
+  return 0;
+}
+
+template <int OP, class Dst, class M>
+int launch(const Launch& a, Dst dst, M m) {
+  const size_t smem = a.table ? kTableBytes : 0;
+  if (a.block_idx == nullptr) {
+    int grid = scan_grid(a.E);
+    if (a.table) {
+      const int err = agg_grid<fragment_spmv_packed_kernel<OP, Dst, M>>(a.E, &grid);
+      if (err) return err;
+    }
+    fragment_spmv_packed_kernel<OP, Dst, M><<<grid, kThreads, smem, a.s>>>(
+        a.w, a.n_src, a.src, dst, m, a.E, a.y, a.n_dst, a.table);
+  } else {
+    int grid = (int)n_edge_blocks(a.E);  // the per-edge schedule: a CTA a block
+    if (a.table) {
+      const int err = agg_grid<fragment_spmv_packed_active_kernel<OP, Dst, M>>(a.E, &grid);
+      if (err) return err;
+    }
+    fragment_spmv_packed_active_kernel<OP, Dst, M><<<grid, kThreads, smem, a.s>>>(
+        a.w, a.n_src, a.src, dst, m, a.E, a.y, a.n_dst, a.block_idx, a.n_cap, a.n_active,
+        a.scan_above, a.table);
+  }
+  return 0;
 }
 
 template <class Dst, class M>
 int by_op(int op, const Launch& a, Dst dst, M m) {
+  int err;
   switch (op) {
-    case kSum: launch<kSum>(a, dst, m); break;
-    case kMin: launch<kMin>(a, dst, m); break;
-    case kMax: launch<kMax>(a, dst, m); break;
-    case kBool: launch<kBool>(a, dst, m); break;
+    case kSum: err = launch<kSum>(a, dst, m); break;
+    case kMin: err = launch<kMin>(a, dst, m); break;
+    case kMax: err = launch<kMax>(a, dst, m); break;
+    case kBool: err = launch<kBool>(a, dst, m); break;
     default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+  return err ? err : (int)cudaGetLastError();
 }
 
 template <class Dst>
@@ -127,14 +186,15 @@ int dispatch(const Launch& a, int op, const void* dst, int dst_width, int64_t ds
 // m_mode (0 none, 1 dense float32[E], 2 packed words, 3 dict words with
 // mdict[n_dict]). With block_idx == nullptr the scan kernel runs; otherwise
 // the block-skipping kernel over block_idx[n_cap] and n_active[1] (scan
-// order when n_active > scan_above). Returns cudaGetLastError() after the
-// launch. E must be > 0.
+// order when n_active > scan_above). table != 0 aggregates per CTA in
+// hop.cuh's shared-memory table; 0 issues one global atomic an edge.
+// Returns cudaGetLastError() after the launch. E must be > 0.
 extern "C" int fragment_spmv_packed_launch(
     const float* w, int n_src, const int32_t* src, int64_t E, const void* dst, int dst_width,
     int64_t dst_words, int m_mode, const void* m, int m_width, int64_t m_words,
     const float* mdict, int n_dict, float* y, int n_dst, int op, const int32_t* block_idx,
-    int n_cap, const int32_t* n_active, int scan_above, void* stream) {
-  Launch a{w, n_src, src, E, y, n_dst, block_idx, n_cap, n_active, scan_above,
+    int n_cap, const int32_t* n_active, int scan_above, int table, void* stream) {
+  Launch a{w, n_src, src, E, y, n_dst, block_idx, n_cap, n_active, scan_above, table ? 1 : 0,
            reinterpret_cast<cudaStream_t>(stream)};
   return dispatch(a, op, dst, dst_width, dst_words, m_mode, m, m_width, m_words, mdict,
                   n_dict);

@@ -28,6 +28,10 @@
 // on int), one with the sign bit set orders in reverse as an unsigned int
 // (atomicMin on unsigned); min is the mirror image. The test is on the sign
 // bit, not on v >= 0, so -0.0 against a -inf identity is right.
+//
+// The packed pair (fragment_spmv_packed.cu) runs aggregating forms of the two
+// schedules instead, scan_agg and active_agg (below), which combine a CTA's
+// products per destination in shared memory before they touch y.
 
 #pragma once
 
@@ -131,12 +135,29 @@ struct KeepAll {
 
 // -- the per-edge body --------------------------------------------------------
 
-// y[dst(e)] ⊕= weight(src[e]) ⊗ m(e), unless keep(dst(e)) is false: then no
-// write, so y keeps the identity there (the fused region's mask at scatter).
-template <int OP, class W, class Dst, class M, class Keep>
-__device__ __forceinline__ void edge_with(const W& weight, const int32_t* __restrict__ src,
-                                          int64_t e, const Dst& dst, const M& m,
-                                          float* __restrict__ y, int n_dst, const Keep& keep) {
+// *p ⊕= v by the op's atomic; for bool a plain store of 1 (every writer stores
+// the same value, so the race is benign). p may point to global or shared
+// memory.
+template <int OP>
+__device__ __forceinline__ void combine(float* p, float v) {
+  if (OP == kSum) {
+    atomicAdd(p, v);
+  } else if (OP == kBool) {
+    *p = 1.0f;
+  } else if (OP == kMin) {
+    atomic_min_float(p, v);
+  } else {
+    atomic_max_float(p, v);
+  }
+}
+
+// The edge's rules, ending in sink(dst(e), product) for an edge that writes:
+// weight(src[e]) ⊗ m(e) unless the product is the identity, dst(e) in range
+// and kept.
+template <int OP, class W, class Dst, class M, class Keep, class Sink>
+__device__ __forceinline__ void edge_into(const W& weight, const int32_t* __restrict__ src,
+                                          int64_t e, const Dst& dst, const M& m, int n_dst,
+                                          const Keep& keep, const Sink& sink) {
   const float zero = identity<OP>();
   const float ws = weight(src[e]);
   if (OP != kSum && ws == zero) return;  // product is the identity
@@ -153,15 +174,22 @@ __device__ __forceinline__ void edge_with(const W& weight, const int32_t* __rest
   }
   const int d = dst(e);
   if (d < 0 || d >= n_dst || !keep(d)) return;
-  if (OP == kSum) {
-    atomicAdd(y + d, prod);
-  } else if (OP == kBool) {
-    y[d] = 1.0f;  // every writer stores the same value: the race is benign
-  } else if (OP == kMin) {
-    atomic_min_float(y + d, prod);
-  } else {
-    atomic_max_float(y + d, prod);
-  }
+  sink(d, prod);
+}
+
+template <int OP>
+struct ToGlobal {  // one global atomic an edge
+  float* __restrict__ y;
+  __device__ __forceinline__ void operator()(int d, float v) const { combine<OP>(y + d, v); }
+};
+
+// y[dst(e)] ⊕= weight(src[e]) ⊗ m(e), unless keep(dst(e)) is false: then no
+// write, so y keeps the identity there (the fused region's mask at scatter).
+template <int OP, class W, class Dst, class M, class Keep>
+__device__ __forceinline__ void edge_with(const W& weight, const int32_t* __restrict__ src,
+                                          int64_t e, const Dst& dst, const M& m,
+                                          float* __restrict__ y, int n_dst, const Keep& keep) {
+  edge_into<OP>(weight, src, e, dst, m, n_dst, keep, ToGlobal<OP>{y});
 }
 
 template <int OP, class Dst, class M>
@@ -182,20 +210,23 @@ __device__ __forceinline__ void scan_edges(int64_t E, const Body& body) {
   }
 }
 
+// The block this CTA takes under the active schedule, or -1: none.
+__device__ __forceinline__ int64_t listed_block(const int32_t* __restrict__ block_idx, int n_cap,
+                                                const int32_t* __restrict__ n_active,
+                                                int scan_above) {
+  const int na = __ldg(n_active);
+  if (na > scan_above) return blockIdx.x;  // 'auto' above its threshold: scan order
+  if ((int)blockIdx.x < na && (int)blockIdx.x < n_cap) return __ldg(block_idx + blockIdx.x);
+  return -1;
+}
+
 // Grid: one CTA per block of the index (n_blocks); block_idx holds n_cap ids.
 template <class Body>
 __device__ __forceinline__ void active_edges(int64_t E, const int32_t* __restrict__ block_idx,
                                              int n_cap, const int32_t* __restrict__ n_active,
                                              int scan_above, const Body& body) {
-  const int na = __ldg(n_active);
-  int64_t b;
-  if (na > scan_above) {
-    b = blockIdx.x;  // 'auto' above its threshold: every block, in scan order
-  } else if ((int)blockIdx.x < na && (int)blockIdx.x < n_cap) {
-    b = __ldg(block_idx + blockIdx.x);
-  } else {
-    return;
-  }
+  const int64_t b = listed_block(block_idx, n_cap, n_active, scan_above);
+  if (b < 0) return;
   const int64_t e0 = b * kEdgeBlock;
   const int64_t e1 = e0 + kEdgeBlock < E ? e0 + kEdgeBlock : E;
   for (int64_t e = e0 + threadIdx.x; e < e1; e += blockDim.x) {
@@ -220,6 +251,152 @@ __device__ __forceinline__ void active(const float* __restrict__ w, int n_src,
                                        int scan_above) {
   active_edges(E, block_idx, n_cap, n_active, scan_above,
                [&](int64_t e) { edge<OP>(w, n_src, src, e, dst, m, y, n_dst); });
+}
+
+// -- the aggregating schedules (the packed pair) -------------------------------
+//
+// Under the schedules above every edge that writes issues its own global
+// atomic, so a destination that takes many edges serialises them at one L2
+// address: I_DA.Doc's Zipf-hot authors (the top one about 9% of 11.8M edges)
+// keep the hop at ~75x its bytes bound. Here a CTA first combines its own
+// products per destination in a table in shared memory, then issues one
+// global combine per distinct destination:
+//
+//   * the table: kTableSlots keys and values in dynamic shared memory (8
+//     bytes a slot), open-addressed by a multiplicative hash of dst with
+//     linear probing. A thread claims a free key with atomicCAS; a value
+//     starts at the ⊕-identity and takes combine<OP> on shared memory (native
+//     float atomicAdd for sum, the integer-ordered min/max, a store of 1 for
+//     bool);
+//   * a bounded probe: an edge that finds neither its dst nor a free slot
+//     within kTableProbes slots combines straight into y, as the per-edge
+//     schedules do, so the result does not depend on the table's size;
+//   * the flush: after __syncthreads(), one global combine per occupied slot
+//     whose value is not the identity;
+//   * edge_into's rules are the per-edge schedules' (identity guard, ∞·0,
+//     out-of-range src and dst, bool), only the sink differs.
+// scan_agg gives each CTA one contiguous range of edges and flushes once;
+// active_agg one table per listed EDGE_BLOCK-edge block. Both run one wave of
+// CTAs (those co-resident with the table's shared memory): under active_agg
+// CTA c takes list positions c, c + gridDim.x, ..., so a short list (a
+// sparse frontier: one listed block of thousands) costs one wave of CTAs
+// that find no block, not a CTA for every block of the index.
+//
+// The table's shape is fixed at build time: 4,096 slots and two probes were
+// the fastest of 1,024 / 2,048 / 4,096 slots × 1-16 probes on I_DA.Doc on
+// the H100 (PERF.md). scripts/hop_table_probe.py re-measures other shapes
+// by building with -DHOP_TABLE_BITS=... -DHOP_TABLE_PROBES=...
+
+#ifndef HOP_TABLE_BITS
+#define HOP_TABLE_BITS 12
+#endif
+#ifndef HOP_TABLE_PROBES
+#define HOP_TABLE_PROBES 2
+#endif
+
+constexpr int kTableBits = HOP_TABLE_BITS;
+constexpr int kTableSlots = 1 << kTableBits;
+constexpr int kTableProbes = HOP_TABLE_PROBES;
+constexpr size_t kTableBytes = (size_t)8 * kTableSlots;
+static_assert(kTableBits >= 1 && kTableBits <= 12,
+              "at most 32 KB of shared memory: a launch gets 48 KB without opting in");
+static_assert(kTableProbes >= 1 && kTableProbes <= kTableSlots, "probes in 1..slots");
+constexpr int kEmptyKey = -1;  // dst ids reach the table only when >= 0
+
+template <int OP>
+struct TableSink {
+  int* keys;
+  float* vals;
+  float* __restrict__ y;
+  __device__ __forceinline__ void operator()(int d, float v) const {
+    unsigned h = ((unsigned)d * 0x9E3779B1u) >> (32 - kTableBits);
+#pragma unroll
+    for (int p = 0; p < kTableProbes; ++p) {
+      int k = *reinterpret_cast<volatile int*>(keys + h);
+      if (k == kEmptyKey) {
+        k = atomicCAS(keys + h, kEmptyKey, d);
+        if (k == kEmptyKey) k = d;  // claimed here
+      }
+      if (k == d) {
+        combine<OP>(vals + h, v);
+        return;
+      }
+      h = (h + 1) & (kTableSlots - 1);
+    }
+    combine<OP>(y + d, v);  // no slot within the probe limit
+  }
+};
+
+// Fill the CTA's table (keys empty, values the identity); every thread of the
+// CTA must call it.
+template <int OP>
+__device__ __forceinline__ TableSink<OP> table_open(float* smem, float* y) {
+  __syncthreads();  // a previous block's flush has read the table
+  int* keys = reinterpret_cast<int*>(smem);
+  float* vals = smem + kTableSlots;
+  for (int i = threadIdx.x; i < kTableSlots; i += blockDim.x) {
+    keys[i] = kEmptyKey;
+    vals[i] = identity<OP>();
+  }
+  __syncthreads();
+  return TableSink<OP>{keys, vals, y};
+}
+
+template <int OP>
+__device__ __forceinline__ void table_flush(const TableSink<OP>& t) {
+  __syncthreads();
+  for (int i = threadIdx.x; i < kTableSlots; i += blockDim.x) {
+    const int k = t.keys[i];
+    if (k == kEmptyKey) continue;
+    const float v = t.vals[i];
+    if (v != identity<OP>()) combine<OP>(t.y + k, v);
+  }
+}
+
+template <int OP, class Dst, class M>
+__device__ __forceinline__ void table_edges(float* smem, int64_t e0, int64_t e1,
+                                            const float* __restrict__ w, int n_src,
+                                            const int32_t* __restrict__ src, const Dst& dst,
+                                            const M& m, float* __restrict__ y, int n_dst) {
+  const TableSink<OP> tab = table_open<OP>(smem, y);
+  const Frontier<OP> weight{w, n_src};
+  for (int64_t e = e0 + threadIdx.x; e < e1; e += blockDim.x) {
+    edge_into<OP>(weight, src, e, dst, m, n_dst, KeepAll{}, tab);
+  }
+  table_flush(tab);
+}
+
+// CTA c takes edges [c·per, (c+1)·per), per a whole number of warps' edges.
+template <int OP, class Dst, class M>
+__device__ __forceinline__ void scan_agg(float* smem, const float* __restrict__ w, int n_src,
+                                         const int32_t* __restrict__ src, const Dst& dst,
+                                         const M& m, int64_t E, float* __restrict__ y,
+                                         int n_dst) {
+  int64_t per = (E + gridDim.x - 1) / gridDim.x;
+  per = (per + 31) & ~(int64_t)31;
+  const int64_t e0 = (int64_t)blockIdx.x * per;
+  if (e0 >= E) return;  // the whole CTA
+  const int64_t e1 = e0 + per < E ? e0 + per : E;
+  table_edges<OP>(smem, e0, e1, w, n_src, src, dst, m, y, n_dst);
+}
+
+template <int OP, class Dst, class M>
+__device__ __forceinline__ void active_agg(float* smem, const float* __restrict__ w, int n_src,
+                                           const int32_t* __restrict__ src, const Dst& dst,
+                                           const M& m, int64_t E, float* __restrict__ y,
+                                           int n_dst, const int32_t* __restrict__ block_idx,
+                                           int n_cap, const int32_t* __restrict__ n_active,
+                                           int scan_above) {
+  const int na = __ldg(n_active);
+  const bool scan_order = na > scan_above;  // 'auto' above its threshold
+  const int64_t count =
+      scan_order ? (E + kEdgeBlock - 1) / kEdgeBlock : (na < n_cap ? na : n_cap);
+  for (int64_t i = blockIdx.x; i < count; i += gridDim.x) {  // uniform across the CTA
+    const int64_t b = scan_order ? i : __ldg(block_idx + i);
+    const int64_t e0 = b * kEdgeBlock;
+    const int64_t e1 = e0 + kEdgeBlock < E ? e0 + kEdgeBlock : E;
+    table_edges<OP>(smem, e0, e1, w, n_src, src, dst, m, y, n_dst);
+  }
 }
 
 // -- the batched body (the multi-query SpMM): B frontier rows, one edge stream --

@@ -9,8 +9,8 @@ the cached file. ``nvcc`` is found on ``PATH`` or under ``CUDA_HOME`` (default
 built at its first launch, or by :func:`build_all`, which starts one ``nvcc``
 for each source at once (every library of the package by default:
 ``fragment_spmv``, ``fragment_spmv_packed``, ``fragment_spmv_fused``,
-``fragment_spmm``, ``fragment_spmm_packed``, ``bitunpack``) and waits for
-all of them.
+``fragment_spmm``, ``fragment_spmm_packed``, ``bitunpack``, ``bitmap_ops``)
+and waits for all of them.
 """
 from __future__ import annotations
 
@@ -53,12 +53,15 @@ def _nvcc() -> str:
 
 class CudaLibrary:
     """One ``csrc/<name>.cu`` and its C entry points ``{fn: argtypes}`` (each
-    returns a CUDA error code as ``int``)."""
+    returns a CUDA error code as ``int``). ``defines`` (``"NAME=value"``
+    strings) are passed to nvcc as ``-D``: a build of the same source with
+    another compile-time setting, in a library file of its own."""
 
-    def __init__(self, name: str, functions: dict[str, list]):
+    def __init__(self, name: str, functions: dict[str, list], defines=()):
         self.name = name
         self.source = CSRC / f"{name}.cu"
         self.functions = functions
+        self.defines = tuple(defines)
         #: What the build printed (``-Xptxas -v``: registers, spills) and how
         #: long nvcc took; ``None`` until it was built in this process.
         self.build_log: str | None = None
@@ -71,6 +74,7 @@ class CudaLibrary:
         h = hashlib.sha256(self.source.read_bytes())
         for hdr in sorted(CSRC.glob("*.cuh")):
             h.update(hdr.read_bytes())
+        h.update(" ".join(self.defines).encode())
         return BUILD_DIR / f"{self.name}-{h.hexdigest()[:16]}.so"
 
     def start(self):
@@ -82,7 +86,8 @@ class CudaLibrary:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.{threading.get_ident()}.tmp")
         proc = subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, f"-I{CSRC}", "-o", str(tmp), str(self.source)],
+            [_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in self.defines), f"-I{CSRC}",
+             "-o", str(tmp), str(self.source)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
         return proc, tmp, so, time.perf_counter()

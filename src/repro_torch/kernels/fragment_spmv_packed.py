@@ -14,7 +14,13 @@ columns never reach device memory. Measure modes:
   * ``dict``   — BCA words of dictionary indices + the float32 dictionary.
 
 The kernels are ``csrc/fragment_spmv_packed.cu``, which shares its per-edge
-body with the dense hop through ``csrc/hop.cuh``.
+rules with the dense hop through ``csrc/hop.cuh``. Unlike the dense hop, they
+combine each CTA's products per destination in a shared-memory table
+(its shape fixed at build time in ``csrc/hop.cuh``) and issue one global
+atomic per distinct destination a CTA: a Zipf-hot destination then costs an
+atomic a CTA, not an atomic an edge. ``table=False`` keeps the atomic an
+edge, which :func:`.ops.fragment_spmv_packed` chooses for an index without a
+hot destination (``ops.uses_table``).
 """
 from __future__ import annotations
 
@@ -29,7 +35,7 @@ M_MODES = {"none": 0, "dense": 1, "packed": 2, "dict": 3}
 LIB = CudaLibrary("fragment_spmv_packed", {
     "fragment_spmv_packed_launch": [
         P, I32, P, I64, P, I32, I64, I32, P, I32, I64, P, I32, P, I32, I32,
-        P, I32, P, I32, P,
+        P, I32, P, I32, I32, P,
     ],
 })
 
@@ -88,7 +94,7 @@ def check_streams(dst, measure, mdict, E: int, dst_width: int, m_mode: str,
 
 
 def _launch(weights, src_ids, dst, measure, mdict, n_dst, dst_width, m_mode,
-            m_width, op, blocks, scan_above, kernel):
+            m_width, op, blocks, scan_above, kernel, table):
     if op not in OP_CODE:
         raise ValueError(f"unknown combine op {op!r}")
     if m_mode not in M_MODES:
@@ -122,7 +128,7 @@ def _launch(weights, src_ids, dst, measure, mdict, n_dst, dst_width, m_mode,
             block_idx.shape[0] if blocks is not None else 0,
             n_active.data_ptr() if blocks is not None else None,
             2**31 - 1 if scan_above is None else int(scan_above),
-            stream_of(dev),
+            int(bool(table)), stream_of(dev),
         )
     raise_on(err, kernel)
     return y, True
@@ -139,12 +145,14 @@ def fragment_spmv_packed(
     m_mode: str = "none",
     m_width: int = 0,
     op: str = "sum",
+    table: bool = True,
 ) -> torch.Tensor:
     """Launch the decode-fused scan hop; f32[n_dst] from the ⊕-identity.
-    Raises on anything the kernel does not take (no plain fallback)."""
+    ``table``: aggregate per CTA (else an atomic an edge). Raises on
+    anything the kernel does not take (no plain fallback)."""
     global LAUNCHES
     y, launched = _launch(weights, src_ids, dst, measure, mdict, n_dst, dst_width,
-                          m_mode, m_width, op, None, None, "fragment_spmv_packed")
+                          m_mode, m_width, op, None, None, "fragment_spmv_packed", table)
     LAUNCHES += launched
     return y
 
@@ -163,6 +171,7 @@ def fragment_spmv_packed_active(
     m_width: int = 0,
     op: str = "sum",
     scan_above: int | None = None,
+    table: bool = True,
 ) -> torch.Tensor:
     """Launch the decode-fused block-skipping hop: only the listed blocks are
     streamed and decoded, or every block in scan order when ``n_active >
@@ -170,6 +179,6 @@ def fragment_spmv_packed_active(
     global ACTIVE_LAUNCHES
     y, launched = _launch(weights, src_ids, dst, measure, mdict, n_dst, dst_width,
                           m_mode, m_width, op, (block_idx, n_active), scan_above,
-                          "fragment_spmv_packed_active")
+                          "fragment_spmv_packed_active", table)
     ACTIVE_LAUNCHES += launched
     return y

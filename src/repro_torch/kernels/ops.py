@@ -3,9 +3,9 @@
   * CPU tensors take the plain PyTorch versions (:mod:`.ref`);
   * CUDA tensors with ``use_kernel=True`` launch the CUDA kernels
     (:mod:`.fragment_spmv`, :mod:`.fragment_spmv_packed`,
-    :mod:`.fragment_spmv_fused`, :mod:`.bitunpack`, and for a batch of B
-    frontier rows :mod:`.fragment_spmm`, :mod:`.fragment_spmm_packed` and the
-    fused regions' SpMM form).
+    :mod:`.fragment_spmv_fused`, :mod:`.bitunpack`, :mod:`.bitmap_ops`, and
+    for a batch of B frontier rows :mod:`.fragment_spmm`,
+    :mod:`.fragment_spmm_packed` and the fused regions' SpMM form).
     A kernel that fails to build or launch raises: there is no quiet fallback;
   * ``use_kernel=False`` is the explicit plain-version path on any device —
     what the tests and the on-card check compare the kernels with.
@@ -28,7 +28,7 @@ kernels instead.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any
 
 import numpy as np
@@ -36,12 +36,14 @@ import torch
 
 from ..robust.errors import ValidationError
 from . import active as _active
+from . import bitmap_ops as _bitmaps
 from . import bitunpack as _bitunpack
 from . import fragment_spmm as _dense_rows
 from . import fragment_spmm_packed as _packed_rows
 from . import fragment_spmv as _dense
 from . import fragment_spmv_fused as _fused
 from . import fragment_spmv_packed as _packed
+from . import params as _params
 from . import ref
 from .params import FUSED_SCRATCH_BUDGET_BYTES
 from .ref import IDENTITY, HopStreams
@@ -152,31 +154,42 @@ def fragment_spmv(weights, src_ids, dst_ids, measures, n_dst: int,
                                        scan_above=scan_above)
 
 
+def uses_table(hot_share: float) -> bool:
+    """Whether the packed hop aggregates per CTA: on an index whose hottest
+    destination takes at least ``params.HOP_TABLE_HOT_SHARE`` of its edges
+    (``DeviceIndex.hot_share``)."""
+    return hot_share >= _params.HOP_TABLE_HOT_SHARE
+
+
 def fragment_spmv_packed(weights, src_ids, dst, measure=None, mdict=None, *,
                          n_dst: int, dst_width: int = 0, m_mode: str = "none",
                          m_width: int = 0, op: str = "sum",
                          use_kernel: bool = True,
-                         blocks=None, block_skipping: str = "off") -> torch.Tensor:
+                         blocks=None, block_skipping: str = "off",
+                         hot_share: float = 0.0) -> torch.Tensor:
     """Decode-fused hop: ``dst``/``measure`` may be BCA word streams, decoded
-    inside the hop (see fragment_spmv_packed.py)."""
+    inside the hop (see fragment_spmv_packed.py). ``hot_share`` (the index's
+    ``DeviceIndex.hot_share``; 0.0: no hot destination) chooses the kernel's
+    per-CTA aggregation table (:func:`uses_table`)."""
     if op not in IDENTITY:
         raise ValueError(f"unknown combine op {op!r}")
     w = torch.as_tensor(weights, dtype=torch.float32)
     s, d, m, md, *_ = _hop_streams(src_ids, dst, measure, mdict, dst_width, m_mode,
                                    m_width, w.device)
     kw = dict(dst_width=dst_width, m_mode=m_mode, m_width=m_width, op=op)
+    table = uses_table(hot_share)
     plain = _plain(w, use_kernel)
     plan = _plan_skip(w, op, s.shape[0], blocks, block_skipping)
     if plan is None:
         if plain:
             return ref.fragment_spmv_packed_ref(w, s, d, m, md, n_dst, **kw)
-        return _packed.fragment_spmv_packed(w, s, d, m, md, n_dst, **kw)
+        return _packed.fragment_spmv_packed(w, s, d, m, md, n_dst, table=table, **kw)
     bi, na, scan_above = plan
     if plain:
         return ref.fragment_spmv_packed_active_ref(w, s, d, m, md, bi, na, n_dst,
                                                    scan_above=scan_above, **kw)
     return _packed.fragment_spmv_packed_active(w, s, d, m, md, bi, na, n_dst,
-                                               scan_above=scan_above, **kw)
+                                               scan_above=scan_above, table=table, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -272,6 +285,9 @@ class FusedHopOperands:
     m_width: int = 0
     blocks: Any = None  # (src_min, src_max) | None
     reach: Any = None
+    # the index's DeviceIndex.hot_share (keyword only, no default: every
+    # hop's operands come from an index that has one)
+    hot_share: float = field(kw_only=True)
 
 
 def _streams(h: FusedHopOperands, device) -> HopStreams:
@@ -351,10 +367,11 @@ def _compose_unfused(w, hop1: FusedHopOperands, hop2: FusedHopOperands | None,
     packed = fragment_spmm_packed if w.dim() == 2 else fragment_spmv_packed
 
     def hop(x, h):
+        kw = {} if w.dim() == 2 else {"hot_share": h.hot_share}
         return packed(
             x, h.src_ids, h.dst, h.measure, h.mdict, n_dst=h.n_dst,
             dst_width=h.dst_width, m_mode=h.m_mode, m_width=h.m_width, op=op,
-            use_kernel=use_kernel, blocks=h.blocks, block_skipping=block_skipping,
+            use_kernel=use_kernel, blocks=h.blocks, block_skipping=block_skipping, **kw,
         )
 
     u = hop(w, hop1)
@@ -427,3 +444,55 @@ def _fused_dispatch(batched: bool, weights, hop1, hop2, mid_mask, *, op, mid_bin
     fn2 = _fused.fragment_spmm_fused2 if batched else _fused.fragment_spmv_fused2
     return fn2(w, s1, s2, mm, bi1, na1, bi2, na2, n_mid, n_dst, op=op,
                mid_binarize=mid_binarize)
+
+
+# ---------------------------------------------------------------------------
+# Bitmap intersection (bitmap_ops.py): the paper's §6.1 merge-intersection
+# over sets held as bitmaps, 32 ids to a word
+# ---------------------------------------------------------------------------
+
+
+def _bitmap_words(a) -> torch.Tensor:
+    """A bitmap as int32 words: a tensor as given; a numpy array or a list
+    as uint32 words (the reference's ``jnp.asarray(a, jnp.uint32)``),
+    reinterpreted, on the CPU."""
+    if isinstance(a, torch.Tensor):
+        return a
+    a = np.asarray(a)
+    if a.dtype != np.uint32:
+        a = a.astype(np.uint32)
+    return torch.from_numpy(np.ascontiguousarray(a).view(np.int32))
+
+
+def membership_bitmap(ids, n: int) -> torch.Tensor:
+    """The set ``ids`` (ints in ``[0, n)``, repeats allowed) as a bitmap of
+    ``ceil(n / 32)`` int32 words on the ids' device: bit ``i % 32`` of word
+    ``i // 32`` is set for each id ``i``."""
+    ids = torch.as_tensor(ids).to(torch.int64)
+    n_words = -(-int(n) // 32)
+    bits = torch.zeros(n_words * 32, dtype=torch.bool, device=ids.device)
+    bits[ids] = True
+    shifts = torch.arange(32, dtype=torch.int64, device=ids.device)
+    words = (bits.view(n_words, 32).to(torch.int64) << shifts).sum(1)
+    return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
+
+
+def bitmap_and(a, b, use_kernel: bool = True) -> torch.Tensor:
+    """Word-wise AND of two bitmaps; int32 words holding the uint32 bits."""
+    ta, tb = _bitmap_words(a), _bitmap_words(b)
+    _bitmaps.check_pair(ta, tb)
+    if _plain(ta, use_kernel):
+        return ref.bitmap_and_ref(ta, tb)
+    return _bitmaps.bitmap_and(ta, tb)
+
+
+def bitmap_and_popcount(a, b, use_kernel: bool = True) -> torch.Tensor:
+    """Total set bits of ``a & b`` (the intersection's cardinality) as a 0-d
+    int32 tensor on the operands' device. Raises past
+    ``bitmap_ops.MAX_POPCOUNT_WORDS`` words, where the count could pass
+    int32 (the reference's sum wraps there)."""
+    ta, tb = _bitmap_words(a), _bitmap_words(b)
+    _bitmaps.check_popcount_words(_bitmaps.check_pair(ta, tb))
+    if _plain(ta, use_kernel):
+        return ref.bitmap_and_popcount_ref(ta, tb)
+    return _bitmaps.bitmap_and_popcount(ta, tb)

@@ -22,3 +22,18 @@ EDGE_BLOCK = 4096  # edges per metadata block; must stay a multiple of 1024
 #: next power of two above the first; sizes between the two are not measured.
 #: (The reference's TPU value is 8 MiB of VMEM.)
 FUSED_SCRATCH_BUDGET_BYTES = 128 * 2**10
+
+#: The packed hop uses the table only on an index whose hottest destination
+#: takes at least this share of its edges (``DeviceIndex.hot_share``, from the
+#: host dst column where the index is built). Measured on an NVIDIA H100 80GB
+#: HBM3 at 700 W by ``scripts/hop_table_probe.py`` (PERF.md) on synthetic
+#: indexes of I_DA.Doc's size (11.8M edges, one destination taking a share h
+#: of them, the rest spread over 2M): without the table the hop serialises on
+#: the hot destination (scan 0.158 ms at h = 0, 0.264 ms at 0.01, 1.67 ms at
+#: 0.08), with it it stays at 0.16-0.18 ms; both kernels with the table are
+#: no slower from h = 0.003 up in two runs (the scan from 0.002, the active
+#: kernel from 0.003). On I_DT.Term (h = 7.6e-7) the table would cost the
+#: active kernel about 25%. The main path's indexes lie far from the
+#: threshold on both sides: I_DT.Doc 0.094, I_DA.Doc 0.082, SemMedDB's
+#: I_PA.PID and I_SP.SID 0.101 take the table; the others are at most 0.00014.
+HOP_TABLE_HOT_SHARE = 0.003

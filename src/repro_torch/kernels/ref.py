@@ -334,3 +334,20 @@ def fragment_spmm_fused_ref(
     rows). ``f32[B, n_dst]``."""
     return fragment_spmv_fused_ref(weights, hop1, hop2, mid_mask, n_mid, n_dst, op=op,
                                    mid_binarize=mid_binarize, lists=lists)
+
+
+def bitmap_and_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Word-wise AND of two bitmaps (int32 words holding the uint32 bits)."""
+    return torch.bitwise_and(a, b)
+
+
+def bitmap_and_popcount_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Total set bits of ``a & b`` — the merge-intersection cardinality (paper
+    §6.1) — as a 0-d int32 tensor. SWAR bit counting on the words widened to
+    int64, so the sign bit counts, summed in int64."""
+    x = torch.bitwise_and(a, b).to(torch.int64) & 0xFFFFFFFF
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    x = ((x * 0x01010101) & 0xFFFFFFFF) >> 24
+    return x.sum().to(torch.int32)

@@ -86,7 +86,7 @@ def _port_hop(h: dict):
     same bits."""
     words = {k: torch.from_numpy(h[k].view(np.int32)) for k in ("dst", "measure")
              if h[k].dtype == np.uint32}
-    return ops.FusedHopOperands(**{**h, **words})
+    return ops.FusedHopOperands(**{**h, **words}, hot_share=0.0)
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,9 @@
 """Tests that need an NVIDIA GPU: the hand-written CUDA kernels (the dense
-and packed hops, their block-skipping variants, bitunpack, both fused-region
-kernels, and the batched forms of all of them: the SpMM kernels and the
-fused regions' SpMM form) against their plain PyTorch versions, and the
+and packed hops, their block-skipping variants, the packed pair's per-CTA
+aggregation on hot destinations, bitunpack, both fused-region kernels, the
+batched forms of all of them: the SpMM kernels and the fused regions' SpMM
+form, and the bitmap AND and popcount) against their plain PyTorch
+versions, and the
 engine on the card (single queries and execute_batch) against the engine on
 the CPU and the numpy oracle. They import no JAX (the
 GPU machine need not have it) and skip where ``torch.cuda.is_available()`` is
@@ -25,6 +27,7 @@ from repro_torch.core.lower import FusedHopOp, HopOp  # noqa: E402
 from repro_torch.core.reference import run_sql  # noqa: E402
 from repro_torch.data import synth_graph as SG  # noqa: E402
 from repro_torch.kernels import active  # noqa: E402
+from repro_torch.kernels import bitmap_ops as bmkernel  # noqa: E402
 from repro_torch.kernels import bitunpack as bkernel  # noqa: E402
 from repro_torch.kernels import fragment_spmv as kernel  # noqa: E402
 from repro_torch.kernels import fragment_spmv_fused as fkernel  # noqa: E402
@@ -353,6 +356,261 @@ def test_dispatch_counts_each_new_kernel_on_cuda(cuda):
 
 
 # ---------------------------------------------------------------------------
+# The packed pair's per-CTA aggregation: hot destinations and a full table
+# ---------------------------------------------------------------------------
+
+HOT_CASES = ["one_dst", "overflow", "zipf"]
+
+
+def _hot_inputs(case, op, E, seed, device):
+    """Packed-hop inputs whose destinations stress the table: every edge on
+    one destination; more distinct destinations in a 4096-edge block than
+    the table has slots (a permutation of 20,000 ids); Zipf-hot ones."""
+    x = _packed_inputs(op, E, seed, device)
+    x["n_dst"] = 20_000
+    rng = np.random.default_rng(seed + 1)
+    if case == "one_dst":
+        dst = np.full(E, 7, np.int32)
+    elif case == "overflow":
+        dst = np.concatenate([rng.permutation(20_000) for _ in range(E // 20_000 + 1)])[:E]
+    else:
+        dst = np.minimum(rng.zipf(1.3, E) - 1, 19_999)
+    dst = dst.astype(np.int32)
+    x["dst"] = torch.from_numpy(dst).to(device)
+    x["dst_words"] = torch.from_numpy(_pack_words(dst, 15).view(np.int32)).to(device)
+    return x
+
+
+def _hot_operands(x, m_mode, dst_packed):
+    dst, m, md, kw = _packed_operands(x, m_mode, dst_packed)
+    if dst_packed:
+        dst, kw["dst_width"] = x["dst_words"], 15
+    return dst, m, md, kw
+
+
+@pytest.mark.parametrize("E", [1, 4095, 4096, 4097, 30_000])
+@pytest.mark.parametrize("case", HOT_CASES)
+@pytest.mark.parametrize("dst_packed", [True, False], ids=["dst_packed", "dst_dense"])
+@pytest.mark.parametrize("m_mode", M_MODES)
+@pytest.mark.parametrize("op", OPS)
+def test_packed_pair_hot_destinations_match_plain(cuda, op, m_mode, dst_packed, case, E):
+    """Scan and active (following the list, and in scan order with n_active
+    above scan_above) against the plain versions, for every op and measure."""
+    x = _hot_inputs(case, op, E, E + len(op) + len(case), cuda)
+    dst, m, md, kw = _hot_operands(x, m_mode, dst_packed)
+    want = ref.fragment_spmv_packed_ref(x["w"], x["src"], dst, m, md, op=op, **kw)
+    before = pkernel.LAUNCHES
+    got = pkernel.fragment_spmv_packed(x["w"], x["src"], dst, m, md, op=op, **kw)
+    torch.cuda.synchronize()
+    assert pkernel.LAUNCHES == before + 1
+    _assert_match(got, want, op)
+    bmin, bmax = (torch.from_numpy(b).to(cuda) for b in active.block_ranges(x["src"].cpu()))
+    bi, na = active.active_block_list(x["w"], ZERO[op], bmin, bmax)
+    for scan_above in (active.n_edge_blocks(E), 0):
+        got = pkernel.fragment_spmv_packed_active(x["w"], x["src"], dst, m, md, bi, na, op=op,
+                                                  scan_above=scan_above, **kw)
+        want = ref.fragment_spmv_packed_active_ref(x["w"], x["src"], dst, m, md, bi, na, op=op,
+                                                   scan_above=scan_above, **kw)
+        torch.cuda.synchronize()
+        _assert_match(got, want, op)
+
+
+_TABLE_BUILDS: dict = {}
+
+
+def _table_build(bits: int, probes: int):
+    """The packed kernels built with another table shape (``-D`` overrides
+    of ``csrc/hop.cuh``), in a library file of their own."""
+    from repro_torch.kernels.cuda_build import CudaLibrary
+
+    key = (bits, probes)
+    if key not in _TABLE_BUILDS:
+        _TABLE_BUILDS[key] = CudaLibrary(
+            pkernel.LIB.name, pkernel.LIB.functions,
+            defines=(f"HOP_TABLE_BITS={bits}", f"HOP_TABLE_PROBES={probes}"))
+    return _TABLE_BUILDS[key]
+
+
+@pytest.mark.parametrize("shape", ["off", "built", "2x1", "1024x4", "2048x8"])
+@pytest.mark.parametrize("case", HOT_CASES)
+@pytest.mark.parametrize("op", OPS)
+def test_packed_pair_result_does_not_depend_on_the_table(cuda, monkeypatch, op, case, shape):
+    """No table (an atomic an edge), the built table and builds at other
+    sizes and probe limits give the plain version's result: an edge without
+    a slot writes to y directly."""
+    if "x" in shape:
+        slots, probes = (int(v) for v in shape.split("x"))
+        monkeypatch.setattr(pkernel, "LIB", _table_build(slots.bit_length() - 1, probes))
+    E = 20_000
+    x = _hot_inputs(case, op, E, 5, cuda)
+    dst, m, md, kw = _hot_operands(x, "packed", True)
+    want = ref.fragment_spmv_packed_ref(x["w"], x["src"], dst, m, md, op=op, **kw)
+    table = shape != "off"
+    _assert_match(pkernel.fragment_spmv_packed(x["w"], x["src"], dst, m, md, op=op,
+                                               table=table, **kw), want, op)
+    bi = torch.arange(active.n_edge_blocks(E), dtype=torch.int32, device=cuda)
+    na = torch.full((1,), bi.shape[0], dtype=torch.int32, device=cuda)
+    _assert_match(pkernel.fragment_spmv_packed_active(x["w"], x["src"], dst, m, md, bi, na,
+                                                      op=op, table=table, **kw), want, op)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("scan_order", [False, True], ids=["listed", "scan_order"])
+@pytest.mark.parametrize("op", OPS)
+def test_packed_active_table_loops_over_more_blocks_than_one_wave(cuda, op, scan_order):
+    """The aggregating active kernel runs one wave of CTAs, each over every
+    gridDim.x-th listed block: an index with more blocks than a wave holds,
+    every other block listed (or all, in scan order), against the plain
+    version."""
+    E = 5_000_000  # 1,221 blocks: more than the CTAs co-resident with the table
+    x = _hot_inputs("overflow", op, E, 3, cuda)  # 250 edges a destination
+    dst, m, md, kw = _hot_operands(x, "packed", True)
+    nb = active.n_edge_blocks(E)
+    bi = torch.arange(0, nb, 2, dtype=torch.int32, device=cuda)
+    na = torch.full((1,), bi.shape[0], dtype=torch.int32, device=cuda)
+    sa = 0 if scan_order else nb
+    got = pkernel.fragment_spmv_packed_active(x["w"], x["src"], dst, m, md, bi, na, op=op,
+                                              scan_above=sa, **kw)
+    want = ref.fragment_spmv_packed_active_ref(x["w"], x["src"], dst, m, md, bi, na, op=op,
+                                               scan_above=sa, **kw)
+    torch.cuda.synchronize()
+    _assert_match(got, want, op)
+
+
+@pytest.mark.parametrize("active_kernel", [False, True], ids=["scan", "active"])
+def test_packed_pair_negative_zero_through_the_table(cuda, active_kernel):
+    """-0.0 products combined in the table (a −∞ identity for max) reach y
+    with their sign bit."""
+    E = 5000
+    w = torch.tensor([-1.0], device=cuda)
+    src = torch.zeros(E, dtype=torch.int32, device=cuda)
+    dst = torch.zeros(E, dtype=torch.int32, device=cuda)
+    dst[E // 2:] = 1
+    m = torch.zeros(E, device=cuda)  # products -0.0 on dst 0
+    m[E // 2:] = 2.0  # and -2.0 on dst 1
+    kw = dict(n_dst=3, m_mode="dense")
+    for op in ("max", "min"):
+        if active_kernel:
+            bi = torch.arange(2, dtype=torch.int32, device=cuda)
+            got = pkernel.fragment_spmv_packed_active(
+                w, src, dst, m, None, bi, torch.full((1,), 2, dtype=torch.int32, device=cuda),
+                op=op, **kw).cpu()
+        else:
+            got = pkernel.fragment_spmv_packed(w, src, dst, m, None, op=op, **kw).cpu()
+        assert got[0] == 0.0 and got[1] == -2.0
+        assert got[2] == ZERO[op]
+    got = pkernel.fragment_spmv_packed(w, src, dst, m, None, op="max", **kw).cpu()
+    assert torch.signbit(got[0])
+
+
+@pytest.mark.parametrize("hot_share", [0.0, 1.0])
+@pytest.mark.parametrize("op", OPS)
+def test_packed_dispatch_chooses_the_table_by_hot_share(cuda, op, hot_share):
+    """ops.fragment_spmv_packed with an index's hot share below and above
+    the threshold, on the card, against its plain version on the card."""
+    x = _hot_inputs("zipf", op, 30_000, 7, cuda)
+    dst, m, md, kw = _hot_operands(x, "packed", True)
+    before = pkernel.LAUNCHES
+    got = ops.fragment_spmv_packed(x["w"], x["src"], dst, m, md, op=op, hot_share=hot_share,
+                                   **kw)
+    want = ops.fragment_spmv_packed(x["w"], x["src"], dst, m, md, op=op, hot_share=hot_share,
+                                    use_kernel=False, **kw)
+    torch.cuda.synchronize()
+    assert pkernel.LAUNCHES == before + 1
+    _assert_match(got, want, op)
+
+
+# ---------------------------------------------------------------------------
+# Bitmap intersection: the AND and its popcount
+# ---------------------------------------------------------------------------
+
+BITMAP_SIZES = [0, 1, 3, 4, 5, 1023, 1024, 1025, 2**20 + 3, 3_000_001]
+
+
+def _bitmaps(n, seed, device):
+    rng = np.random.default_rng(seed)
+    a = rng.integers(0, 2**32, n, dtype=np.uint32)
+    b = rng.integers(0, 2**32, n, dtype=np.uint32)
+    t = lambda v: torch.from_numpy(v.view(np.int32)).to(device)  # noqa: E731
+    return a, b, t(a), t(b)
+
+
+def _popcount_np(x):
+    return int(np.unpackbits(x.view(np.uint8)).sum())
+
+
+@pytest.mark.parametrize("n", BITMAP_SIZES)
+def test_bitmap_kernels_match_plain(cuda, n):
+    a, b, ta, tb = _bitmaps(n, n, cuda)
+    before = (bmkernel.AND_LAUNCHES, bmkernel.POPCOUNT_LAUNCHES)
+    got = bmkernel.bitmap_and(ta, tb)
+    pc = bmkernel.bitmap_and_popcount(ta, tb)
+    torch.cuda.synchronize()
+    launched = 1 if n else 0
+    assert (bmkernel.AND_LAUNCHES, bmkernel.POPCOUNT_LAUNCHES) == (
+        before[0] + launched, before[1] + launched)
+    assert got.dtype == torch.int32 and got.shape == (n,)
+    assert torch.equal(got, ref.bitmap_and_ref(ta, tb))
+    assert np.array_equal(got.cpu().numpy().view(np.uint32), a & b)
+    assert pc.dtype == torch.int32 and pc.shape == () and pc.device == ta.device
+    assert int(pc) == int(ref.bitmap_and_popcount_ref(ta, tb)) == _popcount_np(a & b)
+
+
+@pytest.mark.parametrize("off_a,off_b", [(1, 0), (0, 1), (1, 1), (2, 2), (3, 3), (1, 3), (4, 4)])
+@pytest.mark.parametrize("n", [1, 6, 1029, 100_003])
+def test_bitmap_kernels_on_unaligned_views(cuda, n, off_a, off_b):
+    """Contiguous views that start off a 16-byte boundary: scalar head and
+    tail around uint4 words where the offsets agree, scalar words where not."""
+    a, b, ta, tb = _bitmaps(n + 4, n + off_a, cuda)
+    va, vb = ta[off_a:off_a + n], tb[off_b:off_b + n]
+    want = a[off_a:off_a + n] & b[off_b:off_b + n]
+    got = bmkernel.bitmap_and(va, vb)
+    assert np.array_equal(got.cpu().numpy().view(np.uint32), want)
+    assert int(bmkernel.bitmap_and_popcount(va, vb)) == _popcount_np(want)
+    assert torch.equal(got, ref.bitmap_and_ref(va, vb))
+
+
+def test_bitmap_popcount_of_full_words_is_exact(cuda):
+    """Every bit set (sign bits included) across more words than one CTA."""
+    t = torch.full((700_001,), -1, dtype=torch.int32, device=cuda)
+    assert int(bmkernel.bitmap_and_popcount(t, t)) == 32 * 700_001
+
+
+def test_bitmap_wrappers_reject_bad_inputs(cuda):
+    _, _, ta, tb = _bitmaps(100, 1, cuda)
+    for fn in (bmkernel.bitmap_and, bmkernel.bitmap_and_popcount, ops.bitmap_and,
+               ops.bitmap_and_popcount):
+        with pytest.raises(ValueError):
+            fn(ta, tb[:-1])
+        with pytest.raises(TypeError):
+            fn(ta.long(), tb.long())
+        with pytest.raises(ValueError):
+            fn(ta, tb.cpu())
+    with pytest.raises(ValueError):
+        bmkernel.bitmap_and(ta.cpu(), tb.cpu())
+    big = torch.zeros(bmkernel.MAX_POPCOUNT_WORDS + 1, dtype=torch.int32, device=cuda)
+    before = bmkernel.POPCOUNT_LAUNCHES
+    with pytest.raises(ValueError):
+        bmkernel.bitmap_and_popcount(big, big)
+    with pytest.raises(ValueError):
+        ops.bitmap_and_popcount(big, big)
+    assert bmkernel.POPCOUNT_LAUNCHES == before
+    assert bmkernel.bitmap_and(big, big).shape == big.shape
+
+
+def test_bitmap_dispatch_launches_the_kernels_on_cuda(cuda):
+    a, b, ta, tb = _bitmaps(5000, 3, cuda)
+    before = (bmkernel.AND_LAUNCHES, bmkernel.POPCOUNT_LAUNCHES)
+    got = ops.bitmap_and(ta, tb)
+    pc = ops.bitmap_and_popcount(ta, tb)
+    plain = ops.bitmap_and(ta, tb, use_kernel=False)
+    plain_pc = ops.bitmap_and_popcount(ta, tb, use_kernel=False)
+    assert (bmkernel.AND_LAUNCHES, bmkernel.POPCOUNT_LAUNCHES) == (before[0] + 1, before[1] + 1)
+    assert got.device == ta.device and pc.device == ta.device
+    assert torch.equal(got, plain) and int(pc) == int(plain_pc) == _popcount_np(a & b)
+
+
+# ---------------------------------------------------------------------------
 # The fused-region kernels
 # ---------------------------------------------------------------------------
 
@@ -446,15 +704,16 @@ def test_fused_kernels_follow_device_lists(cuda, op, support):
     w[drop.to(cuda)] = ZERO[op]
     smin2, smax2 = active.block_ranges(h2.src.cpu())
     hop1 = HopOp("T", "A", "E1", 700, None, h1.src, None,
-                 host_dst=ref.bitunpack_ref(h1.dst.cpu(), h1.dst_width, E).numpy())
+                 host_dst=ref.bitunpack_ref(h1.dst.cpu(), h1.dst_width, E).numpy(),
+                 hot_share=0.0)
     hop2 = HopOp("T", "B", "E2", 500, None, h2.src, None, block_src_min=smin2,
-                 block_src_max=smax2)
+                 block_src_max=smax2, hot_share=0.0)
     reach = torch.from_numpy(_block_reach(hop1, hop2)).to(cuda)
     blocks = lambda h: tuple(torch.from_numpy(b).to(cuda)  # noqa: E731
                              for b in active.block_ranges(h.src.cpu()))
     mk = lambda h, n, r=None: ops.FusedHopOperands(  # noqa: E731
         h.src, h.dst, h.measure, h.mdict, n, h.dst_width, h.m_mode, h.m_width,
-        blocks=blocks(h), reach=r)
+        blocks=blocks(h), reach=r, hot_share=0.0)
     o1, o2 = mk(h1, 700), mk(h2, 500, reach)
     for two in (True, False):
         before = _fused_counts()
@@ -667,15 +926,16 @@ def test_spmm_fused_dispatch_follows_union_lists(cuda, op, B):
     W[:, 200:] = ZERO[op]  # a sparse union: hop1's list skips blocks
     smin2, smax2 = active.block_ranges(h2.src.cpu())
     hop1 = HopOp("T", "A", "E1", 700, None, h1.src, None,
-                 host_dst=ref.bitunpack_ref(h1.dst.cpu(), h1.dst_width, E).numpy())
+                 host_dst=ref.bitunpack_ref(h1.dst.cpu(), h1.dst_width, E).numpy(),
+                 hot_share=0.0)
     hop2 = HopOp("T", "B", "E2", 500, None, h2.src, None, block_src_min=smin2,
-                 block_src_max=smax2)
+                 block_src_max=smax2, hot_share=0.0)
     reach = torch.from_numpy(_block_reach(hop1, hop2)).to(cuda)
     blocks = lambda h: tuple(torch.from_numpy(b).to(cuda)  # noqa: E731
                              for b in active.block_ranges(h.src.cpu()))
     mk = lambda h, n, r=None: ops.FusedHopOperands(  # noqa: E731
         h.src, h.dst, h.measure, h.mdict, n, h.dst_width, h.m_mode, h.m_width,
-        blocks=blocks(h), reach=r)
+        blocks=blocks(h), reach=r, hot_share=0.0)
     o1, o2 = mk(h1, 700), mk(h2, 500, reach)
     for two in (True, False):
         before = _spmm_counts()

@@ -9,6 +9,8 @@ JAX kernels run in interpret mode, the port its plain versions. Integer data
 (plans, reach matrices, block lists) is equal; min/max/bool results are equal
 and sum within rtol=atol=1e-4.
 """
+from functools import partial
+
 import numpy as np
 import pytest
 
@@ -81,7 +83,7 @@ def _mk_hop(n_src: int, n_dst: int, E: int, seed: int, **kw) -> HopOp:
     smin, smax = active.block_ranges(src)
     t = torch.from_numpy
     return HopOp("T", f"K{seed}", "E2", n_dst, t(indptr), t(src), DenseColumn(t(dst)),
-                 block_src_min=t(smin), block_src_max=t(smax), **kw)
+                 block_src_min=t(smin), block_src_max=t(smax), **{"hot_share": 0.0, **kw})
 
 
 def _mk_jhop(n_src: int, n_dst: int, E: int, seed: int) -> jlower.HopOp:
@@ -261,7 +263,8 @@ def _operands(c, layout, pkg):
     """(hop1, hop2) operand bundles for ``pkg`` ('port' | 'jax'): dense —
     int32 dst and float32 measures; packed — BCA dst (9 and 8 bits), hop1's
     measure packed (3 bits), hop2's a 3-bit dictionary index."""
-    Cls = ops.FusedHopOperands if pkg == "port" else jops.FusedHopOperands
+    Cls = (partial(ops.FusedHopOperands, hot_share=0.0) if pkg == "port"
+           else jops.FusedHopOperands)
     conv = (lambda a: torch.from_numpy(np.ascontiguousarray(a))) if pkg == "port" else np.asarray
     words = (lambda v, b: conv(_pack_words(v, b).view(np.int32))) if pkg == "port" else (
         lambda v, b: _pack_words(v, b))

@@ -73,3 +73,27 @@ def test_port_batched_serving_loads_neither_jax_nor_repro():
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "LOADED []" in proc.stdout
+
+
+def test_port_bitmap_ops_load_neither_jax_nor_repro():
+    """The bitmap intersection entries (and their kernel module) run without
+    JAX or the JAX package."""
+    code = textwrap.dedent("""
+        import sys
+        import numpy as np
+        from repro_torch.kernels import ops
+        a = np.arange(1, 65, dtype=np.uint32)
+        assert int(ops.bitmap_and_popcount(a, a)) == sum(bin(v).count("1") for v in range(1, 65))
+        assert ops.bitmap_and(a, a).shape == (64,)
+        assert "repro_torch.kernels.bitmap_ops" in sys.modules
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+        print("LOADED", bad)
+        assert not bad, bad
+    """)
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")}, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LOADED []" in proc.stdout
