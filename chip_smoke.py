@@ -6,7 +6,7 @@
 Phases (any failure exits non-zero; nothing is caught while the run goes on):
 
  1. Card, power limit, torch/CUDA versions; build every CUDA kernel from
-    ``src/repro_torch/kernels/csrc`` (seven libraries, one nvcc per source,
+    ``src/repro_torch/kernels/csrc`` (eight libraries, one nvcc per source,
     all started together) and report the build times and ptxas
     register/spill lines.
  2. Load a PubMed-shaped graph (4M documents, 27,000 terms, 2M authors) and a
@@ -15,8 +15,13 @@ Phases (any failure exits non-zero; nothing is caught while the run goes on):
     ``device_encodings="auto"`` (bit-packed keys) built from the same host
     indexes. Device bytes per index and the ratio to dense.
  3. Kernels against their plain PyTorch versions on the card (sum within
-    rtol=atol=1e-4, min/max/bool equal): the dense hop at E ∈ {0, 1, 4097}
-    and the main path's hop shapes; the storage round trip (every packed or
+    rtol=atol=1e-4, min/max/bool equal): the dense pair in both forms (the
+    per-CTA table and the atomic an edge), scan and active, at
+    E ∈ {0, 1, 4097}, at the main path's hop shapes and on synthetic hot
+    indexes (one destination, more a block than the table holds, Zipf); the
+    list kernel's lists equal to the plain lists, integer for integer, on
+    every index of the main path at supports from one seed to 100%, single
+    and B = 8; the storage round trip (every packed or
     dict column decoded by ``bitunpack`` equal to the host values);
     ``bitunpack`` at widths 1–32; the packed hop for every op × measure mode ×
     packed/dense dst at E ∈ {0, 1, 4097} and at I_DT.Term / I_DA.Doc (the
@@ -51,6 +56,8 @@ Phases (any failure exits non-zero; nothing is caught while the run goes on):
       c. auto storage, skipping off: packed scan launches equal the HopOps;
       d. dense storage, auto skipping: dense hop launches (scan + active)
          equal the HopOps;
+         (in every path that skips, each list is one launch of the list
+         kernel: its launches equal the lists built, and it must launch);
       e. a composite measure over a packed column (SUM(dt2.Fre * dt2.Fre) in
          SD's shape): it decodes through bitunpack (its planner path is the
          reference's: tests/test_torch_storage.py runs it in both packages);
@@ -81,27 +88,32 @@ Phases (any failure exits non-zero; nothing is caught while the run goes on):
          launch each), equal to the plain versions, the count equal to
          ``np.intersect1d`` of the two terms' document lists on the host.
     Each result is compared with the same lowered plan run through the plain
-    versions on the card, the defaults with skipping off and with the dense
+    versions on the card with float64 sums (each comparison's gate ratio
+    logged and kept), the defaults with skipping off and with the dense
     paths (exact for SD/AD/RECENT/CS), the fused paths with fusion off, SD
     with the numpy oracle ``run_sql`` at full scale, and all nine with
     ``run_sql`` at the quickstart scale under dense/off, the defaults and
-    fusion on. Where per-edge float32 atomics on I_DA.Doc's hot authors meet
-    the packed pair's table (AS and AS-recent: the table paths against the
-    plain scatter and the dense paths, batched rows against single calls)
-    the comparison is reported, not gated, and every path's float sums
-    (FSD, AS, FAD, AS-recent) are held instead to the same plan through the
-    plain versions with float64 sums, within FLOAT64_LIMIT.
- 5. Times: per query the median wall time of 20 runs and the profiler's
-    device breakdown, under the defaults beside the dense path and under
-    fusion on beside off (those three in turns); per kernel at the main path's shapes its CUDA-event
-    time beside its bound, the plain version's time and one library call
+    fusion on. Where the SpMM kernels' per-edge float32 atomics on I_DA.Doc's
+    hot authors meet the single calls' table (AS and AS-recent: batched rows
+    against single calls) the comparison is reported, not gated; every
+    path's float sums (FSD, AS, FAD, AS-recent) are also held to the same
+    plan through the plain versions with float64 sums, within FLOAT64_LIMIT.
+ 5. Times: per query the median wall time of 20 runs (the defaults, fusion
+    on, fusion off and the dense path with skipping off, in turns; the
+    defaults' wall over the dense path's) and the profiler's device
+    breakdown (the list kernel's launches a run beside the hop kernels');
+    per kernel at the main path's shapes its CUDA-event time (the dense pair
+    in the form the index's hot share chooses, the other form beside it)
+    beside its bound, the plain version's time and one library call
     computing the same function where there is one (``torch.mv`` on a CSR
     matrix, two of them and the mask for a fused region; none for
     bitunpack and the popcount; ``torch.bitwise_and`` for the AND, timed at
     path j's 125,000 words and at 2^26 words); the float32 error of each hop
     kernel's sum on I_DA.Doc's hottest author against float64; scan against
     skip and the cost of the block list at support
-    fractions from one seed to 100%, which set ``SKIP_BLOCK_FRACTION``;
+    fractions from one seed to 100% (the list kernel a call against the
+    plain build's calls, and the whole 'on' and 'auto' hops against the scan
+    at 100%, beside the reference's 1.1×), which set ``SKIP_BLOCK_FRACTION``;
     fused against the unfused composition at each region shape, which sets
     ``FUSED_SCRATCH_BUDGET_BYTES``. Batched (5h): per query and B ∈ {1, 8,
     64} the median wall of ``execute_batch`` and queries/s beside B single
@@ -194,6 +206,10 @@ KERNELS = {
                    "src/repro/kernels/bitmap_ops.py:45"),
     "bitmap_and_popcount": ("bitmap_ops", "POPCOUNT_LAUNCHES", "bitmap_ops.cu",
                             "src/repro/kernels/bitmap_ops.py:63"),
+    # not a TPU kernel: the list build the reference runs inside its jitted
+    # program (jnp), which the port ran as 14 eager calls a hop
+    "block_list": ("block_list", "LAUNCHES", "block_list.cu",
+                   "src/repro/kernels/active.py:102"),
 }
 PACKED_HOPS = ["fragment_spmv_packed", "fragment_spmv_packed_active"]
 
@@ -282,22 +298,23 @@ def uses_table(di) -> bool:
     return K.uses_table(di.hot_share)
 
 
-#: Queries whose float32 sums over I_DA.Doc's hot authors differ between the
-#: per-edge kernels (the dense pair, fused2's hop 2, the SpMM kernels and the
-#: plain scatter: one float32 atomic an edge) and the packed pair's table by
-#: more than rtol = atol = 1e-4 (AS single calls 1.02-1.11 times the gate
-#: against the dense path, AS and AS-recent batched rows 6.4-11.1 times it
-#: against single calls; probe, PERF.md). The per-edge sums drift (ROADMAP
-#: Queue 3). A comparison across the two is reported for these queries; each
-#: side is held to FLOAT64_LIMIT instead.
+#: Queries whose execute_batch rows differ from their single calls by more
+#: than rtol = atol = 1e-4: the SpMM kernels add one float32 atomic an edge on
+#: I_DA.Doc's hot authors, the single calls' hops combine them per CTA in the
+#: table (AS and AS-recent rows 6.4-11.1 times the gate; probe, PERF.md). The
+#: SpMM's per-edge sums drift (ROADMAP Queue 3). A row's comparison with its
+#: single call is reported for these queries; each side is held to
+#: FLOAT64_LIMIT instead. Single calls are gated on every path: the dense
+#: pair takes the table on I_DA.Doc too.
 DRIFT_QUERIES = ("AS", "AS_RECENT")
 #: The largest relative difference allowed between a float query's result
 #: and the same plan through the plain versions with float64 sums
 #: (:class:`float64_sums`): single calls, and execute_batch's rows at B = 8.
-#: About twice the largest reading of scripts/hop_table_probe.py on the H100
-#: (PERF.md): single calls 1.12e-4 (the dense path's AS; the table paths
-#: 2.2e-6), rows 4.32e-4 (AS-recent through the SpMM kernels).
-FLOAT64_LIMIT = {"single": 2.5e-4, "batched": 1e-3}
+#: About twice the largest reading on the H100 (PERF.md): single calls
+#: 2.31e-5 (AS-recent through fused2, whose hop 2 adds an atomic an edge;
+#: every other path at most 2.8e-6 since the dense pair takes the table on
+#: I_DA.Doc), rows 4.32e-4 (AS-recent through the SpMM kernels).
+FLOAT64_LIMIT = {"single": 5e-5, "batched": 1e-3}
 
 
 class float64_sums:
@@ -346,6 +363,12 @@ def compare_or_drift(got, want, name: str, what: str, drift: list) -> float:
         return compare(got, want, name in EXACT_QUERIES, what)
     drift.append({"query": name, "what": what, "gate_ratio": gate_ratio(got, want)})
     return float(np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64)).max())
+
+
+def log_gates(what: str, ratios: dict, gates: dict) -> None:
+    """Keep and log the gate ratios ({query: ratio}) of a gated comparison."""
+    gates[what] = ratios
+    log(f"  {what}: gate ratios " + ", ".join(f"{k} {v:.3g}" for k, v in ratios.items()))
 
 
 def log_drift(label: str, drift: list, n0: int) -> None:
@@ -439,10 +462,15 @@ def sparse_frontier(w, degrees, support, op: str, seed: int):
 # ---------------------------------------------------------------------------
 
 
-def check_dense_kernel(db, device) -> tuple[float, list[dict]]:
-    """Phase 3a: fragment_spmv vs plain at small and main-path shapes."""
+def check_dense_kernel(db, device) -> tuple[dict, list[dict]]:
+    """Phase 3a: the dense pair, scan and active (the list followed, and scan
+    order), each with the table and without, against the plain versions at
+    E ∈ {0, 1, 4097}, on I_DT.Term and I_DA.Doc, and on the synthetic hot
+    indexes of :func:`hot_cases` (dense dst). Returns the worst error by
+    kernel and the rows."""
     import torch
 
+    from repro_torch.kernels import active
     from repro_torch.kernels import fragment_spmv as kernel
     from repro_torch.kernels import ref
 
@@ -460,17 +488,38 @@ def check_dense_kernel(db, device) -> tuple[float, list[dict]]:
                   dt.measures["Fre"], db.schema.domain_size("Document")))
     cases.append(("I_DA.Doc", da.indptr.shape[0] - 1, da.src_ids, da.dst_ids,
                   None, db.schema.domain_size("Author")))
-    worst, rows = 0.0, []
+    for name, n_src, src, dst, dw, mwords, n_dst in hot_cases(device):
+        if not dw:  # the dense-dst hot indexes
+            m = torch.rand(src.shape[0], generator=gen, device=device) * 3
+            cases.append((name.split(",")[0], n_src, src, dst, m, n_dst))
+    worst = {"fragment_spmv": 0.0, "fragment_spmv_active": 0.0}
+    rows = []
     for name, n_src, src, dst, m, n_dst in cases:
+        E = int(src.shape[0])
+        nb = active.n_edge_blocks(E)
+        listed = torch.arange(0, nb, 2, dtype=torch.int32, device=device)  # every other
+        na = torch.full((1,), listed.shape[0], dtype=torch.int32, device=device)
+        bi = torch.cat([listed, listed[-1:].expand(nb - listed.shape[0])]).contiguous()
         for op in OPS:
             w = frontier(n_src, op, gen, device)
-            got = kernel.fragment_spmv(w, src, dst, m, n_dst, op=op)
             want = ref.fragment_spmv_ref(w, src, dst, m, n_dst, op=op)
+            want_listed = ref.fragment_spmv_active_ref(w, src, dst, m, bi, na, n_dst, op=op)
+            for table in (True, False):
+                got = kernel.fragment_spmv(w, src, dst, m, n_dst, op=op, table=table)
+                what = f"fragment_spmv {name} {op} table={table}"
+                err = compare(got, want, op != "sum", what)
+                worst["fragment_spmv"] = max(worst["fragment_spmv"], err)
+                rows.append({"shape": name, "op": op, "E": E, "table": table,
+                             "max_abs_err": err})
+                for sa, w_ in ((nb, want_listed), (0, want)):
+                    got = kernel.fragment_spmv_active(w, src, dst, m, bi, na, n_dst, op=op,
+                                                      scan_above=sa, table=table)
+                    err = compare(got, w_, op != "sum",
+                                  f"fragment_spmv_active {name} {op} table={table}"
+                                  f" scan_above={sa}")
+                    worst["fragment_spmv_active"] = max(worst["fragment_spmv_active"], err)
             sync()
-            err = compare(got, want, exact=op != "sum", what=f"fragment_spmv {name} {op}")
-            worst = max(worst, err)
-            rows.append({"shape": name, "op": op, "E": int(src.shape[0]), "max_abs_err": err})
-        log(f"  fragment_spmv {name:10s} E={int(src.shape[0]):>9d} all ops ok")
+        log(f"  dense pair {name:22s} E={E:>9d} scan and active, table on and off, all ops ok")
     return worst, rows
 
 
@@ -660,6 +709,50 @@ def check_active_kernels(db, db_dense, device) -> tuple[dict, list[dict]]:
         log(f"  active kernels, support {support}: {n_act}/{nb} blocks active;"
             f" skip == scan order == scan == plain for every op")
     return worst, rows
+
+
+def check_block_lists(dbs, device) -> tuple[float, list[dict]]:
+    """Phase 3k: the list kernel against the plain list (``active.active_block_list``)
+    on every index of the main path's databases, at supports from one seed
+    to 100%, for one frontier and for B = 8 rows (each row its own support
+    of that size): block_idx, n_active and the flags equal, integer for
+    integer. The op's identity cycles through the four ops."""
+    import torch
+
+    from repro_torch.kernels import active
+    from repro_torch.kernels import block_list as lk
+    from repro_torch.kernels.ref import IDENTITY
+
+    gen = torch.Generator(device=device).manual_seed(26)
+    rows, n = [], 0
+    for label, d in dbs:
+        for (table, key), di in d.device.indexes.items():
+            n_src, nb = di.indptr.shape[0] - 1, int(di.block_src_min.shape[0])
+            for i, support in enumerate(SUPPORTS):
+                op = OPS[i % len(OPS)]
+                for B in (1, 8):
+                    ws = [sparse_frontier(frontier(n_src, op, gen, device), di.degrees, support,
+                                          op, 300 + b) for b in range(B)]
+                    w = ws[0] if B == 1 else torch.stack(ws).contiguous()
+                    want = active.active_block_list(w, IDENTITY[op], di.block_src_min,
+                                                    di.block_src_max)
+                    flags = active.active_flags(active.support_mask(w, IDENTITY[op]),
+                                                di.block_src_min, di.block_src_max)
+                    bi, na, fl = lk.block_list(w, IDENTITY[op], di.block_src_min,
+                                               di.block_src_max, flags=True)
+                    sync()
+                    what = f"block_list {label} I_{table}.{key} {support} B={B} {op}"
+                    compare(bi, want[0], True, f"{what} block_idx")
+                    compare(na, want[1], True, f"{what} n_active")
+                    compare(fl, flags, True, f"{what} flags")
+                    rows.append({"index": f"{label} I_{table}.{key}", "support": support,
+                                 "B": B, "op": op, "n_active": int(na[0]), "n_blocks": nb})
+                    n += 1
+            log(f"  block_list {label} I_{table}.{key} ({nb} blocks): lists equal the plain"
+                f" lists at supports {list(SUPPORTS)}, B 1 and 8 (n_active "
+                + ", ".join(str(r["n_active"]) for r in rows[-2 * len(SUPPORTS):]) + ")")
+    log(f"  block_list: {n} lists equal the plain lists, integer for integer")
+    return 0.0, rows
 
 
 #: Phase 3's bitmap lengths, in words: a CTA's vector words are 1024.
@@ -1072,9 +1165,11 @@ def drive_path(label, engines, SG, c0, block_skipping, fusion, kernels, topk: bo
     before and read just after. ``kernels`` are the hop kernels of the path:
     their launches must equal the HopOps executed outside fused regions, the
     last of them must have launched, and the fused kernels' launches must
-    equal the regions executed by kind; every kernel in ``must`` must have
-    launched. Returns (results, counts, expected launches, per-hop skip
-    records, per-query plan records)."""
+    equal the regions executed by kind; the list kernel's launches must
+    equal the block lists the hops built (``ops.active_block_list`` calls),
+    and it must have launched on a path that skips; every kernel in ``must``
+    must have launched. Returns (results, counts, expected launches, per-hop
+    skip records, per-query plan records)."""
     from repro_torch.kernels import ops as K
 
     qs = cases(SG, c0, nine)
@@ -1089,17 +1184,21 @@ def drive_path(label, engines, SG, c0, block_skipping, fusion, kernels, topk: bo
     expected = [0, 0, 0]
     for n, _, _ in qs + ([("AS", None, None)] if topk else []):
         expected = [a + b for a, b in zip(expected, expected_launches(prepared[n].phys, fusion))]
-    skips = []
-    plan_skip, fused_lists = K._plan_skip, K._fused_block_lists
+    skips, n_lists = [], [0]
+    plan_skip, fused_lists, block_list = K._plan_skip, K._fused_block_lists, K.active_block_list
 
-    def recorded(w, op, E, blocks, mode):  # the smoke reads n_active after the run
-        plan = plan_skip(w, op, E, blocks, mode)
+    def recorded(w, op, E, blocks, mode, *a):  # the smoke reads n_active after the run
+        plan = plan_skip(w, op, E, blocks, mode, *a)
         if plan is not None:
             skips.append((current[0], plan[1], plan[2], E))
         return plan
 
-    def recorded_lists(w, op, h1, h2, E1, E2, mode):
-        lists = fused_lists(w, op, h1, h2, E1, E2, mode)
+    def counted_list(*a, **k):
+        n_lists[0] += 1
+        return block_list(*a, **k)
+
+    def recorded_lists(w, op, h1, h2, E1, E2, mode, *a):
+        lists = fused_lists(w, op, h1, h2, E1, E2, mode, *a)
         skips.append((current[0] + " fused hop1", lists[1], 2**31 - 1, E1))
         if h2 is not None:
             skips.append((current[0] + " fused hop2", lists[3], 2**31 - 1, E2))
@@ -1109,6 +1208,7 @@ def drive_path(label, engines, SG, c0, block_skipping, fusion, kernels, topk: bo
     results = {}
     defaults = block_skipping == "auto" and fusion == "auto"
     K._plan_skip, K._fused_block_lists = recorded, recorded_lists
+    K.active_block_list = counted_list
     try:
         reset_counts()
         for name, q, params in qs:
@@ -1121,12 +1221,16 @@ def drive_path(label, engines, SG, c0, block_skipping, fusion, kernels, topk: bo
         counts = read_counts()
     finally:
         K._plan_skip, K._fused_block_lists = plan_skip, fused_lists
+        K.active_block_list = block_list
     launched = sum(counts[k] for k in kernels)
     got = [launched, counts["fragment_spmv_fused1"], counts["fragment_spmv_fused2"]]
     if got != expected:
         raise AssertionError(f"path {label}: [{kernels}, fused1, fused2] launched {got} times,"
                              f" expected {expected} ({counts})")
-    for k in [kernels[-1], *must]:
+    if counts["block_list"] != n_lists[0]:
+        raise AssertionError(f"path {label}: {n_lists[0]} block lists built, the list kernel"
+                             f" launched {counts['block_list']} times")
+    for k in [kernels[-1], *must] + (["block_list"] if block_skipping != "off" else []):
         if counts[k] < 1:
             raise AssertionError(f"path {label}: {k} never launched ({counts})")
     if topk:
@@ -1142,15 +1246,16 @@ def drive_path(label, engines, SG, c0, block_skipping, fusion, kernels, topk: bo
 
 
 def check_results(label, results, engines, SG, c0, block_skipping, fusion="auto",
-                  nine=False, drift=None) -> dict:
+                  nine=False, gates=None) -> dict:
     """Each result against the same lowered plan run through the plain
-    versions on the card; finite, of the domain's shape, not empty. With
-    ``drift`` (a path whose packed hops take the table) a DRIFT_QUERIES
-    result is reported against the plain scatter's per-edge sums, not gated
-    (see :func:`compare_or_drift`)."""
+    versions on the card with float64 sums (:class:`float64_sums`: the
+    float32 per-edge scatter of the plain hop drifts about 1e-4 from them on
+    I_DA.Doc's hot authors, as much as the gate allows, PERF.md); finite, of
+    the domain's shape, not empty. Each float query's gate ratio goes to
+    ``gates[f"{label} vs plain"]``."""
     from repro_torch.core import executor as X
 
-    errs, n0 = {}, len(drift or [])
+    errs, ratios = {}, {}
     for name, q, params in cases(SG, c0, nine):
         got = results[name]
         pq = engines[name].prepare(q, block_skipping=block_skipping, fusion=fusion)
@@ -1161,14 +1266,15 @@ def check_results(label, results, engines, SG, c0, block_skipping, fusion="auto"
         plain = X.compile_frontier(engines[name].db.device, pq.phys,
                                    block_skipping=block_skipping, use_kernel=False,
                                    fusion=fusion)
-        want = plain(*[params[n] for n in pq.param_names]).cpu().numpy()
-        what = f"{label} {name} vs plain"
-        errs[name] = (compare(got, want, name in EXACT_QUERIES, what) if drift is None
-                      else compare_or_drift(got, want, name, what, drift))
+        with float64_sums():
+            want = plain(*[params[n] for n in pq.param_names]).cpu().numpy()
+        errs[name] = compare(got, want, name in EXACT_QUERIES, f"{label} {name} vs plain")
+        if name not in EXACT_QUERIES:
+            ratios[name] = gate_ratio(got, want)
     log(f"  path {label}: every result matches the plain versions on the card"
         f" (max abs err {max(errs.values()):.3g})")
-    if drift is not None:
-        log_drift(f"path {label} vs plain", drift, n0)
+    if gates is not None:
+        log_gates(f"{label} vs plain", ratios, gates)
     return errs
 
 
@@ -1304,34 +1410,17 @@ def drive_intersection(db_dense, device) -> tuple[dict, tuple]:
 # ---------------------------------------------------------------------------
 
 
-def time_queries(label, engines, SG, c0, block_skipping, fusion="auto", nine=False) -> dict:
-    """Median wall ms of QUERY_REPS executions per query."""
-    out = {}
-    for name, q, params in cases(SG, c0, nine):
-        pq = engines[name].prepare(q, block_skipping=block_skipping, fusion=fusion)
-        pq(**params)
-        ts = []
-        for _ in range(QUERY_REPS):
-            t0 = time.perf_counter()
-            pq(**params)  # returns host numpy: waits for the device
-            ts.append((time.perf_counter() - t0) * 1e3)
-        out[name] = {"median_ms": statistics.median(ts), "min_ms": min(ts),
-                     "max_ms": max(ts), "hops": hop_count(pq.phys)}
-        log(f"  {label:8s} {name:6s} median {out[name]['median_ms']:.4f} ms over {QUERY_REPS}"
-            f" runs (min {out[name]['min_ms']:.4f}, hops {out[name]['hops']})")
-    return out
-
-
 def time_modes(engines, SG, c0, modes: dict) -> dict:
     """Median wall ms of QUERY_REPS executions per query under each of
-    ``modes`` ({label: (block_skipping, fusion)}), taken in turns — the
-    modes' order rotates from one repetition to the next — so that the
-    shared host's drift falls on every mode alike."""
+    ``modes`` ({label: (storage, block_skipping, fusion)}, storage naming
+    the engines of ``engines``), taken in turns — the modes' order rotates
+    from one repetition to the next — so that the shared host's drift falls
+    on every mode alike."""
     out = {label: {} for label in modes}
     labels = list(modes)
     for name, q, params in cases(SG, c0, nine=True):
-        pqs = {lb: engines[name].prepare(q, block_skipping=bs, fusion=fu)
-               for lb, (bs, fu) in modes.items()}
+        pqs = {lb: engines[st][name].prepare(q, block_skipping=bs, fusion=fu)
+               for lb, (st, bs, fu) in modes.items()}
         ts = {lb: [] for lb in labels}
         for pq in pqs.values():
             pq(**params)
@@ -1351,10 +1440,11 @@ def time_modes(engines, SG, c0, modes: dict) -> dict:
 def breakdown(label, engines, SG, c0, block_skipping, fusion="auto", nine=False) -> dict:
     """Where a query's time goes. torch.profiler over PROFILE_REPS runs gives
     the device's busy time per run, split into the hop kernels, bitunpack,
-    copies (the result to the host) and everything else (fills, seeds,
-    masks, the block lists); the idle share is 1 − busy / the wall time of
-    the same profiled runs (profiling slows them, so both sides carry its
-    cost). ``None`` where the profiler saw no device activity."""
+    the list kernel, copies (the result to the host) and everything else
+    (fills, seeds, masks); the list kernel's launches a run against the hop
+    kernels' (one list a skipping hop); the idle share is 1 − busy / the wall
+    time of the same profiled runs (profiling slows them, so both sides carry
+    its cost). ``None`` where the profiler saw no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1367,16 +1457,19 @@ def breakdown(label, engines, SG, c0, block_skipping, fusion="auto", nine=False)
             for _ in range(PROFILE_REPS):
                 pq(**params)  # returns host numpy: waits for the device
             wall = (time.perf_counter() - t0) * 1e3 / PROFILE_REPS
-        split = {"hop": 0.0, "bitunpack": 0.0, "copy": 0.0, "other": 0.0}
-        launches = 0
+        split = {"hop": 0.0, "bitunpack": 0.0, "list": 0.0, "copy": 0.0, "other": 0.0}
+        launches = {k: 0 for k in split}
         for ev in prof.key_averages():
             if ev.device_type != DeviceType.CUDA:
                 continue
             kind = ("hop" if "fragment_spm" in ev.key
                     else "bitunpack" if "bitunpack" in ev.key
+                    else "list" if "block_list" in ev.key
                     else "copy" if "Memcpy" in ev.key else "other")
             split[kind] += ev.self_device_time_total / 1e3 / PROFILE_REPS
-            launches += ev.count
+            launches[kind] += ev.count
+        per_run = {k: v / PROFILE_REPS for k, v in launches.items()}
+        launches = sum(launches.values())
         busy = sum(split.values())
         if busy == 0.0:
             out[name] = None
@@ -1384,11 +1477,15 @@ def breakdown(label, engines, SG, c0, block_skipping, fusion="auto", nine=False)
             continue
         out[name] = {"busy_ms": busy, **{f"{k}_ms": v for k, v in split.items()},
                      "profiled_wall_ms": wall, "idle_share": max(0.0, 1.0 - busy / wall),
-                     "device_ops_per_run": launches / PROFILE_REPS}
+                     "device_ops_per_run": launches / PROFILE_REPS,
+                     "hop_launches_per_run": per_run["hop"],
+                     "list_launches_per_run": per_run["list"],
+                     "other_ops_per_run": per_run["other"]}
         log(f"  {label:8s} {name:6s} device busy {busy:.4f} ms of {wall:.4f} ms profiled wall"
-            f" (hop {split['hop']:.4f}, copy {split['copy']:.4f}, other {split['other']:.4f};"
-            f" {launches / PROFILE_REPS:.0f} device ops a run; idle share"
-            f" {out[name]['idle_share']:.3f})")
+            f" (hop {split['hop']:.4f}, list {split['list']:.4f}, copy {split['copy']:.4f},"
+            f" other {split['other']:.4f}; {launches / PROFILE_REPS:.0f} device ops a run:"
+            f" {per_run['hop']:.0f} hop, {per_run['list']:.0f} list, {per_run['other']:.0f}"
+            f" other; idle share {out[name]['idle_share']:.3f})")
     return out
 
 
@@ -1430,23 +1527,30 @@ def time_kernels(db, db_dense, device) -> dict:
         compare(dk.fragment_spmv(w, src, dst, m, n_dst), lib, False, f"torch.mv {name}")
         library_ms = time_device_ms(lambda: torch.mv(A, w), KERNEL_REPS)
         del A, lib
-        # dense scan and active (list built beforehand: the kernel alone)
+        # dense scan and active (list built beforehand: the kernel alone), in the
+        # form the index's hot share chooses, and the other form beside it
         bi, na = active.active_block_list(w, 0.0, di.block_src_min, di.block_src_max)
         nb = active.n_edge_blocks(E)
         mb = 4 * E if m is not None else 0
+        dtable = uses_table(di)
         b, by = hop_bound(E, n_src, n_dst, 4 * E, mb)
-        ms = time_device_ms(lambda: dk.fragment_spmv(w, src, dst, m, n_dst), KERNEL_REPS)
+        ms, other = (time_device_ms(lambda t=t: dk.fragment_spmv(w, src, dst, m, n_dst, table=t),
+                                    KERNEL_REPS) for t in (dtable, not dtable))
         plain = time_device_ms(lambda: ref.fragment_spmv_ref(w, src, dst, m, n_dst), KERNEL_REPS)
         rows["fragment_spmv"].append(dict(shape=name, E=E, ms=ms, plain_ms=plain, bound_ms=b,
-                                          bound_by=by, library_ms=library_ms))
-        ms = time_device_ms(lambda: dk.fragment_spmv_active(w, src, dst, m, bi, na, n_dst,
-                                                            scan_above=nb), KERNEL_REPS)
+                                          bound_by=by, library_ms=library_ms, table=dtable,
+                                          hot_share=di.hot_share, other_form_ms=other))
+        ms, other = (time_device_ms(lambda t=t: dk.fragment_spmv_active(
+            w, src, dst, m, bi, na, n_dst, scan_above=nb, table=t), KERNEL_REPS)
+            for t in (dtable, not dtable))
         plain = time_device_ms(lambda: ref.fragment_spmv_active_ref(w, src, dst, m, bi, na,
                                                                     n_dst), KERNEL_REPS)
         b, by = hop_bound(E, n_src, n_dst, 4 * E, mb, extra=4 * nb + 4)
         rows["fragment_spmv_active"].append(dict(shape=name, E=E, ms=ms, plain_ms=plain,
                                                  bound_ms=b, bound_by=by,
-                                                 library_ms=library_ms, support=1.0))
+                                                 library_ms=library_ms, support=1.0,
+                                                 table=dtable, hot_share=di.hot_share,
+                                                 other_form_ms=other))
         # packed scan and active
         pm = pi.measure_cols[meas] if meas else None
         mw, m_mode = (pm.words, "packed") if pm is not None else (None, "none")
@@ -1481,9 +1585,14 @@ def time_kernels(db, db_dense, device) -> dict:
         for k in KERNELS:
             if rows[k] and rows[k][-1]["shape"] == name:
                 r = rows[k][-1]
+                form = ""
+                if "table" in r:
+                    form = f"  table {'on' if r['table'] else 'off'} (hot share {di.hot_share:.3g})"
+                if "other_form_ms" in r:
+                    form += f", other form {r['other_form_ms']:.4f} ms"
                 log(f"  {k:28s} {name:10s} E={E} {r['ms']:.4f} ms  bound {r['bound_ms']:.4f} ms"
                     f" ({r['bound_by']})  plain {r['plain_ms']:.4f} ms"
-                    f"  torch.mv(CSR) {r['library_ms']:.4f} ms")
+                    f"  torch.mv(CSR) {r['library_ms']:.4f} ms{form}")
         if name == "I_DT.Term":  # bitunpack of the 22-bit Doc column
             count, width = pi.dst_col.count, pi.dst_col.width
             ms = time_device_ms(lambda: bk.bitunpack(dwords, width, count), KERNEL_REPS)
@@ -1500,8 +1609,9 @@ def time_kernels(db, db_dense, device) -> dict:
 def hot_author_error(db, db_dense, device) -> dict:
     """The float32 sum of each SpMV hop kernel on I_DA.Doc over a dense random
     frontier against float64, on the hottest author (the most edges) and over
-    every author: the per-edge atomics of the dense kernel and of the plain
-    scatter against the packed pair's per-CTA partial sums."""
+    every author: the dense pair with its table (the form I_DA.Doc takes) and
+    without it (an atomic an edge), the packed pair's per-CTA partial sums,
+    and the plain scatter."""
     import torch
 
     from repro_torch.kernels import fragment_spmv as dk
@@ -1524,7 +1634,11 @@ def hot_author_error(db, db_dense, device) -> dict:
     kw = dict(dst_width=pi.dst_col.width)
     out = {"author": hot, "edges": int(deg[hot]), "E": E}
     for name, fn in (
-        ("fragment_spmv", lambda: dk.fragment_spmv(w, src, dst, None, n_dst)),
+        ("fragment_spmv", lambda: dk.fragment_spmv(w, src, dst, None, n_dst, table=True)),
+        ("fragment_spmv_active", lambda: dk.fragment_spmv_active(
+            w, src, dst, None, bi, na, n_dst, scan_above=nb, table=True)),
+        ("fragment_spmv per edge", lambda: dk.fragment_spmv(w, src, dst, None, n_dst,
+                                                            table=False)),
         ("fragment_spmv_packed", lambda: pk.fragment_spmv_packed(
             w, src, pi.dst_col.words, None, None, n_dst, **kw)),
         ("fragment_spmv_packed_active", lambda: pk.fragment_spmv_packed_active(
@@ -1738,23 +1852,54 @@ def device_busy(fn) -> tuple[float, float]:
 SKIP_TIE = 1.05
 
 
-def time_skipping(db, db_dense, device) -> tuple[list[dict], float]:
+#: The reference's contract for block_skipping="auto" where it does not
+#: skip: at most this factor of the scan (benchmarks/selectivity.py).
+AUTO_OVER_SCAN = 1.1
+
+
+def list_bound(w, zero: float, src_min, src_max) -> tuple[float, str]:
+    """The list kernel's bound for this frontier: the frontier values a
+    block's test must read (its range up to the first live source, or all of
+    it; B rows each; at most the whole frontier), the two range ends, and
+    the list and count written."""
+    import torch
+
+    live = w != zero
+    B = 1 if live.dim() == 1 else live.shape[0]
+    sup = live if live.dim() == 1 else live.any(dim=0)
+    lo, hi = src_min.long(), src_max.long()
+    pos = torch.nonzero(sup).flatten()
+    first = torch.full_like(lo, 2**62)  # the first live source at or after lo: none
+    if pos.numel():
+        at = pos[torch.searchsorted(pos, lo).clamp(max=pos.shape[0] - 1)]
+        first = torch.where(at >= lo, at, first)
+    need = (torch.minimum(first, hi) - lo + 1).clamp(min=0)
+    values = min(int(need.sum()), sup.shape[0]) * B
+    nb = src_min.shape[0]
+    return bound_ms(4 * values + 8 * nb + 4 * nb + 4, 0)
+
+
+def time_skipping(db, db_dense, device) -> tuple[list[dict], float, list[dict]]:
     """Scan against skip at support fractions from one seed to 100% on
     I_DT.Term (sum), packed and dense:
 
-      * the block list alone: per-call time by CUDA events over back-to-back
-        calls (what a hop pays, launch overhead included) and its device
-        busy time and operations by the profiler;
+      * the block list alone: the list kernel and the plain build
+        (``active.active_block_list``'s 14 calls) per call by CUDA events over
+        back-to-back calls (what a hop pays, launch overhead included), their
+        device busy time and operations by the profiler, and the list
+        kernel's bound;
       * the kernels alone, the list built beforehand: the scan kernel, the
         active kernel following the list, and the active kernel in scan
         order ('auto' above its threshold), with the bytes bound of the
         blocks the list names;
-      * the whole hop through ``kernels.ops`` with block_skipping 'off' and
-        'on' (list + active kernel).
+      * the whole hop through ``kernels.ops`` with block_skipping 'off', 'on'
+        (list + active kernel) and 'auto'; at 100% support 'auto' and 'on'
+        against 'off', beside the reference's AUTO_OVER_SCAN.
 
-    Returns the rows and the derived threshold: the largest active fraction
-    up to which following the list was no slower (within SKIP_TIE) than scan
-    order at every measured support, for both layouts."""
+    Returns the rows, the derived threshold (the largest active fraction up
+    to which following the list was no slower, within SKIP_TIE, than scan
+    order at every measured support, for both layouts) and the list kernel's
+    timing rows."""
     import torch
 
     from repro_torch.kernels import active
@@ -1769,23 +1914,33 @@ def time_skipping(db, db_dense, device) -> tuple[list[dict], float]:
     nb = active.n_edge_blocks(E)
     blocks = (pt.block_src_min, pt.block_src_max)
     kw = dict(dst_width=pt.dst_col.width, m_mode="packed", m_width=fre.width)
-    table = uses_table(pt)
+    table, dtable = uses_table(pt), uses_table(dt)
     per_edge = {"packed": (4 * pt.dst_col.words.shape[0] + 4 * fre.words.shape[0]) / E + 4,
                 "dense": 12}
     base = frontier(n_src, "sum", gen, device)
     # on the H100 (torch 2.11) the first profiled run here recorded no device
     # events, after the breakdown's runs had; a throwaway one goes first
     device_busy(lambda: active.active_block_list(base, 0.0, *blocks))
-    rows, ok_up_to, broken = [], 0.0, False
+    rows, list_rows, ok_up_to, broken = [], [], 0.0, False
     for support in SUPPORTS:
         w = sparse_frontier(base, pt.degrees, support, "sum", 9)
-        lst = lambda: active.active_block_list(w, 0.0, *blocks)  # noqa: E731
+        lst = lambda: K.active_block_list(w, 0.0, *blocks)  # noqa: E731  (the kernel)
+        plain_lst = lambda: active.active_block_list(w, 0.0, *blocks)  # noqa: E731
         bi, na = lst()
         n_act = int(na[0])
         busy, ops = device_busy(lst)
+        pbusy, pops = device_busy(plain_lst)
+        lb, lby = list_bound(w, 0.0, *blocks)
         r = {"support": support, "n_active": n_act, "n_blocks": nb,
              "active_fraction": n_act / nb, "list_ms": time_device_ms(lst, KERNEL_REPS),
-             "list_device_ms": busy, "list_device_ops": ops}
+             "list_device_ms": busy, "list_device_ops": ops,
+             "list_plain_ms": time_device_ms(plain_lst, KERNEL_REPS),
+             "list_plain_device_ms": pbusy, "list_plain_device_ops": pops,
+             "list_bound_ms": lb}
+        list_rows.append(dict(shape=f"I_DT.Term support {support}", E=nb, support=support,
+                              ms=r["list_ms"], plain_ms=r["list_plain_ms"], bound_ms=lb,
+                              bound_by=lby, library_ms=None, device_ops=ops,
+                              plain_device_ops=pops))
         for layout in ("packed", "dense"):
             if layout == "packed":
                 scan = lambda: pk.fragment_spmv_packed(w, pt.src_ids, pt.dst_col.words,  # noqa: E731
@@ -1799,13 +1954,13 @@ def time_skipping(db, db_dense, device) -> tuple[list[dict], float]:
                     block_skipping=mode, hot_share=pt.hot_share, **kw)
             else:
                 scan = lambda: dk.fragment_spmv(w, dt.src_ids, dt.dst_ids,  # noqa: E731
-                                                dt.measures["Fre"], n_dst)
+                                                dt.measures["Fre"], n_dst, table=dtable)
                 act = lambda sa: dk.fragment_spmv_active(  # noqa: E731
                     w, dt.src_ids, dt.dst_ids, dt.measures["Fre"], bi, na, n_dst,
-                    scan_above=sa)
+                    scan_above=sa, table=dtable)
                 hop = lambda mode: K.fragment_spmv(  # noqa: E731
                     w, dt.src_ids, dt.dst_ids, dt.measures["Fre"], n_dst, blocks=blocks,
-                    block_skipping=mode)
+                    block_skipping=mode, hot_share=dt.hot_share)
             r[f"{layout}_scan_ms"] = time_device_ms(scan, KERNEL_REPS)
             r[f"{layout}_skip_ms"] = time_device_ms(lambda: act(nb), KERNEL_REPS)
             r[f"{layout}_skip_device_ms"] = device_busy(lambda: act(nb))[0]
@@ -1813,25 +1968,35 @@ def time_skipping(db, db_dense, device) -> tuple[list[dict], float]:
             r[f"{layout}_skip_bound_ms"] = bound_ms(
                 int(per_edge[layout] * min(E, n_act * 4096)) + 4 * n_src + 4 * n_dst
                 + 4 * nb + 4, 2 * min(E, n_act * 4096))[0]
-            r[f"{layout}_hop_off_ms"] = time_device_ms(lambda: hop("off"), KERNEL_REPS)
-            r[f"{layout}_hop_on_ms"] = time_device_ms(lambda: hop("on"), KERNEL_REPS)
+            for mode in ("off", "on", "auto"):
+                r[f"{layout}_hop_{mode}_ms"] = time_device_ms(lambda: hop(mode), KERNEL_REPS)
         rows.append(r)
         tie = all(r[f"{lay}_skip_ms"] <= SKIP_TIE * r[f"{lay}_scan_order_ms"]
                   for lay in ("packed", "dense"))
         broken = broken or not tie
         if not broken:
             ok_up_to = n_act / nb
-        log(f"  support {support}: {n_act}/{nb} blocks ({n_act / nb:.4f}); list {r['list_ms']:.4f}"
-            f" ms a call ({r['list_device_ms']:.4f} ms device, {r['list_device_ops']:.0f} ops)")
+        log(f"  support {support}: {n_act}/{nb} blocks ({n_act / nb:.4f}); list kernel"
+            f" {r['list_ms']:.4f} ms a call ({r['list_device_ms']:.4f} ms device,"
+            f" {r['list_device_ops']:.0f} ops; bound {lb:.6f} ms), plain build"
+            f" {r['list_plain_ms']:.4f} ms ({r['list_plain_device_ms']:.4f} ms device,"
+            f" {r['list_plain_device_ops']:.0f} ops)")
         for lay in ("packed", "dense"):
             log(f"    {lay:6s} kernels: scan {r[f'{lay}_scan_ms']:.4f} / skip"
                 f" {r[f'{lay}_skip_ms']:.4f} ({r[f'{lay}_skip_device_ms']:.4f} device with the"
                 f" output fill, bound {r[f'{lay}_skip_bound_ms']:.4f}) / scan order"
                 f" {r[f'{lay}_scan_order_ms']:.4f} ms; hop off {r[f'{lay}_hop_off_ms']:.4f} /"
-                f" on {r[f'{lay}_hop_on_ms']:.4f} ms")
+                f" on {r[f'{lay}_hop_on_ms']:.4f} / auto {r[f'{lay}_hop_auto_ms']:.4f} ms")
+    full = rows[-1]
+    for lay in ("packed", "dense"):
+        for mode in ("on", "auto"):
+            full[f"{lay}_{mode}_over_off"] = full[f"{lay}_hop_{mode}_ms"] / full[f"{lay}_hop_off_ms"]
+        log(f"  {lay} hop at 100% support: 'on' {full[f'{lay}_on_over_off']:.3f}x and 'auto'"
+            f" {full[f'{lay}_auto_over_off']:.3f}x the scan ('off'); the reference's contract"
+            f" for 'auto': at most {AUTO_OVER_SCAN}x")
     log(f"  following the list is no slower than scan order (within {SKIP_TIE}x) up to an"
         f" active fraction of {ok_up_to:.4f}")
-    return rows, ok_up_to
+    return rows, ok_up_to, list_rows
 
 
 # ---------------------------------------------------------------------------
@@ -1845,7 +2010,7 @@ SPMM_DENSE_HOPS = ["fragment_spmm", "fragment_spmm_active"]
 SPMM_HOPS = ["fragment_spmm_packed", "fragment_spmm_packed_active"]
 SPMM_FUSED = ["fragment_spmm_fused1", "fragment_spmm_fused2"]
 #: a batched run launches none of these
-SINGLE_KERNELS = [k for k in KERNELS if not k.startswith("fragment_spmm")]
+SINGLE_KERNELS = [k for k in KERNELS if not k.startswith("fragment_spmm") and k != "block_list"]
 #: per-row supports of the 8-row frontiers at the main path's shapes
 ROW_SUPPORTS = ("one_seed", 0.01, 0.1, 0.5, 1.0, "one_seed", 0.01, 0.1)
 
@@ -2169,7 +2334,7 @@ def drive_batched(label, engines, SG, c0, draws, block_skipping, fusion, hop_ker
             if [i for i, _ in top] != [i for i, _ in want]:
                 raise AssertionError(f"query_topk_batch ids {top} != execute_batch's {want}")
     counts = read_counts()
-    for k in [hop_kernels[-1], *must]:
+    for k in [hop_kernels[-1], *must] + (["block_list"] if block_skipping != "off" else []):
         if counts[k] < 1:
             raise AssertionError(f"path {label}: {k} never launched ({counts})")
     log(f"  path {label}: launches {({k: v for k, v in counts.items() if v})}; once a batch"
@@ -2633,13 +2798,17 @@ def run(device) -> None:
     # phase 3: kernels against their plain versions
     phase("[3] kernels against their plain versions on the card", t_start)
     worst = {k: 0.0 for k in KERNELS}
-    worst["fragment_spmv"], dense_checks = check_dense_kernel(db_dense, device)
+    dense_worst, dense_checks = check_dense_kernel(db_dense, device)
     round_trip = storage_round_trip([("pubmed", db), ("semmed", dbs), ("pubmed dict", dict_db)])
     worst["bitunpack"] = check_bitunpack(device)
     worst["fragment_spmv_packed"], packed_checks = check_packed_kernel(
         packed_cases(db, dict_db, device), device)
     act_worst, active_checks = check_active_kernels(db, db_dense, device)
     worst.update(act_worst)
+    for k, v in dense_worst.items():
+        worst[k] = max(worst[k], v)
+    worst["block_list"], list_checks = check_block_lists([("pubmed", db), ("semmed", dbs)],
+                                                         device)
     hot = check_hot_packed(device)
     for k in PACKED_HOPS:
         worst[k] = max(worst[k], hot)
@@ -2714,36 +2883,45 @@ def run(device) -> None:
         for h in rest[2]:
             if "fused" in h["query"]:
                 log(f"    {h['query']:22s}: {h['n_active']}/{h['n_blocks']} blocks listed")
-    drift = []  # cross-kernel comparisons reported for DRIFT_QUERIES
-    errs = {"dense": check_results("a", res_a, engines["dense"], SG, c0, "off", "off"),
+    drift = []  # batched rows against single calls, reported for DRIFT_QUERIES
+    gates = {}  # the gate ratios of the gated float comparisons of single calls
+    errs = {"dense": check_results("a", res_a, engines["dense"], SG, c0, "off", "off",
+                                   gates=gates),
             "auto_auto_off": check_results("b", res_b, engines["auto"], SG, c0, "auto", "off",
-                                           nine=True, drift=drift),
+                                           nine=True, gates=gates),
             "defaults": check_results("f", fused_res["auto"], engines["auto"], SG, c0, "auto",
-                                      "auto", nine=True, drift=drift),
+                                      "auto", nine=True, gates=gates),
             "fusion_on": check_results("g", fused_res["on"], engines["auto"], SG, c0, "auto",
-                                       "on", nine=True, drift=drift)}
-    check_results("c", res_c, engines["auto"], SG, c0, "off", "off", drift=drift)
-    check_results("d", res_d, engines["dense"], SG, c0, "auto", "off")
+                                       "on", nine=True, gates=gates),
+            "auto_off": check_results("c", res_c, engines["auto"], SG, c0, "off", "off",
+                                      gates=gates),
+            "dense_auto": check_results("d", res_d, engines["dense"], SG, c0, "auto", "off",
+                                        gates=gates)}
     # every path's float sums against the plain versions' float64 sums
     truth = truth_single(engines["auto"], SG, c0)
     float64_rel = {
         lbl: hold_f64(lbl, res, {k: v for k, v in truth.items() if k in res}, "single")
         for lbl, res in (("a", res_a), ("b", res_b), ("c", res_c), ("d", res_d),
                          ("f", fused_res["auto"]), ("g", fused_res["on"]))}
-    n0 = len(drift)
+    cross = {}
     for name, _, _ in cases(SG, c0):
-        compare(res_b[name], res_c[name], name in EXACT_QUERIES, f"auto/auto {name} vs auto/off")
-        for other, lbl in ((res_a, "dense/off"), (res_d, "dense/auto")):
-            compare_or_drift(res_b[name], other[name], name, f"auto/auto {name} vs {lbl}",
-                             drift)
-    log_drift("auto/auto vs the dense paths", drift, n0)
+        for other, lbl in ((res_c, "auto/off"), (res_a, "dense/off"), (res_d, "dense/auto")):
+            compare(res_b[name], other[name], name in EXACT_QUERIES,
+                    f"auto/auto {name} vs {lbl}")
+            if name not in EXACT_QUERIES:
+                cross.setdefault(f"b vs {lbl}", {})[name] = gate_ratio(res_b[name], other[name])
+    for what, ratios in cross.items():
+        log_gates(what, ratios, gates)
+    top_gate = max((v, f"{w} {q}") for w, r in gates.items() for q, v in r.items())
+    log(f"  the largest gate ratio of a gated single-call comparison: {top_gate[0]:.4g}"
+        f" ({top_gate[1]})")
     for name, _, _ in cases(SG, c0, True):
         for fusion, res in fused_res.items():
             compare(res[name], res_b[name], name in EXACT_QUERIES,
                     f"fusion {fusion} {name} vs fusion off")
-    log("  auto/auto equals auto/off and the dense paths (exact for SD/AD/RECENT/CS; AS"
-        " and AS-recent against the dense paths reported, every path held to the float64"
-        " sums); fusion auto and on equal fusion off for all nine (exact for the counts)")
+    log("  auto/auto equals auto/off and the dense paths (exact for SD/AD/RECENT/CS; every"
+        " path held to the float64 sums too); fusion auto and on equal fusion off for all"
+        " nine (exact for the counts)")
     pq = eng.prepare(Q_COMPOSITE)
     plain = X.compile_frontier(db.device, pq.phys, use_kernel=False)(5).cpu().numpy()
     compare(comp, plain, False, "composite vs plain")
@@ -2812,26 +2990,31 @@ def run(device) -> None:
 
     # phase 5: times
     phase("[5] times", t_start)
-    qtimes = time_modes(engines["auto"], SG, c0, {"defaults": ("auto", "auto"),
-                                                  "fusion_on": ("auto", "on"),
-                                                  "fusion_off": ("auto", "off")})
-    qtimes["dense"] = time_queries("dense", engines["dense"], SG, c0, "off", "off")
+    qtimes = time_modes(engines, SG, c0, {"defaults": ("auto", "auto", "auto"),
+                                          "fusion_on": ("auto", "auto", "on"),
+                                          "fusion_off": ("auto", "auto", "off"),
+                                          "dense": ("dense", "off", "off")})
+    over = {n: qtimes["defaults"][n]["median_ms"] / qtimes["dense"][n]["median_ms"]
+            for n in qtimes["dense"]}
+    log("  the defaults' wall against dense storage with skipping off (fault 2 closes at"
+        f" {AUTO_OVER_SCAN}x for every query): " + ", ".join(
+            f"{n} {v:.3f}x" for n, v in over.items()))
     split = {"defaults": breakdown("defaults", engines["auto"], SG, c0, "auto", "auto", True),
-             "dense": breakdown("dense", engines["dense"], SG, c0, "off", "off"),
+             "dense": breakdown("dense", engines["dense"], SG, c0, "off", "off", nine=True),
              "fusion_on": breakdown("on", engines["auto"], SG, c0, "auto", "on", True),
              "fusion_off": breakdown("off", engines["auto"], SG, c0, "auto", "off", True)}
     ktimes = time_kernels(db, db_dense, device)
     for shape in ("I_DA.Doc", "I_DT.Term"):
         t = {k: next(r["ms"] for r in ktimes[k] if r["shape"] == shape)
              for k in ("fragment_spmv", *PACKED_HOPS)}
-        log(f"  {shape}: packed pair against the dense fragment_spmv (one atomic an edge):"
+        log(f"  {shape}: packed pair against the dense fragment_spmv (the same form):"
             f" scan {t['fragment_spmv_packed'] / t['fragment_spmv']:.3f}x, active"
             f" {t['fragment_spmv_packed_active'] / t['fragment_spmv']:.3f}x its time")
     hot_err = hot_author_error(db, db_dense, device)
     ktimes.update(time_bitmap(masks, device))
     fused_rows, budget_rows, budget = time_fused(specs, device)
     ktimes.update(fused_rows)
-    skipping, skip_fraction = time_skipping(db, db_dense, device)
+    skipping, skip_fraction, ktimes["block_list"] = time_skipping(db, db_dense, device)
     phase("[5h] batched serving: execute_batch against B single calls, and the batched"
           " kernels", t_start)
     btimes = time_batched(engines["auto"], SG, c0, draws)
@@ -2853,10 +3036,14 @@ def run(device) -> None:
             primary = ktimes[k][0] if k.endswith("1") else ktimes[k][1]  # SD-recent; AS-recent
         elif k.startswith("fragment_spmm"):
             primary = next(r for r in ktimes[k] if r["B"] == 8)  # I_DT.Term at B = 8
+        elif k == "block_list":
+            primary = ktimes[k][-1]  # I_DT.Term at 100% support: 'auto' does not skip
         else:
             primary = ktimes[k][0]
         if k.startswith("bitmap"):
             timed = f"{primary['shape']}, {primary['E']} words"
+        elif k == "block_list":
+            timed = f"{primary['shape']}, {primary['E']} blocks"
         else:
             timed = (f"{primary['shape']} sum, E={primary['E']}"
                      + (f", B={primary['B']}" if "B" in primary else ""))
@@ -2877,13 +3064,14 @@ def run(device) -> None:
         "setup_seconds": {"generate": t_gen, "index_and_load_dense": t_load,
                           "load_auto": t_auto},
         "checks": {"dense": dense_checks, "packed": packed_checks, "active": active_checks,
+                   "block_list": list_checks,
                    "round_trip": round_trip, "fused_small": n_small,
                    "fused_regions": fused_checks},
         "regions": [{k: sp[k] for k in ("name", "prepare_s", "reach_bytes")} for sp in specs],
         "paths": paths, "fused_plans": plans, "query_max_abs_err_vs_plain": errs,
         "queries": qtimes, "query_device_breakdown": split, "kernel_times": ktimes,
         "hot_author_float32": hot_err, "query_float64_rel": float64_rel,
-        "float64_limit": FLOAT64_LIMIT, "drift_reported": drift, "index_tables": tables,
+        "float64_limit": FLOAT64_LIMIT, "gate_ratios": gates, "top_gate_ratio": top_gate, "drift_reported": drift, "index_tables": tables,
         "skipping": skipping, "skip_block_fraction": active.SKIP_BLOCK_FRACTION,
         "skip_block_fraction_measured": skip_fraction, "fused_vs_unfused": budget_rows,
         "fused_scratch_budget_bytes": FUSED_SCRATCH_BUDGET_BYTES,

@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Size and place the packed hop's per-CTA aggregation table on one NVIDIA GPU.
 
-    python3 scripts/hop_table_probe.py      # from the repository root, on a card
+    python3 scripts/hop_table_probe.py          # from the repository root, on a card
+    python3 scripts/hop_table_probe.py 4 5      # only the parts named
 
 Prints the card's name and power limit first and writes
-``chiprun_out/hop_table_probe.json``. Four parts, each timed with CUDA events
-(sum over the frontier given; the kernels alone, block lists built
-beforehand):
+``hop_table_probe.json`` into the output directory ``chip_smoke.py`` writes
+to. Five parts, each timed with CUDA events (sum over the frontier given;
+the kernels alone, block lists built beforehand):
 
 1. Table shape. At the full PubMed scale of ``chip_smoke.py``, over a dense
    random frontier, on I_DA.Doc (Zipf-hot authors) and I_DT.Term
@@ -40,6 +41,20 @@ beforehand):
    parameters ``chip_smoke.py`` draws), and the gate ratios
    ``max |x - y| / (1e-4 + 1e-4 |y|)`` of the comparisons it reports for
    AS and AS-recent.
+5. The dense pair and the list kernel. On I_DA.Doc and I_DT.Term over a
+   dense random frontier, the dense scan and active kernels with the table
+   and without it, beside the packed pair with the table, each timed twice
+   in turns, with the float32 sums against float64. The card's rate of
+   float reductions to distinct addresses (``scripts/csrc/red_rate.cu``:
+   29M reductions over a 16 MB array, with and without an L2::evict_last
+   hint, and on consecutive words), the scatter's second floor beside the
+   bytes bound. SD's and FSD's first hop (one document's blocks of
+   I_DT.Doc) through the dense active kernel with the table and without
+   (the per-edge form's one wave of CTAs), by device time, and the queries'
+   hop device time under dense storage with skipping 'auto'. The list kernel against the plain build (14 calls) on
+   I_DT.Term and I_DT.Doc at one seed and 100% support, single and B = 8:
+   device ms and device operations from the profiler, and host ms a call
+   (the enqueue, without a synchronise).
 """
 from __future__ import annotations
 
@@ -233,9 +248,9 @@ def table_shapes(C, db, db_dense, libs, dev, record) -> None:
                    + [("packed", (s, p)) for s in SLOTS for p in PROBES] + [("dense", None)])
         for kind, shape in configs:
             if kind == "dense":
-                scan = lambda: dk.fragment_spmv(w, src, dst, m, n_dst)  # noqa: E731
+                scan = lambda: dk.fragment_spmv(w, src, dst, m, n_dst, table=False)  # noqa: E731
                 act = lambda: dk.fragment_spmv_active(w, src, dst, m, bi, na, n_dst,  # noqa: E731
-                                                      scan_above=nb)
+                                                      scan_above=nb, table=False)
                 label = "dense (atomic an edge)"
             else:
                 table = shape is not None
@@ -433,12 +448,179 @@ def float_sums(C, SG, c0, engines, db, dbs, record) -> None:
         print(f"  {k}: {json.dumps(v)}", flush=True)
 
 
+RED_N = 1 << 22  # 16 MB of float32: I_DT.Term's 4M documents
+RED_COUNT = 28_991_945  # I_DT.Term's edges
+
+
+def host_ms(fn, reps: int = 200) -> float:
+    """Host ms a call: the enqueue of ``reps`` calls without a synchronise
+    between them (the device catches up after)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t = (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    return t
+
+
+def dense_pair(C, SG, c0, engines, db, db_dense, dev, record) -> None:
+    """Part 5."""
+    import ctypes
+
+    import torch
+
+    from repro_torch.kernels import active, cuda_build
+    from repro_torch.kernels import fragment_spmv as dk
+    from repro_torch.kernels import fragment_spmv_packed as pk
+    from repro_torch.kernels import ops as K
+
+    out = {"hops": {}}
+    gen = torch.Generator(device=dev).manual_seed(31)
+    for name, (table, key), meas, dst_ent in (
+        ("I_DA.Doc", ("DA", "Doc"), None, "Author"),
+        ("I_DT.Term", ("DT", "Term"), "Fre", "Document"),
+    ):
+        di, pi = db_dense.device.index(table, key), db.device.index(table, key)
+        n_src, n_dst = di.indptr.shape[0] - 1, db.schema.domain_size(dst_ent)
+        src, dst = di.src_ids, di.dst_ids
+        m = di.measures[meas] if meas else None
+        E = int(src.shape[0])
+        w = C.frontier(n_src, "sum", gen, dev)
+        nb = active.n_edge_blocks(E)
+        bi = torch.arange(nb, dtype=torch.int32, device=dev)
+        na = torch.full((1,), nb, dtype=torch.int32, device=dev)
+        pm = pi.measure_cols[meas] if meas else None
+        kwp = dict(dst_width=pi.dst_col.width, m_mode="packed" if pm is not None else "none",
+                   m_width=pm.width if pm is not None else 0)
+        mw = pm.words if pm is not None else None
+        truth = torch.zeros(n_dst, dtype=torch.float64, device=dev).index_add_(
+            0, dst.long(), w.double()[src.long()] * (m.double() if m is not None else 1.0))
+        hot = int(torch.argmax(torch.bincount(dst.long(), minlength=n_dst)))
+        b_bytes, _ = C.hop_bound(E, n_src, n_dst, 4 * E, 4 * E if m is not None else 0)
+
+        def dense(t):
+            return (lambda: dk.fragment_spmv(w, src, dst, m, n_dst, table=t),
+                    lambda: dk.fragment_spmv_active(w, src, dst, m, bi, na, n_dst,
+                                                    scan_above=nb, table=t))
+
+        packed = (lambda: pk.fragment_spmv_packed(w, src, pi.dst_col.words, mw, None, n_dst,
+                                                  table=True, **kwp),
+                  lambda: pk.fragment_spmv_packed_active(w, src, pi.dst_col.words, mw, None,
+                                                         bi, na, n_dst, scan_above=nb,
+                                                         table=True, **kwp))
+        hop = {"E": E, "hot_share": di.hot_share, "bound_ms": b_bytes, "rows": []}
+        plan = [("dense table", dense(True)), ("dense per edge", dense(False)),
+                ("packed table", packed)] * 2  # in turns
+        for form, (scan, act) in plan:
+            row = {"form": form}
+            for sched, fn in (("scan", scan), ("active", act)):
+                y = fn().double()
+                torch.cuda.synchronize()
+                rel = (y - truth).abs() / truth.abs().clamp_min(1e-30)
+                rel[truth == 0] = 0
+                row[sched] = {"ms": C.time_device_ms(fn, C.KERNEL_REPS),
+                              "rel_err_hottest": float(rel[hot]),
+                              "rel_err_max": float(rel.max())}
+            hop["rows"].append(row)
+            print(f"  {name:9s} {form:15s} scan {row['scan']['ms']:.4f} ms,"
+                  f" active {row['active']['ms']:.4f} ms (bound {b_bytes:.4f}); float32 vs"
+                  f" float64 hottest {row['scan']['rel_err_hottest']:.3g}, max"
+                  f" {row['scan']['rel_err_max']:.3g}", flush=True)
+        out["hops"][name] = hop
+        del truth
+
+    # the card's rate of float reductions to distinct addresses
+    red = cuda_build.CudaLibrary(
+        "red_rate", {"red_rate_launch": [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                                         ctypes.c_int, ctypes.c_void_p]},
+        source=ROOT / "scripts" / "csrc" / "red_rate.cu")
+    lib = red.load()
+    y = torch.zeros(RED_N, dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rates = {}
+    for mode, label in ((0, "distinct addresses"), (1, "distinct addresses, evict_last"),
+                        (2, "consecutive words")):
+        def launch(mode=mode):
+            cuda_build.raise_on(lib.red_rate_launch(y.data_ptr(), RED_N, RED_COUNT, mode, stream),
+                                "red_rate")
+        ms = C.time_device_ms(launch, C.KERNEL_REPS)
+        rates[label] = {"ms": ms, "per_s": RED_COUNT / (ms * 1e-3)}
+        print(f"  float reductions, {label}: {RED_COUNT} in {ms:.4f} ms ="
+              f" {RED_COUNT / (ms * 1e-3):.4g} a second", flush=True)
+    out["red_rate"] = {"n": RED_N, "count": RED_COUNT, **rates}
+    out["scatter_floor_ms"] = {n: h["E"] / rates["distinct addresses"]["per_s"] * 1e3
+                               for n, h in out["hops"].items()}
+    print(f"  the scatter's floor (E / the distinct-address rate): {out['scatter_floor_ms']}",
+          flush=True)
+    del y
+
+    # SD's and FSD's first hop under dense storage
+    di = db_dense.device.index("DT", "Doc")
+    n_src, n_dst = di.indptr.shape[0] - 1, db.schema.domain_size("Term")
+    w = torch.zeros(n_src, dtype=torch.float32, device=dev)
+    w[5] = 1.0  # d0 = 5
+    bi, na = active.active_block_list(w, 0.0, di.block_src_min, di.block_src_max)
+    nb = active.n_edge_blocks(int(di.src_ids.shape[0]))
+    first = {"n_active": int(na[0]), "n_blocks": nb, "hot_share": di.hot_share}
+    for label, m in (("SD (no measure)", None), ("FSD (Fre)", di.measures["Fre"])):
+        for t in (True, False):
+            fn = lambda t=t: dk.fragment_spmv_active(  # noqa: E731
+                w, di.src_ids, di.dst_ids, m, bi, na, n_dst, scan_above=nb, table=t)
+            first[f"{label} table={'on' if t else 'off'}"] = C.device_busy(fn)[0]
+        print(f"  first hop {label}: {first['n_active']}/{nb} blocks; device ms table on"
+              f" {first[f'{label} table=on']:.4f} / off {first[f'{label} table=off']:.4f}",
+              flush=True)
+    out["first_hop"] = first
+    out["dense_auto_queries"] = C.breakdown("dense/auto", engines["dense"], SG, c0, "auto",
+                                            "off")
+
+    # the list kernel against the plain build
+    lists = []
+    for key in (("DT", "Term"), ("DT", "Doc")):
+        pi = db.device.index(*key)
+        n_src = pi.indptr.shape[0] - 1
+        blocks = (pi.block_src_min, pi.block_src_max)
+        for support in ("one_seed", 1.0):
+            for B in (1, 8):
+                ws = [C.sparse_frontier(C.frontier(n_src, "sum", gen, dev), pi.degrees, support,
+                                        "sum", 40 + b) for b in range(B)]
+                w = ws[0] if B == 1 else torch.stack(ws).contiguous()
+                row = {"index": f"I_{key[0]}.{key[1]}", "support": support, "B": B,
+                       "n_blocks": int(blocks[0].shape[0])}
+                for label, fn in (("kernel", lambda: K.active_block_list(w, 0.0, *blocks)),
+                                  ("plain", lambda: active.active_block_list(w, 0.0, *blocks))):
+                    busy, ops = C.device_busy(fn)
+                    row[label] = {"device_ms": busy, "device_ops": ops, "host_ms": host_ms(fn),
+                                  "ms": C.time_device_ms(fn, C.KERNEL_REPS)}
+                lists.append(row)
+                k, p = row["kernel"], row["plain"]
+                print(f"  list I_{key[0]}.{key[1]} {support} B={B}: kernel device"
+                      f" {k['device_ms']:.4f} ms ({k['device_ops']:.0f} ops), host"
+                      f" {k['host_ms']:.4f} ms, a call {k['ms']:.4f}; plain device"
+                      f" {p['device_ms']:.4f} ms ({p['device_ops']:.0f} ops), host"
+                      f" {p['host_ms']:.4f} ms, a call {p['ms']:.4f}", flush=True)
+    out["lists"] = lists
+    record["dense_pair"] = out
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("hop_table_probe: no CUDA device", file=sys.stderr)
         return 2
+    run(torch.device("cuda"), {int(a) for a in sys.argv[1:]} or {1, 2, 3, 4, 5})
+    return 0
+
+
+def run(dev, parts) -> None:
+    """The parts named on ``dev``."""
+    import torch
+
     import chip_smoke as C
     from repro_torch.core import executor as X
     from repro_torch.core.engine import GQFastDatabase, GQFastEngine
@@ -448,14 +630,13 @@ def main() -> int:
     t_start = time.perf_counter()
     card = C.card_line()
     print(card, flush=True)
-    libs = variants()
+    libs = variants() if 1 in parts else {}
     cuda_build.build_all()  # the package's libraries
     cuda_build.build_all(list(libs.values()))
-    print(f"built {len(libs)} table variants at {time.perf_counter() - t_start:.1f} s",
-          flush=True)
-    record = {"card": card, "occupancy": {}, "hops": {}}
+    print(f"built {len(libs)} table variants at"
+          f" {time.perf_counter() - t_start:.1f} s", flush=True)
+    record = {"card": card, "parts": sorted(parts), "occupancy": {}, "hops": {}}
 
-    dev = torch.device("cuda")
     pub = SG.make_pubmed(**C.PUBMED)
     sem = SG.make_semmeddb(**C.SEMMED)
     kw = dict(account_space=False, keep_packed=True, device=dev, device_encodings="dense")
@@ -471,24 +652,31 @@ def main() -> int:
                             for (t, k), di in d.device.indexes.items()}
     print(f"  hot shares: {record['hot_shares']}", flush=True)
 
-    print("[1] table shapes", flush=True)
-    table_shapes(C, db, db_dense, libs, dev, record)
-    print(f"[2] hot-share sweep at {time.perf_counter() - t_start:.1f} s", flush=True)
-    hot_share_sweep(C, dev, record)
+    if 1 in parts:
+        print("[1] table shapes", flush=True)
+        table_shapes(C, db, db_dense, libs, dev, record)
+    if 2 in parts:
+        print(f"[2] hot-share sweep at {time.perf_counter() - t_start:.1f} s", flush=True)
+        hot_share_sweep(C, dev, record)
     c0 = C.busy_concept(sem)
     engines = {}
     for label, (p, s) in {"dense": (db_dense, dbs_dense), "auto": (db, dbs)}.items():
         ep, es = GQFastEngine(p), GQFastEngine(s)
         engines[label] = {n: (es if n == "CS" else ep) for n, _, _ in C.cases(SG, c0, True)}
-    print(f"[3] sparse frontiers at {time.perf_counter() - t_start:.1f} s", flush=True)
-    sparse_frontiers(C, SG, c0, engines, db, dev, record)
-    print(f"[4] float sums at {time.perf_counter() - t_start:.1f} s", flush=True)
-    float_sums(C, SG, c0, engines, db, dbs, record)
+    if 3 in parts:
+        print(f"[3] sparse frontiers at {time.perf_counter() - t_start:.1f} s", flush=True)
+        sparse_frontiers(C, SG, c0, engines, db, dev, record)
+    if 4 in parts:
+        print(f"[4] float sums at {time.perf_counter() - t_start:.1f} s", flush=True)
+        float_sums(C, SG, c0, engines, db, dbs, record)
+    if 5 in parts:
+        print(f"[5] the dense pair and the list kernel at {time.perf_counter() - t_start:.1f} s",
+              flush=True)
+        dense_pair(C, SG, c0, engines, db, db_dense, dev, record)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "hop_table_probe.json").write_text(json.dumps(record, indent=1))
     print(f"done in {time.perf_counter() - t_start:.1f} s", flush=True)
-    return 0
 
 
 if __name__ == "__main__":

@@ -505,6 +505,7 @@ class _FrontierInterp(_Interp):
             w, op.src_ids, op.dst_ids, self._dense_measure(op), n_dst=op.dom_dst,
             op=self.sr.name, use_kernel=self.use_kernel,
             blocks=self.blocks_for(op), block_skipping=self.block_skipping,
+            hot_share=op.hot_share,
         )
 
     def _dense_measure(self, op: HopOp):

@@ -14,7 +14,10 @@ block granularity:
     compact their ids into a **fixed-capacity list + count**
     (``block_idx[n_blocks]``, ``n_active[1]``), the tail repeating the last
     active id. Both stay on the device: the active kernels read ``n_active``
-    there, so a hop never waits for the host.
+    there, so a hop never waits for the host. :func:`active_block_list` is
+    the plain version (the CPU path, and the yardstick) of the CUDA kernel
+    :mod:`.block_list`, which builds the same list in one launch; the
+    dispatch ``ops.active_block_list`` chooses between them.
   * :func:`reach_flags` — a fused region's hop2 flags from hop1's, through
     the fuse-time reach matrix, on the device;
   * :func:`active_block_list_np` — the host twin for a concrete frontier, with
@@ -36,8 +39,8 @@ from .params import EDGE_BLOCK
 #: above it. Measured on an H100 80GB HBM3 at 700 W by ``chip_smoke.py``
 #: (I_DT.Term, 7,079 blocks): with the list built, following it was no slower
 #: than scan order (within 5%) at every active fraction up to 100% — 1.0
-#: (the reference's TPU value is 0.25). The list's own cost is paid before
-#: the choice, whichever way it goes.
+#: (the reference's TPU value is 0.25). The list's own cost (one launch of
+#: the list kernel) is paid before the choice, whichever way it goes.
 SKIP_BLOCK_FRACTION = 1.0
 
 

@@ -38,11 +38,16 @@
 //     hop falls about sevenfold on the H100, PERF.md). Where no destination
 //     is hot the table only costs (I_DT.Term's active hop ~30%), so the
 //     caller passes table = 0 for such an index (kernels/ops.py uses_table)
-//     and the hop takes hop.cuh's per-edge schedules (scan / active), which
-//     the dense hop keeps. The aggregating kernels launch one wave: as many
+//     and the hop takes hop.cuh's per-edge schedules (scan / active). The
+//     aggregating kernels launch one wave (hop.cuh's wave_grid): as many
 //     CTAs as are co-resident with the table's shared memory (no more than
 //     the index has blocks), the scan each over one contiguous range of
-//     edges, the active kernel each over every gridDim.x-th listed block.
+//     edges, the active kernel each over a run of consecutive listed blocks,
+//     both into one table flushed once;
+//   * the per-edge active kernel launches one wave too (the CTAs
+//     co-resident without shared memory), striding over the list, as the
+//     dense pair's does: a one-block list costs one wave, not a CTA for each
+//     of the index's blocks.
 // This file allocates nothing and does not synchronise.
 
 #include "hop.cuh"
@@ -96,45 +101,24 @@ struct Launch {
   cudaStream_t s;
 };
 
-// An aggregating kernel's grid: one wave (the CTAs co-resident with the
-// table's shared memory), but no more CTAs than EDGE_BLOCK-edge blocks.
-template <auto Kernel>
-int agg_grid(int64_t E, int* grid) {
-  static int cached = 0;  // one per kernel instantiation
-  if (cached == 0) {
-    int dev = 0, per_sm = 0, sms = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess) {
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, Kernel, kThreads,
-                                                          kTableBytes);
-    }
-    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return (int)err;
-    if (per_sm * sms <= 0) return (int)cudaErrorInvalidConfiguration;
-    cached = per_sm * sms;
-  }
-  const int64_t nb = n_edge_blocks(E);
-  *grid = (int)(nb < cached ? nb : cached);
-  return 0;
-}
-
 template <int OP, class Dst, class M>
 int launch(const Launch& a, Dst dst, M m) {
   const size_t smem = a.table ? kTableBytes : 0;
   if (a.block_idx == nullptr) {
     int grid = scan_grid(a.E);
     if (a.table) {
-      const int err = agg_grid<fragment_spmv_packed_kernel<OP, Dst, M>>(a.E, &grid);
+      const int err =
+          wave_grid<fragment_spmv_packed_kernel<OP, Dst, M>, kTableBytes>(a.E, &grid);
       if (err) return err;
     }
     fragment_spmv_packed_kernel<OP, Dst, M><<<grid, kThreads, smem, a.s>>>(
         a.w, a.n_src, a.src, dst, m, a.E, a.y, a.n_dst, a.table);
   } else {
-    int grid = (int)n_edge_blocks(a.E);  // the per-edge schedule: a CTA a block
-    if (a.table) {
-      const int err = agg_grid<fragment_spmv_packed_active_kernel<OP, Dst, M>>(a.E, &grid);
-      if (err) return err;
-    }
+    int grid = 0;  // one wave, with the table's shared memory or without
+    const int err =
+        a.table ? wave_grid<fragment_spmv_packed_active_kernel<OP, Dst, M>, kTableBytes>(a.E, &grid)
+                : wave_grid<fragment_spmv_packed_active_kernel<OP, Dst, M>, 0>(a.E, &grid);
+    if (err) return err;
     fragment_spmv_packed_active_kernel<OP, Dst, M><<<grid, kThreads, smem, a.s>>>(
         a.w, a.n_src, a.src, dst, m, a.E, a.y, a.n_dst, a.block_idx, a.n_cap, a.n_active,
         a.scan_above, a.table);

@@ -7,13 +7,15 @@
 // two schedules:
 //
 //   scan   one thread per edge in a grid-stride loop over all E edges;
-//   active one CTA per EDGE_BLOCK-edge block: CTA b takes block block_idx[b]
-//          while b < n_active and returns at once past it. n_active is read
-//          from device memory, so the host never waits for the block list.
-//          When n_active > scan_above (the "auto" threshold) the CTAs take
-//          blocks in scan order instead (CTA b takes block b), which gives
-//          the same result: a block the list leaves out holds only edges
-//          whose source carries the identity.
+//   active a CTA per EDGE_BLOCK-edge block of the list: CTA c takes list
+//          positions c, c + gridDim.x, ... below n_active, so a grid of one
+//          CTA a block of the index takes one block each and a one-wave grid
+//          (wave_grid) strides over the list. n_active is read from device
+//          memory, so the host never waits for the block list. When
+//          n_active > scan_above (the "auto" threshold) the CTAs take blocks
+//          in scan order instead, which gives the same result: a block the
+//          list leaves out holds only edges whose source carries the
+//          identity.
 //
 //   y[dst[e]] ⊕= w[src[e]] ⊗ m[e],   ⊕ ∈ {sum, min, max, bool}
 //
@@ -29,9 +31,11 @@
 // (atomicMin on unsigned); min is the mirror image. The test is on the sign
 // bit, not on v >= 0, so -0.0 against a -inf identity is right.
 //
-// The packed pair (fragment_spmv_packed.cu) runs aggregating forms of the two
-// schedules instead, scan_agg and active_agg (below), which combine a CTA's
-// products per destination in shared memory before they touch y.
+// The packed and dense pairs (fragment_spmv_packed.cu, fragment_spmv.cu) run
+// aggregating forms of the two schedules on an index with a hot destination,
+// scan_agg and active_agg (below), which combine a CTA's products per
+// destination in shared memory before they touch y; elsewhere they run the
+// per-edge scan and active.
 
 #pragma once
 
@@ -210,28 +214,32 @@ __device__ __forceinline__ void scan_edges(int64_t E, const Body& body) {
   }
 }
 
-// The block this CTA takes under the active schedule, or -1: none.
-__device__ __forceinline__ int64_t listed_block(const int32_t* __restrict__ block_idx, int n_cap,
-                                                const int32_t* __restrict__ n_active,
-                                                int scan_above) {
+// The blocks a CTA takes under the active schedule: list positions blockIdx.x,
+// blockIdx.x + gridDim.x, ... below the count, each calling
+// block(e0, e1) on its edge range (uniform across the CTA). block_idx holds
+// n_cap ids; any grid size is right, from one CTA to one per block.
+template <class Block>
+__device__ __forceinline__ void listed_blocks(int64_t E, const int32_t* __restrict__ block_idx,
+                                              int n_cap, const int32_t* __restrict__ n_active,
+                                              int scan_above, const Block& block) {
   const int na = __ldg(n_active);
-  if (na > scan_above) return blockIdx.x;  // 'auto' above its threshold: scan order
-  if ((int)blockIdx.x < na && (int)blockIdx.x < n_cap) return __ldg(block_idx + blockIdx.x);
-  return -1;
+  const bool scan_order = na > scan_above;  // 'auto' above its threshold
+  const int64_t count =
+      scan_order ? (E + kEdgeBlock - 1) / kEdgeBlock : (na < n_cap ? na : n_cap);
+  for (int64_t i = blockIdx.x; i < count; i += gridDim.x) {
+    const int64_t b = scan_order ? i : __ldg(block_idx + i);
+    const int64_t e0 = b * kEdgeBlock;
+    block(e0, e0 + kEdgeBlock < E ? e0 + kEdgeBlock : E);
+  }
 }
 
-// Grid: one CTA per block of the index (n_blocks); block_idx holds n_cap ids.
 template <class Body>
 __device__ __forceinline__ void active_edges(int64_t E, const int32_t* __restrict__ block_idx,
                                              int n_cap, const int32_t* __restrict__ n_active,
                                              int scan_above, const Body& body) {
-  const int64_t b = listed_block(block_idx, n_cap, n_active, scan_above);
-  if (b < 0) return;
-  const int64_t e0 = b * kEdgeBlock;
-  const int64_t e1 = e0 + kEdgeBlock < E ? e0 + kEdgeBlock : E;
-  for (int64_t e = e0 + threadIdx.x; e < e1; e += blockDim.x) {
-    body(e);
-  }
+  listed_blocks(E, block_idx, n_cap, n_active, scan_above, [&](int64_t e0, int64_t e1) {
+    for (int64_t e = e0 + threadIdx.x; e < e1; e += blockDim.x) body(e);
+  });
 }
 
 template <int OP, class Dst, class M>
@@ -253,7 +261,7 @@ __device__ __forceinline__ void active(const float* __restrict__ w, int n_src,
                [&](int64_t e) { edge<OP>(w, n_src, src, e, dst, m, y, n_dst); });
 }
 
-// -- the aggregating schedules (the packed pair) -------------------------------
+// -- the aggregating schedules (the packed pair; the dense pair on a hot index) -
 //
 // Under the schedules above every edge that writes issues its own global
 // atomic, so a destination that takes many edges serialises them at one L2
@@ -276,11 +284,11 @@ __device__ __forceinline__ void active(const float* __restrict__ w, int n_src,
 //   * edge_into's rules are the per-edge schedules' (identity guard, ∞·0,
 //     out-of-range src and dst, bool), only the sink differs.
 // scan_agg gives each CTA one contiguous range of edges and flushes once;
-// active_agg one table per listed EDGE_BLOCK-edge block. Both run one wave of
-// CTAs (those co-resident with the table's shared memory): under active_agg
-// CTA c takes list positions c, c + gridDim.x, ..., so a short list (a
-// sparse frontier: one listed block of thousands) costs one wave of CTAs
-// that find no block, not a CTA for every block of the index.
+// active_agg one run of consecutive listed EDGE_BLOCK-edge blocks, also into
+// one table flushed once. Both run one wave of CTAs (those co-resident with
+// the table's shared memory), so a short list (a sparse frontier: one
+// listed block of thousands) costs one wave of CTAs that find no block, not
+// a CTA for every block of the index.
 //
 // The table's shape is fixed at build time: 4,096 slots and two probes were
 // the fastest of 1,024 / 2,048 / 4,096 slots × 1-16 probes on I_DA.Doc on
@@ -353,17 +361,16 @@ __device__ __forceinline__ void table_flush(const TableSink<OP>& t) {
   }
 }
 
+// The edges [e0, e1) into the CTA's open table (uniform across the CTA).
 template <int OP, class Dst, class M>
-__device__ __forceinline__ void table_edges(float* smem, int64_t e0, int64_t e1,
-                                            const float* __restrict__ w, int n_src,
-                                            const int32_t* __restrict__ src, const Dst& dst,
-                                            const M& m, float* __restrict__ y, int n_dst) {
-  const TableSink<OP> tab = table_open<OP>(smem, y);
+__device__ __forceinline__ void table_run(const TableSink<OP>& tab, int64_t e0, int64_t e1,
+                                          const float* __restrict__ w, int n_src,
+                                          const int32_t* __restrict__ src, const Dst& dst,
+                                          const M& m, int n_dst) {
   const Frontier<OP> weight{w, n_src};
   for (int64_t e = e0 + threadIdx.x; e < e1; e += blockDim.x) {
     edge_into<OP>(weight, src, e, dst, m, n_dst, KeepAll{}, tab);
   }
-  table_flush(tab);
 }
 
 // CTA c takes edges [c·per, (c+1)·per), per a whole number of warps' edges.
@@ -377,9 +384,15 @@ __device__ __forceinline__ void scan_agg(float* smem, const float* __restrict__ 
   const int64_t e0 = (int64_t)blockIdx.x * per;
   if (e0 >= E) return;  // the whole CTA
   const int64_t e1 = e0 + per < E ? e0 + per : E;
-  table_edges<OP>(smem, e0, e1, w, n_src, src, dst, m, y, n_dst);
+  const TableSink<OP> tab = table_open<OP>(smem, y);
+  table_run<OP>(tab, e0, e1, w, n_src, src, dst, m, n_dst);
+  table_flush(tab);
 }
 
+// CTA c takes a run of consecutive list positions [c·per, (c+1)·per) (per =
+// the listed blocks over the grid, rounded up) into one table, flushed once,
+// as scan_agg does with its edge range: a full list costs the scan's flushes,
+// not one a block; a short list gives one block each to its first CTAs.
 template <int OP, class Dst, class M>
 __device__ __forceinline__ void active_agg(float* smem, const float* __restrict__ w, int n_src,
                                            const int32_t* __restrict__ src, const Dst& dst,
@@ -391,12 +404,17 @@ __device__ __forceinline__ void active_agg(float* smem, const float* __restrict_
   const bool scan_order = na > scan_above;  // 'auto' above its threshold
   const int64_t count =
       scan_order ? (E + kEdgeBlock - 1) / kEdgeBlock : (na < n_cap ? na : n_cap);
-  for (int64_t i = blockIdx.x; i < count; i += gridDim.x) {  // uniform across the CTA
-    const int64_t b = scan_order ? i : __ldg(block_idx + i);
-    const int64_t e0 = b * kEdgeBlock;
-    const int64_t e1 = e0 + kEdgeBlock < E ? e0 + kEdgeBlock : E;
-    table_edges<OP>(smem, e0, e1, w, n_src, src, dst, m, y, n_dst);
+  const int64_t per = (count + gridDim.x - 1) / gridDim.x;
+  const int64_t i0 = (int64_t)blockIdx.x * per;
+  const int64_t i1 = i0 + per < count ? i0 + per : count;
+  if (i0 >= i1) return;  // the whole CTA
+  const TableSink<OP> tab = table_open<OP>(smem, y);
+  for (int64_t i = i0; i < i1; ++i) {
+    const int64_t e0 = (scan_order ? i : __ldg(block_idx + i)) * kEdgeBlock;
+    table_run<OP>(tab, e0, e0 + kEdgeBlock < E ? e0 + kEdgeBlock : E, w, n_src, src, dst, m,
+                  n_dst);
   }
+  table_flush(tab);
 }
 
 // -- the batched body (the multi-query SpMM): B frontier rows, one edge stream --
@@ -512,5 +530,28 @@ inline int scan_grid(int64_t E) {
 }
 
 inline int64_t n_edge_blocks(int64_t E) { return (E + kEdgeBlock - 1) / kEdgeBlock; }
+
+// A one-wave grid for Kernel: the CTAs of kThreads co-resident with Smem
+// bytes of dynamic shared memory each, but no more than the E-edge index
+// has EDGE_BLOCK-edge blocks. Returns a CUDA error code (0: *grid is set).
+// The occupancy is asked once per (kernel instantiation, Smem).
+template <auto Kernel, size_t Smem>
+int wave_grid(int64_t E, int* grid) {
+  static int cached = 0;
+  if (cached == 0) {
+    int dev = 0, per_sm = 0, sms = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, Kernel, kThreads, Smem);
+    }
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+    if (per_sm * sms <= 0) return (int)cudaErrorInvalidConfiguration;
+    cached = per_sm * sms;
+  }
+  const int64_t nb = n_edge_blocks(E);
+  *grid = (int)(nb < cached ? nb : cached);
+  return 0;
+}
 
 }  // namespace hop

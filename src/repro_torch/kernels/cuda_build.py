@@ -9,8 +9,8 @@ the cached file. ``nvcc`` is found on ``PATH`` or under ``CUDA_HOME`` (default
 built at its first launch, or by :func:`build_all`, which starts one ``nvcc``
 for each source at once (every library of the package by default:
 ``fragment_spmv``, ``fragment_spmv_packed``, ``fragment_spmv_fused``,
-``fragment_spmm``, ``fragment_spmm_packed``, ``bitunpack``, ``bitmap_ops``)
-and waits for all of them.
+``fragment_spmm``, ``fragment_spmm_packed``, ``bitunpack``, ``bitmap_ops``,
+``block_list``) and waits for all of them.
 """
 from __future__ import annotations
 
@@ -55,11 +55,14 @@ class CudaLibrary:
     """One ``csrc/<name>.cu`` and its C entry points ``{fn: argtypes}`` (each
     returns a CUDA error code as ``int``). ``defines`` (``"NAME=value"``
     strings) are passed to nvcc as ``-D``: a build of the same source with
-    another compile-time setting, in a library file of its own."""
+    another compile-time setting, in a library file of its own. ``source``
+    names a ``.cu`` file elsewhere (a measurement script's own kernel), built
+    the same way with ``csrc/`` on the include path."""
 
-    def __init__(self, name: str, functions: dict[str, list], defines=()):
+    def __init__(self, name: str, functions: dict[str, list], defines=(),
+                 source: Path | None = None):
         self.name = name
-        self.source = CSRC / f"{name}.cu"
+        self.source = Path(source) if source is not None else CSRC / f"{name}.cu"
         self.functions = functions
         self.defines = tuple(defines)
         #: What the build printed (``-Xptxas -v``: registers, spills) and how

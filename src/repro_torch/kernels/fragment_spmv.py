@@ -6,7 +6,11 @@ that every ⋈/⋉+γ hop lowers to. The combine op ⊕ is a parameter (``op``:
 'sum' | 'min' | 'max' | 'bool'), matching the executor's semiring plug-in
 point. The kernels are ``csrc/fragment_spmv.cu`` (its header says what bounds
 them and how they are built around that), compiled at first use by
-:mod:`.cuda_build` and launched on the current stream.
+:mod:`.cuda_build` and launched on the current stream. ``table=True``
+combines each CTA's products per destination in a shared-memory table before
+they touch y (an index with a hot destination); ``table=False`` issues an
+atomic an edge (destinations spread). :func:`.ops.fragment_spmv`
+chooses by the index's hot share (``ops.uses_table``).
 """
 from __future__ import annotations
 
@@ -18,8 +22,8 @@ from .ref import IDENTITY
 OP_CODE = {"sum": 0, "min": 1, "max": 2, "bool": 3}
 
 LIB = CudaLibrary("fragment_spmv", {
-    "fragment_spmv_launch": [P, I32, P, P, P, I64, P, I32, I32, P],
-    "fragment_spmv_active_launch": [P, I32, P, P, P, I64, P, I32, I32, P, I32, P, I32, P],
+    "fragment_spmv_launch": [P, I32, P, P, P, I64, P, I32, I32, I32, P],
+    "fragment_spmv_active_launch": [P, I32, P, P, P, I64, P, I32, I32, P, I32, P, I32, I32, P],
 })
 
 #: Launches of each kernel since import (or since a caller reset them): one
@@ -77,10 +81,12 @@ def fragment_spmv(
     measures: torch.Tensor | None,  # f32[E] | None (measure 1 on every edge)
     n_dst: int,
     op: str = "sum",
+    table: bool = True,
 ) -> torch.Tensor:
     """Launch the scan hop kernel; returns f32[n_dst] starting from the
-    ⊕-identity. Raises on anything the kernel does not take — it never falls
-    back to the plain version."""
+    ⊕-identity. ``table``: aggregate per CTA (else an atomic an edge).
+    Raises on anything the kernel does not take — it never falls back to the
+    plain version."""
     global LAUNCHES
     dev, E, n_dst, y = _hop_args(weights, src_ids, dst_ids, measures, n_dst, op,
                                  "fragment_spmv")
@@ -91,7 +97,7 @@ def fragment_spmv(
         err = lib.fragment_spmv_launch(
             weights.data_ptr(), weights.shape[0], src_ids.data_ptr(),
             dst_ids.data_ptr(), measures.data_ptr() if measures is not None else None,
-            E, y.data_ptr(), n_dst, OP_CODE[op], stream_of(dev),
+            E, y.data_ptr(), n_dst, OP_CODE[op], int(bool(table)), stream_of(dev),
         )
     raise_on(err, "fragment_spmv")
     LAUNCHES += 1
@@ -108,11 +114,12 @@ def fragment_spmv_active(
     n_dst: int,
     op: str = "sum",
     scan_above: int | None = None,
+    table: bool = True,
 ) -> torch.Tensor:
     """Launch the block-skipping hop kernel: only the blocks
     ``block_idx[:n_active]`` are streamed, or every block in scan order when
-    ``n_active > scan_above`` (``None``: never). ``n_active`` is read by the
-    kernel, never by the host."""
+    ``n_active > scan_above`` (``None``: never), by one wave of CTAs striding
+    over the list. ``n_active`` is read by the kernel, never by the host."""
     global ACTIVE_LAUNCHES
     dev, E, n_dst, y = _hop_args(weights, src_ids, dst_ids, measures, n_dst, op,
                                  "fragment_spmv_active")
@@ -126,7 +133,8 @@ def fragment_spmv_active(
             dst_ids.data_ptr(), measures.data_ptr() if measures is not None else None,
             E, y.data_ptr(), n_dst, OP_CODE[op], block_idx.data_ptr(),
             block_idx.shape[0], n_active.data_ptr(),
-            2**31 - 1 if scan_above is None else int(scan_above), stream_of(dev),
+            2**31 - 1 if scan_above is None else int(scan_above), int(bool(table)),
+            stream_of(dev),
         )
     raise_on(err, "fragment_spmv_active")
     ACTIVE_LAUNCHES += 1

@@ -3,9 +3,10 @@
   * CPU tensors take the plain PyTorch versions (:mod:`.ref`);
   * CUDA tensors with ``use_kernel=True`` launch the CUDA kernels
     (:mod:`.fragment_spmv`, :mod:`.fragment_spmv_packed`,
-    :mod:`.fragment_spmv_fused`, :mod:`.bitunpack`, :mod:`.bitmap_ops`, and
-    for a batch of B frontier rows :mod:`.fragment_spmm`,
-    :mod:`.fragment_spmm_packed` and the fused regions' SpMM form).
+    :mod:`.fragment_spmv_fused`, :mod:`.bitunpack`, :mod:`.bitmap_ops`,
+    :mod:`.block_list`, and for a batch of B frontier rows
+    :mod:`.fragment_spmm`, :mod:`.fragment_spmm_packed` and the fused
+    regions' SpMM form).
     A kernel that fails to build or launch raises: there is no quiet fallback;
   * ``use_kernel=False`` is the explicit plain-version path on any device —
     what the tests and the on-card check compare the kernels with.
@@ -13,11 +14,12 @@
 Frontier-sparsity dispatch (:mod:`.active`): the hop entries take
 ``blocks=(src_min, src_max)`` per-block metadata (device tensors) and a
 ``block_skipping`` mode ('off' | 'on' | 'auto'). With metadata present and
-skipping engaged, the hop builds the active-block list on the device and runs
-the ``*_active`` kernel over it. 'auto' never asks the host: the kernel reads
-``n_active`` and takes every block in scan order when more than
-``SKIP_BLOCK_FRACTION`` of them survive (the reference's runtime ``lax.cond``).
-Both choices give the scan's result.
+skipping engaged, the hop builds the active-block list on the device
+(:func:`active_block_list`: one launch of :mod:`.block_list` on the card)
+and runs the ``*_active`` kernel over it. 'auto' never asks the host: the
+kernel reads ``n_active`` and takes every block in scan order when more than
+``SKIP_BLOCK_FRACTION`` of them survive (the reference's runtime
+``lax.cond``). Both choices give the scan's result.
 
 Pipelined fusion (:func:`fragment_spmv_fused`): a fused region of the plan
 runs as one launch of :mod:`.fragment_spmv_fused` — hop1's block list from
@@ -38,6 +40,7 @@ from ..robust.errors import ValidationError
 from . import active as _active
 from . import bitmap_ops as _bitmaps
 from . import bitunpack as _bitunpack
+from . import block_list as _block_list
 from . import fragment_spmm as _dense_rows
 from . import fragment_spmm_packed as _packed_rows
 from . import fragment_spmv as _dense
@@ -66,7 +69,21 @@ def _plain(t: torch.Tensor, use_kernel: bool) -> bool:
     )
 
 
-def _plan_skip(w, op: str, E: int, blocks, block_skipping: str):
+def active_block_list(w, zero: float, src_min, src_max, use_kernel: bool = True,
+                      flags: bool = False):
+    """Frontier (``[n_src]``, or ``[B, n_src]``: the OR of the rows' supports)
+    → ``(block_idx[n_blocks], n_active[1])`` on w's device, and with
+    ``flags`` each block's test ``bool[n_blocks]`` too. A CUDA frontier takes
+    one launch of the list kernel; the plain version (:mod:`.active`, the
+    same lists) runs on the CPU or with ``use_kernel=False``."""
+    if _plain(w, use_kernel):
+        f = _active.active_flags(_active.support_mask(w, zero), src_min, src_max)
+        bi, na = _active.compact_blocks(f)
+        return (bi, na, f) if flags else (bi, na)
+    return _block_list.block_list(w, zero, src_min, src_max, flags=flags)
+
+
+def _plan_skip(w, op: str, E: int, blocks, block_skipping: str, use_kernel: bool = True):
     """Scan or skip for one hop, decided without the host seeing the frontier.
     ``None`` → scan; otherwise ``(block_idx, n_active, scan_above)``, the
     device-resident list and the count above which the kernel scans."""
@@ -83,7 +100,7 @@ def _plan_skip(w, op: str, E: int, blocks, block_skipping: str):
         # kernel so small shapes exercise the real code path
         return None
     src_min, src_max = (torch.as_tensor(b, device=w.device) for b in blocks)
-    bi, na = _active.active_block_list(w, IDENTITY[op], src_min, src_max)
+    bi, na = active_block_list(w, IDENTITY[op], src_min, src_max, use_kernel)
     if block_skipping == "on":
         return bi, na, nb
     return bi, na, max(1, int(_active.SKIP_BLOCK_FRACTION * nb))
@@ -129,9 +146,13 @@ def bitunpack(words, width: int, count: int, use_kernel: bool = True) -> torch.T
 
 def fragment_spmv(weights, src_ids, dst_ids, measures, n_dst: int,
                   op: str = "sum", use_kernel: bool = True,
-                  blocks=None, block_skipping: str = "off") -> torch.Tensor:
+                  blocks=None, block_skipping: str = "off",
+                  hot_share: float = 0.0) -> torch.Tensor:
     """y[dst] ⊕= w[src] ⊗ m. ``measures=None`` means measure 1 on every
-    edge. Arrays that are not tensors (numpy, lists) land on the CPU."""
+    edge. Arrays that are not tensors (numpy, lists) land on the CPU.
+    ``hot_share`` (the index's ``DeviceIndex.hot_share``; 0.0: no hot
+    destination) chooses the kernel's per-CTA aggregation table
+    (:func:`uses_table`)."""
     if op not in IDENTITY:
         raise ValueError(f"unknown combine op {op!r}")
     w = torch.as_tensor(weights, dtype=torch.float32)
@@ -140,24 +161,25 @@ def fragment_spmv(weights, src_ids, dst_ids, measures, n_dst: int,
     m = None if measures is None else torch.as_tensor(
         measures, dtype=torch.float32, device=w.device
     )
+    table = uses_table(hot_share)
     plain = _plain(w, use_kernel)
-    plan = _plan_skip(w, op, s.shape[0], blocks, block_skipping)
+    plan = _plan_skip(w, op, s.shape[0], blocks, block_skipping, use_kernel)
     if plan is None:
         if plain:
             return ref.fragment_spmv_ref(w, s, d, m, n_dst, op=op)
-        return _dense.fragment_spmv(w, s, d, m, n_dst, op=op)
+        return _dense.fragment_spmv(w, s, d, m, n_dst, op=op, table=table)
     bi, na, scan_above = plan
     if plain:
         return ref.fragment_spmv_active_ref(w, s, d, m, bi, na, n_dst, op=op,
                                             scan_above=scan_above)
     return _dense.fragment_spmv_active(w, s, d, m, bi, na, n_dst, op=op,
-                                       scan_above=scan_above)
+                                       scan_above=scan_above, table=table)
 
 
 def uses_table(hot_share: float) -> bool:
-    """Whether the packed hop aggregates per CTA: on an index whose hottest
-    destination takes at least ``params.HOP_TABLE_HOT_SHARE`` of its edges
-    (``DeviceIndex.hot_share``)."""
+    """Whether a hop (dense or packed) aggregates per CTA: on an index whose
+    hottest destination takes at least ``params.HOP_TABLE_HOT_SHARE`` of its
+    edges (``DeviceIndex.hot_share``)."""
     return hot_share >= _params.HOP_TABLE_HOT_SHARE
 
 
@@ -179,7 +201,7 @@ def fragment_spmv_packed(weights, src_ids, dst, measure=None, mdict=None, *,
     kw = dict(dst_width=dst_width, m_mode=m_mode, m_width=m_width, op=op)
     table = uses_table(hot_share)
     plain = _plain(w, use_kernel)
-    plan = _plan_skip(w, op, s.shape[0], blocks, block_skipping)
+    plan = _plan_skip(w, op, s.shape[0], blocks, block_skipping, use_kernel)
     if plan is None:
         if plain:
             return ref.fragment_spmv_packed_ref(w, s, d, m, md, n_dst, **kw)
@@ -223,7 +245,7 @@ def fragment_spmm(weights, src_ids, dst_ids, measures, n_dst: int,
     m = None if measures is None else torch.as_tensor(
         measures, dtype=torch.float32, device=w.device)
     plain = _plain(w, use_kernel)
-    plan = _plan_skip(w, op, s.shape[0], blocks, block_skipping)
+    plan = _plan_skip(w, op, s.shape[0], blocks, block_skipping, use_kernel)
     if plan is None:
         if plain:
             return ref.fragment_spmm_ref(w, s, d, m, n_dst, op=op)
@@ -250,7 +272,7 @@ def fragment_spmm_packed(weights, src_ids, dst, measure=None, mdict=None, *,
                                    m_width, w.device)
     kw = dict(dst_width=dst_width, m_mode=m_mode, m_width=m_width, op=op)
     plain = _plain(w, use_kernel)
-    plan = _plan_skip(w, op, s.shape[0], blocks, block_skipping)
+    plan = _plan_skip(w, op, s.shape[0], blocks, block_skipping, use_kernel)
     if plan is None:
         if plain:
             return ref.fragment_spmm_packed_ref(w, s, d, m, md, n_dst, **kw)
@@ -318,10 +340,11 @@ def _full_blocks(nb: int, device):
 
 
 def _fused_block_lists(w, op: str, h1: FusedHopOperands, h2: FusedHopOperands | None,
-                       E1: int, E2: int, block_skipping: str):
+                       E1: int, E2: int, block_skipping: str, use_kernel: bool = True):
     """The region's two block lists, built on the device; no value is read
     on the host. hop1's comes from the incoming frontier's support, as in
-    the unfused active hops; hop2's is derived WITHOUT reading the
+    the unfused active hops (:func:`active_block_list`, which also gives the
+    flags hop2 needs); hop2's is derived WITHOUT reading the
     intermediate, by OR-ing the reach rows of hop1's active blocks
     (:func:`.active.reach_flags` — a conservative superset, so the result is
     the scan's). Skipping off or unavailable passes full lists: one
@@ -341,8 +364,10 @@ def _fused_block_lists(w, op: str, h1: FusedHopOperands, h2: FusedHopOperands | 
     flags1 = None
     if skip1:
         smin1, smax1 = (torch.as_tensor(b, device=dev) for b in h1.blocks)
-        flags1 = _active.active_flags(_active.support_mask(w, IDENTITY[op]), smin1, smax1)
-        bi1, na1 = _active.compact_blocks(flags1)
+        lists1 = active_block_list(w, IDENTITY[op], smin1, smax1, use_kernel,
+                                   flags=h2 is not None)
+        bi1, na1 = lists1[:2]
+        flags1 = lists1[2] if h2 is not None else None
     else:
         bi1, na1 = _full_blocks(nb1, dev)
     if h2 is None:
@@ -431,7 +456,8 @@ def _fused_dispatch(batched: bool, weights, hop1, hop2, mid_mask, *, op, mid_bin
                                 block_skipping)
     s1 = _streams(hop1, w.device)
     s2 = _streams(hop2, w.device) if hop2 is not None else None
-    bi1, na1, bi2, na2 = _fused_block_lists(w, op, hop1, hop2, E1, E2, block_skipping)
+    bi1, na1, bi2, na2 = _fused_block_lists(w, op, hop1, hop2, E1, E2, block_skipping,
+                                            use_kernel)
     if _plain(w, use_kernel):
         plain_fn = ref.fragment_spmm_fused_ref if batched else ref.fragment_spmv_fused_ref
         return plain_fn(w, s1, s2, mm, n_mid, n_dst, op=op, mid_binarize=mid_binarize,

@@ -23,8 +23,8 @@ EDGE_BLOCK = 4096  # edges per metadata block; must stay a multiple of 1024
 #: (The reference's TPU value is 8 MiB of VMEM.)
 FUSED_SCRATCH_BUDGET_BYTES = 128 * 2**10
 
-#: The packed hop uses the table only on an index whose hottest destination
-#: takes at least this share of its edges (``DeviceIndex.hot_share``, from the
+#: The packed and dense hops use the table only on an index whose hottest
+#: destination takes at least this share of its edges (``DeviceIndex.hot_share``, from the
 #: host dst column where the index is built). Measured on an NVIDIA H100 80GB
 #: HBM3 at 700 W by ``scripts/hop_table_probe.py`` (PERF.md) on synthetic
 #: indexes of I_DA.Doc's size (11.8M edges, one destination taking a share h
@@ -36,4 +36,6 @@ FUSED_SCRATCH_BUDGET_BYTES = 128 * 2**10
 #: active kernel about 25%. The main path's indexes lie far from the
 #: threshold on both sides: I_DT.Doc 0.094, I_DA.Doc 0.082, SemMedDB's
 #: I_PA.PID and I_SP.SID 0.101 take the table; the others are at most 0.00014.
+#: The dense pair (the same schedules over a 4-byte dst) takes the same
+#: threshold.
 HOP_TABLE_HOT_SHARE = 0.003

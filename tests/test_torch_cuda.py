@@ -458,10 +458,10 @@ def test_packed_pair_result_does_not_depend_on_the_table(cuda, monkeypatch, op, 
 @pytest.mark.parametrize("scan_order", [False, True], ids=["listed", "scan_order"])
 @pytest.mark.parametrize("op", OPS)
 def test_packed_active_table_loops_over_more_blocks_than_one_wave(cuda, op, scan_order):
-    """The aggregating active kernel runs one wave of CTAs, each over every
-    gridDim.x-th listed block: an index with more blocks than a wave holds,
-    every other block listed (or all, in scan order), against the plain
-    version."""
+    """The aggregating active kernel runs one wave of CTAs, each over a run of
+    consecutive listed blocks into one table: an index with more blocks than
+    a wave holds, every other block listed (or all, in scan order), against
+    the plain version."""
     E = 5_000_000  # 1,221 blocks: more than the CTAs co-resident with the table
     x = _hot_inputs("overflow", op, E, 3, cuda)  # 250 edges a destination
     dst, m, md, kw = _hot_operands(x, "packed", True)
@@ -471,6 +471,28 @@ def test_packed_active_table_loops_over_more_blocks_than_one_wave(cuda, op, scan
     sa = 0 if scan_order else nb
     got = pkernel.fragment_spmv_packed_active(x["w"], x["src"], dst, m, md, bi, na, op=op,
                                               scan_above=sa, **kw)
+    want = ref.fragment_spmv_packed_active_ref(x["w"], x["src"], dst, m, md, bi, na, op=op,
+                                               scan_above=sa, **kw)
+    torch.cuda.synchronize()
+    _assert_match(got, want, op)
+
+
+@pytest.mark.parametrize("scan_order", [False, True], ids=["listed", "scan_order"])
+@pytest.mark.parametrize("op", OPS)
+def test_packed_active_per_edge_wave_covers_more_blocks_than_one_wave(cuda, op, scan_order):
+    """The per-edge packed active kernel runs one wave of CTAs, each over
+    every gridDim.x-th listed block: an index with more blocks than a wave
+    holds, every other block listed (or all, in scan order), against the
+    plain version."""
+    E = 5_000_000  # 1,221 blocks: more than one wave of CTAs without shared memory
+    x = _hot_inputs("zipf", op, E, 6, cuda)
+    dst, m, md, kw = _hot_operands(x, "packed", True)
+    nb = active.n_edge_blocks(E)
+    bi = torch.arange(0, nb, 2, dtype=torch.int32, device=cuda)
+    na = torch.full((1,), bi.shape[0], dtype=torch.int32, device=cuda)
+    sa = 0 if scan_order else nb
+    got = pkernel.fragment_spmv_packed_active(x["w"], x["src"], dst, m, md, bi, na, op=op,
+                                              scan_above=sa, table=False, **kw)
     want = ref.fragment_spmv_packed_active_ref(x["w"], x["src"], dst, m, md, bi, na, op=op,
                                                scan_above=sa, **kw)
     torch.cuda.synchronize()
@@ -1040,3 +1062,221 @@ def test_execute_batch_on_the_card_matches_single_calls(cuda, name, q, params):
         for i in range(B):
             row = pq(**{k: int(v[i]) for k, v in arrays.items()})
             np.testing.assert_allclose(got[i], row, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The dense pair's two forms (per-CTA table; atomic an edge), the one-wave
+# per-edge active kernels, and the block list built in one launch
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels import block_list as lkernel  # noqa: E402
+
+@pytest.mark.parametrize("E", [1, 4095, 4097, 30_000])
+@pytest.mark.parametrize("case", HOT_CASES)
+@pytest.mark.parametrize("with_measure", [True, False], ids=["m", "no_m"])
+@pytest.mark.parametrize("table", [True, False], ids=["table", "per_edge"])
+@pytest.mark.parametrize("op", OPS)
+def test_dense_pair_both_forms_match_plain(cuda, op, table, with_measure, case, E):
+    """The dense scan and active kernels (the list followed, and scan order
+    with n_active above scan_above) with the table and without, on hot,
+    overflowing and Zipf destinations, against the plain versions."""
+    x = _hot_inputs(case, op, E, E + len(op) + len(case), cuda)
+    m = x["m_dense"] if with_measure else None
+    want = ref.fragment_spmv_ref(x["w"], x["src"], x["dst"], m, x["n_dst"], op=op)
+    before = kernel.LAUNCHES, kernel.ACTIVE_LAUNCHES
+    got = kernel.fragment_spmv(x["w"], x["src"], x["dst"], m, x["n_dst"], op=op, table=table)
+    torch.cuda.synchronize()
+    _assert_match(got, want, op)
+    bmin, bmax = (torch.from_numpy(b).to(cuda) for b in active.block_ranges(x["src"].cpu()))
+    bi, na = active.active_block_list(x["w"], ZERO[op], bmin, bmax)
+    for scan_above in (active.n_edge_blocks(E), 0):
+        got = kernel.fragment_spmv_active(x["w"], x["src"], x["dst"], m, bi, na, x["n_dst"],
+                                          op=op, scan_above=scan_above, table=table)
+        want = ref.fragment_spmv_active_ref(x["w"], x["src"], x["dst"], m, bi, na, x["n_dst"],
+                                            op=op, scan_above=scan_above)
+        torch.cuda.synchronize()
+        _assert_match(got, want, op)
+    assert (kernel.LAUNCHES, kernel.ACTIVE_LAUNCHES) == (before[0] + 1, before[1] + 2)
+
+
+@pytest.mark.parametrize("table", [True, False], ids=["table", "per_edge"])
+@pytest.mark.parametrize("scan_order", [False, True], ids=["listed", "scan_order"])
+@pytest.mark.parametrize("op", OPS)
+def test_dense_active_wave_covers_more_blocks_than_one_wave(cuda, op, scan_order, table):
+    """The dense active kernel runs one wave of CTAs (the per-edge form each
+    over every gridDim.x-th listed block, the table form each over a run of
+    consecutive listed blocks): an index with more blocks than a wave holds,
+    every other block listed (or all, in scan order)."""
+    E = 5_000_000  # 1,221 blocks
+    x = _hot_inputs("zipf", op, E, 4, cuda)
+    nb = active.n_edge_blocks(E)
+    bi = torch.arange(0, nb, 2, dtype=torch.int32, device=cuda)
+    na = torch.full((1,), bi.shape[0], dtype=torch.int32, device=cuda)
+    sa = 0 if scan_order else nb
+    got = kernel.fragment_spmv_active(x["w"], x["src"], x["dst"], x["m_dense"], bi, na,
+                                      x["n_dst"], op=op, scan_above=sa, table=table)
+    want = ref.fragment_spmv_active_ref(x["w"], x["src"], x["dst"], x["m_dense"], bi, na,
+                                        x["n_dst"], op=op, scan_above=sa)
+    torch.cuda.synchronize()
+    _assert_match(got, want, op)
+
+
+@pytest.mark.parametrize("table", [True, False], ids=["table", "per_edge"])
+def test_dense_pair_negative_zero_in_both_forms(cuda, table):
+    """-0.0 products (a −∞ identity for max) reach y with their sign bit,
+    through the table and through the per-edge atomics."""
+    E = 5000
+    w = torch.tensor([-1.0], device=cuda)
+    src = torch.zeros(E, dtype=torch.int32, device=cuda)
+    dst = torch.zeros(E, dtype=torch.int32, device=cuda)
+    dst[E // 2:] = 1
+    m = torch.zeros(E, device=cuda)
+    m[E // 2:] = 2.0
+    bi = torch.arange(2, dtype=torch.int32, device=cuda)
+    na = torch.full((1,), 2, dtype=torch.int32, device=cuda)
+    for op in ("max", "min"):
+        for got in (kernel.fragment_spmv(w, src, dst, m, 3, op=op, table=table),
+                    kernel.fragment_spmv_active(w, src, dst, m, bi, na, 3, op=op,
+                                                table=table)):
+            got = got.cpu()
+            assert got[0] == 0.0 and got[1] == -2.0 and got[2] == ZERO[op]
+    assert torch.signbit(kernel.fragment_spmv(w, src, dst, m, 3, op="max",
+                                              table=table).cpu()[0])
+
+
+@pytest.mark.parametrize("hot_share", [0.0, 1.0])
+@pytest.mark.parametrize("skipping", ["off", "on"])
+@pytest.mark.parametrize("op", OPS)
+def test_dense_dispatch_by_hot_share_and_list_kernel(cuda, op, skipping, hot_share):
+    """ops.fragment_spmv with the hot share below and above the threshold,
+    skipping off and on: one hop launch, one list launch when skipping, the
+    plain version's result."""
+    x = _hot_inputs("zipf", op, 30_000, 8, cuda)
+    blocks = tuple(torch.from_numpy(b).to(cuda) for b in active.block_ranges(x["src"].cpu()))
+    before = kernel.LAUNCHES, kernel.ACTIVE_LAUNCHES, lkernel.LAUNCHES
+    got = ops.fragment_spmv(x["w"], x["src"], x["dst"], x["m_dense"], x["n_dst"], op=op,
+                            blocks=blocks, block_skipping=skipping, hot_share=hot_share)
+    torch.cuda.synchronize()
+    on = skipping == "on"
+    assert (kernel.LAUNCHES, kernel.ACTIVE_LAUNCHES, lkernel.LAUNCHES) == (
+        before[0] + (not on), before[1] + on, before[2] + on)
+    want = ops.fragment_spmv(x["w"], x["src"], x["dst"], x["m_dense"], x["n_dst"], op=op,
+                             blocks=blocks, block_skipping=skipping, hot_share=hot_share,
+                             use_kernel=False)
+    _assert_match(got, want, op)
+
+
+LIST_SUPPORTS = ["empty", "full", "one_seed", 0.001, 0.1, 0.5]
+
+
+def _list_frontier(n_src, rows, support, op, seed, device):
+    rng = np.random.default_rng(seed)
+    shape = (n_src,) if rows is None else (rows, n_src)
+    w = np.full(shape, ZERO[op], np.float32)
+    if support == "full":
+        keep = np.ones(shape, bool)
+    elif support == "empty":
+        keep = np.zeros(shape, bool)
+    elif support == "one_seed":
+        keep = np.zeros(shape, bool)
+        keep[..., rng.integers(0, n_src)] = True
+    else:
+        keep = rng.random(shape) < support
+    w[keep] = 1.0 if op == "bool" else rng.random(int(keep.sum())) + 0.5
+    return torch.from_numpy(w).to(device)
+
+
+@pytest.mark.parametrize("nb", [1, 2, 7, 2049, 10_000])
+@pytest.mark.parametrize("support", LIST_SUPPORTS)
+@pytest.mark.parametrize("rows", [None, 8], ids=["single", "B8"])
+@pytest.mark.parametrize("op", OPS)
+def test_list_kernel_equals_plain(cuda, op, rows, support, nb):
+    """The list kernel's (block_idx, n_active) and flags equal the plain
+    list's, integer for integer: 1 and 2 blocks, a number that is not a power
+    of two, more than one compaction chunk (2,048), more than the grid's
+    warps (8,448), over sources with gaps (every 7th degree 0)."""
+    rng = np.random.default_rng(nb)
+    n_src = nb * 50 + 64
+    deg = rng.integers(0, 200, n_src)
+    deg[::7] = 0
+    src = np.repeat(np.arange(n_src, dtype=np.int32), deg)[: (nb - 1) * 4096 + 100]
+    smin, smax = (torch.from_numpy(b).to(cuda) for b in active.block_ranges(src))
+    assert smin.shape[0] == nb
+    w = _list_frontier(n_src, rows, support, op, nb + len(op), cuda)
+    want = active.active_block_list(w, ZERO[op], smin, smax)
+    want_flags = active.active_flags(active.support_mask(w, ZERO[op]), smin, smax)
+    for _ in range(2):  # the ticket resets itself between launches
+        before = lkernel.LAUNCHES
+        bi, na, fl = lkernel.block_list(w, ZERO[op], smin, smax, flags=True)
+        torch.cuda.synchronize()
+        assert lkernel.LAUNCHES == before + 1
+        assert torch.equal(bi, want[0]) and torch.equal(na, want[1])
+        assert torch.equal(fl, want_flags)
+    bi, na = lkernel.block_list(w, ZERO[op], smin, smax)
+    assert torch.equal(bi, want[0]) and torch.equal(na, want[1])
+
+
+@pytest.mark.parametrize("nb", [3, 300])
+@pytest.mark.parametrize("support", ["empty", "full", "one_seed", 0.0005])
+@pytest.mark.parametrize("rows", [None, 8], ids=["single", "B8"])
+@pytest.mark.parametrize("op", ["sum", "min"])
+def test_list_kernel_long_ranges_equal_plain(cuda, op, rows, support, nb):
+    """Blocks whose source ranges run over thousands of sources (one source
+    in 500 has edges), so a warp's test takes many steps of 512 sources: the
+    list and flags equal the plain list's."""
+    rng = np.random.default_rng(nb + 1)
+    n_src = nb * 4096 * 500 // 100
+    deg = np.where(rng.random(n_src) < 1 / 500, 100, 0)
+    src = np.repeat(np.arange(n_src, dtype=np.int32), deg)[: (nb - 1) * 4096 + 100]
+    smin, smax = (torch.from_numpy(b).to(cuda) for b in active.block_ranges(src))
+    assert smin.shape[0] == nb and int((smax - smin)[:-1].min()) > 1000  # but the last
+    w = _list_frontier(n_src, rows, support, op, nb, cuda)
+    want = active.active_block_list(w, ZERO[op], smin, smax)
+    bi, na, fl = lkernel.block_list(w, ZERO[op], smin, smax, flags=True)
+    torch.cuda.synchronize()
+    assert torch.equal(bi, want[0]) and torch.equal(na, want[1])
+    assert torch.equal(fl, active.active_flags(active.support_mask(w, ZERO[op]), smin, smax))
+
+
+def test_list_kernel_on_two_streams_at_once(cuda):
+    """List builds queued on two streams at once each get their own list:
+    the last-CTA ticket belongs to the stream, so concurrent launches do not
+    share it."""
+    rng = np.random.default_rng(11)
+    n_src = 3_000_000
+    src = np.repeat(np.arange(n_src, dtype=np.int32), rng.integers(0, 12, n_src))
+    smin, smax = (torch.from_numpy(b).to(cuda) for b in active.block_ranges(src))
+    frontiers = [_list_frontier(n_src, rows, support, "sum", k, cuda)
+                 for k, (rows, support) in enumerate([(None, 0.001), (8, "one_seed"),
+                                                      (None, "full"), (8, 0.0001)])]
+    wants = [active.active_block_list(w, 0.0, smin, smax) for w in frontiers]
+    streams = [torch.cuda.Stream(cuda), torch.cuda.Stream(cuda)]
+    torch.cuda.synchronize()
+    for _ in range(3):
+        got = [[] for _ in frontiers]
+        for rep in range(20):  # queue many builds on both streams before any ends
+            for k, w in enumerate(frontiers):
+                with torch.cuda.stream(streams[k % 2]):
+                    got[k].append(lkernel.block_list(w, 0.0, smin, smax))
+        torch.cuda.synchronize()
+        for k, want in enumerate(wants):
+            for bi, na in got[k]:
+                assert torch.equal(bi, want[0]) and torch.equal(na, want[1])
+
+
+def test_list_kernel_rejects_bad_inputs(cuda):
+    w = torch.ones(100, device=cuda)
+    smin = torch.zeros(3, dtype=torch.int32, device=cuda)
+    smax = torch.full((3,), 99, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        lkernel.block_list(w.cpu(), 0.0, smin, smax)
+    with pytest.raises(TypeError):
+        lkernel.block_list(w.double(), 0.0, smin, smax)
+    with pytest.raises(TypeError):
+        lkernel.block_list(w, 0.0, smin.long(), smax)
+    with pytest.raises(ValueError):
+        lkernel.block_list(w, 0.0, smin, smax[:2])
+    with pytest.raises(ValueError):
+        lkernel.block_list(w, 0.0, smin[:0], smax[:0])
+    with pytest.raises(ValueError):
+        lkernel.block_list(w.reshape(2, 5, 10), 0.0, smin, smax)

@@ -101,10 +101,12 @@ def test_uses_table_threshold():
 def test_dispatch_passes_the_choice_to_the_kernel_wrapper(monkeypatch, hot_share, table,
                                                           skipping):
     """With the kernel path taken (``_plain`` forced off), the wrapper the
-    dispatch calls gets ``table`` from the hot share; the stand-in returns
-    the plain version's result."""
-    from repro_torch.kernels import ref
+    dispatch calls gets ``table`` from the hot share; the stand-ins (the hop
+    wrappers and the list kernel's) return the plain versions' results."""
+    from repro_torch.kernels import block_list, ref
 
+    monkeypatch.setattr(block_list, "block_list", lambda w, zero, smin, smax, flags:
+                        active.active_block_list(w, zero, smin, smax))
     seen = []
     for name, plain in (("fragment_spmv_packed", ref.fragment_spmv_packed_ref),
                         ("fragment_spmv_packed_active", ref.fragment_spmv_packed_active_ref)):

@@ -97,3 +97,35 @@ def test_port_bitmap_ops_load_neither_jax_nor_repro():
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "LOADED []" in proc.stdout
+
+
+def test_port_block_list_loads_neither_jax_nor_repro():
+    """The list entry (its kernel module included) and a dense hop that takes
+    the table by its hot share run without JAX or the JAX package."""
+    code = textwrap.dedent("""
+        import sys
+        import torch
+        from repro_torch.kernels import ops
+        w = torch.zeros(50)
+        w[7] = 1.0
+        smin = torch.tensor([0, 5, 20], dtype=torch.int32)
+        smax = torch.tensor([5, 20, 49], dtype=torch.int32)
+        bi, na, fl = ops.active_block_list(w, 0.0, smin, smax, flags=True)
+        assert bi.tolist() == [1, 1, 1] and int(na[0]) == 1 and fl.tolist() == [False, True, False]
+        src = torch.arange(50, dtype=torch.int32)
+        one_block = (torch.zeros(1, dtype=torch.int32), torch.full((1,), 49, dtype=torch.int32))
+        y = ops.fragment_spmv(w, src, src % 3, None, 3, hot_share=0.5, blocks=one_block,
+                              block_skipping="on")
+        assert y.tolist() == [0.0, 1.0, 0.0]
+        assert "repro_torch.kernels.block_list" in sys.modules
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+        print("LOADED", bad)
+        assert not bad, bad
+    """)
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")}, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LOADED []" in proc.stdout
