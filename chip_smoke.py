@@ -39,12 +39,16 @@ Phases (any failure exits non-zero; nothing is caught while the run goes on):
     in a block than the table has slots, Zipf-hot ones, for every op, scan
     and active, with the table and without. The bitmap AND and popcount at n ∈ {0, 1, 3, 4, 5, 1023,
     1024, 1025, 2^20 + 3} words and on views off a 16-byte boundary, exact.
-    3h. The batched kernels: the four SpMM kernels at E ∈ {0, 1, 4097} ×
-    B ∈ {1, 3, 8} for every op and measure (none, shared, per-row [B, E];
-    packed/dense dst × every mode), scan and active over the union list, and
-    at I_DT.Term / I_DA.Doc at B = 8; every row against the SpMV kernels;
-    the fused regions' SpMM form on the small regions and the main path's
-    regions at B = 8, against the plain region and the unfused SpMM kernels.
+    3h. The batched kernels: the four SpMM kernels, with the per-CTA table
+    and without, at E ∈ {0, 1, 4097} × B ∈ {1, 3, 8, 13, 64} for every op
+    and measure (none, shared, per-row [B, E]; packed/dense dst × every
+    mode), scan and active over the union list, at I_DT.Term / I_DA.Doc at
+    B = 8 and on the hot destinations above at B = 8 and 13; every row (B ≤
+    8; at the path shapes in the form the hot share chooses) against the
+    SpMV kernels; the fused regions' SpMM form on the small regions and the
+    main path's regions at B = 8, against the plain region and the unfused
+    SpMM kernels (on the main path's regions in the per-edge form, which
+    the fused form's hop 2 shares).
  4. The main paths, each driven through ``GQFastEngine.query`` /
     ``query_topk`` with every launch counter set to 0 just before and read
     just after:
@@ -74,13 +78,16 @@ Phases (any failure exits non-zero; nothing is caught while the run goes on):
          launches equal the HopOps and regions executed, once a batch
          whatever B is, and no single-query kernel launches; at B = 8 the
          dense SpMM (skipping off and auto) and the packed scan SpMM
-         (skipping off) paths, equal to the defaults. Every row equals its
-         single call (AS and AS-recent reported: DRIFT_QUERIES), B = 8
-         equals the plain versions run batched and the float queries at B = 8
-         hold to the plain versions' float64 sums, and all nine at the
-         quickstart scale match ``run_sql`` row by row;
+         (skipping off) paths, equal to the defaults. Every row of the
+         defaults and of the dense paths equals its single call (gated, the
+         gate ratios kept), B = 8 equals the plain versions run batched with
+         float64 sums, the float queries at B = 8 hold to them within
+         FLOAT64_LIMIT, and all nine at the quickstart scale match
+         ``run_sql`` row by row;
       i. the same batches under ``fusion="on"`` (the fused regions' SpMM
-         form), equal to h;
+         form), equal to h, to their single calls and to the plain versions,
+         all gated but AS-recent's (DRIFT_QUERIES: fused2's hop 2 adds an
+         atomic an edge on the hot authors), which are reported;
       j. the intersection a user asks for (AD's merge intersection, paper
          §6.1): the document sets of terms 3 and 9 as bitmaps built on the
          card from I_DT.Term (32 documents a word), their AND and its
@@ -93,11 +100,9 @@ Phases (any failure exits non-zero; nothing is caught while the run goes on):
     paths (exact for SD/AD/RECENT/CS), the fused paths with fusion off, SD
     with the numpy oracle ``run_sql`` at full scale, and all nine with
     ``run_sql`` at the quickstart scale under dense/off, the defaults and
-    fusion on. Where the SpMM kernels' per-edge float32 atomics on I_DA.Doc's
-    hot authors meet the single calls' table (AS and AS-recent: batched rows
-    against single calls) the comparison is reported, not gated; every
-    path's float sums (FSD, AS, FAD, AS-recent) are also held to the same
-    plan through the plain versions with float64 sums, within FLOAT64_LIMIT.
+    fusion on. Every path's float sums (FSD, AS, FAD, AS-recent) are also
+    held to the same plan through the plain versions with float64 sums,
+    within FLOAT64_LIMIT.
  5. Times: per query the median wall time of 20 runs (the defaults, fusion
     on, fusion off and the dense path with skipping off, in turns; the
     defaults' wall over the dense path's) and the profiler's device
@@ -118,10 +123,12 @@ Phases (any failure exits non-zero; nothing is caught while the run goes on):
     ``FUSED_SCRATCH_BUDGET_BYTES``. Batched (5h): per query and B ∈ {1, 8,
     64} the median wall of ``execute_batch`` and queries/s beside B single
     calls, the result copy and the profiler's device time and idle share;
-    per SpMM kernel at I_DT.Term / I_DA.Doc and B ∈ {1, 8, 64} its time
-    beside its bound, B × the SpMV kernel's, the plain version's (B = 8) and
-    ``torch.sparse.mm`` on the CSR matrix; the fused regions' SpMM form at
-    B = 8 beside the unfused SpMM kernels.
+    per SpMM kernel at I_DT.Term / I_DA.Doc and B ∈ {1, 8, 64} its time in
+    the form the hot share chooses and in the other, beside its bound, the
+    scalar reduction floor, B × the SpMV kernel's, the plain version's (B =
+    8) and ``torch.sparse.mm`` on the CSR matrix; the fused regions' SpMM form at
+    B = 8 beside the unfused SpMM kernels (held to them per edge, and to the
+    float64 sums within ``FLOAT64_LIMIT["batched_fused"]``).
 
 Output: progress lines, then the card line, the ``{"kernels": [...]}`` line and
 last ``{"ok": true, "device": {...}}``. Everything measured is also written to
@@ -129,6 +136,7 @@ last ``{"ok": true, "device": {...}}``. Everything measured is also written to
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -298,23 +306,35 @@ def uses_table(di) -> bool:
     return K.uses_table(di.hot_share)
 
 
-#: Queries whose execute_batch rows differ from their single calls by more
-#: than rtol = atol = 1e-4: the SpMM kernels add one float32 atomic an edge on
-#: I_DA.Doc's hot authors, the single calls' hops combine them per CTA in the
-#: table (AS and AS-recent rows 6.4-11.1 times the gate; probe, PERF.md). The
-#: SpMM's per-edge sums drift (ROADMAP Queue 3). A row's comparison with its
-#: single call is reported for these queries; each side is held to
-#: FLOAT64_LIMIT instead. Single calls are gated on every path: the dense
-#: pair takes the table on I_DA.Doc too.
-DRIFT_QUERIES = ("AS", "AS_RECENT")
+#: Per batched path, the queries whose execute_batch rows are compared by
+#: report, not gate, with their single calls, the defaults' rows and the
+#: plain versions with float64 sums: under fusion on (4i) AS-recent's
+#: two-hop region runs as the fused regions' SpMM form, whose hop 2 adds one
+#: float32 atomic an edge a row on I_DA.Doc's hot authors (ROADMAP Queue 3):
+#: its B = 8 rows read 4.0e-4-4.2e-4 from the float64 sums on the H100,
+#: 4.2-9.4 times the gate against the plain versions and the defaults' rows
+#: (PERF.md). Each side is held to FLOAT64_LIMIT instead. Every other path
+#: and query is gated: the batched hops take the per-CTA table on I_DA.Doc as
+#: the single calls' hops do (AS under fusion on reads 0.02 of the gate).
+DRIFT_QUERIES = {"4i": ("AS_RECENT",)}
+def per_edge(h):
+    """A hop's operands with hot share 0, so the unfused composition takes
+    the SpMM kernels' per-edge form: the form of the fused regions' SpMM
+    form, which adds an atomic an edge a row (hop.cuh edge_rows). Against
+    the table form, whose per-CTA sums are closer to float64, fused2's hop 2
+    on I_DA.Doc's hot authors reads 9.1 times the gate (ROADMAP Queue 3)."""
+    return None if h is None else dataclasses.replace(h, hot_share=0.0)
+
+
 #: The largest relative difference allowed between a float query's result
 #: and the same plan through the plain versions with float64 sums
-#: (:class:`float64_sums`): single calls, and execute_batch's rows at B = 8.
-#: About twice the largest reading on the H100 (PERF.md): single calls
-#: 2.31e-5 (AS-recent through fused2, whose hop 2 adds an atomic an edge;
-#: every other path at most 2.8e-6 since the dense pair takes the table on
-#: I_DA.Doc), rows 4.32e-4 (AS-recent through the SpMM kernels).
-FLOAT64_LIMIT = {"single": 5e-5, "batched": 1e-3}
+#: (:class:`float64_sums`): single calls; execute_batch's rows at B = 8 of
+#: the defaults; and under fusion on. About twice the largest reading on the
+#: H100 (PERF.md): single calls 2.31e-5 (AS-recent through fused2, whose hop
+#: 2 adds an atomic an edge; every other path at most 2.8e-6), the defaults'
+#: rows 2.4e-6 (the batched hops take the table on I_DA.Doc), rows under
+#: fusion on 4.2e-4 (AS-recent through the fused regions' SpMM form).
+FLOAT64_LIMIT = {"single": 5e-5, "batched": 1e-5, "batched_fused": 1e-3}
 
 
 class float64_sums:
@@ -355,13 +375,19 @@ def gate_ratio(got, want) -> float:
     return float((np.abs(a - b) / (1e-4 + 1e-4 * np.abs(b))).max()) if a.size else 0.0
 
 
-def compare_or_drift(got, want, name: str, what: str, drift: list) -> float:
-    """:func:`compare`, except for a DRIFT_QUERIES query, whose gate ratio is
+def compare_or_drift(got, want, name: str, what: str, drift: list, path: str,
+                     gates: dict) -> float:
+    """:func:`compare` (its gate ratio kept in ``gates[name]``, the largest),
+    except for a query DRIFT_QUERIES lists for ``path``, whose gate ratio is
     logged and appended to ``drift`` (the caller holds both sides to the
     float64 sums)."""
-    if name not in DRIFT_QUERIES:
-        return compare(got, want, name in EXACT_QUERIES, what)
-    drift.append({"query": name, "what": what, "gate_ratio": gate_ratio(got, want)})
+    ratio = gate_ratio(got, want)
+    if name not in DRIFT_QUERIES.get(path, ()):
+        err = compare(got, want, name in EXACT_QUERIES, what)
+        if name not in EXACT_QUERIES:
+            gates[name] = max(gates.get(name, 0.0), ratio)
+        return err
+    drift.append({"query": name, "what": what, "gate_ratio": ratio})
     return float(np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64)).max())
 
 
@@ -913,10 +939,11 @@ def full_lists(E: int, device):
             torch.full((1,), nb, dtype=torch.int32, device=device))
 
 
-def unfused_region(w, s1, s2, mask, lists, n_mid, n_dst, op, binz):
+def unfused_region(w, s1, s2, mask, lists, n_mid, n_dst, op, binz, table=True):
     """A region through the port's own unfused kernels: the packed hop over
     each list (lists=None: the scan kernel), the mask and binarize between;
-    a [B, n] frontier goes through the packed SpMM kernels."""
+    a [B, n] frontier goes through the packed SpMM kernels; ``table`` is the
+    kernels' form (True: the per-CTA table, False: per edge)."""
     from repro_torch.kernels import fragment_spmm_packed as spk
     from repro_torch.kernels import fragment_spmv_packed as pk
     from repro_torch.kernels import ref
@@ -925,7 +952,8 @@ def unfused_region(w, s1, s2, mask, lists, n_mid, n_dst, op, binz):
                  else (pk.fragment_spmv_packed, pk.fragment_spmv_packed_active))
 
     def hop(x, h, n, bl):
-        kw = dict(dst_width=h.dst_width, m_mode=h.m_mode, m_width=h.m_width, op=op)
+        kw = dict(dst_width=h.dst_width, m_mode=h.m_mode, m_width=h.m_width, op=op,
+                  table=table)
         if bl is None:
             return scan(x, h.src, h.dst, h.measure, h.mdict, n, **kw)
         return act(x, h.src, h.dst, h.measure, h.mdict, *bl, n, **kw)
@@ -2011,6 +2039,9 @@ SPMM_HOPS = ["fragment_spmm_packed", "fragment_spmm_packed_active"]
 SPMM_FUSED = ["fragment_spmm_fused1", "fragment_spmm_fused2"]
 #: a batched run launches none of these
 SINGLE_KERNELS = [k for k in KERNELS if not k.startswith("fragment_spmm") and k != "block_list"]
+#: row counts of the small SpMM cases: 1 and 3 rows (a 4-row chunk), one
+#: chunk of 8, two chunks (the last of 5 rows), eight chunks
+SMALL_BATCHES = (1, 3, 8, 13, 64)
 #: per-row supports of the 8-row frontiers at the main path's shapes
 ROW_SUPPORTS = ("one_seed", 0.01, 0.1, 0.5, 1.0, "one_seed", 0.01, 0.1)
 
@@ -2049,11 +2080,12 @@ def union_list(W, op, src_min, src_max, E, device):
 
 
 def check_spmm_small(device) -> tuple[dict, int]:
-    """Phase 3h (small): the four SpMM kernels at E ∈ {0, 1, 4097} × B ∈ {1,
-    3, 8} for every op — the dense one with no, a shared and a per-row [B, E]
-    measure, the packed one for packed/dense dst × every measure mode — scan
-    and active over the union list, against the plain version; each row
-    against the port's SpMV kernel."""
+    """Phase 3h (small): the four SpMM kernels at E ∈ {0, 1, 4097} × B ∈
+    SMALL_BATCHES for every op, with the per-CTA table and without — the
+    dense one with no, a shared and a per-row [B, E] measure, the packed one
+    for packed/dense dst × every measure mode — scan and active over the
+    union list, against the plain version; each row (B ≤ 8) against the
+    port's SpMV kernel."""
     import torch
 
     from repro_torch.core.fragments import _pack_words
@@ -2078,7 +2110,7 @@ def check_spmm_small(device) -> tuple[dict, int]:
         mint, midx = rng.integers(0, 40, E), rng.integers(0, 5, E)
         src, dst = t(src_np), t(dst_np.astype(np.int32))
         bmin, bmax = (t(b) for b in active.block_ranges(src_np))
-        for B in (1, 3, 8):
+        for B, table in ((B, table) for B in SMALL_BATCHES for table in (True, False)):
             m_rows = torch.rand((B, E), generator=gen, device=device)
             for op in OPS:
                 W = frontier_rows(n_src, B, op, gen, device)
@@ -2087,15 +2119,16 @@ def check_spmm_small(device) -> tuple[dict, int]:
                 for mname, m in (("none", None), ("shared", t(mint.astype(np.float32))),
                                  ("per_row", m_rows)):
                     want = ref.fragment_spmm_ref(W, src, dst, m, n_dst, op=op)
-                    got = sk.fragment_spmm(W, src, dst, m, n_dst, op=op)
-                    got_a = sk.fragment_spmm_active(W, src, dst, m, bi, na, n_dst, op=op)
-                    what = f"fragment_spmm E={E} B={B} {op} measure {mname}"
+                    got = sk.fragment_spmm(W, src, dst, m, n_dst, op=op, table=table)
+                    got_a = sk.fragment_spmm_active(W, src, dst, m, bi, na, n_dst, op=op,
+                                                    table=table)
+                    what = f"fragment_spmm E={E} B={B} {op} measure {mname} table={table}"
                     worst["fragment_spmm"] = max(worst["fragment_spmm"],
                                                  compare(got, want, exact, what))
                     worst["fragment_spmm_active"] = max(
                         worst["fragment_spmm_active"],
                         compare(got_a, want, exact, f"{what} active"))
-                    for b in range(B):
+                    for b in range(B if B <= 8 else 0):
                         mb = m[b].contiguous() if mname == "per_row" else m
                         compare(got[b], dk.fragment_spmv(W[b], src, dst, mb, n_dst, op=op),
                                 exact, f"{what} row {b} vs fragment_spmv")
@@ -2107,33 +2140,36 @@ def check_spmm_small(device) -> tuple[dict, int]:
                     for m_mode, (m, md, mw) in modes.items():
                         kw = dict(dst_width=dw, m_mode=m_mode, m_width=mw, op=op)
                         want = ref.fragment_spmm_packed_ref(W, src, d, m, md, n_dst, **kw)
-                        got = spk.fragment_spmm_packed(W, src, d, m, md, n_dst, **kw)
+                        got = spk.fragment_spmm_packed(W, src, d, m, md, n_dst, table=table,
+                                                       **kw)
                         what = (f"fragment_spmm_packed E={E} B={B} {op} dst"
-                                f" {'packed' if dp else 'dense'} {m_mode}")
+                                f" {'packed' if dp else 'dense'} {m_mode} table={table}")
                         worst["fragment_spmm_packed"] = max(worst["fragment_spmm_packed"],
                                                             compare(got, want, exact, what))
                         for sa in (None, 0):  # follow the list; scan order
                             got_a = spk.fragment_spmm_packed_active(
-                                W, src, d, m, md, bi, na, n_dst, scan_above=sa, **kw)
+                                W, src, d, m, md, bi, na, n_dst, scan_above=sa, table=table,
+                                **kw)
                             worst["fragment_spmm_packed_active"] = max(
                                 worst["fragment_spmm_packed_active"],
                                 compare(got_a, want, exact, f"{what} active {sa}"))
-                        for b in range(B):
+                        for b in range(B if B <= 8 else 0):
                             compare(got[b], pk.fragment_spmv_packed(W[b], src, d, m, md, n_dst,
                                                                     **kw),
                                     exact, f"{what} row {b} vs fragment_spmv_packed")
                         n += 1
     sync()
-    log(f"  SpMM kernels: {n} small cases (E 0, 1, 4097 × B 1, 3, 8 × op × measure /"
-        f" dst × mode) equal the plain versions, scan and active; every row equals the"
-        f" SpMV kernel")
+    log(f"  SpMM kernels: {n} small cases (E 0, 1, 4097 × B {list(SMALL_BATCHES)} × table"
+        f" on/off × op × measure / dst × mode) equal the plain versions, scan and active;"
+        f" every row (B ≤ 8) equals the SpMV kernel")
     return worst, n
 
 
 def check_spmm_path(db, db_dense, device) -> tuple[dict, list[dict]]:
     """Phase 3h (path shapes): the four SpMM kernels at I_DT.Term (Fre) and
-    I_DA.Doc at B = 8 over sparse rows and their union list, against the
-    plain version; each row against the SpMV kernel."""
+    I_DA.Doc at B = 8 over sparse rows and their union list, with the per-CTA
+    table and without, against the plain version; each row of the form the
+    index's hot share chooses against the SpMV kernel."""
     import torch
 
     from repro_torch.kernels import fragment_spmm as sk
@@ -2158,35 +2194,96 @@ def check_spmm_path(db, db_dense, device) -> tuple[dict, list[dict]]:
         kw = dict(dst_width=pi.dst_col.width, m_mode="packed" if pm is not None else "none",
                   m_width=pm.width if pm is not None else 0)
         mw = pm.words if pm is not None else None
-        for op in OPS:
+        chosen = uses_table(pi)
+        for op, table in ((op, table) for op in OPS for table in (chosen, not chosen)):
             W = frontier_rows(n_src, B, op, gen, device, degrees=di.degrees)
             bi, na = union_list(W, op, di.block_src_min, di.block_src_max, E, device)
             exact = op != "sum"
             want = ref.fragment_spmm_ref(W, di.src_ids, di.dst_ids, m, n_dst, op=op)
             for k, got in (
-                ("fragment_spmm", sk.fragment_spmm(W, di.src_ids, di.dst_ids, m, n_dst, op=op)),
+                ("fragment_spmm", sk.fragment_spmm(W, di.src_ids, di.dst_ids, m, n_dst, op=op,
+                                                   table=table)),
                 ("fragment_spmm_active", sk.fragment_spmm_active(
-                    W, di.src_ids, di.dst_ids, m, bi, na, n_dst, op=op)),
+                    W, di.src_ids, di.dst_ids, m, bi, na, n_dst, op=op, table=table)),
                 ("fragment_spmm_packed", spk.fragment_spmm_packed(
-                    W, pi.src_ids, pi.dst_col.words, mw, None, n_dst, op=op, **kw)),
+                    W, pi.src_ids, pi.dst_col.words, mw, None, n_dst, op=op, table=table,
+                    **kw)),
                 ("fragment_spmm_packed_active", spk.fragment_spmm_packed_active(
-                    W, pi.src_ids, pi.dst_col.words, mw, None, bi, na, n_dst, op=op, **kw)),
+                    W, pi.src_ids, pi.dst_col.words, mw, None, bi, na, n_dst, op=op,
+                    table=table, **kw)),
             ):
-                worst[k] = max(worst[k], compare(got, want, exact, f"{k} {name} B=8 {op}"))
-                for b in range(B):
+                what = f"{k} {name} B=8 {op} table={table}"
+                worst[k] = max(worst[k], compare(got, want, exact, what))
+                for b in range(B if table == chosen else 0):
                     row = (pk.fragment_spmv_packed(W[b], pi.src_ids, pi.dst_col.words, mw, None,
-                                                   n_dst, op=op, **kw) if "packed" in k
-                           else dk.fragment_spmv(W[b], di.src_ids, di.dst_ids, m, n_dst, op=op))
-                    compare(got[b], row, exact, f"{k} {name} B=8 {op} row {b} vs SpMV kernel")
+                                                   n_dst, op=op, table=table, **kw)
+                           if "packed" in k else
+                           dk.fragment_spmv(W[b], di.src_ids, di.dst_ids, m, n_dst, op=op,
+                                            table=table))
+                    compare(got[b], row, exact, f"{what} row {b} vs SpMV kernel")
                 del got
-            rows.append({"shape": name, "op": op, "B": B, "n_active": int(na[0]),
-                         "n_blocks": -(-E // 4096)})
+            rows.append({"shape": name, "op": op, "B": B, "table": table,
+                         "n_active": int(na[0]), "n_blocks": -(-E // 4096)})
             del W, want
         log(f"  SpMM kernels at {name} (B = 8, union list {rows[-1]['n_active']}/"
-            f"{rows[-1]['n_blocks']} blocks for the last op): all four equal the plain"
-            f" version and every row the SpMV kernels, every op")
+            f"{rows[-1]['n_blocks']} blocks for the last op): all four in both forms equal"
+            f" the plain version, every op, and every row of the form the hot share chooses"
+            f" ({'table' if chosen else 'per edge'}) the SpMV kernels")
     sync()
     return worst, rows
+
+
+def check_spmm_hot(device) -> tuple[dict, int]:
+    """Phase 3h (hot destinations): the four SpMM kernels on hot_cases (one
+    destination; more destinations a block than table slots; Zipf) at B = 8
+    and 13 (two chunks), every op, measure none and packed, scan and active
+    (the list followed, and scan order), with the table and without, against
+    the plain versions."""
+    import torch
+
+    from repro_torch.kernels import fragment_spmm as sk
+    from repro_torch.kernels import fragment_spmm_packed as spk
+    from repro_torch.kernels import ref
+
+    gen = torch.Generator(device=device).manual_seed(25)
+    worst = {k: 0.0 for k in SPMM_DENSE_HOPS + SPMM_HOPS}
+    n = 0
+    for name, n_src, src, dst, dw, mwords, n_dst in hot_cases(device):
+        E = int(src.shape[0])
+        nb = -(-E // 4096)
+        bi = torch.arange(nb, dtype=torch.int32, device=device)
+        na = torch.full((1,), nb, dtype=torch.int32, device=device)
+        for B, op in ((B, op) for B in (8, 13) for op in OPS):
+            W = frontier_rows(n_src, B, op, gen, device)
+            exact = op != "sum"
+            for table in (True, False):
+                what = f"{name} B={B} {op} table={table}"
+                for m_mode, m, mw in (("none", None, 0), ("packed", mwords, 6)):
+                    kw = dict(dst_width=dw, m_mode=m_mode, m_width=mw, op=op)
+                    want = ref.fragment_spmm_packed_ref(W, src, dst, m, None, n_dst, **kw)
+                    got = [("fragment_spmm_packed", spk.fragment_spmm_packed(
+                        W, src, dst, m, None, n_dst, table=table, **kw))]
+                    got += [("fragment_spmm_packed_active", spk.fragment_spmm_packed_active(
+                        W, src, dst, m, None, bi, na, n_dst, scan_above=sa, table=table, **kw))
+                            for sa in (nb, 0)]
+                    if dw == 0:  # the dense kernels on the dense dst stream
+                        md = None if m is None else ref.bitunpack_ref(m, 6, E).to(
+                            torch.float32)
+                        got += [("fragment_spmm",
+                                 sk.fragment_spmm(W, src, dst, md, n_dst, op=op, table=table))]
+                        got += [("fragment_spmm_active",
+                                 sk.fragment_spmm_active(W, src, dst, md, bi, na, n_dst, op=op,
+                                                         scan_above=sa, table=table))
+                                for sa in (nb, 0)]
+                    for k, g in got:
+                        worst[k] = max(worst[k], compare(g, want, exact,
+                                                         f"{k} {what} {m_mode}"))
+                        n += 1
+    sync()
+    log(f"  SpMM kernels on hot destinations: {n} cases (one destination, more destinations"
+        f" a block than table slots, Zipf; B 8, 13; every op; scan and active; the table on"
+        f" and off) equal the plain versions")
+    return worst, n
 
 
 def check_spmm_fused(specs, device) -> tuple[dict, int]:
@@ -2195,7 +2292,8 @@ def check_spmm_fused(specs, device) -> tuple[dict, int]:
     kernels: the small regions at B = 3 (every dst × measure mode × op × mask
     × binarize) and at B = 8 (packed dst, packed and dict measures); the
     main path's regions (SD, AS-recent, SD-recent) at B = 8 over sparse rows
-    and the device-built lists."""
+    and the device-built lists, against the unfused composition in the
+    per-edge form (:func:`per_edge`)."""
     import torch
 
     from repro_torch.kernels import fragment_spmv_fused as fk
@@ -2250,14 +2348,15 @@ def check_spmm_fused(specs, device) -> tuple[dict, int]:
             worst[k] = max(worst[k], compare(got, ref.fragment_spmm_fused_ref(
                 W, s1, s2, spec["mask"], h1.n_dst, n_dst, op=op,
                 mid_binarize=spec["binarize"], lists=lists), exact, f"{what} vs plain"))
-            worst[k] = max(worst[k], compare(got, K.fragment_spmm_fused(
-                W, h1, h2, spec["mask"], op=op, mid_binarize=spec["binarize"], fusion="off",
-                block_skipping="off"), exact, f"{what} vs unfused SpMM scan"))
+            unf = K.fragment_spmm_fused(W, per_edge(h1), per_edge(h2), spec["mask"], op=op,
+                                        mid_binarize=spec["binarize"], fusion="off",
+                                        block_skipping="off")
+            worst[k] = max(worst[k], compare(got, unf, exact, f"{what} vs unfused SpMM scan"))
             n += 1
-            del W, got
+            del W, got, unf
         na = [int(lists[1][0])] + ([int(lists[3][0])] if h2 is not None else [])
         log(f"  {k} {spec['name']} at B = 8: lists {na}; equal to the plain region and the"
-            f" unfused SpMM kernels for every op")
+            f" unfused SpMM kernels (per edge) for every op")
     sync()
     log(f"  batched fused kernels: {n} regions equal the plain region and the unfused SpMM"
         f" kernels")
@@ -2343,12 +2442,12 @@ def drive_batched(label, engines, SG, c0, draws, block_skipping, fusion, hop_ker
 
 
 def check_batched_rows(label, results, engines, SG, c0, block_skipping, fusion, drift,
-                       sizes=None) -> float:
+                       gates, sizes=None) -> float:
     """Each row of each batch against the single call ``pq(**row)`` of the
-    same prepared query (exact for counts and memberships). The SpMM adds an
-    atomic an edge and the single calls' packed hops take the table, so a
-    DRIFT_QUERIES row is reported, not gated (:func:`compare_or_drift`)."""
-    worst, n0 = 0.0, len(drift)
+    same prepared query (exact for counts and memberships), the float
+    queries' largest gate ratios kept in ``gates``; a row DRIFT_QUERIES lists
+    for the path is reported, not gated (:func:`compare_or_drift`)."""
+    worst, n0, ratios = 0.0, len(drift), {}
     for (name, B), (params, out) in results.items():
         if sizes is not None and B not in sizes:
             continue
@@ -2358,30 +2457,40 @@ def check_batched_rows(label, results, engines, SG, c0, block_skipping, fusion, 
             single = pq(**{k: int(v[i]) for k, v in params.items()})
             worst = max(worst, compare_or_drift(out[i], single, name,
                                                 f"{label} {name} B={B} row {i} vs single call",
-                                                drift))
-    log(f"  path {label}: every row equals its single call, the DRIFT_QUERIES reported"
+                                                drift, label, ratios))
+    log(f"  path {label}: every row equals its single call"
+        f"{', the DRIFT_QUERIES reported' if label in DRIFT_QUERIES else ''}"
         f" (max abs err {worst:.3g})")
+    log_gates(f"path {label} rows vs single calls", ratios, gates)
     log_drift(f"path {label} rows vs single calls", drift, n0)
     return worst
 
 
-def check_batched_plain(label, results, engines, SG, c0, block_skipping, fusion) -> float:
+def check_batched_plain(label, results, engines, SG, c0, block_skipping, fusion, drift,
+                        gates) -> float:
     """The B = 8 batches against the same lowered plans run batched through
-    the plain versions on the card."""
+    the plain versions on the card with float64 sums (:class:`float64_sums`:
+    the plain float32 scatter itself drifts ~1e-4 on hot authors, as for the
+    single calls), the gate ratios kept in ``gates``; a query DRIFT_QUERIES
+    lists for the path reported (:func:`compare_or_drift`)."""
     from repro_torch.core import executor as X
 
-    worst = 0.0
+    worst, n0, ratios = 0.0, len(drift), {}
     for name, q, _ in cases(SG, c0, True):
         params, out = results[(name, 8)]
         pq = engines[name].prepare(q, block_skipping=block_skipping, fusion=fusion)
         plain = X.compile_frontier_batched(engines[name].db.device, pq.phys,
                                            block_skipping=block_skipping, use_kernel=False,
                                            fusion=fusion)
-        want = plain(*[params[n] for n in pq.param_names]).cpu().numpy()
-        worst = max(worst, compare(out, want, name in EXACT_QUERIES,
-                                   f"{label} {name} B=8 vs plain batched"))
-    log(f"  path {label}: B = 8 equals the plain versions run batched (max abs err"
-        f" {worst:.3g})")
+        with float64_sums():
+            want = plain(*[params[n] for n in pq.param_names]).cpu().numpy()
+        worst = max(worst, compare_or_drift(out, want, name,
+                                            f"{label} {name} B=8 vs plain batched", drift,
+                                            label, ratios))
+    log(f"  path {label}: B = 8 equals the plain versions run batched with float64 sums"
+        f" (max abs err {worst:.3g})")
+    log_gates(f"path {label} B=8 vs plain batched", ratios, gates)
+    log_drift(f"path {label} B=8 vs plain batched", drift, n0)
     return worst
 
 
@@ -2488,13 +2597,23 @@ def time_batched(engines, SG, c0, draws) -> dict:
     return out
 
 
+#: The card's rate of float reductions to distinct addresses (a second):
+#: scripts/hop_table_probe.py part 5 on the NVIDIA H100 80GB HBM3 at 700 W
+#: (PERF.md). E·B of them is the floor of a batched hop that adds a scalar
+#: an edge a row, beside its bytes bound.
+RED_PER_S = 8.99e10
+
+
 def time_spmm_kernels(db, db_dense, device) -> dict:
     """Per SpMM kernel at I_DT.Term and I_DA.Doc, B ∈ {1, 8, 64}, sum over
-    dense random rows (every edge live for every row): CUDA-event ms beside
-    the bound (bytes: the edge streams as stored, once, + 4·B·n_src +
-    4·B·n_dst + the list; operations 2·E·B), B × the SpMV kernel's ms, the
-    plain version's ms (B = 8) and torch.sparse.mm on the decoded CSR
-    matrix times Wᵀ (the library yardstick; the port never calls it)."""
+    dense random rows (every edge live for every row): CUDA-event ms in the
+    form the index's hot share chooses (the per-CTA table or per edge) and
+    in the other form, beside the bound (bytes: the edge streams as stored,
+    once, + 4·B·n_src + 4·B·n_dst + the list; operations 2·E·B), the scalar
+    reduction floor E·B / RED_PER_S, B × the SpMV kernel's ms (its form
+    chosen the same way), the plain version's ms (B = 8) and torch.sparse.mm
+    on the decoded CSR matrix times Wᵀ (the library yardstick; the port
+    never calls it)."""
     import torch
 
     from repro_torch.kernels import active
@@ -2521,6 +2640,7 @@ def time_spmm_kernels(db, db_dense, device) -> dict:
         kw = dict(dst_width=pi.dst_col.width, m_mode="packed" if pm is not None else "none",
                   m_width=pm.width if pm is not None else 0)
         dwords = pi.dst_col.words
+        chosen = uses_table(pi)
         A = csr_matrix(src, dst, m if m is not None else torch.ones(E, device=device),
                        n_src, n_dst)
         stream = {"dense": 4 * E + 4 * E + (4 * E if m is not None else 0),
@@ -2537,32 +2657,36 @@ def time_spmm_kernels(db, db_dense, device) -> dict:
                                          W.t().to(torch.float64).contiguous()).t()
                 compare(lib_out.double(), want64, False,
                         f"torch.sparse.mm {name} B={B} float32 vs float64")
-                rel64 = max_rel(sk.fragment_spmm(W, src, dst, m, n_dst), want64)
+                rel64 = max_rel(sk.fragment_spmm(W, src, dst, m, n_dst, table=chosen), want64)
                 del lib_out, want64
             library_ms = time_device_ms(lambda: torch.sparse.mm(A, W.t().contiguous()), reps)
             spmv = {
-                "fragment_spmm": lambda: dk.fragment_spmv(W[0], src, dst, m, n_dst),
+                "fragment_spmm": lambda: dk.fragment_spmv(W[0], src, dst, m, n_dst,
+                                                          table=chosen),
                 "fragment_spmm_active": lambda: dk.fragment_spmv_active(
-                    W[0], src, dst, m, bi, na, n_dst, scan_above=nb),
+                    W[0], src, dst, m, bi, na, n_dst, scan_above=nb, table=chosen),
                 "fragment_spmm_packed": lambda: pk.fragment_spmv_packed(
-                    W[0], src, dwords, mw, None, n_dst, table=uses_table(pi), **kw),
+                    W[0], src, dwords, mw, None, n_dst, table=chosen, **kw),
                 "fragment_spmm_packed_active": lambda: pk.fragment_spmv_packed_active(
                     W[0], src, dwords, mw, None, bi, na, n_dst, scan_above=nb,
-                    table=uses_table(pi), **kw),
+                    table=chosen, **kw),
             }
             calls = {
-                "fragment_spmm": (lambda: sk.fragment_spmm(W, src, dst, m, n_dst),
-                                  lambda: ref.fragment_spmm_ref(W, src, dst, m, n_dst)),
+                "fragment_spmm": (
+                    lambda t: sk.fragment_spmm(W, src, dst, m, n_dst, table=t),
+                    lambda: ref.fragment_spmm_ref(W, src, dst, m, n_dst)),
                 "fragment_spmm_active": (
-                    lambda: sk.fragment_spmm_active(W, src, dst, m, bi, na, n_dst,
-                                                    scan_above=nb),
+                    lambda t: sk.fragment_spmm_active(W, src, dst, m, bi, na, n_dst,
+                                                      scan_above=nb, table=t),
                     lambda: ref.fragment_spmm_active_ref(W, src, dst, m, bi, na, n_dst)),
                 "fragment_spmm_packed": (
-                    lambda: spk.fragment_spmm_packed(W, src, dwords, mw, None, n_dst, **kw),
+                    lambda t: spk.fragment_spmm_packed(W, src, dwords, mw, None, n_dst,
+                                                       table=t, **kw),
                     lambda: ref.fragment_spmm_packed_ref(W, src, dwords, mw, None, n_dst, **kw)),
                 "fragment_spmm_packed_active": (
-                    lambda: spk.fragment_spmm_packed_active(W, src, dwords, mw, None, bi, na,
-                                                            n_dst, scan_above=nb, **kw),
+                    lambda t: spk.fragment_spmm_packed_active(W, src, dwords, mw, None, bi, na,
+                                                              n_dst, scan_above=nb, table=t,
+                                                              **kw),
                     lambda: ref.fragment_spmm_packed_active_ref(W, src, dwords, mw, None, bi, na,
                                                                 n_dst, **kw)),
             }
@@ -2570,17 +2694,22 @@ def time_spmm_kernels(db, db_dense, device) -> dict:
                 lst = 4 * nb + 4 if k.endswith("active") else 0
                 b, by = bound_ms(stream["packed" if "packed" in k else "dense"]
                                  + 4 * B * n_src + 4 * B * n_dst + lst, 2 * E * B)
-                r = dict(shape=name, E=E, B=B, ms=time_device_ms(kern, reps),
+                r = dict(shape=name, E=E, B=B, form="table" if chosen else "per edge",
+                         hot_share=pi.hot_share,
+                         ms=time_device_ms(lambda: kern(chosen), reps),
+                         other_form_ms=time_device_ms(lambda: kern(not chosen), reps),
                          spmv_ms=time_device_ms(spmv[k], KERNEL_REPS),
                          plain_ms=time_device_ms(plain, 5) if B == 8 else None,
-                         bound_ms=b, bound_by=by, library_ms=library_ms,
-                         max_rel_vs_float64=rel64)
+                         bound_ms=b, bound_by=by, reduction_floor_ms=E * B / RED_PER_S * 1e3,
+                         library_ms=library_ms, max_rel_vs_float64=rel64)
                 r["spmv_x_B_ms"] = r["spmv_ms"] * B
                 rows[k].append(r)
                 plain_s = "not measured" if r["plain_ms"] is None else f"{r['plain_ms']:.4f} ms"
-                log(f"  {k:28s} {name:10s} B={B:2d} {r['ms']:.4f} ms  bound {b:.4f} ms ({by})"
-                    f"  {B} x SpMV {r['spmv_x_B_ms']:.4f} ms  plain {plain_s}"
-                    f"  torch.sparse.mm {library_ms:.4f} ms"
+                log(f"  {k:28s} {name:10s} B={B:2d} {r['form']:8s} {r['ms']:.4f} ms"
+                    f" (other form {r['other_form_ms']:.4f})  bound {b:.4f} ms ({by}),"
+                    f" reduction floor {r['reduction_floor_ms']:.4f} ms  {B} x SpMV"
+                    f" {r['spmv_x_B_ms']:.4f} ms  plain {plain_s}  torch.sparse.mm"
+                    f" {library_ms:.4f} ms"
                     + (f"  (fragment_spmm vs float64 sums: max rel {rel64:.3g})"
                        if rel64 is not None else ""))
             del W
@@ -2626,7 +2755,12 @@ def time_spmm_fused(specs, device) -> dict:
                                                   for b in h2.blocks)))
         del u
         unf = lambda: unfused_region(W, s1, s2, mask, ul, n_mid, n_dst, "sum", binz)  # noqa: E731
-        compare(got, unf(), False, f"{k} {spec['name']} B=8 vs unfused SpMM kernels")
+        # the fused form adds an atomic an edge, so it is held to the
+        # unfused composition in the per-edge form (per_edge)
+        edge = unfused_region(W, s1, s2, mask, ul, n_mid, n_dst, "sum", binz, table=False)
+        vs_unfused = gate_ratio(got.cpu().numpy(), edge.cpu().numpy())
+        compare(got, edge, False, f"{k} {spec['name']} B=8 vs unfused SpMM kernels (per edge)")
+        del edge
         na1 = int(lists[1][0])
         na2 = int(lists[3][0]) if h2 is not None else 0
         e1, e2 = min(E1, na1 * 4096), min(E2, na2 * 4096)
@@ -2652,13 +2786,18 @@ def time_spmm_fused(specs, device) -> dict:
         # (phase 3h); beside the float64 sums its float32 atomics (and the
         # plain version's scatter, and the SpMV kernels') lose up to ~1e-3
         # relative on the hottest authors' million-term sums, which cuSPARSE's
-        # row sums do not, so its difference is logged, not held to 1e-4
+        # row sums do not, so it is held to FLOAT64_LIMIT["batched_fused"]
+        # (below), not to 1e-4
         want64 = lib(A1.to(torch.float64), A2.to(torch.float64) if A2 is not None else None,
                      W.to(torch.float64))
         lib32 = lib()
         compare(lib32.double(), want64, False,
                 f"{k} {spec['name']} B=8: torch.sparse.mm float32 vs float64")
         r_kernel = max_rel(got, want64)
+        if not r_kernel <= FLOAT64_LIMIT["batched_fused"]:
+            raise AssertionError(f"{k} {spec['name']} B=8: relative difference {r_kernel:.3g}"
+                                 f" to the float64 sums beyond"
+                                 f" {FLOAT64_LIMIT['batched_fused']:g}")
         # the same rows one at a time through the SpMV hops, whose packed
         # pair sums per CTA in its table on a hot index (I_DA.Doc)
         single = torch.stack([K.fragment_spmv_fused(
@@ -2668,10 +2807,12 @@ def time_spmm_fused(specs, device) -> dict:
         del single
         log(f"    {spec['name']} B=8: max relative difference to the float64 sums:"
             f" kernel {r_kernel:.3g}, the rows through the SpMV hops {r_single:.3g}, float32"
-            f" torch.sparse.mm {max_rel(lib32, want64):.3g}")
+            f" torch.sparse.mm {max_rel(lib32, want64):.3g}"
+            + f" (limit {FLOAT64_LIMIT['batched_fused']:g}); against the unfused SpMM"
+              f" kernels per edge gate ratio {vs_unfused:.3g}")
         del want64, lib32
         r = dict(shape=spec["name"], E=e1 + e2, B=B, n_mid=n_mid, max_rel_vs_float64=r_kernel,
-                 spmv_hops_max_rel_vs_float64=r_single,
+                 spmv_hops_max_rel_vs_float64=r_single, unfused_gate_ratio=vs_unfused,
                  n_active=[na1] + ([na2] if s2 else []),
                  ms=time_device_ms(fused, KERNEL_REPS),
                  unfused_ms=time_device_ms(unf, KERNEL_REPS),
@@ -2825,8 +2966,9 @@ def run(device) -> None:
     phase("[3h] the batched kernels (SpMM and the fused regions' SpMM form)", t_start)
     spmm_small, n_spmm_small = check_spmm_small(device)
     spmm_path, spmm_path_checks = check_spmm_path(db, db_dense, device)
+    spmm_hot, n_spmm_hot = check_spmm_hot(device)
     for k in spmm_small:
-        worst[k] = max(spmm_small[k], spmm_path[k])
+        worst[k] = max(spmm_small[k], spmm_path[k], spmm_hot[k])
     spmm_fused, n_spmm_fused = check_spmm_fused(specs, device)
     worst.update(spmm_fused)
 
@@ -2883,8 +3025,9 @@ def run(device) -> None:
         for h in rest[2]:
             if "fused" in h["query"]:
                 log(f"    {h['query']:22s}: {h['n_active']}/{h['n_blocks']} blocks listed")
-    drift = []  # batched rows against single calls, reported for DRIFT_QUERIES
-    gates = {}  # the gate ratios of the gated float comparisons of single calls
+    # batched rows against single calls reported for DRIFT_QUERIES
+    drift = []
+    gates = {}  # the gate ratios of the gated float comparisons
     errs = {"dense": check_results("a", res_a, engines["dense"], SG, c0, "off", "off",
                                    gates=gates),
             "auto_auto_off": check_results("b", res_b, engines["auto"], SG, c0, "auto", "off",
@@ -2944,6 +3087,7 @@ def run(device) -> None:
         "4h: the defaults", engines["auto"], SG, c0, draws, "auto", "auto", SPMM_HOPS,
         BATCHES + (8,), must=("fragment_spmm_fused1",), topk=8)
     paths["h_batched_defaults"] = {"counts": counts}
+    dense_res = {}
     for key, label, enc, bs, kernels_ in (
         ("h_batched_dense_off", "4h: dense storage, skipping off, fusion off", "dense", "off",
          ["fragment_spmm"]),
@@ -2955,16 +3099,21 @@ def run(device) -> None:
         res, counts, brecords[key] = drive_batched(label, engines[enc], SG, c0, draws, bs,
                                                    "off", kernels_, (8,))
         paths[key] = {"counts": counts}
+        dense_res[key] = res
         for name, _, _ in cases(SG, c0, True):
             compare(res[(name, 8)][1], res_h[(name, 8)][1], name in EXACT_QUERIES,
                     f"{label} {name} B=8 vs the defaults")
     batched["rows_vs_single_defaults"] = check_batched_rows(
-        "4h", res_h, engines["auto"], SG, c0, "auto", "auto", drift)
+        "4h", res_h, engines["auto"], SG, c0, "auto", "auto", drift, gates)
+    for key, enc, bs in (("h_batched_dense_off", "dense", "off"),
+                         ("h_batched_dense_auto", "dense", "auto")):
+        batched[f"rows_vs_single_{key}"] = check_batched_rows(
+            "4h " + key[2:], dense_res[key], engines[enc], SG, c0, bs, "off", drift, gates)
     truth8 = truth_batched(engines["auto"], SG, c0, res_h)
     float64_rel["h_B8"] = hold_f64("4h B=8", res_h, truth8, "batched",
                                    key=lambda name: (name, 8))
     batched["plain_defaults"] = check_batched_plain("4h", res_h, engines["auto"], SG, c0,
-                                                    "auto", "auto")
+                                                    "auto", "auto", drift, gates)
     log("  the dense and skipping-off batched paths equal the defaults at B = 8 (exact for"
         " the counts)")
     phase("[4i] batched serving under fusion on", t_start)
@@ -2972,14 +3121,17 @@ def run(device) -> None:
         "4i: fusion on", engines["auto"], SG, c0, draws, "auto", "on", SPMM_HOPS,
         BATCHES + (8,), must=("fragment_spmm_fused2",))
     paths["i_batched_fusion_on"] = {"counts": counts}
+    n0, ratios = len(drift), {}
     for key, (params, out) in res_i.items():
-        compare(out, res_h[key][1], key[0] in EXACT_QUERIES, f"4i {key} vs 4h")
+        compare_or_drift(out, res_h[key][1], key[0], f"4i {key} vs 4h", drift, "4i", ratios)
+    log_gates("path 4i vs 4h", ratios, gates)
+    log_drift("path 4i vs 4h", drift, n0)
     batched["rows_vs_single_fusion_on"] = check_batched_rows(
-        "4i", res_i, engines["auto"], SG, c0, "auto", "on", drift, sizes=(5,))
-    float64_rel["i_B8"] = hold_f64("4i B=8", res_i, truth8, "batched",
+        "4i", res_i, engines["auto"], SG, c0, "auto", "on", drift, gates, sizes=(5,))
+    float64_rel["i_B8"] = hold_f64("4i B=8", res_i, truth8, "batched_fused",
                                    key=lambda name: (name, 8))
     batched["plain_fusion_on"] = check_batched_plain("4i", res_i, engines["auto"], SG, c0,
-                                                     "auto", "on")
+                                                     "auto", "on", drift, gates)
     for fusion in ("auto", "on"):
         batched[f"quickstart_{fusion}"] = check_batched_quickstart(
             SG, run_sql, GQFastDatabase, GQFastEngine, device, fusion)
@@ -3046,7 +3198,8 @@ def run(device) -> None:
             timed = f"{primary['shape']}, {primary['E']} blocks"
         else:
             timed = (f"{primary['shape']} sum, E={primary['E']}"
-                     + (f", B={primary['B']}" if "B" in primary else ""))
+                     + (f", B={primary['B']}" if "B" in primary else "")
+                     + (f", {primary['form']}" if "form" in primary else ""))
         entries.append({
             "name": k, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{src}",
             "replaces": replaces, "launches": launches[k], "max_abs_err": worst[k],
@@ -3077,6 +3230,7 @@ def run(device) -> None:
         "fused_scratch_budget_bytes": FUSED_SCRATCH_BUDGET_BYTES,
         "fused_scratch_budget_measured": budget,
         "batched": {"checks": {"spmm_small": n_spmm_small, "spmm_path": spmm_path_checks,
+                               "spmm_hot": n_spmm_hot,
                                "spmm_fused": n_spmm_fused, **batched},
                     "launch_records": brecords, "times": btimes},
         "kernels": entries,

@@ -824,6 +824,7 @@ class _BatchedFrontierInterp(_FrontierInterp):
             w, op.src_ids, op.dst_ids, self._dense_measure(op), n_dst=op.dom_dst,
             op=self.sr.name, use_kernel=self.use_kernel,
             blocks=self.blocks_for(op), block_skipping=self.block_skipping,
+            hot_share=op.hot_share,
         )
 
     def spmm_fused(self, w, op: HopOp):
@@ -848,6 +849,7 @@ class _BatchedFrontierInterp(_FrontierInterp):
             m_mode=m_mode, m_width=m_width, op=self.sr.name,
             use_kernel=self.use_kernel,
             blocks=self.blocks_for(op), block_skipping=self.block_skipping,
+            hot_share=op.hot_share,
         )
 
     def _fused_call(self, w, hop1, hop2, mid_mask, mid_binarize):

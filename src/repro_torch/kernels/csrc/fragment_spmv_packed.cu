@@ -103,21 +103,17 @@ struct Launch {
 
 template <int OP, class Dst, class M>
 int launch(const Launch& a, Dst dst, M m) {
-  const size_t smem = a.table ? kTableBytes : 0;
+  int grid = 0;
+  size_t smem = 0;
   if (a.block_idx == nullptr) {
-    int grid = scan_grid(a.E);
-    if (a.table) {
-      const int err =
-          wave_grid<fragment_spmv_packed_kernel<OP, Dst, M>, kTableBytes>(a.E, &grid);
-      if (err) return err;
-    }
+    const int err = row_grid<fragment_spmv_packed_kernel<OP, Dst, M>>(a.E, a.table, false,
+                                                                      &grid, &smem);
+    if (err) return err;
     fragment_spmv_packed_kernel<OP, Dst, M><<<grid, kThreads, smem, a.s>>>(
         a.w, a.n_src, a.src, dst, m, a.E, a.y, a.n_dst, a.table);
   } else {
-    int grid = 0;  // one wave, with the table's shared memory or without
-    const int err =
-        a.table ? wave_grid<fragment_spmv_packed_active_kernel<OP, Dst, M>, kTableBytes>(a.E, &grid)
-                : wave_grid<fragment_spmv_packed_active_kernel<OP, Dst, M>, 0>(a.E, &grid);
+    const int err = row_grid<fragment_spmv_packed_active_kernel<OP, Dst, M>>(
+        a.E, a.table, true, &grid, &smem);
     if (err) return err;
     fragment_spmv_packed_active_kernel<OP, Dst, M><<<grid, kThreads, smem, a.s>>>(
         a.w, a.n_src, a.src, dst, m, a.E, a.y, a.n_dst, a.block_idx, a.n_cap, a.n_active,

@@ -1,10 +1,11 @@
 // hop.cuh: the per-edge body shared by every hop kernel of the port
 // (fragment_spmv.cu: dense columns; fragment_spmv_packed.cu: BCA columns
 // decoded in registers; fragment_spmv_fused.cu: the fused regions, which
-// read their weight through another gather and mask at the scatter), and its
-// batched form edge_rows (fragment_spmm.cu, fragment_spmm_packed.cu and the
-// fused regions' SpMM form: B frontier rows over one read of the edge), in
-// two schedules:
+// read their weight through another gather and mask at the scatter), its
+// batched form edge_rows (the fused regions' SpMM form: B frontier rows over
+// one read of the edge), and the batched hops' row-chunk body
+// (fragment_spmm.cu, fragment_spmm_packed.cu; its own section below), in two
+// schedules:
 //
 //   scan   one thread per edge in a grid-stride loop over all E edges;
 //   active a CTA per EDGE_BLOCK-edge block of the list: CTA c takes list
@@ -218,17 +219,32 @@ __device__ __forceinline__ void scan_edges(int64_t E, const Body& body) {
 // blockIdx.x + gridDim.x, ... below the count, each calling
 // block(e0, e1) on its edge range (uniform across the CTA). block_idx holds
 // n_cap ids; any grid size is right, from one CTA to one per block.
+// The number of list positions an active kernel takes, and the block at
+// position i: the list's, or every block in scan order when n_active >
+// scan_above ('auto' above its threshold).
+struct Listed {
+  const int32_t* __restrict__ block_idx;
+  bool scan_order;
+  int64_t count;
+  __device__ __forceinline__ Listed(int64_t E, const int32_t* __restrict__ bi, int n_cap,
+                                    const int32_t* __restrict__ n_active, int scan_above)
+      : block_idx(bi) {
+    const int na = __ldg(n_active);
+    scan_order = na > scan_above;
+    count = scan_order ? (E + kEdgeBlock - 1) / kEdgeBlock : (na < n_cap ? na : n_cap);
+  }
+  __device__ __forceinline__ int64_t first_edge(int64_t i) const {
+    return (scan_order ? i : __ldg(block_idx + i)) * kEdgeBlock;
+  }
+};
+
 template <class Block>
 __device__ __forceinline__ void listed_blocks(int64_t E, const int32_t* __restrict__ block_idx,
                                               int n_cap, const int32_t* __restrict__ n_active,
                                               int scan_above, const Block& block) {
-  const int na = __ldg(n_active);
-  const bool scan_order = na > scan_above;  // 'auto' above its threshold
-  const int64_t count =
-      scan_order ? (E + kEdgeBlock - 1) / kEdgeBlock : (na < n_cap ? na : n_cap);
-  for (int64_t i = blockIdx.x; i < count; i += gridDim.x) {
-    const int64_t b = scan_order ? i : __ldg(block_idx + i);
-    const int64_t e0 = b * kEdgeBlock;
+  const Listed list(E, block_idx, n_cap, n_active, scan_above);
+  for (int64_t i = blockIdx.x; i < list.count; i += gridDim.x) {
+    const int64_t e0 = list.first_edge(i);
     block(e0, e0 + kEdgeBlock < E ? e0 + kEdgeBlock : E);
   }
 }
@@ -400,24 +416,21 @@ __device__ __forceinline__ void active_agg(float* smem, const float* __restrict_
                                            int n_dst, const int32_t* __restrict__ block_idx,
                                            int n_cap, const int32_t* __restrict__ n_active,
                                            int scan_above) {
-  const int na = __ldg(n_active);
-  const bool scan_order = na > scan_above;  // 'auto' above its threshold
-  const int64_t count =
-      scan_order ? (E + kEdgeBlock - 1) / kEdgeBlock : (na < n_cap ? na : n_cap);
-  const int64_t per = (count + gridDim.x - 1) / gridDim.x;
+  const Listed list(E, block_idx, n_cap, n_active, scan_above);
+  const int64_t per = (list.count + gridDim.x - 1) / gridDim.x;
   const int64_t i0 = (int64_t)blockIdx.x * per;
-  const int64_t i1 = i0 + per < count ? i0 + per : count;
+  const int64_t i1 = i0 + per < list.count ? i0 + per : list.count;
   if (i0 >= i1) return;  // the whole CTA
   const TableSink<OP> tab = table_open<OP>(smem, y);
   for (int64_t i = i0; i < i1; ++i) {
-    const int64_t e0 = (scan_order ? i : __ldg(block_idx + i)) * kEdgeBlock;
+    const int64_t e0 = list.first_edge(i);
     table_run<OP>(tab, e0, e0 + kEdgeBlock < E ? e0 + kEdgeBlock : E, w, n_src, src, dst, m,
                   n_dst);
   }
   table_flush(tab);
 }
 
-// -- the batched body (the multi-query SpMM): B frontier rows, one edge stream --
+// -- the fused regions' batched body: B frontier rows, one edge stream ----------
 //
 //   Y[b·n_dst + dst(e)] ⊕= W[b·n_src + src[e]] ⊗ m_b(e)   for b < B
 //
@@ -501,27 +514,367 @@ __device__ __forceinline__ void edge_rows(const W& weight, const int32_t* __rest
   }
 }
 
-template <int OP, class Dst, class M>
-__device__ __forceinline__ void scan_rows(const FrontierRows<OP>& w,
-                                          const int32_t* __restrict__ src, const Dst& dst,
-                                          const M& m, int64_t E, float* __restrict__ y,
-                                          int n_dst, int B) {
-  scan_edges(E, [&](int64_t e) { edge_rows<OP>(w, src, e, dst, m, y, n_dst, B, KeepAll{}); });
+// -- the batched hops (fragment_spmm.cu, fragment_spmm_packed.cu): a row chunk
+//    a sector ------------------------------------------------------------------
+//
+// Y[B, n_dst] for B = 8 over 4M documents is 128 MB, 2.6x the L2, so an edge
+// that adds into B rows of Y lays B atomics on B lines 16 MB apart, each a
+// miss. The batched hops instead accumulate into a scratch laid out
+// row-chunk-minor,
+//
+//   S[c, d, r] = the partial ⊕ of row c·rb + r at destination d,
+//   S: float32[ceil(B / rb), n_dst, rb],  rb = kernels/fragment_spmm.py
+//   row_chunk(B): 8 rows (one 32-byte sector), or B rounded up to 2 or 4,
+//
+// so one edge's rb products land in one sector. At B = 1 (rb = 1) S is Y
+// and the launch runs the single hop's kernels instead (scan / scan_agg,
+// active / active_agg over one row, in the batched hop's own .cu file),
+// which take the same edge rules into the same layout. The launch's grid is (the
+// row chunks) × (the edge CTAs); blockIdx.x, the chunk, runs fastest, so the
+// CTAs of one edge range and every chunk are dispatched together and each
+// chunk after the first reads the edge stream from L2. A thread takes one
+// edge for its CTA's chunk: src, the chunk's weights and the measure are
+// read, the rb products formed by edge_rows' rules (per row: the identity
+// guard, no write for a zero sum product, the ∞·0 guard, bool as (w > 0) &
+// (m != 0)); dst is decoded once if any row writes, and an out-of-range dst
+// ends the edge for every row. For sum the chunk goes out as one vector
+// reduction a 4 rows (red.global.add.v4.f32; .v2 at rb = 2): a row whose product is the identity adds +0.0, which leaves
+// every value as it was (a sum starts at +0.0 and never becomes -0.0); for
+// min and max the integer-ordered scalar atomics and for bool a store of 1,
+// row by row where the row writes, all on the one sector. An epilogue
+// (rows_from_chunks, below) writes Y[b, d] = S[b / rb, d, b % rb] through a
+// tile in shared memory. Rows past B in
+// the last chunk carry the identity and never reach Y. Offsets are int64.
+//
+// On an index with a hot destination (kernels/ops.py uses_table) a CTA
+// first combines its chunk's products per destination in a shared-memory
+// table, as scan_agg / active_agg do for one row: slots of a key and rb
+// values ([rb][slots], so a warp's atomics on different slots fall in
+// different banks), a bounded probe (an edge without a slot goes straight to
+// S), and one flush at the end of the CTA's edge range or run of listed
+// blocks, a vector reduction a 4 values. With rb values a slot the table
+// (4 + 4·rb bytes a slot) may need more than the 48 KB a launch gets
+// without opting in: the launch raises the kernel's limit
+// (cudaFuncAttributeMaxDynamicSharedMemorySize) and sizes its one wave by
+// the occupancy at the table's size. The table's shape is fixed at build
+// time (rows_table_bits), the fastest of 1,024 / 2,048 / 4,096 slots on
+// I_DA.Doc on the H100 at each rb (scripts/spmm_probe.py, PERF.md): 1,024
+// at 8 rows (36 KiB; 4,096 slots, 144 KiB, leave one CTA an SM: 3x slower
+// at B = 8 and 64) and at 4 rows, 2,048 at 2 rows; -DSPMM_TABLE_BITS=b
+// builds 2^b slots at every rb. The probe limit is HOP_TABLE_PROBES.
+//
+// The schedules: the per-edge scan runs a grid-stride loop over the edges
+// (scan_grid edge CTAs a chunk); the three others run one wave of CTAs
+// (those co-resident, with the table's shared memory or without) divided
+// among the chunks: the table scan a contiguous edge range a CTA, both
+// active forms over the list as active_agg / listed_blocks do (a run of
+// consecutive listed blocks a table; every gridDim.y-th listed block per
+// edge), in scan order above scan_above.
+
+constexpr int kRowChunk = 8;  // kernels/fragment_spmm.py ROW_CHUNK
+
+// log2 of the batched table's slots at rb = 2, 4 or 8 rows a chunk. On
+// I_DA.Doc, 1,024 / 2,048 / 4,096 slots: B = 2 0.306 / 0.250 / 0.285-0.300
+// ms; B = 4 0.301 / 0.298-0.300 / 0.533-0.538 (scan), 0.310-0.315 /
+// 0.323-0.326 / 0.538-0.540 (active); B = 8 0.434-0.439 / 0.559-0.604 /
+// 1.310-1.330.
+#ifdef SPMM_TABLE_BITS
+static_assert(SPMM_TABLE_BITS >= 1 && SPMM_TABLE_BITS <= 12,
+              "at most 4,096 slots: 144 KiB at 8 rows a slot, within a CTA's 227 KB");
+__host__ __device__ __forceinline__ int rows_table_bits(int) { return SPMM_TABLE_BITS; }
+#else
+__host__ __device__ __forceinline__ int rows_table_bits(int rb) { return rb == 2 ? 11 : 10; }
+#endif
+
+// Dynamic shared memory of the batched table at rb rows a chunk.
+inline size_t rows_table_bytes(int rb) { return ((size_t)4 << rows_table_bits(rb)) * (1 + rb); }
+
+inline size_t rows_table_max_bytes() {
+  size_t most = 0;
+  for (int rb = 2; rb <= kRowChunk; rb *= 2) {
+    most = rows_table_bytes(rb) > most ? rows_table_bytes(rb) : most;
+  }
+  return most;
 }
 
-// The active schedule over the union of the rows' active blocks, so each
-// listed block is streamed once for all B rows.
+// The scratch and the CTA's row chunk (blockIdx.x) in it.
+struct RowChunks {
+  float* __restrict__ s;  // [ceil(B / rb), n_dst, rb]
+  int n_dst;
+  int B;
+  int rb;
+  __device__ __forceinline__ int b0() const { return (int)blockIdx.x * rb; }
+  __device__ __forceinline__ int rows() const {  // rows of the chunk below B
+    const int n = B - b0();
+    return n < rb ? n : rb;
+  }
+  __device__ __forceinline__ float* at(int d) const {
+    return s + ((int64_t)blockIdx.x * n_dst + d) * rb;
+  }
+};
+
+// The chunk's rb weights of source s from W[B, n_src], row-major, a load a
+// row (the identity past the chunk's rows and for an out-of-range s).
+template <int OP>
+struct ChunkFrontier {
+  const float* __restrict__ w;
+  int n_src;
+  __device__ __forceinline__ void operator()(int b0, int nr, int s,
+                                             float (&ws)[kRowChunk]) const {
+    const bool in = s >= 0 && s < n_src;
+#pragma unroll
+    for (int r = 0; r < kRowChunk; ++r) {
+      ws[r] = (in && r < nr) ? __ldg(w + (int64_t)(b0 + r) * n_src + s) : identity<OP>();
+    }
+  }
+};
+
+// One edge's products for the CTA's chunk: v[r] is row b0 + r's product
+// where bit r of the returned mask is set, the identity elsewhere; *d the
+// edge's dst. 0: no row writes, or dst is out of range.
 template <int OP, class Dst, class M>
-__device__ __forceinline__ void active_rows(const FrontierRows<OP>& w,
+__device__ __forceinline__ unsigned chunk_products(const ChunkFrontier<OP>& weight,
+                                                   const int32_t* __restrict__ src, int64_t e,
+                                                   const Dst& dst, const M& m,
+                                                   const RowChunks& y, float (&v)[kRowChunk],
+                                                   int* d) {
+  const float zero = identity<OP>();
+  const int b0 = y.b0(), nr = y.rows();
+  weight(b0, nr, src[e], v);
+  float shared = 0.0f;
+  bool have_m = false;
+  unsigned live = 0;
+#pragma unroll
+  for (int r = 0; r < kRowChunk; ++r) {
+    const float ws = v[r];
+    v[r] = zero;
+    if (r >= nr || (OP != kSum && ws == zero)) continue;  // past B, or the identity
+    if (!have_m) {
+      shared = m.edge(e);
+      have_m = true;
+    }
+    const float mv = m.row(shared, e, b0 + r);
+    float prod;
+    if (OP == kSum) {
+      prod = ws * mv;
+      if (prod == 0.0f) continue;  // adding 0 is the identity
+    } else if (OP == kBool) {
+      if (!(ws > 0.0f && mv != 0.0f)) continue;
+      prod = 1.0f;
+    } else {
+      prod = ws * mv;
+    }
+    v[r] = prod;
+    live |= 1u << r;
+  }
+  if (live == 0) return 0;
+  *d = dst(e);
+  return (*d >= 0 && *d < y.n_dst) ? live : 0;
+}
+
+__device__ __forceinline__ void red_add_v4(float* p, float a, float b, float c, float d) {
+  asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};"
+               :: "l"(p), "f"(a), "f"(b), "f"(c), "f"(d) : "memory");
+}
+
+__device__ __forceinline__ void red_add_v2(float* p, float a, float b) {
+  asm volatile("red.global.add.v2.f32 [%0], {%1, %2};" :: "l"(p), "f"(a), "f"(b) : "memory");
+}
+
+// p[0..rb) ⊕= v where the row writes (bit r of live), p one chunk's sector
+// of S: for sum a vector reduction a 4 rows with a live row, else the op's
+// scalar combine row by row.
+template <int OP>
+__device__ __forceinline__ void chunk_combine(float* p, const float (&v)[kRowChunk],
+                                              unsigned live, int rb) {
+  if (OP == kSum) {
+    if (rb == 8) {
+      if (live & 0x0fu) red_add_v4(p, v[0], v[1], v[2], v[3]);
+      if (live & 0xf0u) red_add_v4(p + 4, v[4], v[5], v[6], v[7]);
+    } else if (rb == 4) {
+      red_add_v4(p, v[0], v[1], v[2], v[3]);
+    } else {
+      red_add_v2(p, v[0], v[1]);
+    }
+    return;
+  }
+#pragma unroll
+  for (int r = 0; r < kRowChunk; ++r) {
+    if (live >> r & 1u) combine<OP>(p + r, v[r]);
+  }
+}
+
+// The CTA's table in dynamic shared memory: keys[slots], then
+// vals[rb][slots], slots = 2^rows_table_bits(rb).
+template <int OP>
+struct RowsTable {
+  int* keys;
+  float* vals;
+  int bits;  // log2 of the slots
+  RowChunks y;
+
+  // Fill the table (keys empty, values the identity); every thread of the
+  // CTA must call it.
+  __device__ __forceinline__ RowsTable(float* smem, const RowChunks& rows)
+      : keys(reinterpret_cast<int*>(smem)),
+        vals(smem + (1 << rows_table_bits(rows.rb))),
+        bits(rows_table_bits(rows.rb)),
+        y(rows) {
+    __syncthreads();  // a previous run's flush has read the table
+    for (int i = threadIdx.x; i < (1 << bits); i += blockDim.x) keys[i] = kEmptyKey;
+    for (int i = threadIdx.x; i < (y.rb << bits); i += blockDim.x) {
+      vals[i] = identity<OP>();
+    }
+    __syncthreads();
+  }
+
+  // The chunk's products of an edge into dst d's slot; straight to S when
+  // neither d nor a free slot lies within kTableProbes slots.
+  __device__ __forceinline__ void add(int d, const float (&v)[kRowChunk], unsigned live) const {
+    const unsigned mask = (1u << bits) - 1;
+    unsigned h = ((unsigned)d * 0x9E3779B1u) >> (32 - bits);
+#pragma unroll
+    for (int p = 0; p < kTableProbes; ++p) {
+      int k = *reinterpret_cast<volatile int*>(keys + h);
+      if (k == kEmptyKey) {
+        k = atomicCAS(keys + h, kEmptyKey, d);
+        if (k == kEmptyKey) k = d;  // claimed here
+      }
+      if (k == d) {
+#pragma unroll
+        for (int r = 0; r < kRowChunk; ++r) {
+          if (live >> r & 1u) combine<OP>(vals + (r << bits) + h, v[r]);
+        }
+        return;
+      }
+      h = (h + 1) & mask;
+    }
+    chunk_combine<OP>(y.at(d), v, live, y.rb);
+  }
+
+  // One combine into S per occupied slot, of the values that are not the
+  // identity; every thread of the CTA must call it.
+  __device__ __forceinline__ void flush() const {
+    __syncthreads();
+    for (int i = threadIdx.x; i < (1 << bits); i += blockDim.x) {
+      const int k = keys[i];
+      if (k == kEmptyKey) continue;
+      float v[kRowChunk];
+      unsigned live = 0;
+#pragma unroll
+      for (int r = 0; r < kRowChunk; ++r) {
+        v[r] = r < y.rb ? vals[(r << bits) + i] : identity<OP>();
+        if (v[r] != identity<OP>()) live |= 1u << r;
+      }
+      if (live) chunk_combine<OP>(y.at(k), v, live, y.rb);
+    }
+  }
+};
+
+// Edge e for the CTA's chunk: straight to S (table == nullptr) or into the
+// table.
+template <int OP, class Dst, class M>
+__device__ __forceinline__ void chunk_edge(int64_t e, const ChunkFrontier<OP>& w,
+                                           const int32_t* __restrict__ src, const Dst& dst,
+                                           const M& m, const RowChunks& y,
+                                           const RowsTable<OP>* table) {
+  float v[kRowChunk];
+  int d = 0;
+  const unsigned live = chunk_products<OP>(w, src, e, dst, m, y, v, &d);
+  if (!live) return;
+  if (table != nullptr) {
+    table->add(d, v, live);
+  } else {
+    chunk_combine<OP>(y.at(d), v, live, y.rb);
+  }
+}
+
+// The batched scan: per edge, a grid-stride loop over the edges along
+// gridDim.y; with the table (smem != nullptr), CTA blockIdx.y takes one
+// contiguous range of edges, a whole number of warps' edges.
+template <int OP, class Dst, class M>
+__device__ __forceinline__ void rows_scan(float* smem, const ChunkFrontier<OP>& w,
+                                          const int32_t* __restrict__ src, const Dst& dst,
+                                          const M& m, int64_t E, const RowChunks& y) {
+  if (smem == nullptr) {
+    const int64_t stride = (int64_t)gridDim.y * blockDim.x;
+    for (int64_t e = (int64_t)blockIdx.y * blockDim.x + threadIdx.x; e < E; e += stride) {
+      chunk_edge<OP>(e, w, src, dst, m, y, nullptr);
+    }
+    return;
+  }
+  int64_t per = (E + gridDim.y - 1) / gridDim.y;
+  per = (per + 31) & ~(int64_t)31;
+  const int64_t e0 = (int64_t)blockIdx.y * per;
+  if (e0 >= E) return;  // the whole CTA
+  const int64_t e1 = e0 + per < E ? e0 + per : E;
+  const RowsTable<OP> tab(smem, y);
+  for (int64_t e = e0 + threadIdx.x; e < e1; e += blockDim.x) {
+    chunk_edge<OP>(e, w, src, dst, m, y, &tab);
+  }
+  tab.flush();
+}
+
+// The batched active hop over the union of the rows' lists, so each listed
+// block is streamed once a chunk: per edge, CTA blockIdx.y takes every
+// gridDim.y-th listed block; with the table, a run of consecutive listed
+// blocks into one table, flushed once.
+template <int OP, class Dst, class M>
+__device__ __forceinline__ void rows_active(float* smem, const ChunkFrontier<OP>& w,
                                             const int32_t* __restrict__ src, const Dst& dst,
-                                            const M& m, int64_t E, float* __restrict__ y,
-                                            int n_dst, int B,
+                                            const M& m, int64_t E, const RowChunks& y,
                                             const int32_t* __restrict__ block_idx, int n_cap,
                                             const int32_t* __restrict__ n_active,
                                             int scan_above) {
-  active_edges(E, block_idx, n_cap, n_active, scan_above, [&](int64_t e) {
-    edge_rows<OP>(w, src, e, dst, m, y, n_dst, B, KeepAll{});
-  });
+  const Listed list(E, block_idx, n_cap, n_active, scan_above);
+  auto block = [&](int64_t i, const RowsTable<OP>* tab) {
+    const int64_t e0 = list.first_edge(i);
+    const int64_t e1 = e0 + kEdgeBlock < E ? e0 + kEdgeBlock : E;
+    for (int64_t e = e0 + threadIdx.x; e < e1; e += blockDim.x) {
+      chunk_edge<OP>(e, w, src, dst, m, y, tab);
+    }
+  };
+  if (smem == nullptr) {
+    for (int64_t i = blockIdx.y; i < list.count; i += gridDim.y) block(i, nullptr);
+    return;
+  }
+  const int64_t per = (list.count + gridDim.y - 1) / gridDim.y;
+  const int64_t i0 = (int64_t)blockIdx.y * per;
+  const int64_t i1 = i0 + per < list.count ? i0 + per : list.count;
+  if (i0 >= i1) return;  // the whole CTA
+  const RowsTable<OP> tab(smem, y);
+  for (int64_t i = i0; i < i1; ++i) block(i, &tab);
+  tab.flush();
+}
+
+// The epilogue: Y[b, d] = S[b / RB, d, b % RB] for b < B, a tile of
+// kTileDst destinations × RB rows at a time through shared memory (read
+// along S, written along Y's rows; the tile's row stride RB + 1 keeps the
+// transposed reads off one bank).
+constexpr int kTileDst = 256;
+
+template <int RB>
+__global__ void rows_from_chunks(const float* __restrict__ s, float* __restrict__ y, int B,
+                                 int n_dst) {
+  __shared__ float tile[kTileDst * (RB + 1)];
+  const int64_t per_chunk = (n_dst + kTileDst - 1) / kTileDst;
+  const int64_t n_tiles = per_chunk * ((B + RB - 1) / RB);
+  for (int64_t t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    const int c = (int)(t / per_chunk);
+    const int d0 = (int)(t % per_chunk) * kTileDst;
+    const int nd = n_dst - d0 < kTileDst ? n_dst - d0 : kTileDst;
+    const float* in = s + ((int64_t)c * n_dst + d0) * RB;
+    for (int i = threadIdx.x; i < nd * RB; i += blockDim.x) {
+      tile[(i / RB) * (RB + 1) + i % RB] = in[i];
+    }
+    __syncthreads();
+    const int rows = B - c * RB < RB ? B - c * RB : RB;
+    for (int i = threadIdx.x; i < rows * kTileDst; i += blockDim.x) {
+      const int r = i / kTileDst, dd = i % kTileDst;
+      if (dd < nd) y[(int64_t)(c * RB + r) * n_dst + d0 + dd] = tile[dd * (RB + 1) + r];
+    }
+    __syncthreads();
+  }
 }
 
 inline int scan_grid(int64_t E) {
@@ -531,27 +884,112 @@ inline int scan_grid(int64_t E) {
 
 inline int64_t n_edge_blocks(int64_t E) { return (E + kEdgeBlock - 1) / kEdgeBlock; }
 
-// A one-wave grid for Kernel: the CTAs of kThreads co-resident with Smem
-// bytes of dynamic shared memory each, but no more than the E-edge index
-// has EDGE_BLOCK-edge blocks. Returns a CUDA error code (0: *grid is set).
+// The CTAs of kThreads that are co-resident on the card for kernel with smem
+// bytes of dynamic shared memory each: *wave. Returns a CUDA error code.
+template <class K>
+int wave_size(K kernel, size_t smem, int* wave) {
+  int dev = 0, per_sm = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  }
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm * sms <= 0) return (int)cudaErrorInvalidConfiguration;
+  *wave = per_sm * sms;
+  return 0;
+}
+
+// A one-wave grid for Kernel: the CTAs co-resident with Smem bytes of
+// dynamic shared memory each, but no more than the E-edge index has
+// EDGE_BLOCK-edge blocks. Returns a CUDA error code (0: *grid is set).
 // The occupancy is asked once per (kernel instantiation, Smem).
 template <auto Kernel, size_t Smem>
 int wave_grid(int64_t E, int* grid) {
   static int cached = 0;
   if (cached == 0) {
-    int dev = 0, per_sm = 0, sms = 0;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err == cudaSuccess) {
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, Kernel, kThreads, Smem);
-    }
-    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return (int)err;
-    if (per_sm * sms <= 0) return (int)cudaErrorInvalidConfiguration;
-    cached = per_sm * sms;
+    const int err = wave_size(Kernel, Smem, &cached);
+    if (err) return err;
   }
   const int64_t nb = n_edge_blocks(E);
   *grid = (int)(nb < cached ? nb : cached);
   return 0;
+}
+
+// The grid and dynamic shared memory of a one-row hop's Kernel (the SpMV
+// pairs; the batched hops at B = 1): the per-edge scan scan_grid CTAs, the
+// other schedules one wave, with the table's shared memory or without.
+// Returns a CUDA error code.
+template <auto Kernel>
+int row_grid(int64_t E, int table, bool active, int* grid, size_t* smem) {
+  *smem = table ? kTableBytes : 0;
+  *grid = scan_grid(E);
+  if (table) return wave_grid<Kernel, kTableBytes>(E, grid);
+  return active ? wave_grid<Kernel, 0>(E, grid) : 0;
+}
+
+// -- the batched launches' host side -------------------------------------------
+
+// One batched launch (rb = 2, 4 or 8): the scratch S, Y, and the schedule.
+struct RowsLaunch {
+  int64_t E;
+  int B;
+  int rb;
+  int n_dst;
+  float* s;
+  float* y;
+  int table;
+  bool active;
+  cudaStream_t stream;
+};
+
+// Kernel's grid for launch a (x: the row chunks, y: the edge CTAs) and its
+// dynamic shared memory: the per-edge scan scan_grid edge CTAs; the other
+// schedules one wave, the CTAs co-resident at the shared memory (asked once
+// per kernel instantiation and form: per edge, or the table at rb = 2, 4,
+// 8, after raising the kernel's limit to the largest table) divided among
+// the chunks, but no more edge CTAs than the index has EDGE_BLOCK-edge
+// blocks. Returns a CUDA error code.
+template <auto Kernel>
+int rows_grid(const RowsLaunch& a, dim3* grid, size_t* smem) {
+  const int chunks = (a.B + a.rb - 1) / a.rb;
+  *smem = a.table ? rows_table_bytes(a.rb) : 0;
+  int64_t ctas = scan_grid(a.E);
+  if (a.table || a.active) {
+    static bool raised = false;
+    static int waves[4];  // per edge, then the table at rb = 2, 4, 8
+    if (!raised) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)rows_table_max_bytes());
+      if (err != cudaSuccess) return (int)err;
+      raised = true;
+    }
+    int& wave = waves[a.table ? (a.rb == 2 ? 1 : a.rb == 4 ? 2 : 3) : 0];
+    if (wave == 0) {
+      const int err = wave_size(Kernel, *smem, &wave);
+      if (err) return err;
+    }
+    const int64_t nb = n_edge_blocks(a.E);
+    ctas = wave / chunks > 1 ? wave / chunks : 1;
+    if (ctas > nb) ctas = nb;
+  }
+  *grid = dim3((unsigned)chunks, (unsigned)ctas);
+  return 0;
+}
+
+// Launch the epilogue Y[b, d] = S[b / rb, d, b % rb]. Returns a CUDA error
+// code.
+inline int rows_epilogue(const RowsLaunch& a) {
+  const int64_t tiles = (a.n_dst + kTileDst - 1) / kTileDst * ((a.B + a.rb - 1) / a.rb);
+  const int grid = (int)(tiles < kMaxScanBlocks ? tiles : kMaxScanBlocks);
+  if (a.rb == 8) {
+    rows_from_chunks<8><<<grid, kThreads, 0, a.stream>>>(a.s, a.y, a.B, a.n_dst);
+  } else if (a.rb == 4) {
+    rows_from_chunks<4><<<grid, kThreads, 0, a.stream>>>(a.s, a.y, a.B, a.n_dst);
+  } else {
+    rows_from_chunks<2><<<grid, kThreads, 0, a.stream>>>(a.s, a.y, a.B, a.n_dst);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace hop

@@ -7,15 +7,16 @@ and each edge is decoded once, in registers, for all B frontier rows — one
 decode serves the batch. The measure modes are the SpMV's (``none``,
 ``dense`` float32[E], ``packed``, ``dict``), shared by the rows; a per-row
 measure stream goes to :mod:`.fragment_spmm` instead. The kernels are
-``csrc/fragment_spmm_packed.cu``, which shares its per-edge body with the
-dense SpMM through ``csrc/hop.cuh``.
+``csrc/fragment_spmm_packed.cu``, which shares its body with the dense SpMM
+through ``csrc/hop.cuh``: the row-chunk scratch (:func:`.fragment_spmm.row_scratch`)
+and its epilogue, and with ``table=True`` the per-CTA table on a hot index.
 """
 from __future__ import annotations
 
 import torch
 
 from .cuda_build import I32, I64, P, CudaLibrary, check_tensor, cuda_device, raise_on, stream_of
-from .fragment_spmm import check_rows
+from .fragment_spmm import check_rows, row_scratch
 from .fragment_spmv import OP_CODE, check_block_list
 from .fragment_spmv_packed import M_MODES, check_streams
 from .ref import IDENTITY
@@ -23,7 +24,7 @@ from .ref import IDENTITY
 LIB = CudaLibrary("fragment_spmm_packed", {
     "fragment_spmm_packed_launch": [
         P, I32, I32, P, I64, P, I32, I64, I32, P, I32, I64, P, I32, P, I32, I32,
-        P, I32, P, I32, P,
+        P, I32, P, I32, P, I32, I32, P,
     ],
 })
 
@@ -38,7 +39,7 @@ def build():
 
 
 def _launch(weights, src_ids, dst, measure, mdict, n_dst, dst_width, m_mode,
-            m_width, op, blocks, scan_above, kernel):
+            m_width, op, blocks, scan_above, table, kernel):
     if op not in OP_CODE:
         raise ValueError(f"unknown combine op {op!r}")
     if m_mode not in M_MODES:
@@ -48,13 +49,13 @@ def _launch(weights, src_ids, dst, measure, mdict, n_dst, dst_width, m_mode,
     check_tensor(src_ids, "src_ids", torch.int32, dev)
     E = src_ids.shape[0]
     n_dict = check_streams(dst, measure, mdict, E, dst_width, m_mode, m_width, dev)
-    y = torch.full((B, n_dst), IDENTITY[op], dtype=torch.float32, device=dev)
     if E == 0 or n_dst == 0 or B == 0:  # a grid of 0 blocks is an invalid launch
-        return y, False
+        return torch.full((B, n_dst), IDENTITY[op], dtype=torch.float32, device=dev), False
     block_idx = n_active = None
     if blocks is not None:
         block_idx, n_active = blocks
         check_block_list(block_idx, n_active, E, dev)
+    y, s, rb = row_scratch(B, n_dst, op, dev)
     lib = build()
     with torch.cuda.device(dev):
         err = lib.fragment_spmm_packed_launch(
@@ -69,7 +70,7 @@ def _launch(weights, src_ids, dst, measure, mdict, n_dst, dst_width, m_mode,
             block_idx.shape[0] if blocks is not None else 0,
             n_active.data_ptr() if blocks is not None else None,
             2**31 - 1 if scan_above is None else int(scan_above),
-            stream_of(dev),
+            s.data_ptr(), rb, int(bool(table)), stream_of(dev),
         )
     raise_on(err, kernel)
     return y, True
@@ -86,12 +87,14 @@ def fragment_spmm_packed(
     m_mode: str = "none",
     m_width: int = 0,
     op: str = "sum",
+    table: bool = True,
 ) -> torch.Tensor:
     """Launch the decode-fused batched scan hop; f32[B, n_dst] from the
-    ⊕-identity. Raises on anything the kernel does not take."""
+    ⊕-identity. ``table``: aggregate per CTA. Raises on anything the kernel
+    does not take."""
     global LAUNCHES
     y, launched = _launch(weights, src_ids, dst, measure, mdict, n_dst, dst_width,
-                          m_mode, m_width, op, None, None, "fragment_spmm_packed")
+                          m_mode, m_width, op, None, None, table, "fragment_spmm_packed")
     LAUNCHES += launched
     return y
 
@@ -110,13 +113,14 @@ def fragment_spmm_packed_active(
     m_width: int = 0,
     op: str = "sum",
     scan_above: int | None = None,
+    table: bool = True,
 ) -> torch.Tensor:
     """Launch the decode-fused batched block-skipping hop: only the listed
-    blocks are streamed and decoded, once for all rows, or every block in
-    scan order when ``n_active > scan_above``."""
+    blocks are streamed and decoded, once a row chunk, or every block in
+    scan order when ``n_active > scan_above``, by one wave of CTAs."""
     global ACTIVE_LAUNCHES
     y, launched = _launch(weights, src_ids, dst, measure, mdict, n_dst, dst_width,
-                          m_mode, m_width, op, (block_idx, n_active), scan_above,
+                          m_mode, m_width, op, (block_idx, n_active), scan_above, table,
                           "fragment_spmm_packed_active")
     ACTIVE_LAUNCHES += launched
     return y

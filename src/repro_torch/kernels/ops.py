@@ -177,9 +177,9 @@ def fragment_spmv(weights, src_ids, dst_ids, measures, n_dst: int,
 
 
 def uses_table(hot_share: float) -> bool:
-    """Whether a hop (dense or packed) aggregates per CTA: on an index whose
-    hottest destination takes at least ``params.HOP_TABLE_HOT_SHARE`` of its
-    edges (``DeviceIndex.hot_share``)."""
+    """Whether a hop (dense or packed, single or batched) aggregates per CTA:
+    on an index whose hottest destination takes at least
+    ``params.HOP_TABLE_HOT_SHARE`` of its edges (``DeviceIndex.hot_share``)."""
     return hot_share >= _params.HOP_TABLE_HOT_SHARE
 
 
@@ -231,12 +231,15 @@ def _frontier_rows(weights) -> torch.Tensor:
 
 def fragment_spmm(weights, src_ids, dst_ids, measures, n_dst: int,
                   op: str = "sum", use_kernel: bool = True,
-                  blocks=None, block_skipping: str = "off") -> torch.Tensor:
+                  blocks=None, block_skipping: str = "off",
+                  hot_share: float = 0.0) -> torch.Tensor:
     """Batched hop ``Y[b, dst] ⊕= W[b, src] ⊗ m`` with one edge stream for
     all B rows; ``f32[B, n_dst]``. ``measures``: None (measure 1), ``[E]``
     shared by the rows, or ``[B, E]`` per row — the kernel takes both
     streams through a row stride (the reference sends the per-row one to its
-    XLA fallback; on the card no plain version runs)."""
+    XLA fallback; on the card no plain version runs). ``hot_share`` (the
+    index's ``DeviceIndex.hot_share``) chooses the kernel's per-CTA table
+    (:func:`uses_table`), as for the single hops."""
     if op not in IDENTITY:
         raise ValueError(f"unknown combine op {op!r}")
     w = _frontier_rows(weights)
@@ -244,45 +247,50 @@ def fragment_spmm(weights, src_ids, dst_ids, measures, n_dst: int,
     d = torch.as_tensor(dst_ids, dtype=torch.int32, device=w.device)
     m = None if measures is None else torch.as_tensor(
         measures, dtype=torch.float32, device=w.device)
+    table = uses_table(hot_share)
     plain = _plain(w, use_kernel)
     plan = _plan_skip(w, op, s.shape[0], blocks, block_skipping, use_kernel)
     if plan is None:
         if plain:
             return ref.fragment_spmm_ref(w, s, d, m, n_dst, op=op)
-        return _dense_rows.fragment_spmm(w, s, d, m, n_dst, op=op)
+        return _dense_rows.fragment_spmm(w, s, d, m, n_dst, op=op, table=table)
     bi, na, scan_above = plan
     if plain:
         return ref.fragment_spmm_active_ref(w, s, d, m, bi, na, n_dst, op=op,
                                             scan_above=scan_above)
     return _dense_rows.fragment_spmm_active(w, s, d, m, bi, na, n_dst, op=op,
-                                            scan_above=scan_above)
+                                            scan_above=scan_above, table=table)
 
 
 def fragment_spmm_packed(weights, src_ids, dst, measure=None, mdict=None, *,
                          n_dst: int, dst_width: int = 0, m_mode: str = "none",
                          m_width: int = 0, op: str = "sum",
                          use_kernel: bool = True,
-                         blocks=None, block_skipping: str = "off") -> torch.Tensor:
+                         blocks=None, block_skipping: str = "off",
+                         hot_share: float = 0.0) -> torch.Tensor:
     """Decode-fused batched hop: packed dst/measure words decode once an edge
-    for all B rows. The measure is shared by the rows."""
+    for all B rows. The measure is shared by the rows. ``hot_share`` chooses
+    the kernel's per-CTA table (:func:`uses_table`)."""
     if op not in IDENTITY:
         raise ValueError(f"unknown combine op {op!r}")
     w = _frontier_rows(weights)
     s, d, m, md, *_ = _hop_streams(src_ids, dst, measure, mdict, dst_width, m_mode,
                                    m_width, w.device)
     kw = dict(dst_width=dst_width, m_mode=m_mode, m_width=m_width, op=op)
+    table = uses_table(hot_share)
     plain = _plain(w, use_kernel)
     plan = _plan_skip(w, op, s.shape[0], blocks, block_skipping, use_kernel)
     if plan is None:
         if plain:
             return ref.fragment_spmm_packed_ref(w, s, d, m, md, n_dst, **kw)
-        return _packed_rows.fragment_spmm_packed(w, s, d, m, md, n_dst, **kw)
+        return _packed_rows.fragment_spmm_packed(w, s, d, m, md, n_dst, table=table, **kw)
     bi, na, scan_above = plan
     if plain:
         return ref.fragment_spmm_packed_active_ref(w, s, d, m, md, bi, na, n_dst,
                                                    scan_above=scan_above, **kw)
     return _packed_rows.fragment_spmm_packed_active(w, s, d, m, md, bi, na, n_dst,
-                                                    scan_above=scan_above, **kw)
+                                                    scan_above=scan_above, table=table,
+                                                    **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -392,11 +400,11 @@ def _compose_unfused(w, hop1: FusedHopOperands, hop2: FusedHopOperands | None,
     packed = fragment_spmm_packed if w.dim() == 2 else fragment_spmv_packed
 
     def hop(x, h):
-        kw = {} if w.dim() == 2 else {"hot_share": h.hot_share}
         return packed(
             x, h.src_ids, h.dst, h.measure, h.mdict, n_dst=h.n_dst,
             dst_width=h.dst_width, m_mode=h.m_mode, m_width=h.m_width, op=op,
-            use_kernel=use_kernel, blocks=h.blocks, block_skipping=block_skipping, **kw,
+            use_kernel=use_kernel, blocks=h.blocks, block_skipping=block_skipping,
+            hot_share=h.hot_share,
         )
 
     u = hop(w, hop1)

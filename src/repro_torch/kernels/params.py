@@ -37,5 +37,8 @@ FUSED_SCRATCH_BUDGET_BYTES = 128 * 2**10
 #: threshold on both sides: I_DT.Doc 0.094, I_DA.Doc 0.082, SemMedDB's
 #: I_PA.PID and I_SP.SID 0.101 take the table; the others are at most 0.00014.
 #: The dense pair (the same schedules over a 4-byte dst) takes the same
-#: threshold.
+#: threshold, and so do the batched hops: on the same synthetic indexes at
+#: B = 8 their table (a row chunk a slot) is no slower from h = 0.002 up
+#: (0.82 ms against 0.98-1.0 per edge at 0.003, 6.5 at 0.08) and equal below
+#: (the H100, scripts/spmm_probe.py part 5; PERF.md).
 HOP_TABLE_HOT_SHARE = 0.003

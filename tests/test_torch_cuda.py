@@ -994,11 +994,12 @@ def test_spmm_wrappers_reject_bad_inputs(cuda):
 
 def test_spmm_row_offsets_are_int64(cuda):
     """B · n_dst and B · n_src past 2^31: row 1's offsets wrap a 32-bit int.
-    Two 8 GiB tensors, so it runs only where the card has room."""
+    Three 8 GiB tensors (W, the scratch and Y), so it runs only where the card
+    has room."""
     n = 2**30 + 7
     free, _ = torch.cuda.mem_get_info(cuda)
-    if free < 20 * 2**30:
-        pytest.skip("needs 20 GiB of free device memory for B · n > 2^31")
+    if free < 28 * 2**30:
+        pytest.skip("needs 28 GiB of free device memory for B · n > 2^31")
     assert skernel.LIB.functions["fragment_spmm_launch"][6] is ctypes.c_int64  # m_stride
     W = torch.zeros((2, n), device=cuda)
     W[1, n - 3] = 2.0
@@ -1280,3 +1281,230 @@ def test_list_kernel_rejects_bad_inputs(cuda):
         lkernel.block_list(w, 0.0, smin[:0], smax[:0])
     with pytest.raises(ValueError):
         lkernel.block_list(w.reshape(2, 5, 10), 0.0, smin, smax)
+
+
+# ---------------------------------------------------------------------------
+# The batched hops' row-chunk body: the scratch a row chunk a sector, the
+# per-CTA table with a row chunk a slot, one wave over the list
+# ---------------------------------------------------------------------------
+
+#: 1 and 2 rows; 3 (a 4-row chunk, one row past B); 8 (one chunk); 13 and 65
+#: (a last chunk of 5 rows, of 1 row); 64 (eight chunks)
+ROW_BATCHES = [1, 2, 3, 8, 13, 64, 65]
+
+
+def _hot_rows(case, op, B, E, seed, device):
+    """_hot_inputs with B frontier rows (_rows) and the block list of their
+    union."""
+    x = _hot_inputs(case, op, E, seed, device)
+    W = _rows(x["w"], B, op, seed + B)
+    return x, W, _union_list(W, x["src"], op, device)
+
+
+def _spmm_forms(x, W, bi, na, op, table, m, nb):
+    """The dense scan and active kernels (following the list, and in scan
+    order) in one form."""
+    kw = dict(op=op, table=table)
+    return [skernel.fragment_spmm(W, x["src"], x["dst"], m, x["n_dst"], **kw)] + [
+        skernel.fragment_spmm_active(W, x["src"], x["dst"], m, bi, na, x["n_dst"],
+                                     scan_above=sa, **kw) for sa in (nb, 0)]
+
+
+@pytest.mark.parametrize("case", ["one_dst", "zipf"])
+@pytest.mark.parametrize("measure", ["none", "shared", "per_row"])
+@pytest.mark.parametrize("B", ROW_BATCHES)
+@pytest.mark.parametrize("table", [True, False], ids=["table", "per_edge"])
+@pytest.mark.parametrize("op", OPS)
+def test_spmm_both_forms_match_plain(cuda, op, table, B, measure, case):
+    """The dense SpMM, scan and active (the list followed, and in scan order),
+    with the table and without, on one hot destination and on Zipf-hot ones,
+    at row counts that are not multiples of the vector width and of more than
+    one chunk, with no, a shared and a per-row measure, against the plain
+    version."""
+    E = 30_000
+    x, W, (bi, na) = _hot_rows(case, op, B, E, B + len(op) + len(case), cuda)
+    m = {"none": None, "shared": x["m_dense"],
+         "per_row": torch.rand((B, E), generator=torch.Generator().manual_seed(B)).to(cuda)
+         }[measure]
+    nb = active.n_edge_blocks(E)
+    before = _spmm_counts()
+    got = _spmm_forms(x, W, bi, na, op, table, m, nb)
+    torch.cuda.synchronize()
+    assert _delta(before) == [1, 2, 0, 0, 0, 0]
+    want = ref.fragment_spmm_ref(W, x["src"], x["dst"], m, x["n_dst"], op=op)
+    for g in got:
+        _assert_match(g, want, op)
+
+
+@pytest.mark.parametrize("dst_packed", [True, False], ids=["dst_packed", "dst_dense"])
+@pytest.mark.parametrize("m_mode", M_MODES)
+@pytest.mark.parametrize("B", ROW_BATCHES)
+@pytest.mark.parametrize("table", [True, False], ids=["table", "per_edge"])
+@pytest.mark.parametrize("op", OPS)
+def test_spmm_packed_both_forms_match_plain(cuda, op, table, B, m_mode, dst_packed):
+    """The decode-fused SpMM, scan and active (the list followed, and in scan
+    order), with the table and without, on Zipf-hot destinations, for every
+    measure mode and dst stream, against the plain version."""
+    E = 30_000
+    x, W, (bi, na) = _hot_rows("zipf", op, B, E, 2 * B + len(op), cuda)
+    dst, m, md, kw = _hot_operands(x, m_mode, dst_packed)
+    nb = active.n_edge_blocks(E)
+    before = _spmm_counts()
+    got = [spkernel.fragment_spmm_packed(W, x["src"], dst, m, md, op=op, table=table, **kw)]
+    got += [spkernel.fragment_spmm_packed_active(W, x["src"], dst, m, md, bi, na, op=op,
+                                                 scan_above=sa, table=table, **kw)
+            for sa in (nb, 0)]
+    torch.cuda.synchronize()
+    assert _delta(before) == [0, 0, 1, 2, 0, 0]
+    want = ref.fragment_spmm_packed_ref(W, x["src"], dst, m, md, op=op, **kw)
+    for g in got:
+        _assert_match(g, want, op)
+
+
+@pytest.mark.parametrize("B", [1, 2, 4, 8, 13])
+@pytest.mark.parametrize("packed", [False, True], ids=["dense", "packed"])
+@pytest.mark.parametrize("table", [True, False], ids=["table", "per_edge"])
+def test_spmm_negative_zero_in_both_forms(cuda, table, packed, B):
+    """-0.0 products (a −∞ identity for max) reach Y with their sign bit
+    through the scratch and the table, every row, at every chunk width; for
+    sum a row of zero products stays +0.0 beside live rows."""
+    E = 5000
+    W = torch.full((B, 1), -1.0, device=cuda)
+    src = torch.zeros(E, dtype=torch.int32, device=cuda)
+    dst = torch.zeros(E, dtype=torch.int32, device=cuda)
+    dst[E // 2:] = 1
+    m = torch.zeros(E, device=cuda)
+    m[E // 2:] = 2.0
+    bi = torch.arange(2, dtype=torch.int32, device=cuda)
+    na = torch.full((1,), 2, dtype=torch.int32, device=cuda)
+
+    def both(op, W):
+        if packed:
+            kw = dict(op=op, table=table, m_mode="dense")
+            return (spkernel.fragment_spmm_packed(W, src, dst, m, None, 3, **kw),
+                    spkernel.fragment_spmm_packed_active(W, src, dst, m, None, bi, na, 3, **kw))
+        return (skernel.fragment_spmm(W, src, dst, m, 3, op=op, table=table),
+                skernel.fragment_spmm_active(W, src, dst, m, bi, na, 3, op=op, table=table))
+
+    for op in ("max", "min"):
+        for got in both(op, W):
+            got = got.cpu()
+            assert (got[:, 0] == 0.0).all() and (got[:, 1] == -2.0).all()
+            assert (got[:, 2] == ZERO[op]).all()
+            if op == "max":
+                assert torch.signbit(got[:, 0]).all()
+    Ws = W.clone()
+    Ws[::2] = 0.0  # every other row adds nothing
+    for got in both("sum", Ws):
+        got = got.cpu()
+        assert not torch.signbit(got[::2]).any() and not torch.signbit(got[:, [0, 2]]).any()
+        assert (got[::2] == 0.0).all() and (got[1::2, 1] == -2.0 * (E - E // 2)).all()
+
+
+@pytest.mark.parametrize("B", [8, 13])
+@pytest.mark.parametrize("packed", [False, True], ids=["dense", "packed"])
+@pytest.mark.parametrize("table", [True, False], ids=["table", "per_edge"])
+@pytest.mark.parametrize("scan_order", [False, True], ids=["listed", "scan_order"])
+@pytest.mark.parametrize("op", OPS)
+def test_spmm_active_wave_covers_more_blocks_than_one_wave(cuda, op, scan_order, table,
+                                                           packed, B):
+    """Both active SpMM kernels run one wave of CTAs divided among the row
+    chunks (the per-edge form each over every gridDim.y-th listed block, the
+    table form each over a run of consecutive listed blocks): an index with
+    more blocks than a wave holds, every other block listed (or all, in scan
+    order)."""
+    E = 5_000_000  # 1,221 blocks
+    x = _hot_inputs("zipf", op, E, 9, cuda)
+    W = _rows(x["w"], B, op, 11)
+    nb = active.n_edge_blocks(E)
+    bi = torch.arange(0, nb, 2, dtype=torch.int32, device=cuda)
+    na = torch.full((1,), bi.shape[0], dtype=torch.int32, device=cuda)
+    sa = 0 if scan_order else nb
+    if packed:
+        dst, m, md, kw = _hot_operands(x, "packed", True)
+        got = spkernel.fragment_spmm_packed_active(W, x["src"], dst, m, md, bi, na, op=op,
+                                                   scan_above=sa, table=table, **kw)
+        want = ref.fragment_spmm_packed_active_ref(W, x["src"], dst, m, md, bi, na, op=op,
+                                                   scan_above=sa, **kw)
+    else:
+        got = skernel.fragment_spmm_active(W, x["src"], x["dst"], x["m_dense"], bi, na,
+                                           x["n_dst"], op=op, scan_above=sa, table=table)
+        want = ref.fragment_spmm_active_ref(W, x["src"], x["dst"], x["m_dense"], bi, na,
+                                            x["n_dst"], op=op, scan_above=sa)
+    torch.cuda.synchronize()
+    _assert_match(got, want, op)
+
+
+_SPMM_BUILDS: dict = {}
+
+
+def _spmm_table_build(lib, bits: int, probes: int):
+    """A batched kernel library built with another table shape (``-D``
+    overrides of ``csrc/hop.cuh``), in a library file of its own."""
+    from repro_torch.kernels.cuda_build import CudaLibrary
+
+    key = (lib.name, bits, probes)
+    if key not in _SPMM_BUILDS:
+        _SPMM_BUILDS[key] = CudaLibrary(
+            lib.name, lib.functions,
+            defines=(f"SPMM_TABLE_BITS={bits}", f"HOP_TABLE_PROBES={probes}"))
+    return _SPMM_BUILDS[key]
+
+
+@pytest.mark.parametrize("B", [2, 4, 13])
+@pytest.mark.parametrize("shape", ["off", "built", "2x1", "1024x4", "4096x2"])
+@pytest.mark.parametrize("case", HOT_CASES)
+@pytest.mark.parametrize("op", OPS)
+def test_spmm_result_does_not_depend_on_the_table(cuda, monkeypatch, op, case, shape, B):
+    """No table, the built table and builds at other sizes (at every row
+    chunk) and probe limits give the plain version's result for all four
+    SpMM kernels at B = 2, 4 and 13 (rb = 2, 4 and two chunks of 8): an edge
+    without a slot writes its chunk to the scratch."""
+    if "x" in shape:
+        slots, probes = (int(v) for v in shape.split("x"))
+        for mod in (skernel, spkernel):
+            monkeypatch.setattr(mod, "LIB", _spmm_table_build(mod.LIB, slots.bit_length() - 1,
+                                                              probes))
+    E = 20_000
+    x = _hot_inputs(case, op, E, 5, cuda)
+    W = _rows(x["w"], B, op, 6)
+    table = shape != "off"
+    bi, na = _full(E, cuda)
+    m = x["m_dense"]
+    want = ref.fragment_spmm_ref(W, x["src"], x["dst"], m, x["n_dst"], op=op)
+    _assert_match(skernel.fragment_spmm(W, x["src"], x["dst"], m, x["n_dst"], op=op,
+                                        table=table), want, op)
+    _assert_match(skernel.fragment_spmm_active(W, x["src"], x["dst"], m, bi, na, x["n_dst"],
+                                               op=op, table=table), want, op)
+    dst, pm, md, kw = _hot_operands(x, "packed", True)
+    want = ref.fragment_spmm_packed_ref(W, x["src"], dst, pm, md, op=op, **kw)
+    _assert_match(spkernel.fragment_spmm_packed(W, x["src"], dst, pm, md, op=op, table=table,
+                                                **kw), want, op)
+    _assert_match(spkernel.fragment_spmm_packed_active(W, x["src"], dst, pm, md, bi, na, op=op,
+                                                       table=table, **kw), want, op)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("hot_share", [0.0, 1.0])
+@pytest.mark.parametrize("skipping", ["off", "on"])
+@pytest.mark.parametrize("op", OPS)
+def test_spmm_dispatch_by_hot_share(cuda, op, skipping, hot_share):
+    """ops.fragment_spmm and ops.fragment_spmm_packed with the hot share below
+    and above the threshold, skipping off and on: one SpMM launch each, the
+    plain version's result."""
+    x = _hot_inputs("zipf", op, 30_000, 12, cuda)
+    W = _rows(x["w"], 8, op, 13)
+    blocks = tuple(torch.from_numpy(b).to(cuda) for b in active.block_ranges(x["src"].cpu()))
+    dst, m, md, kw = _hot_operands(x, "packed", True)
+    common = dict(op=op, blocks=blocks, block_skipping=skipping, hot_share=hot_share)
+    on = skipping == "on"
+    before = _spmm_counts()
+    got = [ops.fragment_spmm(W, x["src"], x["dst"], x["m_dense"], x["n_dst"], **common),
+           ops.fragment_spmm_packed(W, x["src"], dst, m, md, **kw, **common)]
+    torch.cuda.synchronize()
+    assert _delta(before) == [int(not on), int(on), int(not on), int(on), 0, 0]
+    want = [ops.fragment_spmm(W, x["src"], x["dst"], x["m_dense"], x["n_dst"],
+                              use_kernel=False, **common),
+            ops.fragment_spmm_packed(W, x["src"], dst, m, md, use_kernel=False, **kw, **common)]
+    for g, w in zip(got, want):
+        _assert_match(g, w, op)
