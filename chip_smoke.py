@@ -28,13 +28,15 @@ Phases (any failure exits non-zero; nothing is caught while the run goes on):
     dict mode through a per-column override); both active kernels at support
     fractions from one seed to 100%, equal to the scan and the plain version;
     both fused-region kernels (fused1: hop + output mask; fused2: hop1 → mask
-    → binarize → hop2, one cooperative launch) against the plain region and
-    the unfused composition through the port's own kernels, for every op ×
-    packed/dense dst × measure mode × mask × binarize at E ∈ {1, 4097}, and
-    at the main path's region shapes (SD's I_DT.Doc → I_DT.Term at supports
-    from one seed to 100%, AS-recent's I_DT.Term + mask + I_DA.Doc over a
-    dense frontier, SD-recent's degenerate I_DT.Term + mask) over the
-    device-built block lists. The packed pair's per-CTA aggregation on hot
+    → binarize → hop2, one cooperative launch), per edge and with the per-CTA
+    table in their hops, against the plain region and the unfused
+    composition through the port's own kernels, for every op × packed/dense
+    dst × measure mode × mask × binarize at E ∈ {1, 4097}, and at the main
+    path's region shapes (SD's I_DT.Doc → I_DT.Term at supports from one
+    seed to 100%, AS-recent's I_DT.Term + mask + I_DA.Doc over a dense
+    frontier, SD-recent's degenerate I_DT.Term + mask) over the device-built
+    block lists, in the form the hops' hot shares choose, per edge and with
+    the table in every hop. The packed pair's per-CTA aggregation on hot
     destinations: every edge on one destination, more distinct destinations
     in a block than the table has slots, Zipf-hot ones, for every op, scan
     and active, with the table and without. The bitmap AND and popcount at n ∈ {0, 1, 3, 4, 5, 1023,
@@ -46,9 +48,9 @@ Phases (any failure exits non-zero; nothing is caught while the run goes on):
     B = 8 and on the hot destinations above at B = 8 and 13; every row (B ≤
     8; at the path shapes in the form the hot share chooses) against the
     SpMV kernels; the fused regions' SpMM form on the small regions and the
-    main path's regions at B = 8, against the plain region and the unfused
-    SpMM kernels (on the main path's regions in the per-edge form, which
-    the fused form's hop 2 shares).
+    main path's regions at B = 8, per edge and with the table, against the
+    plain region and the unfused SpMM kernels (each hop in the form its hot
+    share chooses).
  4. The main paths, each driven through ``GQFastEngine.query`` /
     ``query_topk`` with every launch counter set to 0 just before and read
     just after:
@@ -71,6 +73,8 @@ Phases (any failure exits non-zero; nothing is caught while the run goes on):
          launches the HopOps outside them; the regions that formed and each
          fused plan's prepare time and reach bytes on the card;
       g. ``fusion="on"`` over the same nine queries, accounted the same way;
+         fused2 must launch with the table (its hops on I_DT.Doc, I_DA.Doc,
+         I_SP.SID and I_PA.PID take it);
       h. batched serving: the defaults through ``execute_batch`` over the
          nine queries at B ∈ {1, 5 (pads to 8), 8, 64}, parameters drawn from
          a seeded generator over ids with edges, and ``query_topk_batch``:
@@ -85,9 +89,8 @@ Phases (any failure exits non-zero; nothing is caught while the run goes on):
          FLOAT64_LIMIT, and all nine at the quickstart scale match
          ``run_sql`` row by row;
       i. the same batches under ``fusion="on"`` (the fused regions' SpMM
-         form), equal to h, to their single calls and to the plain versions,
-         all gated but AS-recent's (DRIFT_QUERIES: fused2's hop 2 adds an
-         atomic an edge on the hot authors), which are reported;
+         form, fused2 launching with the table), equal to h, to their single
+         calls and to the plain versions with float64 sums, all gated;
       j. the intersection a user asks for (AD's merge intersection, paper
          §6.1): the document sets of terms 3 and 9 as bitmaps built on the
          card from I_DT.Term (32 documents a word), their AND and its
@@ -119,16 +122,16 @@ Phases (any failure exits non-zero; nothing is caught while the run goes on):
     fractions from one seed to 100% (the list kernel a call against the
     plain build's calls, and the whole 'on' and 'auto' hops against the scan
     at 100%, beside the reference's 1.1×), which set ``SKIP_BLOCK_FRACTION``;
-    fused against the unfused composition at each region shape, which sets
-    ``FUSED_SCRATCH_BUDGET_BYTES``. Batched (5h): per query and B ∈ {1, 8,
+    both fused kernels in every form against the unfused composition at each
+    region shape, which sets ``FUSED_SCRATCH_BUDGET_BYTES``. Batched (5h): per query and B ∈ {1, 8,
     64} the median wall of ``execute_batch`` and queries/s beside B single
     calls, the result copy and the profiler's device time and idle share;
     per SpMM kernel at I_DT.Term / I_DA.Doc and B ∈ {1, 8, 64} its time in
     the form the hot share chooses and in the other, beside its bound, the
     scalar reduction floor, B × the SpMV kernel's, the plain version's (B =
-    8) and ``torch.sparse.mm`` on the CSR matrix; the fused regions' SpMM form at
-    B = 8 beside the unfused SpMM kernels (held to them per edge, and to the
-    float64 sums within ``FLOAT64_LIMIT["batched_fused"]``).
+    8) and ``torch.sparse.mm`` on the CSR matrix; the fused regions' SpMM
+    form at B = 8 in every form beside the unfused SpMM kernels (held to
+    them, and to the float64 sums within ``FLOAT64_LIMIT``).
 
 Output: progress lines, then the card line, the ``{"kernels": [...]}`` line and
 last ``{"ok": true, "device": {...}}``. Everything measured is also written to
@@ -258,8 +261,19 @@ def kmod(name: str):
 
 
 def reset_counts() -> None:
+    from repro_torch.kernels import fragment_spmv_fused as fk
+
     for name, (_, attr, _, _) in KERNELS.items():
         setattr(kmod(name), attr, 0)
+    for k in fk.TABLE_LAUNCHES:
+        fk.TABLE_LAUNCHES[k] = 0
+
+
+def read_table_counts() -> dict:
+    """The fused kernels' launches with a table in at least one hop."""
+    from repro_torch.kernels import fragment_spmv_fused as fk
+
+    return dict(fk.TABLE_LAUNCHES)
 
 
 def read_counts() -> dict:
@@ -281,6 +295,14 @@ def time_device_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def is_hop_kernel(name: str) -> bool:
+    """Whether a profiled device kernel is hop time: the hop kernels
+    (``fragment_spm*``, the fused regions' included) and the batched hops'
+    epilogue, ``rows_from_chunks``. The fill of a row-chunk scratch is a
+    PyTorch fill and counts as other time."""
+    return "fragment_spm" in name or "rows_from_chunks" in name
 
 
 def bound_ms(nbytes: int, flops: int) -> tuple[float, str]:
@@ -306,35 +328,14 @@ def uses_table(di) -> bool:
     return K.uses_table(di.hot_share)
 
 
-#: Per batched path, the queries whose execute_batch rows are compared by
-#: report, not gate, with their single calls, the defaults' rows and the
-#: plain versions with float64 sums: under fusion on (4i) AS-recent's
-#: two-hop region runs as the fused regions' SpMM form, whose hop 2 adds one
-#: float32 atomic an edge a row on I_DA.Doc's hot authors (ROADMAP Queue 3):
-#: its B = 8 rows read 4.0e-4-4.2e-4 from the float64 sums on the H100,
-#: 4.2-9.4 times the gate against the plain versions and the defaults' rows
-#: (PERF.md). Each side is held to FLOAT64_LIMIT instead. Every other path
-#: and query is gated: the batched hops take the per-CTA table on I_DA.Doc as
-#: the single calls' hops do (AS under fusion on reads 0.02 of the gate).
-DRIFT_QUERIES = {"4i": ("AS_RECENT",)}
-def per_edge(h):
-    """A hop's operands with hot share 0, so the unfused composition takes
-    the SpMM kernels' per-edge form: the form of the fused regions' SpMM
-    form, which adds an atomic an edge a row (hop.cuh edge_rows). Against
-    the table form, whose per-CTA sums are closer to float64, fused2's hop 2
-    on I_DA.Doc's hot authors reads 9.1 times the gate (ROADMAP Queue 3)."""
-    return None if h is None else dataclasses.replace(h, hot_share=0.0)
-
-
 #: The largest relative difference allowed between a float query's result
 #: and the same plan through the plain versions with float64 sums
-#: (:class:`float64_sums`): single calls; execute_batch's rows at B = 8 of
-#: the defaults; and under fusion on. About twice the largest reading on the
-#: H100 (PERF.md): single calls 2.31e-5 (AS-recent through fused2, whose hop
-#: 2 adds an atomic an edge; every other path at most 2.8e-6), the defaults'
-#: rows 2.4e-6 (the batched hops take the table on I_DA.Doc), rows under
-#: fusion on 4.2e-4 (AS-recent through the fused regions' SpMM form).
-FLOAT64_LIMIT = {"single": 5e-5, "batched": 1e-5, "batched_fused": 1e-3}
+#: (:class:`float64_sums`): single calls; execute_batch's rows at B = 8,
+#: the defaults' and under fusion on; the fused regions' SpMM form at B = 8
+#: (phase 5h). About twice the largest reading on the H100 (PERF.md): every
+#: hop that reaches a hot destination, fused or not, single or batched, sums
+#: per CTA in its table, and the paths read 0.6e-6-2.4e-6.
+FLOAT64_LIMIT = {"single": 5e-6, "batched": 5e-6}
 
 
 class float64_sums:
@@ -375,36 +376,19 @@ def gate_ratio(got, want) -> float:
     return float((np.abs(a - b) / (1e-4 + 1e-4 * np.abs(b))).max()) if a.size else 0.0
 
 
-def compare_or_drift(got, want, name: str, what: str, drift: list, path: str,
-                     gates: dict) -> float:
-    """:func:`compare` (its gate ratio kept in ``gates[name]``, the largest),
-    except for a query DRIFT_QUERIES lists for ``path``, whose gate ratio is
-    logged and appended to ``drift`` (the caller holds both sides to the
-    float64 sums)."""
-    ratio = gate_ratio(got, want)
-    if name not in DRIFT_QUERIES.get(path, ()):
-        err = compare(got, want, name in EXACT_QUERIES, what)
-        if name not in EXACT_QUERIES:
-            gates[name] = max(gates.get(name, 0.0), ratio)
-        return err
-    drift.append({"query": name, "what": what, "gate_ratio": ratio})
-    return float(np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64)).max())
+def compare_gated(got, want, name: str, what: str, gates: dict) -> float:
+    """:func:`compare` (exact for EXACT_QUERIES), a float query's gate ratio
+    kept in ``gates[name]`` (the largest)."""
+    err = compare(got, want, name in EXACT_QUERIES, what)
+    if name not in EXACT_QUERIES:
+        gates[name] = max(gates.get(name, 0.0), gate_ratio(got, want))
+    return err
 
 
 def log_gates(what: str, ratios: dict, gates: dict) -> None:
     """Keep and log the gate ratios ({query: ratio}) of a gated comparison."""
     gates[what] = ratios
     log(f"  {what}: gate ratios " + ", ".join(f"{k} {v:.3g}" for k, v in ratios.items()))
-
-
-def log_drift(label: str, drift: list, n0: int) -> None:
-    """Log the worst gate ratio per query of ``drift[n0:]``."""
-    worst = {}
-    for d in drift[n0:]:
-        worst[d["query"]] = max(worst.get(d["query"], 0.0), d["gate_ratio"])
-    if worst:
-        log(f"  {label}: reported, not gated (per-edge float32 drift, ROADMAP Queue 3):"
-            f" largest gate ratio " + ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
 
 
 def rel_to_f64(got, want) -> float:
@@ -939,11 +923,11 @@ def full_lists(E: int, device):
             torch.full((1,), nb, dtype=torch.int32, device=device))
 
 
-def unfused_region(w, s1, s2, mask, lists, n_mid, n_dst, op, binz, table=True):
+def unfused_region(w, s1, s2, mask, lists, n_mid, n_dst, op, binz, tables=(True, True)):
     """A region through the port's own unfused kernels: the packed hop over
     each list (lists=None: the scan kernel), the mask and binarize between;
-    a [B, n] frontier goes through the packed SpMM kernels; ``table`` is the
-    kernels' form (True: the per-CTA table, False: per edge)."""
+    a [B, n] frontier goes through the packed SpMM kernels; ``tables`` is
+    each hop's form (True: the per-CTA table, False: per edge)."""
     from repro_torch.kernels import fragment_spmm_packed as spk
     from repro_torch.kernels import fragment_spmv_packed as pk
     from repro_torch.kernels import ref
@@ -951,27 +935,33 @@ def unfused_region(w, s1, s2, mask, lists, n_mid, n_dst, op, binz, table=True):
     scan, act = ((spk.fragment_spmm_packed, spk.fragment_spmm_packed_active) if w.dim() == 2
                  else (pk.fragment_spmv_packed, pk.fragment_spmv_packed_active))
 
-    def hop(x, h, n, bl):
+    def hop(x, h, n, bl, table):
         kw = dict(dst_width=h.dst_width, m_mode=h.m_mode, m_width=h.m_width, op=op,
                   table=table)
         if bl is None:
             return scan(x, h.src, h.dst, h.measure, h.mdict, n, **kw)
         return act(x, h.src, h.dst, h.measure, h.mdict, *bl, n, **kw)
 
-    u = hop(w, s1, n_mid, None if lists is None else lists[:2])
+    u = hop(w, s1, n_mid, None if lists is None else lists[:2], tables[0])
     if mask is not None:
         u = ref.apply_mask(u, mask, op)
     if s2 is None:
         return u
     if binz:
         u = ref.binarize(u, op)
-    return hop(u, s2, n_dst, None if lists is None else lists[2:])
+    return hop(u, s2, n_dst, None if lists is None else lists[2:], tables[-1])
+
+
+#: The table flags the small regions' fused kernels run with: per edge, and
+#: the table in every hop.
+SMALL_FORMS = (False, True)
 
 
 def check_fused_small(device) -> tuple[dict, int]:
     """Phase 3f: both fused kernels at E ∈ {1, 4097} for every op × dst ×
-    measure mode × mask × binarize, against the plain region and the unfused
-    composition through the port's kernels."""
+    measure mode × mask × binarize, per edge and with the table in every
+    hop, against the plain region and the unfused composition through the
+    port's kernels (the table form)."""
     from repro_torch.kernels import fragment_spmv_fused as fk
     from repro_torch.kernels import ref
 
@@ -990,25 +980,30 @@ def check_fused_small(device) -> tuple[dict, int]:
                                         (True, False, True), (True, True, True),
                                         (False, False, False), (False, True, False)):
                     mk = keep if mask else None
-                    if two:
-                        got = fk.fragment_spmv_fused2(w, s1, s2, mk, *l1, *l2, 700, 500, op=op,
-                                                      mid_binarize=binz)
-                    else:
-                        got = fk.fragment_spmv_fused1(w, s1, mk, *l1, 700, op=op)
-                    what = (f"fused{2 if two else 1} E={E} dst {'packed' if dp else 'dense'}"
-                            f" {mm} {op} mask={mask} binarize={binz}")
                     want = ref.fragment_spmv_fused_ref(w, s1, s2 if two else None, mk, 700, 500,
                                                        op=op, mid_binarize=binz)
-                    e1 = compare(got, want, op != "sum", f"{what} vs plain")
-                    e2 = compare(got, unfused_region(w, s1, s2 if two else None, mk, None, 700,
-                                                     500, op, binz),
-                                 op != "sum", f"{what} vs unfused kernels")
-                    k = f"fragment_spmv_fused{2 if two else 1}"
-                    worst[k] = max(worst[k], e1, e2)
-                    n += 1
+                    unf = unfused_region(w, s1, s2 if two else None, mk, None, 700, 500, op,
+                                         binz)
+                    for table in SMALL_FORMS:
+                        if two:
+                            got = fk.fragment_spmv_fused2(w, s1, s2, mk, *l1, *l2, 700, 500,
+                                                          op=op, mid_binarize=binz,
+                                                          table1=table, table2=table)
+                        else:
+                            got = fk.fragment_spmv_fused1(w, s1, mk, *l1, 700, op=op,
+                                                          table=table)
+                        what = (f"fused{2 if two else 1} E={E} dst"
+                                f" {'packed' if dp else 'dense'} {mm} {op} mask={mask}"
+                                f" binarize={binz} table={table}")
+                        e1 = compare(got, want, op != "sum", f"{what} vs plain")
+                        e2 = compare(got, unf, op != "sum", f"{what} vs unfused kernels")
+                        k = f"fragment_spmv_fused{2 if two else 1}"
+                        worst[k] = max(worst[k], e1, e2)
+                        n += 1
     sync()
     log(f"  fused kernels: {n} small regions (E 1 and 4097 × dst × measure mode × op ×"
-        f" mask × binarize) equal the plain region and the unfused kernels")
+        f" mask × binarize × per edge / table) equal the plain region and the unfused"
+        f" kernels")
     return worst, n
 
 
@@ -1040,34 +1035,104 @@ def region_specs(db, SG, device) -> list[dict]:
                         n_src=int(db.device.index(h1_op.table, h1_op.src_key).degrees.shape[0]),
                         degrees=db.device.index(h1_op.table, h1_op.src_key).degrees,
                         prepare_s=t_prep,
-                        reach_bytes=sum(r.numel() for r in pq.fn.reach.values())))
+                        reach_bytes=sum(r.numel() for r in pq.fn.reach.values()),
+                        # the mean of each two-hop region's reach matrix:
+                        # 'auto' forms a region only up to REACH_DENSITY_MAX
+                        reach_density=[float(r.float().mean()) for r in pq.fn.reach.values()]))
     return out
 
 
-def region_call(spec, w, op, lists, device):
-    """The fused kernel of ``spec``'s region over ``lists``: the SpMV form for
-    a ``[n]`` frontier, the SpMM form for ``[B, n]`` rows."""
+def region_flags(spec, form: str = "ops") -> tuple:
+    """The table flags, a hop, of ``spec``'s region kernel in ``form``:
+    "ops" what the dispatch chooses from each hop's hot share (the main
+    path's form), "per_edge" none, "table" every hop's."""
+    from repro_torch.kernels import ops as K
+
+    hops = [h for h in (spec["hop1"], spec["hop2"]) if h is not None]
+    if form == "ops":
+        return tuple(K.uses_table(h.hot_share) for h in hops)
+    return tuple(form == "table" for _ in hops)
+
+
+def region_forms(spec) -> dict:
+    """{form: flags} of the region's kernel forms, each distinct set of
+    flags once, "ops" (the main path's) first."""
+    out = {}
+    for form in ("ops", "per_edge", "table"):
+        flags = region_flags(spec, form)
+        if flags not in out.values():
+            out[form] = flags
+    return out
+
+
+def form_checks(spec, w, op, lists, device, every_form: bool = True):
+    """{form: (flags, plain region, unfused region)} for every form of
+    ``spec``'s region kernel (:func:`region_forms`; ``every_form`` False: the
+    main path's alone) over ``w``: the unfused
+    kernels (the scan, each hop in the form's own flag) and the plain region
+    over ``lists``, for sum with float64 sums where the form takes the table
+    on every hop whose hot share asks for it (the per-CTA sums land that
+    close to exact), else with the float32 scatter, whose per-edge drift on
+    hot destinations (~1e-4 relative on I_DA.Doc's top authors) the per-edge
+    form shares."""
+    from repro_torch.kernels import ops as K
+    from repro_torch.kernels import ref
+
+    h1, h2 = spec["hop1"], spec["hop2"]
+    s1 = K._streams(h1, device)
+    s2 = K._streams(h2, device) if h2 is not None else None
+    n_dst = h2.n_dst if h2 is not None else h1.n_dst
+    plain = ref.fragment_spmm_fused_ref if w.dim() == 2 else ref.fragment_spmv_fused_ref
+
+    def run():
+        return plain(w, s1, s2, spec["mask"], h1.n_dst, n_dst, op=op,
+                     mid_binarize=spec["binarize"], lists=lists)
+
+    want32 = run()
+    want64 = want32
+    if op == "sum":
+        with float64_sums():
+            want64 = run()
+    hot = region_flags(spec, "ops")
+    out = {}
+    for form, flags in region_forms(spec).items():
+        if not every_form and form != "ops":
+            continue
+        covered = all(f or not t for f, t in zip(flags, hot))
+        out[form] = (flags, want64 if covered else want32,
+                     unfused_region(w, s1, s2, spec["mask"], None, h1.n_dst, n_dst, op,
+                                    spec["binarize"], flags))
+    return out
+
+
+def region_call(spec, w, op, lists, device, form: str = "ops"):
+    """The fused kernel of ``spec``'s region over ``lists`` in ``form``
+    (:func:`region_flags`): the SpMV form for a ``[n]`` frontier, the SpMM
+    form for ``[B, n]`` rows."""
     from repro_torch.kernels import fragment_spmv_fused as fk
     from repro_torch.kernels import ops as K
 
     rows = w.dim() == 2
     s1 = K._streams(spec["hop1"], device)
     n_mid = spec["hop1"].n_dst
+    flags = region_flags(spec, form)
     if spec["hop2"] is None:
         f1 = fk.fragment_spmm_fused1 if rows else fk.fragment_spmv_fused1
-        return lambda: f1(w, s1, spec["mask"], *lists[:2], n_mid, op=op)
+        return lambda: f1(w, s1, spec["mask"], *lists[:2], n_mid, op=op, table=flags[0])
     f2 = fk.fragment_spmm_fused2 if rows else fk.fragment_spmv_fused2
     s2 = K._streams(spec["hop2"], device)
     return lambda: f2(w, s1, s2, spec["mask"], *lists, n_mid, spec["hop2"].n_dst, op=op,
-                      mid_binarize=spec["binarize"])
+                      mid_binarize=spec["binarize"], table1=flags[0], table2=flags[1])
 
 
 def check_fused_regions(specs, device) -> dict:
     """Phase 3g: both fused kernels at the main path's region shapes over the
-    device-built lists, against the plain region and the unfused scan
-    composition through the port's kernels: SD's region at supports from one
-    seed to 100%, AS-recent's over a dense frontier, SD-recent's at one seed
-    and 100%."""
+    device-built lists, in every form (:func:`region_forms`: the table where
+    the hop's hot share asks for it, per edge, the table in every hop),
+    against the plain region and the unfused scan composition in the same
+    form (:func:`form_checks`): SD's region at supports from one seed to
+    100% (between them in the main path's form alone), AS-recent's over a
+    dense frontier, SD-recent's at one seed and 100%."""
     import torch
 
     from repro_torch.kernels import ops as K
@@ -1081,29 +1146,25 @@ def check_fused_regions(specs, device) -> dict:
         E1 = int(h1.src_ids.shape[0])
         E2 = int(h2.src_ids.shape[0]) if h2 is not None else 0
         k = "fragment_spmv_fused2" if h2 is not None else "fragment_spmv_fused1"
-        s1 = K._streams(h1, device)
-        s2 = K._streams(h2, device) if h2 is not None else None
-        n_dst = h2.n_dst if h2 is not None else h1.n_dst
         for support in supports:
             for op in OPS:
                 w = sparse_frontier(frontier(spec["n_src"], op, gen, device), spec["degrees"],
                                     support, op, 15)
                 lists = K._fused_block_lists(w, op, h1, h2, E1, E2, "on")
-                got = region_call(spec, w, op, lists, device)()
                 exact = op != "sum"
-                what = f"{k} {spec['name']} {support} {op}"
-                e1 = compare(got, ref.fragment_spmv_fused_ref(
-                    w, s1, s2, spec["mask"], h1.n_dst, n_dst, op=op,
-                    mid_binarize=spec["binarize"], lists=lists), exact, f"{what} vs plain")
-                e2 = compare(got, K.fragment_spmv_fused(
-                    w, h1, h2, spec["mask"], op=op, mid_binarize=spec["binarize"],
-                    fusion="off", block_skipping="off"), exact, f"{what} vs unfused scan")
-                worst[k] = max(worst[k], e1, e2)
+                checks = form_checks(spec, w, op, lists, device, support in ("one_seed", 1.0))
+                for form, (_, want, unf) in checks.items():
+                    got = region_call(spec, w, op, lists, device, form)()
+                    what = f"{k} {spec['name']} {support} {op} {form}"
+                    e1 = compare(got, want, exact, f"{what} vs plain")
+                    e2 = compare(got, unf, exact, f"{what} vs unfused scan")
+                    worst[k] = max(worst[k], e1, e2)
             na = [int(lists[1][0])] + ([int(lists[3][0])] if h2 is not None else [])
             rows.append({"region": spec["name"], "support": support, "n_active": na,
                          "n_blocks": [-(-E1 // 4096)] + ([-(-E2 // 4096)] if E2 else [])})
             log(f"  {k} {spec['name']}: support {support}: lists {na} of"
-                f" {rows[-1]['n_blocks']} blocks; fused == plain == unfused for every op")
+                f" {rows[-1]['n_blocks']} blocks; fused == plain == unfused for every op and"
+                f" form {list(checks)}")
     sync()
     return worst, rows
 
@@ -1186,8 +1247,24 @@ def busy_concept(sem) -> int:
     return int(sem.relationships["CS"].columns["CID"][0])
 
 
+#: Per path label, the fused kernels' launches with a table in at least one
+#: hop (``fragment_spmv_fused.TABLE_LAUNCHES``) over the path's run.
+TABLE_BY_PATH: dict = {}
+
+
+def check_table_launches(label, must_table: tuple) -> None:
+    """Keep the path's table launches (read just after the run) and fail
+    unless every kernel in ``must_table`` launched with a table."""
+    tables = read_table_counts()
+    TABLE_BY_PATH[label] = tables
+    for k in must_table:
+        if tables[k] < 1:
+            raise AssertionError(f"path {label}: {k} never launched with a table ({tables})")
+    log(f"  path {label}: launches with a table {tables}")
+
+
 def drive_path(label, engines, SG, c0, block_skipping, fusion, kernels, topk: bool,
-               nine: bool = False, must: tuple = ()):
+               nine: bool = False, must: tuple = (), must_table: tuple = ()):
     """One main path: the seven queries (``nine``: and the two variants) and
     ``query_topk`` for AS when ``topk``, with every counter set to 0 just
     before and read just after. ``kernels`` are the hop kernels of the path:
@@ -1196,8 +1273,9 @@ def drive_path(label, engines, SG, c0, block_skipping, fusion, kernels, topk: bo
     equal the regions executed by kind; the list kernel's launches must
     equal the block lists the hops built (``ops.active_block_list`` calls),
     and it must have launched on a path that skips; every kernel in ``must``
-    must have launched. Returns (results, counts, expected launches, per-hop
-    skip records, per-query plan records)."""
+    must have launched, every one in ``must_table`` with a table
+    (:func:`check_table_launches`). Returns (results, counts, expected
+    launches, per-hop skip records, per-query plan records)."""
     from repro_torch.kernels import ops as K
 
     qs = cases(SG, c0, nine)
@@ -1247,6 +1325,7 @@ def drive_path(label, engines, SG, c0, block_skipping, fusion, kernels, topk: bo
             current[0] = "AS topk"
             top = engines["AS"].query_topk(SG.QUERY_AS, k=10, a0=7)
         counts = read_counts()
+        check_table_launches(label, must_table)
     finally:
         K._plan_skip, K._fused_block_lists = plan_skip, fused_lists
         K.active_block_list = block_list
@@ -1490,7 +1569,7 @@ def breakdown(label, engines, SG, c0, block_skipping, fusion="auto", nine=False)
         for ev in prof.key_averages():
             if ev.device_type != DeviceType.CUDA:
                 continue
-            kind = ("hop" if "fragment_spm" in ev.key
+            kind = ("hop" if is_hop_kernel(ev.key)
                     else "bitunpack" if "bitunpack" in ev.key
                     else "list" if "block_list" in ev.key
                     else "copy" if "Memcpy" in ev.key else "other")
@@ -1751,12 +1830,16 @@ def decoded(h, device):
 
 def time_fused(specs, device) -> tuple[dict, list[dict], int]:
     """Rows 5 and 6 at the region shapes, sum: the fused kernel over its
-    prebuilt lists by CUDA events; the unfused composition of the port's
-    kernels over lists built beforehand from the same frontier and from the
-    intermediate; the whole dispatch (lists included) with fusion on and off;
+    prebuilt lists by CUDA events, in the main path's form (the table where
+    a hop's hot share asks for it) and in the others (:func:`region_forms`);
+    the unfused composition of the port's kernels (each hop in the form its
+    hot share chooses) over lists built beforehand from the same frontier
+    and from the intermediate; the whole dispatch (lists included) with
+    fusion on and off;
     the plain region; two ``torch.mv`` on CSR matrices and the mask (the
     library yardstick); the bytes bound of the listed blocks' streams + w +
-    keep + out (u, 4·n_mid bytes, not counted while it fits the L2). Returns
+    keep (one byte an entry, as the kernels read it) + out (u, 4·n_mid
+    bytes, not counted while it fits the L2). Returns
     the rows by kernel, the fused-vs-unfused rows and the scratch budget they
     support: the largest 4·n_mid up to which fused was no slower (within
     SKIP_TIE) than unfused, end to end through the dispatch, at every shape
@@ -1794,14 +1877,15 @@ def time_fused(specs, device) -> tuple[dict, list[dict], int]:
                 ul += list(active.active_block_list(ref.binarize(u, "sum") if binz else u, 0.0,
                                                     *(torch.as_tensor(b, device=device)
                                                       for b in h2.blocks)))
+            forms = region_forms(spec)
             unf = lambda: unfused_region(w, s1, s2, mask, ul, n_mid, n_dst, "sum",  # noqa: E731
-                                         binz)
+                                         binz, forms["ops"])
             compare(got, unf(), False, f"{k} {spec['name']} vs unfused kernels (timing inputs)")
             na1 = int(lists[1][0])
             na2 = int(lists[3][0]) if h2 is not None else 0
             e1, e2 = min(E1, na1 * 4096), min(E2, na2 * 4096)
             nbytes = (stream_bytes(s1, E1) * e1 + (stream_bytes(s2, E2) * e2 if s2 else 0)
-                      + 4 * spec["n_src"] + (4 * n_mid if mask is not None else 0) + 4 * n_dst
+                      + 4 * spec["n_src"] + (n_mid if mask is not None else 0) + 4 * n_dst
                       + 4 * (lists[0].shape[0] + (lists[2].shape[0] if s2 else 0)))
             if 4 * n_mid > L2_BYTES:
                 nbytes += 8 * n_mid  # u written and read once through HBM
@@ -1812,7 +1896,9 @@ def time_fused(specs, device) -> tuple[dict, list[dict], int]:
             r = dict(shape=f"{spec['name']} support {support}", E=e1 + e2, n_mid=n_mid,
                      support=support,
                      n_active=[na1] + ([na2] if s2 else []),
-                     ms=time_device_ms(fused, KERNEL_REPS),
+                     ms=time_device_ms(fused, KERNEL_REPS), tables=forms["ops"],
+                     ms_forms={f: time_device_ms(region_call(spec, w, "sum", lists, device, f),
+                                                 KERNEL_REPS) for f in forms if f != "ops"},
                      unfused_ms=time_device_ms(unf, KERNEL_REPS),
                      dispatch_on_ms=time_device_ms(lambda: disp("on"), KERNEL_REPS),
                      dispatch_off_ms=time_device_ms(lambda: disp("off"), KERNEL_REPS),
@@ -1836,7 +1922,8 @@ def time_fused(specs, device) -> tuple[dict, list[dict], int]:
             del A1, A2
             rows[k].append(r)
             budget_rows.append(r)
-            log(f"  {k:22s} {r['shape']}: {r['ms']:.4f} ms (lists"
+            log(f"  {k:22s} {r['shape']}: {r['ms']:.4f} ms (tables {r['tables']}; other"
+                f" forms {r['ms_forms']}; lists"
                 f" {r['n_active']}) unfused kernels {r['unfused_ms']:.4f} ms; dispatch on"
                 f" {r['dispatch_on_ms']:.4f} / off {r['dispatch_off_ms']:.4f} ms; bound"
                 f" {b:.4f} ms ({by}); plain {r['plain_ms']:.4f} ms; torch.mv(CSR) x2"
@@ -2287,13 +2374,16 @@ def check_spmm_hot(device) -> tuple[dict, int]:
 
 
 def check_spmm_fused(specs, device) -> tuple[dict, int]:
-    """Phase 3h (fused): the fused regions' SpMM form against the plain
-    batched region and the unfused composition through the port's SpMM
-    kernels: the small regions at B = 3 (every dst × measure mode × op × mask
-    × binarize) and at B = 8 (packed dst, packed and dict measures); the
-    main path's regions (SD, AS-recent, SD-recent) at B = 8 over sparse rows
-    and the device-built lists, against the unfused composition in the
-    per-edge form (:func:`per_edge`)."""
+    """Phase 3h (fused): the fused regions' SpMM form, per edge and with the
+    table, against the plain batched region and the unfused composition
+    through the port's SpMM kernels: the small regions at B = 3 (every dst ×
+    measure mode × op × mask × binarize), per edge and with the table in
+    every hop, and at B = 8 (packed dst, packed and dict measures) with the
+    table; the main
+    path's regions (SD, AS-recent, SD-recent) at B = 8 over sparse rows and
+    the device-built lists in every form (:func:`region_forms`), against the
+    plain region and the unfused SpMM kernels in the same form
+    (:func:`form_checks`)."""
     import torch
 
     from repro_torch.kernels import fragment_spmv_fused as fk
@@ -2313,50 +2403,48 @@ def check_spmm_fused(specs, device) -> tuple[dict, int]:
                     for two, mask, binz in ((True, False, False), (True, True, True),
                                             (False, False, False), (False, True, False)):
                         mk = keep if mask else None
-                        if two:
-                            got = fk.fragment_spmm_fused2(W, s1, s2, mk, *l1, *l2, 700, 500,
-                                                          op=op, mid_binarize=binz)
-                        else:
-                            got = fk.fragment_spmm_fused1(W, s1, mk, *l1, 700, op=op)
-                        what = (f"spmm fused{2 if two else 1} E={E} B={B} dst"
-                                f" {'packed' if dp else 'dense'} {mm} {op} mask={mask}"
-                                f" binarize={binz}")
                         want = ref.fragment_spmm_fused_ref(W, s1, s2 if two else None, mk, 700,
                                                            500, op=op, mid_binarize=binz)
-                        k = f"fragment_spmm_fused{2 if two else 1}"
-                        worst[k] = max(worst[k], compare(got, want, op != "sum",
-                                                         f"{what} vs plain"))
                         unf = unfused_region(W, s1, s2 if two else None, mk, None, 700, 500,
                                              op, binz)
-                        worst[k] = max(worst[k], compare(got, unf, op != "sum",
-                                                         f"{what} vs unfused SpMM kernels"))
-                        n += 1
+                        k = f"fragment_spmm_fused{2 if two else 1}"
+                        for table in SMALL_FORMS[-1:] if B == 8 else SMALL_FORMS:
+                            if two:
+                                got = fk.fragment_spmm_fused2(W, s1, s2, mk, *l1, *l2, 700,
+                                                              500, op=op, mid_binarize=binz,
+                                                              table1=table, table2=table)
+                            else:
+                                got = fk.fragment_spmm_fused1(W, s1, mk, *l1, 700, op=op,
+                                                              table=table)
+                            what = (f"spmm fused{2 if two else 1} E={E} B={B} dst"
+                                    f" {'packed' if dp else 'dense'} {mm} {op} mask={mask}"
+                                    f" binarize={binz} table={table}")
+                            worst[k] = max(worst[k], compare(got, want, op != "sum",
+                                                             f"{what} vs plain"))
+                            worst[k] = max(worst[k], compare(
+                                got, unf, op != "sum", f"{what} vs unfused SpMM kernels"))
+                            n += 1
     for spec in specs:
         h1, h2 = spec["hop1"], spec["hop2"]
         E1 = int(h1.src_ids.shape[0])
         E2 = int(h2.src_ids.shape[0]) if h2 is not None else 0
-        s1 = K._streams(h1, device)
-        s2 = K._streams(h2, device) if h2 is not None else None
-        n_dst = h2.n_dst if h2 is not None else h1.n_dst
         k = "fragment_spmm_fused2" if h2 is not None else "fragment_spmm_fused1"
         for op in OPS:
             W = frontier_rows(spec["n_src"], 8, op, gen, device, degrees=spec["degrees"])
             lists = K._fused_block_lists(W, op, h1, h2, E1, E2, "on")
-            got = region_call(spec, W, op, lists, device)()
             exact = op != "sum"
-            what = f"{k} {spec['name']} B=8 {op}"
-            worst[k] = max(worst[k], compare(got, ref.fragment_spmm_fused_ref(
-                W, s1, s2, spec["mask"], h1.n_dst, n_dst, op=op,
-                mid_binarize=spec["binarize"], lists=lists), exact, f"{what} vs plain"))
-            unf = K.fragment_spmm_fused(W, per_edge(h1), per_edge(h2), spec["mask"], op=op,
-                                        mid_binarize=spec["binarize"], fusion="off",
-                                        block_skipping="off")
-            worst[k] = max(worst[k], compare(got, unf, exact, f"{what} vs unfused SpMM scan"))
-            n += 1
-            del W, got, unf
+            for form, (_, want, unf) in form_checks(spec, W, op, lists, device).items():
+                got = region_call(spec, W, op, lists, device, form)()
+                what = f"{k} {spec['name']} B=8 {op} {form}"
+                worst[k] = max(worst[k], compare(got, want, exact, f"{what} vs plain"))
+                worst[k] = max(worst[k], compare(got, unf, exact,
+                                                 f"{what} vs unfused SpMM scan"))
+                n += 1
+                del got, want, unf
+            del W
         na = [int(lists[1][0])] + ([int(lists[3][0])] if h2 is not None else [])
         log(f"  {k} {spec['name']} at B = 8: lists {na}; equal to the plain region and the"
-            f" unfused SpMM kernels (per edge) for every op")
+            f" unfused SpMM kernels for every op and form {region_forms(spec)}")
     sync()
     log(f"  batched fused kernels: {n} regions equal the plain region and the unfused SpMM"
         f" kernels")
@@ -2384,15 +2472,16 @@ def draw_params(SG, c0, pools, sizes, seed) -> dict:
 
 
 def drive_batched(label, engines, SG, c0, draws, block_skipping, fusion, hop_kernels,
-                  sizes, must: tuple = (), topk=None) -> tuple[dict, dict, list]:
+                  sizes, must: tuple = (), topk=None,
+                  must_table: tuple = ()) -> tuple[dict, dict, list]:
     """One batched path: execute_batch over the nine queries at each B of
     ``sizes`` (and ``query_topk_batch`` for AS at ``topk`` rows), every
     counter set to 0 just before and read just after. Per batch, the launches
     of ``hop_kernels`` must equal the HopOps run outside fused regions and
     the batched fused kernels' the regions by kind — once a batch, whatever B
     is (the padded bucket decides the scratch budget); no single-query kernel
-    launches. Returns ({(query, B): (params, result)}, counts, per-batch
-    records)."""
+    launches; every kernel in ``must_table`` launches with a table. Returns
+    ({(query, B): (params, result)}, counts, per-batch records)."""
     from repro_torch.core.engine import batch_bucket
 
     def delta(a, b):
@@ -2433,6 +2522,7 @@ def drive_batched(label, engines, SG, c0, draws, block_skipping, fusion, hop_ker
             if [i for i, _ in top] != [i for i, _ in want]:
                 raise AssertionError(f"query_topk_batch ids {top} != execute_batch's {want}")
     counts = read_counts()
+    check_table_launches(label, must_table)
     for k in [hop_kernels[-1], *must] + (["block_list"] if block_skipping != "off" else []):
         if counts[k] < 1:
             raise AssertionError(f"path {label}: {k} never launched ({counts})")
@@ -2441,13 +2531,12 @@ def drive_batched(label, engines, SG, c0, draws, block_skipping, fusion, hop_ker
     return results, counts, records
 
 
-def check_batched_rows(label, results, engines, SG, c0, block_skipping, fusion, drift,
-                       gates, sizes=None) -> float:
+def check_batched_rows(label, results, engines, SG, c0, block_skipping, fusion, gates,
+                       sizes=None) -> float:
     """Each row of each batch against the single call ``pq(**row)`` of the
     same prepared query (exact for counts and memberships), the float
-    queries' largest gate ratios kept in ``gates``; a row DRIFT_QUERIES lists
-    for the path is reported, not gated (:func:`compare_or_drift`)."""
-    worst, n0, ratios = 0.0, len(drift), {}
+    queries' largest gate ratios kept in ``gates``."""
+    worst, ratios = 0.0, {}
     for (name, B), (params, out) in results.items():
         if sizes is not None and B not in sizes:
             continue
@@ -2455,27 +2544,23 @@ def check_batched_rows(label, results, engines, SG, c0, block_skipping, fusion, 
                                    block_skipping=block_skipping, fusion=fusion)
         for i in range(B):
             single = pq(**{k: int(v[i]) for k, v in params.items()})
-            worst = max(worst, compare_or_drift(out[i], single, name,
-                                                f"{label} {name} B={B} row {i} vs single call",
-                                                drift, label, ratios))
-    log(f"  path {label}: every row equals its single call"
-        f"{', the DRIFT_QUERIES reported' if label in DRIFT_QUERIES else ''}"
-        f" (max abs err {worst:.3g})")
+            worst = max(worst, compare_gated(out[i], single, name,
+                                             f"{label} {name} B={B} row {i} vs single call",
+                                             ratios))
+    log(f"  path {label}: every row equals its single call (max abs err {worst:.3g})")
     log_gates(f"path {label} rows vs single calls", ratios, gates)
-    log_drift(f"path {label} rows vs single calls", drift, n0)
     return worst
 
 
-def check_batched_plain(label, results, engines, SG, c0, block_skipping, fusion, drift,
+def check_batched_plain(label, results, engines, SG, c0, block_skipping, fusion,
                         gates) -> float:
     """The B = 8 batches against the same lowered plans run batched through
     the plain versions on the card with float64 sums (:class:`float64_sums`:
     the plain float32 scatter itself drifts ~1e-4 on hot authors, as for the
-    single calls), the gate ratios kept in ``gates``; a query DRIFT_QUERIES
-    lists for the path reported (:func:`compare_or_drift`)."""
+    single calls), the gate ratios kept in ``gates``."""
     from repro_torch.core import executor as X
 
-    worst, n0, ratios = 0.0, len(drift), {}
+    worst, ratios = 0.0, {}
     for name, q, _ in cases(SG, c0, True):
         params, out = results[(name, 8)]
         pq = engines[name].prepare(q, block_skipping=block_skipping, fusion=fusion)
@@ -2484,13 +2569,11 @@ def check_batched_plain(label, results, engines, SG, c0, block_skipping, fusion,
                                            fusion=fusion)
         with float64_sums():
             want = plain(*[params[n] for n in pq.param_names]).cpu().numpy()
-        worst = max(worst, compare_or_drift(out, want, name,
-                                            f"{label} {name} B=8 vs plain batched", drift,
-                                            label, ratios))
+        worst = max(worst, compare_gated(out, want, name,
+                                         f"{label} {name} B=8 vs plain batched", ratios))
     log(f"  path {label}: B = 8 equals the plain versions run batched with float64 sums"
         f" (max abs err {worst:.3g})")
     log_gates(f"path {label} B=8 vs plain batched", ratios, gates)
-    log_drift(f"path {label} B=8 vs plain batched", drift, n0)
     return worst
 
 
@@ -2571,7 +2654,7 @@ def time_batched(engines, SG, c0, draws) -> dict:
             for ev in prof.key_averages():
                 if ev.device_type != DeviceType.CUDA:
                     continue
-                kind = ("hop" if "fragment_spm" in ev.key
+                kind = ("hop" if is_hop_kernel(ev.key)
                         else "copy" if "Memcpy" in ev.key else "other")
                 split[kind] += ev.self_device_time_total / 1e3 / n_prof
                 ops_n += ev.count
@@ -2719,11 +2802,13 @@ def time_spmm_kernels(db, db_dense, device) -> dict:
 
 def time_spmm_fused(specs, device) -> dict:
     """The fused regions' SpMM form at the region shapes, B = 8 over sparse
-    rows, sum: the kernel over its prebuilt lists; the unfused composition
-    through the SpMM kernels (hop2's list from the intermediate); the plain
+    rows, sum: the kernel over its prebuilt lists in the main path's form
+    and in the others (:func:`region_forms`); the unfused composition
+    through the SpMM kernels, each hop in the form its hot share chooses
+    (hop2's list from the intermediate); the plain
     region; torch.sparse.mm on the decoded CSR matrices and the mask; the
-    bytes bound of the listed blocks' streams + W + keep + out (+ u through
-    HBM when 4·B·n_mid passes the L2)."""
+    bytes bound of the listed blocks' streams + W + keep (a byte an entry)
+    + out (+ u through HBM when 4·B·n_mid passes the L2)."""
     import torch
 
     from repro_torch.kernels import active
@@ -2754,18 +2839,19 @@ def time_spmm_fused(specs, device) -> dict:
                                                 *(torch.as_tensor(b, device=device)
                                                   for b in h2.blocks)))
         del u
-        unf = lambda: unfused_region(W, s1, s2, mask, ul, n_mid, n_dst, "sum", binz)  # noqa: E731
-        # the fused form adds an atomic an edge, so it is held to the
-        # unfused composition in the per-edge form (per_edge)
-        edge = unfused_region(W, s1, s2, mask, ul, n_mid, n_dst, "sum", binz, table=False)
+        forms = region_forms(spec)
+        unf = lambda: unfused_region(W, s1, s2, mask, ul, n_mid, n_dst, "sum", binz,  # noqa: E731
+                                     forms["ops"])
+        # both sides take the table on a hot index
+        edge = unf()
         vs_unfused = gate_ratio(got.cpu().numpy(), edge.cpu().numpy())
-        compare(got, edge, False, f"{k} {spec['name']} B=8 vs unfused SpMM kernels (per edge)")
+        compare(got, edge, False, f"{k} {spec['name']} B=8 vs unfused SpMM kernels")
         del edge
         na1 = int(lists[1][0])
         na2 = int(lists[3][0]) if h2 is not None else 0
         e1, e2 = min(E1, na1 * 4096), min(E2, na2 * 4096)
         nbytes = (stream_bytes(s1, E1) * e1 + (stream_bytes(s2, E2) * e2 if s2 else 0)
-                  + 4 * B * spec["n_src"] + (4 * n_mid if mask is not None else 0)
+                  + 4 * B * spec["n_src"] + (n_mid if mask is not None else 0)
                   + 4 * B * n_dst + 4 * (lists[0].shape[0] + (lists[2].shape[0] if s2 else 0)))
         if h2 is not None and 4 * B * n_mid > L2_BYTES:
             nbytes += 8 * B * n_mid  # u written and read once through HBM
@@ -2782,22 +2868,18 @@ def time_spmm_fused(specs, device) -> dict:
             return x.t()
 
         # the yardstick computes the same function: its float32 result
-        # against the float64 one. The kernel is held to its plain version
-        # (phase 3h); beside the float64 sums its float32 atomics (and the
-        # plain version's scatter, and the SpMV kernels') lose up to ~1e-3
-        # relative on the hottest authors' million-term sums, which cuSPARSE's
-        # row sums do not, so it is held to FLOAT64_LIMIT["batched_fused"]
-        # (below), not to 1e-4
+        # against the float64 one; the kernel is held to
+        # FLOAT64_LIMIT["batched"] (the plain version's float32 scatter, a
+        # sum an edge, drifts ~1e-4 on the hottest authors' million-term sums)
         want64 = lib(A1.to(torch.float64), A2.to(torch.float64) if A2 is not None else None,
                      W.to(torch.float64))
         lib32 = lib()
         compare(lib32.double(), want64, False,
                 f"{k} {spec['name']} B=8: torch.sparse.mm float32 vs float64")
         r_kernel = max_rel(got, want64)
-        if not r_kernel <= FLOAT64_LIMIT["batched_fused"]:
+        if not r_kernel <= FLOAT64_LIMIT["batched"]:
             raise AssertionError(f"{k} {spec['name']} B=8: relative difference {r_kernel:.3g}"
-                                 f" to the float64 sums beyond"
-                                 f" {FLOAT64_LIMIT['batched_fused']:g}")
+                                 f" to the float64 sums beyond {FLOAT64_LIMIT['batched']:g}")
         # the same rows one at a time through the SpMV hops, whose packed
         # pair sums per CTA in its table on a hot index (I_DA.Doc)
         single = torch.stack([K.fragment_spmv_fused(
@@ -2808,20 +2890,23 @@ def time_spmm_fused(specs, device) -> dict:
         log(f"    {spec['name']} B=8: max relative difference to the float64 sums:"
             f" kernel {r_kernel:.3g}, the rows through the SpMV hops {r_single:.3g}, float32"
             f" torch.sparse.mm {max_rel(lib32, want64):.3g}"
-            + f" (limit {FLOAT64_LIMIT['batched_fused']:g}); against the unfused SpMM"
-              f" kernels per edge gate ratio {vs_unfused:.3g}")
+            + f" (limit {FLOAT64_LIMIT['batched']:g}); against the unfused SpMM"
+              f" kernels gate ratio {vs_unfused:.3g}")
         del want64, lib32
         r = dict(shape=spec["name"], E=e1 + e2, B=B, n_mid=n_mid, max_rel_vs_float64=r_kernel,
                  spmv_hops_max_rel_vs_float64=r_single, unfused_gate_ratio=vs_unfused,
                  n_active=[na1] + ([na2] if s2 else []),
-                 ms=time_device_ms(fused, KERNEL_REPS),
+                 ms=time_device_ms(fused, KERNEL_REPS), tables=forms["ops"],
+                 ms_forms={f: time_device_ms(region_call(spec, W, "sum", lists, device, f),
+                                             KERNEL_REPS) for f in forms if f != "ops"},
                  unfused_ms=time_device_ms(unf, KERNEL_REPS),
                  plain_ms=time_device_ms(lambda: ref.fragment_spmm_fused_ref(
                      W, s1, s2, mask, n_mid, n_dst, op="sum", mid_binarize=binz,
                      lists=lists), 5),
                  library_ms=time_device_ms(lib, KERNEL_REPS), bound_ms=b, bound_by=by)
         rows[k].append(r)
-        log(f"  {k:22s} {r['shape']}: {r['ms']:.4f} ms (lists {r['n_active']}) unfused SpMM"
+        log(f"  {k:22s} {r['shape']}: {r['ms']:.4f} ms (tables {r['tables']}; other forms"
+            f" {r['ms_forms']}; lists {r['n_active']}) unfused SpMM"
             f" kernels {r['unfused_ms']:.4f} ms; bound {b:.4f} ms ({by}); plain"
             f" {r['plain_ms']:.4f} ms; torch.sparse.mm {r['library_ms']:.4f} ms")
         del A1, A2, W, got
@@ -2891,7 +2976,10 @@ def run(device) -> None:
         for line in (lib.build_log or "").splitlines():
             if "registers" in line or "spill" in line:
                 log(f"    ptxas: {line.strip()}")
-    log(f"  fragment_spmv_fused2: {fk.max_grid('sum')} CTAs of 256 threads co-resident")
+    log(f"  fragment_spmv_fused2: {fk.max_grid('sum')} CTAs of 256 threads co-resident, with"
+        f" the table {fk.max_grid('sum', table=True)}; the SpMM form at 8 rows a chunk"
+        f" {fk.max_grid('sum', batched=True)}, with the table"
+        f" {fk.max_grid('sum', batched=True, table=True)}")
 
     # phase 2: data, dense and auto storage over the same host indexes
     t0 = time.perf_counter()
@@ -2957,9 +3045,12 @@ def run(device) -> None:
     del dict_db
     fused_small, n_small = check_fused_small(device)
     specs = region_specs(db, SG, device)
+    from repro_torch.core.fuse import REACH_DENSITY_MAX
+
     for sp in specs:
         log(f"  region {sp['name']}: prepared in {sp['prepare_s']:.2f} s, reach on the card"
-            f" {sp['reach_bytes']} B")
+            f" {sp['reach_bytes']} B, reach density {sp['reach_density']} ('auto' forms a"
+            f" two-hop region up to {REACH_DENSITY_MAX})")
     fused_big, fused_checks = check_fused_regions(specs, device)
     for k in fused_small:
         worst[k] = max(fused_small[k], fused_big[k])
@@ -3014,8 +3105,11 @@ def run(device) -> None:
         ("g_fusion_on", "g: auto storage, auto skipping, fusion on", "on",
          ("fragment_spmv_fused2",)),
     ):
+        # under fusion on, fused2's hops on I_DT.Doc, I_DA.Doc, I_SP.SID and
+        # I_PA.PID take the table (hot shares 0.08-0.10)
         res, *rest, plan = drive_path(label, engines["auto"], SG, c0, "auto", fusion, PACKED_HOPS,
-                                      topk=fusion == "auto", nine=True, must=must)
+                                      topk=fusion == "auto", nine=True, must=must,
+                                      must_table=must if fusion == "on" else ())
         fused_res[fusion] = res
         paths[key] = dict(zip(("counts", "hop_ops", "skip"), rest))
         plans[key] = plan
@@ -3025,8 +3119,6 @@ def run(device) -> None:
         for h in rest[2]:
             if "fused" in h["query"]:
                 log(f"    {h['query']:22s}: {h['n_active']}/{h['n_blocks']} blocks listed")
-    # batched rows against single calls reported for DRIFT_QUERIES
-    drift = []
     gates = {}  # the gate ratios of the gated float comparisons
     errs = {"dense": check_results("a", res_a, engines["dense"], SG, c0, "off", "off",
                                    gates=gates),
@@ -3104,34 +3196,33 @@ def run(device) -> None:
             compare(res[(name, 8)][1], res_h[(name, 8)][1], name in EXACT_QUERIES,
                     f"{label} {name} B=8 vs the defaults")
     batched["rows_vs_single_defaults"] = check_batched_rows(
-        "4h", res_h, engines["auto"], SG, c0, "auto", "auto", drift, gates)
+        "4h", res_h, engines["auto"], SG, c0, "auto", "auto", gates)
     for key, enc, bs in (("h_batched_dense_off", "dense", "off"),
                          ("h_batched_dense_auto", "dense", "auto")):
         batched[f"rows_vs_single_{key}"] = check_batched_rows(
-            "4h " + key[2:], dense_res[key], engines[enc], SG, c0, bs, "off", drift, gates)
+            "4h " + key[2:], dense_res[key], engines[enc], SG, c0, bs, "off", gates)
     truth8 = truth_batched(engines["auto"], SG, c0, res_h)
     float64_rel["h_B8"] = hold_f64("4h B=8", res_h, truth8, "batched",
                                    key=lambda name: (name, 8))
     batched["plain_defaults"] = check_batched_plain("4h", res_h, engines["auto"], SG, c0,
-                                                    "auto", "auto", drift, gates)
+                                                    "auto", "auto", gates)
     log("  the dense and skipping-off batched paths equal the defaults at B = 8 (exact for"
         " the counts)")
     phase("[4i] batched serving under fusion on", t_start)
     res_i, counts, brecords["i_fusion_on"] = drive_batched(
         "4i: fusion on", engines["auto"], SG, c0, draws, "auto", "on", SPMM_HOPS,
-        BATCHES + (8,), must=("fragment_spmm_fused2",))
+        BATCHES + (8,), must=("fragment_spmm_fused2",), must_table=("fragment_spmm_fused2",))
     paths["i_batched_fusion_on"] = {"counts": counts}
-    n0, ratios = len(drift), {}
+    ratios = {}
     for key, (params, out) in res_i.items():
-        compare_or_drift(out, res_h[key][1], key[0], f"4i {key} vs 4h", drift, "4i", ratios)
+        compare_gated(out, res_h[key][1], key[0], f"4i {key} vs 4h", ratios)
     log_gates("path 4i vs 4h", ratios, gates)
-    log_drift("path 4i vs 4h", drift, n0)
     batched["rows_vs_single_fusion_on"] = check_batched_rows(
-        "4i", res_i, engines["auto"], SG, c0, "auto", "on", drift, gates, sizes=(5,))
-    float64_rel["i_B8"] = hold_f64("4i B=8", res_i, truth8, "batched_fused",
+        "4i", res_i, engines["auto"], SG, c0, "auto", "on", gates, sizes=(5,))
+    float64_rel["i_B8"] = hold_f64("4i B=8", res_i, truth8, "batched",
                                    key=lambda name: (name, 8))
     batched["plain_fusion_on"] = check_batched_plain("4i", res_i, engines["auto"], SG, c0,
-                                                     "auto", "on", drift, gates)
+                                                     "auto", "on", gates)
     for fusion in ("auto", "on"):
         batched[f"quickstart_{fusion}"] = check_batched_quickstart(
             SG, run_sql, GQFastDatabase, GQFastEngine, device, fusion)
@@ -3180,6 +3271,8 @@ def run(device) -> None:
         f" up to 4·n_mid = {budget} bytes here")
 
     launches = {k: sum(p["counts"][k] for p in paths.values()) for k in KERNELS}
+    table_launches = {k: sum(t[k] for t in TABLE_BY_PATH.values())
+                      for k in next(iter(TABLE_BY_PATH.values()))}
     entries = []
     for k, (_, _, src, replaces) in KERNELS.items():
         if k.startswith("fragment_spmv_fused"):
@@ -3206,6 +3299,7 @@ def run(device) -> None:
             "ms": primary["ms"], "plain_ms": primary["plain_ms"],
             "bound_ms": primary["bound_ms"], "bound_by": primary["bound_by"],
             "library_ms": primary["library_ms"], "timed_shape": timed,
+            **({"table_launches": table_launches[k]} if k in table_launches else {}),
         })
     record = {
         "card": card, "card_state": state, "torch": torch.__version__,
@@ -3220,11 +3314,12 @@ def run(device) -> None:
                    "block_list": list_checks,
                    "round_trip": round_trip, "fused_small": n_small,
                    "fused_regions": fused_checks},
-        "regions": [{k: sp[k] for k in ("name", "prepare_s", "reach_bytes")} for sp in specs],
-        "paths": paths, "fused_plans": plans, "query_max_abs_err_vs_plain": errs,
+        "regions": [{k: sp[k] for k in ("name", "prepare_s", "reach_bytes", "reach_density")}
+                    for sp in specs],
+        "paths": paths, "table_launches_by_path": TABLE_BY_PATH, "fused_plans": plans, "query_max_abs_err_vs_plain": errs,
         "queries": qtimes, "query_device_breakdown": split, "kernel_times": ktimes,
         "hot_author_float32": hot_err, "query_float64_rel": float64_rel,
-        "float64_limit": FLOAT64_LIMIT, "gate_ratios": gates, "top_gate_ratio": top_gate, "drift_reported": drift, "index_tables": tables,
+        "float64_limit": FLOAT64_LIMIT, "gate_ratios": gates, "top_gate_ratio": top_gate, "index_tables": tables,
         "skipping": skipping, "skip_block_fraction": active.SKIP_BLOCK_FRACTION,
         "skip_block_fraction_measured": skip_fraction, "fused_vs_unfused": budget_rows,
         "fused_scratch_budget_bytes": FUSED_SCRATCH_BUDGET_BYTES,

@@ -1,10 +1,9 @@
 // hop.cuh: the per-edge body shared by every hop kernel of the port
 // (fragment_spmv.cu: dense columns; fragment_spmv_packed.cu: BCA columns
 // decoded in registers; fragment_spmv_fused.cu: the fused regions, which
-// read their weight through another gather and mask at the scatter), its
-// batched form edge_rows (the fused regions' SpMM form: B frontier rows over
-// one read of the edge), and the batched hops' row-chunk body
-// (fragment_spmm.cu, fragment_spmm_packed.cu; its own section below), in two
+// read their weight through another gather and mask at the scatter), and
+// the batched hops' row-chunk body (fragment_spmm.cu, fragment_spmm_packed.cu
+// and the fused regions' SpMM form; its own section below), in two
 // schedules:
 //
 //   scan   one thread per edge in a grid-stride loop over all E edges;
@@ -430,17 +429,7 @@ __device__ __forceinline__ void active_agg(float* smem, const float* __restrict_
   table_flush(tab);
 }
 
-// -- the fused regions' batched body: B frontier rows, one edge stream ----------
-//
-//   Y[b·n_dst + dst(e)] ⊕= W[b·n_src + src[e]] ⊗ m_b(e)   for b < B
-//
-// An edge's src, dst and shared measure are read (and BCA words decoded) once
-// for all B rows; each row then applies edge_with's rules: the identity guard
-// row by row (a row whose weight is the identity issues no write), the ∞·0
-// guard, bool as (w > 0) & (m != 0), no atomic for an identity product, and
-// the float min/max atomics. dst is decoded at the first row that writes, and
-// an out-of-range or unkept dst ends the edge for every row. Row offsets are
-// int64: b·n_dst passes 2^31 at B = 640 over 4M documents.
+// -- the batched hops' measure ----------------------------------------------
 
 // The measure of a batched hop: a shared column (every accessor above) read
 // once an edge, or a per-row dense stream m[b·stride + e] (stride E: [B, E]).
@@ -460,62 +449,8 @@ struct PerRowMeasure {
   }
 };
 
-template <int OP>
-struct FrontierRows {  // W[B, n_src], read-only for the whole launch
-  const float* __restrict__ w;
-  int n_src;
-  __device__ __forceinline__ float operator()(int b, int s) const {
-    return (s >= 0 && s < n_src) ? __ldg(w + (int64_t)b * n_src + s) : identity<OP>();
-  }
-};
-
-template <int OP, class W, class Dst, class M, class Keep>
-__device__ __forceinline__ void edge_rows(const W& weight, const int32_t* __restrict__ src,
-                                          int64_t e, const Dst& dst, const M& m,
-                                          float* __restrict__ y, int n_dst, int B,
-                                          const Keep& keep) {
-  const float zero = identity<OP>();
-  const int s = src[e];
-  float shared = 0.0f;
-  bool have_m = false;
-  int d = -1;
-  for (int b = 0; b < B; ++b) {
-    const float ws = weight(b, s);
-    if (OP != kSum && ws == zero) continue;  // this row's product is the identity
-    if (!have_m) {
-      shared = m.edge(e);
-      have_m = true;
-    }
-    const float mv = m.row(shared, e, b);
-    float prod;
-    if (OP == kSum) {
-      prod = ws * mv;
-      if (prod == 0.0f) continue;  // adding 0 is the identity
-    } else if (OP == kBool) {
-      if (!(ws > 0.0f && mv != 0.0f)) continue;
-      prod = 1.0f;
-    } else {
-      prod = ws * mv;
-    }
-    if (d < 0) {
-      d = dst(e);
-      if (d < 0 || d >= n_dst || !keep(d)) return;  // no row writes this edge
-    }
-    float* yb = y + (int64_t)b * n_dst + d;
-    if (OP == kSum) {
-      atomicAdd(yb, prod);
-    } else if (OP == kBool) {
-      *yb = 1.0f;
-    } else if (OP == kMin) {
-      atomic_min_float(yb, prod);
-    } else {
-      atomic_max_float(yb, prod);
-    }
-  }
-}
-
-// -- the batched hops (fragment_spmm.cu, fragment_spmm_packed.cu): a row chunk
-//    a sector ------------------------------------------------------------------
+// -- the batched hops (fragment_spmm.cu, fragment_spmm_packed.cu; the fused
+//    regions' SpMM form in fragment_spmv_fused.cu): a row chunk a sector -----
 //
 // Y[B, n_dst] for B = 8 over 4M documents is 128 MB, 2.6x the L2, so an edge
 // that adds into B rows of Y lays B atomics on B lines 16 MB apart, each a
@@ -534,7 +469,7 @@ __device__ __forceinline__ void edge_rows(const W& weight, const int32_t* __rest
 // CTAs of one edge range and every chunk are dispatched together and each
 // chunk after the first reads the edge stream from L2. A thread takes one
 // edge for its CTA's chunk: src, the chunk's weights and the measure are
-// read, the rb products formed by edge_rows' rules (per row: the identity
+// read, the rb products formed by chunk_products' rules (per row: the identity
 // guard, no write for a zero sum product, the ∞·0 guard, bool as (w > 0) &
 // (m != 0)); dst is decoded once if any row writes, and an out-of-range dst
 // ends the edge for every row. For sum the chunk goes out as one vector
@@ -597,19 +532,27 @@ inline size_t rows_table_max_bytes() {
   return most;
 }
 
-// The scratch and the CTA's row chunk (blockIdx.x) in it.
+// The scratch and one row chunk c in it: the batched hops' kernels take
+// chunk blockIdx.x (rows_scan, rows_active), the fused regions' SpMM form the
+// chunks a CTA is given.
 struct RowChunks {
   float* __restrict__ s;  // [ceil(B / rb), n_dst, rb]
   int n_dst;
   int B;
   int rb;
-  __device__ __forceinline__ int b0() const { return (int)blockIdx.x * rb; }
+  int c;  // the chunk
+  __device__ __forceinline__ RowChunks chunk(int ci) const {
+    RowChunks r = *this;
+    r.c = ci;
+    return r;
+  }
+  __device__ __forceinline__ int b0() const { return c * rb; }
   __device__ __forceinline__ int rows() const {  // rows of the chunk below B
     const int n = B - b0();
     return n < rb ? n : rb;
   }
   __device__ __forceinline__ float* at(int d) const {
-    return s + ((int64_t)blockIdx.x * n_dst + d) * rb;
+    return s + ((int64_t)c * n_dst + d) * rb;
   }
 };
 
@@ -629,15 +572,17 @@ struct ChunkFrontier {
   }
 };
 
-// One edge's products for the CTA's chunk: v[r] is row b0 + r's product
-// where bit r of the returned mask is set, the identity elsewhere; *d the
-// edge's dst. 0: no row writes, or dst is out of range.
-template <int OP, class Dst, class M>
-__device__ __forceinline__ unsigned chunk_products(const ChunkFrontier<OP>& weight,
+// One edge's products for chunk y: v[r] is row b0 + r's product where bit r
+// of the returned mask is set, the identity elsewhere; *d the edge's dst. 0:
+// no row writes, or dst is out of range or not kept. W is ChunkFrontier or
+// the fused regions' gather of a chunk of their intermediate: weight(b0, nr,
+// s, v) sets v[r] to row b0 + r's weight of source s (the identity past nr).
+template <int OP, class W, class Dst, class M, class Keep>
+__device__ __forceinline__ unsigned chunk_products(const W& weight,
                                                    const int32_t* __restrict__ src, int64_t e,
                                                    const Dst& dst, const M& m,
                                                    const RowChunks& y, float (&v)[kRowChunk],
-                                                   int* d) {
+                                                   int* d, const Keep& keep) {
   const float zero = identity<OP>();
   const int b0 = y.b0(), nr = y.rows();
   weight(b0, nr, src[e], v);
@@ -669,7 +614,7 @@ __device__ __forceinline__ unsigned chunk_products(const ChunkFrontier<OP>& weig
   }
   if (live == 0) return 0;
   *d = dst(e);
-  return (*d >= 0 && *d < y.n_dst) ? live : 0;
+  return (*d >= 0 && *d < y.n_dst && keep(*d)) ? live : 0;
 }
 
 __device__ __forceinline__ void red_add_v4(float* p, float a, float b, float c, float d) {
@@ -771,16 +716,17 @@ struct RowsTable {
   }
 };
 
-// Edge e for the CTA's chunk: straight to S (table == nullptr) or into the
-// table.
-template <int OP, class Dst, class M>
-__device__ __forceinline__ void chunk_edge(int64_t e, const ChunkFrontier<OP>& w,
+// Edge e for chunk y: straight to S (table == nullptr) or into the table
+// (which is y's); an edge whose dst is not kept issues nothing.
+template <int OP, class W, class Dst, class M, class Keep = KeepAll>
+__device__ __forceinline__ void chunk_edge(int64_t e, const W& w,
                                            const int32_t* __restrict__ src, const Dst& dst,
                                            const M& m, const RowChunks& y,
-                                           const RowsTable<OP>* table) {
+                                           const RowsTable<OP>* table,
+                                           const Keep& keep = Keep{}) {
   float v[kRowChunk];
   int d = 0;
-  const unsigned live = chunk_products<OP>(w, src, e, dst, m, y, v, &d);
+  const unsigned live = chunk_products<OP>(w, src, e, dst, m, y, v, &d, keep);
   if (!live) return;
   if (table != nullptr) {
     table->add(d, v, live);
@@ -789,13 +735,15 @@ __device__ __forceinline__ void chunk_edge(int64_t e, const ChunkFrontier<OP>& w
   }
 }
 
-// The batched scan: per edge, a grid-stride loop over the edges along
-// gridDim.y; with the table (smem != nullptr), CTA blockIdx.y takes one
-// contiguous range of edges, a whole number of warps' edges.
+// The batched scan of chunk blockIdx.x: per edge, a grid-stride loop over
+// the edges along gridDim.y; with the table (smem != nullptr), CTA
+// blockIdx.y takes one contiguous range of edges, a whole number of warps'
+// edges.
 template <int OP, class Dst, class M>
 __device__ __forceinline__ void rows_scan(float* smem, const ChunkFrontier<OP>& w,
                                           const int32_t* __restrict__ src, const Dst& dst,
-                                          const M& m, int64_t E, const RowChunks& y) {
+                                          const M& m, int64_t E, const RowChunks& rows) {
+  const RowChunks y = rows.chunk(blockIdx.x);
   if (smem == nullptr) {
     const int64_t stride = (int64_t)gridDim.y * blockDim.x;
     for (int64_t e = (int64_t)blockIdx.y * blockDim.x + threadIdx.x; e < E; e += stride) {
@@ -815,23 +763,25 @@ __device__ __forceinline__ void rows_scan(float* smem, const ChunkFrontier<OP>& 
   tab.flush();
 }
 
-// The batched active hop over the union of the rows' lists, so each listed
-// block is streamed once a chunk: per edge, CTA blockIdx.y takes every
-// gridDim.y-th listed block; with the table, a run of consecutive listed
-// blocks into one table, flushed once.
-template <int OP, class Dst, class M>
+// The batched active hop of chunk blockIdx.x over the union of the rows'
+// lists, so each listed block is streamed once a chunk: per edge, CTA
+// blockIdx.y takes every gridDim.y-th listed block; with the table, a run of
+// consecutive listed blocks into one table, flushed once. keep(d) false:
+// the edge issues nothing (the fused degenerate region's output mask).
+template <int OP, class Dst, class M, class Keep = KeepAll>
 __device__ __forceinline__ void rows_active(float* smem, const ChunkFrontier<OP>& w,
                                             const int32_t* __restrict__ src, const Dst& dst,
-                                            const M& m, int64_t E, const RowChunks& y,
+                                            const M& m, int64_t E, const RowChunks& rows,
                                             const int32_t* __restrict__ block_idx, int n_cap,
                                             const int32_t* __restrict__ n_active,
-                                            int scan_above) {
+                                            int scan_above, const Keep& keep = Keep{}) {
+  const RowChunks y = rows.chunk(blockIdx.x);
   const Listed list(E, block_idx, n_cap, n_active, scan_above);
   auto block = [&](int64_t i, const RowsTable<OP>* tab) {
     const int64_t e0 = list.first_edge(i);
     const int64_t e1 = e0 + kEdgeBlock < E ? e0 + kEdgeBlock : E;
     for (int64_t e = e0 + threadIdx.x; e < e1; e += blockDim.x) {
-      chunk_edge<OP>(e, w, src, dst, m, y, tab);
+      chunk_edge<OP>(e, w, src, dst, m, y, tab, keep);
     }
   };
   if (smem == nullptr) {
@@ -853,10 +803,15 @@ __device__ __forceinline__ void rows_active(float* smem, const ChunkFrontier<OP>
 // transposed reads off one bank).
 constexpr int kTileDst = 256;
 
+// Bytes of the epilogue's tile at rb rows a chunk.
+inline size_t tile_bytes(int rb) { return sizeof(float) * kTileDst * (rb + 1); }
+
+// The epilogue's tiles t = blockIdx.x, blockIdx.x + gridDim.x, ... through
+// `tile` (tile_bytes(RB) of shared memory); every thread of the CTA must
+// call it.
 template <int RB>
-__global__ void rows_from_chunks(const float* __restrict__ s, float* __restrict__ y, int B,
-                                 int n_dst) {
-  __shared__ float tile[kTileDst * (RB + 1)];
+__device__ __forceinline__ void chunk_tiles(const float* __restrict__ s, float* __restrict__ y,
+                                            int B, int n_dst, float* tile) {
   const int64_t per_chunk = (n_dst + kTileDst - 1) / kTileDst;
   const int64_t n_tiles = per_chunk * ((B + RB - 1) / RB);
   for (int64_t t = blockIdx.x; t < n_tiles; t += gridDim.x) {
@@ -875,6 +830,13 @@ __global__ void rows_from_chunks(const float* __restrict__ s, float* __restrict_
     }
     __syncthreads();
   }
+}
+
+template <int RB>
+__global__ void rows_from_chunks(const float* __restrict__ s, float* __restrict__ y, int B,
+                                 int n_dst) {
+  __shared__ float tile[kTileDst * (RB + 1)];
+  chunk_tiles<RB>(s, y, B, n_dst, tile);
 }
 
 inline int scan_grid(int64_t E) {

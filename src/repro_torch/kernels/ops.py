@@ -24,7 +24,8 @@ kernel reads ``n_active`` and takes every block in scan order when more than
 Pipelined fusion (:func:`fragment_spmv_fused`): a fused region of the plan
 runs as one launch of :mod:`.fragment_spmv_fused` — hop1's block list from
 the frontier's support, hop2's from the fuse-time reach matrix, both built
-on the device. ``fusion`` 'off' (or 'auto' over the scratch budget, or an
+on the device, and each hop's table flag from its index's hot share
+(:func:`uses_table`), as for the unfused hops. ``fusion`` 'off' (or 'auto' over the scratch budget, or an
 empty relation) runs the region as the unfused composition of the hop
 kernels instead.
 """
@@ -177,9 +178,10 @@ def fragment_spmv(weights, src_ids, dst_ids, measures, n_dst: int,
 
 
 def uses_table(hot_share: float) -> bool:
-    """Whether a hop (dense or packed, single or batched) aggregates per CTA:
-    on an index whose hottest destination takes at least
-    ``params.HOP_TABLE_HOT_SHARE`` of its edges (``DeviceIndex.hot_share``)."""
+    """Whether a hop (dense or packed, single or batched, alone or in a fused
+    region) aggregates per CTA: on an index whose hottest destination takes
+    at least ``params.HOP_TABLE_HOT_SHARE`` of its edges
+    (``DeviceIndex.hot_share``)."""
     return hot_share >= _params.HOP_TABLE_HOT_SHARE
 
 
@@ -472,12 +474,15 @@ def _fused_dispatch(batched: bool, weights, hop1, hop2, mid_mask, *, op, mid_bin
                         lists=(bi1, na1, bi2, na2))
     if mm is not None:
         mm = mm.contiguous()
+    # each hop aggregates per CTA on an index with a hot destination, as the
+    # unfused hops do
+    table1 = uses_table(hop1.hot_share)
     if s2 is None:
         fn1 = _fused.fragment_spmm_fused1 if batched else _fused.fragment_spmv_fused1
-        return fn1(w, s1, mm, bi1, na1, n_dst, op=op)
+        return fn1(w, s1, mm, bi1, na1, n_dst, op=op, table=table1)
     fn2 = _fused.fragment_spmm_fused2 if batched else _fused.fragment_spmv_fused2
     return fn2(w, s1, s2, mm, bi1, na1, bi2, na2, n_mid, n_dst, op=op,
-               mid_binarize=mid_binarize)
+               mid_binarize=mid_binarize, table1=table1, table2=uses_table(hop2.hot_share))
 
 
 # ---------------------------------------------------------------------------

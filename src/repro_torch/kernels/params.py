@@ -17,11 +17,14 @@ EDGE_BLOCK = 4096  # edges per metadata block; must stay a multiple of 1024
 #: region keeps no intermediate, so no budget applies to it. Set from the H100
 #: measurement of fused against unfused through the dispatch at the main
 #: path's region shapes with every source live (``chip_smoke.py`` phase 5;
-#: PERF.md): no slower at 108,000 bytes (SD's 27,000-term intermediate), 8%
-#: slower at 16,000,000 bytes (AS-recent's 4M-document one). 128 KiB is the
-#: next power of two above the first; sizes between the two are not measured.
-#: (The reference's TPU value is 8 MiB of VMEM.)
-FUSED_SCRATCH_BUDGET_BYTES = 128 * 2**10
+#: PERF.md): the largest intermediate at which fused is no slower. Fused is
+#: slower at both measured shapes, 108,000 bytes (SD's 27,000-term
+#: intermediate) and 16,000,000 bytes (AS-recent's 4M-document one): the
+#: fused kernel and the hop-2 list the dispatch derives from the reach matrix
+#: cost more than the launches fusion saves. So 0: under ``"auto"`` every
+#: two-hop region runs unfused; ``fusion="on"`` still fuses it. (The
+#: reference's TPU value is 8 MiB of VMEM.)
+FUSED_SCRATCH_BUDGET_BYTES = 0
 
 #: The packed and dense hops use the table only on an index whose hottest
 #: destination takes at least this share of its edges (``DeviceIndex.hot_share``, from the

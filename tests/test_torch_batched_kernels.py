@@ -217,9 +217,11 @@ def test_spmm_fused_matches_jax_and_unfused(op, variant):
     (1, 100, True, False), (8, 27_000, True, True), (64, 600, True, True),
     (64, 4_000_000, False, False), (1, 40_000, True, True), (8, 4_000, True, False),
 ])
-def test_fusion_budget_counts_the_batch(B, n_mid, two, unfused):
+def test_fusion_budget_counts_the_batch(B, n_mid, two, unfused, monkeypatch):
     """'auto' budgets a two-hop region's scratch as 4 · n_mid · B bytes, as
-    the reference does; the degenerate region keeps no scratch."""
+    the reference does, here against a budget of 128 KiB; the degenerate
+    region keeps no scratch."""
+    monkeypatch.setattr(ops, "FUSED_SCRATCH_BUDGET_BYTES", 128 * 2**10)
     assert ops._fusion_unfusable("auto", n_mid, two, B) is unfused
     assert ops._fusion_unfusable("on", n_mid, two, B) is False
     assert ops._fusion_unfusable("off", n_mid, two, B) is True

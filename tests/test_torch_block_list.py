@@ -151,14 +151,14 @@ def _spy_hops(monkeypatch, seen):
     monkeypatch.setattr(mkernel, "fragment_spmm_active",
                         spy("spmm_active", ref.fragment_spmm_active_ref))
 
-    def fused1(w, s1, mm, bi1, na1, n_dst, op="sum"):
-        seen.append(("fused1", None))
+    def fused1(w, s1, mm, bi1, na1, n_dst, op="sum", *, table):
+        seen.append(("fused1", table))
         return ref.fragment_spmv_fused_ref(w, s1, None, mm, n_dst, n_dst, op=op,
                                            lists=(bi1, na1, None, None))
 
     def fused2(w, s1, s2, mm, bi1, na1, bi2, na2, n_mid, n_dst, op="sum",
-               mid_binarize=False):
-        seen.append(("fused2", None))
+               mid_binarize=False, *, table1, table2):
+        seen.append(("fused2", (table1, table2)))
         return ref.fragment_spmv_fused_ref(w, s1, s2, mm, n_mid, n_dst, op=op,
                                            mid_binarize=mid_binarize,
                                            lists=(bi1, na1, bi2, na2))
@@ -226,12 +226,12 @@ def test_fused_hop1_takes_the_list_kernel_with_flags(monkeypatch):
     want = ref.fragment_spmv_ref(ref.fragment_spmv_ref(w, src, dst, m, N_SRC), src2, dst2,
                                  m2, n_dst)
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
-    assert seen == [("list", (N_SRC,), True), ("fused2", None)]
+    assert seen == [("list", (N_SRC,), True), ("fused2", (False, False))]
     seen.clear()
     got = ops.fragment_spmv_fused(w, h1, None, fusion="on", block_skipping="auto")
     torch.testing.assert_close(got, ref.fragment_spmv_ref(w, src, dst, m, N_SRC), rtol=1e-4,
                                atol=1e-4)
-    assert seen == [("list", (N_SRC,), False), ("fused1", None)]
+    assert seen == [("list", (N_SRC,), False), ("fused1", False)]
 
 
 @pytest.mark.parametrize("hot_share,table", [(0.5, True), (0.0, False),

@@ -1,9 +1,9 @@
 """Tests that need an NVIDIA GPU: the hand-written CUDA kernels (the dense
 and packed hops, their block-skipping variants, the packed pair's per-CTA
-aggregation on hot destinations, bitunpack, both fused-region kernels, the
-batched forms of all of them: the SpMM kernels and the fused regions' SpMM
-form, and the bitmap AND and popcount) against their plain PyTorch
-versions, and the
+aggregation on hot destinations, bitunpack, both fused-region kernels with
+the per-CTA table in their hops and without, the batched forms of all of
+them: the SpMM kernels and the fused regions' SpMM form, and the bitmap AND
+and popcount) against their plain PyTorch versions, and the
 engine on the card (single queries and execute_batch) against the engine on
 the CPU and the numpy oracle. They import no JAX (the
 GPU machine need not have it) and skip where ``torch.cuda.is_available()`` is
@@ -1508,3 +1508,272 @@ def test_spmm_dispatch_by_hot_share(cuda, op, skipping, hot_share):
             ops.fragment_spmm_packed(W, x["src"], dst, m, md, use_kernel=False, **kw, **common)]
     for g, w in zip(got, want):
         _assert_match(g, w, op)
+
+
+# ---------------------------------------------------------------------------
+# The fused regions' table form: each hop phase aggregates per CTA in a
+# shared-memory table (fused2: table1 / table2; fused1: table), in both
+# forms; the SpMM form on the row-chunk scratch
+# ---------------------------------------------------------------------------
+
+N_HOT = 20_000  # the hot regions' mid and output domains: more ids than slots
+REGION_VARIANTS = ["two_hop", "two_hop_mask", "two_hop_binarize", "two_hop_mask_binarize",
+                   "degenerate", "degenerate_mask"]
+FUSED_BATCHES = [1, 2, 5, 8]
+
+
+def _hot_dst(case, n, E, rng):
+    """Destinations that stress the table: 40% of the edges on id 7 ("hot"),
+    or every id in turn, so a block has more distinct ids than slots
+    ("overflow")."""
+    if case == "hot":
+        d = rng.integers(0, n, E)
+        d[rng.random(E) < 0.4] = 7
+    else:
+        d = np.concatenate([rng.permutation(n) for _ in range(E // n + 1)])[:E]
+    return d.astype(np.int32)
+
+
+def _hot_region(case, op, E, m_mode, dst_packed, seed, device):
+    """hop1 3000 → N_HOT (E edges), hop2 N_HOT → N_HOT (E + 3 edges), both
+    with _hot_dst destinations (15-bit words when packed) and the measure
+    mode of _packed_inputs; a mask over the N_HOT mid ids."""
+    rng = np.random.default_rng(seed + 1)
+    t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    x1 = _packed_inputs(op, E, seed, device)
+    hops = []
+    for x in (x1, _packed_inputs(op, E + 3, seed + 2, device, n_src=N_HOT)):
+        d = _hot_dst(case, N_HOT, x["src"].shape[0], rng)
+        hops.append(_streams(x, m_mode, dst_packed, x["src"], t(d),
+                             t(_pack_words(d, 15).view(np.int32)), 15))
+    keep = t((rng.random(N_HOT) < 0.6).astype(np.float32))
+    return x1["w"], hops[0], hops[1], keep
+
+
+def _variant(variant, keep):
+    """(two hops, mid or output mask, binarize) of a REGION_VARIANTS entry."""
+    two = variant.startswith("two_hop")
+    return two, keep if "mask" in variant else None, variant.endswith("binarize")
+
+
+def _unfused_table(x, h1, h2, mask, binz, op):
+    """The region through the unfused packed kernels in the table form (the
+    SpMM kernels for [B, n] rows)."""
+    hop = spkernel.fragment_spmm_packed if x.dim() == 2 else pkernel.fragment_spmv_packed
+
+    def run(v, h):
+        return hop(v, h.src, h.dst, h.measure, h.mdict, N_HOT, dst_width=h.dst_width,
+                   m_mode=h.m_mode, m_width=h.m_width, op=op, table=True)
+
+    u = run(x, h1)
+    if mask is not None:
+        u = ref.apply_mask(u, mask, op)
+    if h2 is None:
+        return u
+    return run(ref.binarize(u, op) if binz else u, h2)
+
+
+def _table_counts():
+    return dict(fkernel.TABLE_LAUNCHES)
+
+
+@pytest.mark.parametrize("variant", REGION_VARIANTS)
+@pytest.mark.parametrize("dst_packed", [True, False], ids=["dst_packed", "dst_dense"])
+@pytest.mark.parametrize("m_mode", M_MODES)
+@pytest.mark.parametrize("op", OPS)
+def test_fused_table_forms_match_plain_and_unfused(cuda, op, m_mode, dst_packed, variant):
+    """Both fused kernels (SpMV form) with the table in hop 1, hop 2 or both
+    against the plain region and the unfused packed kernels in the table
+    form, at E = 1 and 4097, on a hot destination and on more distinct
+    destinations than slots (the bounded probe writes the rest to global
+    memory)."""
+    for case in ("hot", "overflow"):
+        for E in (1, 4097):
+            w, h1, h2, keep = _hot_region(case, op, E, m_mode, dst_packed, E + len(op), cuda)
+            two, mask, binz = _variant(variant, keep)
+            bi1, na1 = _full(E, cuda)
+            bi2, na2 = _full(E + 3, cuda)
+            want = ref.fragment_spmv_fused_ref(w, h1, h2 if two else None, mask, N_HOT, N_HOT,
+                                               op=op, mid_binarize=binz)
+            unf = _unfused_table(w, h1, h2 if two else None, mask, binz, op)
+            for flags in ((True, False), (False, True), (True, True)) if two else ((True,),):
+                before, tb = _fused_counts(), _table_counts()
+                if two:
+                    got = fkernel.fragment_spmv_fused2(w, h1, h2, mask, bi1, na1, bi2, na2,
+                                                       N_HOT, N_HOT, op=op, mid_binarize=binz,
+                                                       table1=flags[0], table2=flags[1])
+                else:
+                    got = fkernel.fragment_spmv_fused1(w, h1, mask, bi1, na1, N_HOT, op=op,
+                                                       table=True)
+                torch.cuda.synchronize()
+                k = "fragment_spmv_fused2" if two else "fragment_spmv_fused1"
+                assert [b - a for a, b in zip(before, _fused_counts())] == (
+                    [0, 1] if two else [1, 0])
+                assert fkernel.TABLE_LAUNCHES[k] == tb[k] + 1
+                _assert_match(got, want, op)
+                _assert_match(got, unf, op)
+                if case == "hot" and E > 1:
+                    assert (got != ZERO[op]).any()
+
+
+@pytest.mark.parametrize("variant", REGION_VARIANTS)
+@pytest.mark.parametrize("dst_packed", [True, False], ids=["dst_packed", "dst_dense"])
+@pytest.mark.parametrize("m_mode", M_MODES)
+@pytest.mark.parametrize("B", FUSED_BATCHES)
+@pytest.mark.parametrize("op", OPS)
+def test_spmm_fused_table_forms_match_plain_and_unfused(cuda, op, B, m_mode, dst_packed,
+                                                        variant):
+    """The fused regions' SpMM form on the row-chunk scratch, per edge and
+    with the table in either hop or both, against the plain batched region
+    and the unfused SpMM kernels in the table form, at B = 1 (the SpMV
+    form), 2, 5 (a 4-row chunk and a 1-row one) and 8, one row that never
+    writes (all identity), on a hot destination and on more distinct
+    destinations than slots, at E = 1 and 4097."""
+    for case in ("hot", "overflow"):
+        for E in (1, 4097):
+            w, h1, h2, keep = _hot_region(case, op, E, m_mode, dst_packed, E + B + len(op),
+                                          cuda)
+            W = _rows(w, B, op, B + 31)
+            if B > 1:
+                W[1] = ZERO[op]  # a row that never writes
+            two, mask, binz = _variant(variant, keep)
+            bi1, na1 = _full(E, cuda)
+            bi2, na2 = _full(E + 3, cuda)
+            want = ref.fragment_spmm_fused_ref(W, h1, h2 if two else None, mask, N_HOT, N_HOT,
+                                               op=op, mid_binarize=binz)
+            unf = _unfused_table(W, h1, h2 if two else None, mask, binz, op)
+            flag_sets = (((False, False), (True, False), (False, True), (True, True)) if two
+                         else ((False,), (True,)))
+            for flags in flag_sets:
+                before = _spmm_counts()
+                if two:
+                    got = fkernel.fragment_spmm_fused2(W, h1, h2, mask, bi1, na1, bi2, na2,
+                                                       N_HOT, N_HOT, op=op, mid_binarize=binz,
+                                                       table1=flags[0], table2=flags[1])
+                else:
+                    got = fkernel.fragment_spmm_fused1(W, h1, mask, bi1, na1, N_HOT, op=op,
+                                                       table=flags[0])
+                torch.cuda.synchronize()
+                assert _delta(before) == ([0, 0, 0, 0, 0, 1] if two else [0, 0, 0, 0, 1, 0])
+                _assert_match(got, want, op)
+                _assert_match(got, unf, op)
+                if B > 1:
+                    assert (got[1] == ZERO[op]).all()
+                    if op == "sum":  # +0.0 added to a row that does not write
+                        assert not torch.signbit(got[1]).any()
+
+
+@pytest.mark.parametrize("listed", ["one_block", "every_other"])
+@pytest.mark.parametrize("B", [None, 8], ids=["spmv", "B8"])
+@pytest.mark.parametrize("table", [True, False], ids=["table", "per_edge"])
+@pytest.mark.parametrize("op", OPS)
+def test_fused1_one_wave_over_a_long_list(cuda, op, table, B, listed):
+    """fused1 runs one wave of CTAs over the list: on a large index (1,221
+    blocks) with one listed block, and with every other block listed (more
+    than a wave), in both forms, against the plain region."""
+    E = 5_000_000
+    x = _hot_inputs("zipf", op, E, 9, cuda)
+    dst, m, md, kw = _hot_operands(x, "packed", True)
+    h = ref.HopStreams(x["src"], dst, m, md, kw["dst_width"], "packed", kw["m_width"])
+    nb = active.n_edge_blocks(E)
+    bi = (torch.tensor([nb // 2], dtype=torch.int32, device=cuda) if listed == "one_block"
+          else torch.arange(0, nb, 2, dtype=torch.int32, device=cuda))
+    na = torch.full((1,), bi.shape[0], dtype=torch.int32, device=cuda)
+    keep = (torch.arange(x["n_dst"], device=cuda) % 3 != 0).to(torch.float32)
+    lists = (bi, na, None, None)
+    if B is None:
+        got = fkernel.fragment_spmv_fused1(x["w"], h, keep, bi, na, x["n_dst"], op=op,
+                                           table=table)
+        want = ref.fragment_spmv_fused_ref(x["w"], h, None, keep, x["n_dst"], x["n_dst"],
+                                           op=op, lists=lists)
+    else:
+        W = _rows(x["w"], B, op, 3)
+        got = fkernel.fragment_spmm_fused1(W, h, keep, bi, na, x["n_dst"], op=op, table=table)
+        want = ref.fragment_spmm_fused_ref(W, h, None, keep, x["n_dst"], x["n_dst"], op=op,
+                                           lists=lists)
+    torch.cuda.synchronize()
+    _assert_match(got, want, op)
+
+
+@pytest.mark.parametrize("form", ["spmv", "rows_2", "rows_4", "rows_8"])
+def test_fused2_grid_with_the_table_is_never_refused(cuda, form):
+    """max_grid with the table's shared memory counted is positive and at
+    most the grid without it; a region whose lists want more CTAs than that
+    (a 5M-edge hop 1) launches at that grid with both tables and matches the
+    plain region."""
+    rows = 1 if form == "spmv" else int(form.split("_")[1])
+    batched = form != "spmv"
+    for op in OPS:
+        g_table = fkernel.max_grid(op, batched=batched, table=True, rows=rows)
+        g_edge = fkernel.max_grid(op, batched=batched, table=False, rows=rows)
+        assert 0 < g_table <= g_edge
+    E = 5_000_000
+    x = _hot_inputs("zipf", "sum", E, 4, cuda)
+    dst, m, md, kw = _hot_operands(x, "dense", False)
+    h1 = ref.HopStreams(x["src"], dst, m, md, 0, "dense", 0)
+    assert active.n_edge_blocks(E) > fkernel.max_grid("sum", batched=batched, table=True,
+                                                      rows=rows)
+    y = _packed_inputs("sum", 60_000, 5, cuda, n_src=x["n_dst"])
+    d2 = _hot_dst("hot", 500, 60_000, np.random.default_rng(6))
+    h2 = ref.HopStreams(y["src"], torch.from_numpy(d2).to(cuda), None, None, 0, "none", 0)
+    bi1, na1 = _full(E, cuda)
+    bi2, na2 = _full(60_000, cuda)
+    w = _rows(x["w"], rows, "sum", 8) if batched else x["w"]
+    fn = fkernel.fragment_spmm_fused2 if batched else fkernel.fragment_spmv_fused2
+    got = fn(w, h1, h2, None, bi1, na1, bi2, na2, x["n_dst"], 500, table1=True, table2=True)
+    plain = ref.fragment_spmm_fused_ref if batched else ref.fragment_spmv_fused_ref
+    want = plain(w, h1, h2, None, x["n_dst"], 500)
+    torch.cuda.synchronize()
+    _assert_match(got, want, "sum")
+
+
+@pytest.mark.parametrize("batched", [False, True], ids=["spmv", "B8"])
+@pytest.mark.parametrize("hot_share", [0.0, 1.0])
+@pytest.mark.parametrize("op", OPS)
+def test_fused_dispatch_chooses_the_table_by_hot_share(cuda, op, hot_share, batched):
+    """ops.fragment_spmv_fused / fragment_spmm_fused with both hops' hot
+    shares below and above the threshold: one fused launch each, with the
+    table exactly when above, equal to the plain region."""
+    w, h1, h2, keep = _hot_region("hot", op, 30_000, "packed", True, 14, cuda)
+    if batched:
+        w = _rows(w, 8, op, 15)
+    mk = lambda h, n: ops.FusedHopOperands(  # noqa: E731
+        h.src, h.dst, h.measure, h.mdict, n, h.dst_width, h.m_mode, h.m_width,
+        hot_share=hot_share)
+    o1, o2 = mk(h1, N_HOT), mk(h2, N_HOT)
+    entry = ops.fragment_spmm_fused if batched else ops.fragment_spmv_fused
+    for two in (True, False):
+        k = ("fragment_spmm_fused" if batched else "fragment_spmv_fused") + ("2" if two else "1")
+        tb = _table_counts()
+        got = entry(w, o1, o2 if two else None, keep, op=op, mid_binarize=two, fusion="on")
+        torch.cuda.synchronize()
+        assert fkernel.TABLE_LAUNCHES[k] - tb[k] == int(hot_share > 0)
+        want = entry(w, o1, o2 if two else None, keep, op=op, mid_binarize=two, fusion="on",
+                     use_kernel=False)
+        _assert_match(got, want, op)
+
+
+@pytest.mark.parametrize("batched", [False, True], ids=["spmv", "B8"])
+@pytest.mark.parametrize("op", OPS)
+def test_fused_kernels_read_the_float_mask_as_bytes(cuda, op, batched):
+    """Both fused kernels read the mask as one byte an entry, converted by
+    the wrapper from the float32 mask (keep > 0, once a tensor): zero and
+    negative entries are masked, and the result equals the plain region."""
+    w, h1, h2, keep = _hot_region("hot", op, 4097, "packed", True, 7, cuda)
+    keep = keep - 0.5 * (keep == 0).to(torch.float32)  # negative entries are masked too
+    if batched:
+        w = _rows(w, 8, op, 9)
+    bi1, na1 = _full(4097, cuda)
+    bi2, na2 = _full(4100, cuda)
+    f1 = fkernel.fragment_spmm_fused1 if batched else fkernel.fragment_spmv_fused1
+    f2 = fkernel.fragment_spmm_fused2 if batched else fkernel.fragment_spmv_fused2
+    plain = ref.fragment_spmm_fused_ref if batched else ref.fragment_spmv_fused_ref
+    for two in (True, False):
+        want = plain(w, h1, h2 if two else None, keep, N_HOT, N_HOT, op=op, mid_binarize=two)
+        if two:
+            got = f2(w, h1, h2, keep, bi1, na1, bi2, na2, N_HOT, N_HOT, op=op,
+                     mid_binarize=True, table1=True, table2=True)
+        else:
+            got = f1(w, h1, keep, bi1, na1, N_HOT, op=op, table=True)
+        torch.cuda.synchronize()
+        _assert_match(got, want, op)

@@ -342,13 +342,14 @@ def test_fused_dispatch_matches_reference(chain, op, layout, block_skipping, kin
 
 def test_auto_over_the_scratch_budget_runs_unfused(chain, monkeypatch):
     """'auto' with a two-hop region's intermediate above
-    FUSED_SCRATCH_BUDGET_BYTES composes the unfused hops; the result is the
-    same."""
+    FUSED_SCRATCH_BUDGET_BYTES composes the unfused hops, and fuses one at
+    the budget; the result is the same."""
     w = torch.from_numpy(_frontier("max", SUPPORTS["all"]))
     h1, h2 = _operands(chain, "packed", "port")
     calls = []
     real = ops._compose_unfused
     monkeypatch.setattr(ops, "_compose_unfused", lambda *a, **k: calls.append(1) or real(*a, **k))
+    monkeypatch.setattr(ops, "FUSED_SCRATCH_BUDGET_BYTES", 4 * N1)
     fused = ops.fragment_spmv_fused(w, h1, h2, op="max", fusion="auto")
     assert not calls
     monkeypatch.setattr(ops, "FUSED_SCRATCH_BUDGET_BYTES", 4 * N1 - 1)
