@@ -123,7 +123,13 @@ Phases (any failure exits non-zero; nothing is caught while the run goes on):
     plain build's calls, and the whole 'on' and 'auto' hops against the scan
     at 100%, beside the reference's 1.1×), which set ``SKIP_BLOCK_FRACTION``;
     both fused kernels in every form against the unfused composition at each
-    region shape, which sets ``FUSED_SCRATCH_BUDGET_BYTES``. Batched (5h): per query and B ∈ {1, 8,
+    region shape, which sets ``FUSED_SCRATCH_BUDGET_BYTES``; the defaults'
+    wall over the defaults with skipping off beside their wall over the
+    dense path (Queue 3 fault 2 closes at ``AUTO_OVER_SCAN``: logged); the
+    whole hop with skipping 'off' against 'on' on the first k blocks of
+    I_DA.Doc and I_DT.Term, which sets ``SKIP_MIN_BLOCKS``; every wrapper's
+    host µs a call at CS's smallest index; the popcount's device operations
+    (its one kernel alone). Batched (5h): per query and B ∈ {1, 8,
     64} the median wall of ``execute_batch`` and queries/s beside B single
     calls, the result copy and the profiler's device time and idle share;
     per SpMM kernel at I_DT.Term / I_DA.Doc and B ∈ {1, 8, 64} its time in
@@ -1348,6 +1354,14 @@ def drive_path(label, engines, SG, c0, block_skipping, fusion, kernels, topk: bo
                 "query_topk scores")
     hops = [{"query": q, "n_active": int(na[0]), "n_blocks": -(-E // 4096),
              "scan_above": int(sa)} for q, na, sa, E in skips]
+    if block_skipping == "auto":
+        from repro_torch.kernels.params import SKIP_MIN_BLOCKS
+
+        small = [h for h in hops if "fused" not in h["query"]
+                 and h["n_blocks"] < SKIP_MIN_BLOCKS]
+        if small:
+            raise AssertionError(f"path {label}: 'auto' listed on an index of fewer than"
+                                 f" SKIP_MIN_BLOCKS = {SKIP_MIN_BLOCKS} blocks: {small}")
     log(f"  path {label}: launches {counts} (expected [hops, fused1, fused2] {expected})")
     return results, counts, expected, hops, plans
 
@@ -1789,15 +1803,20 @@ def time_bitmap(masks, device) -> dict:
         a, b = a[:bm.MAX_POPCOUNT_WORDS], b[:bm.MAX_POPCOUNT_WORDS]
         n = int(a.shape[0])
         bnd, by = bound_ms(8 * n + 4, 0)
+        ops = device_ops(lambda: bm.bitmap_and_popcount(a, b))
+        if ops and set(ops) != {"bitmap_and_popcount_kernel"}:  # {}: no device events seen
+            raise AssertionError(f"bitmap_and_popcount {shape}: device operations {ops},"
+                                 " expected its one kernel alone")
         rows["bitmap_and_popcount"].append(dict(
             shape=shape, E=n,
             ms=time_device_ms(lambda: bm.bitmap_and_popcount(a, b), KERNEL_REPS),
             plain_ms=time_device_ms(lambda: ref.bitmap_and_popcount_ref(a, b), KERNEL_REPS),
-            library_ms=None, bound_ms=bnd, bound_by=by))
+            library_ms=None, bound_ms=bnd, bound_by=by, device_ops=sum(ops.values())))
         for k in rows:
             r = rows[k][-1]
             lib = (f"torch.bitwise_and {r['library_ms']:.4f} ms"
-                   if r["library_ms"] is not None else "library none")
+                   if r["library_ms"] is not None
+                   else f"library none; {r['device_ops']:.3g} device operations a call")
             log(f"  {k:20s} {shape} ({r['E']} words): {r['ms']:.4f} ms  bound"
                 f" {r['bound_ms']:.4f} ms ({r['bound_by']})  plain {r['plain_ms']:.4f} ms"
                 f"  {lib}")
@@ -1962,6 +1981,28 @@ def device_busy(fn) -> tuple[float, float]:
             sum(e.count for e in evs) / PROFILE_REPS)
 
 
+def device_ops(fn) -> dict:
+    """The device operations of one call of ``fn`` by torch.profiler over
+    PROFILE_REPS calls: {name: launches a call}, a kernel named by its
+    function (``{}`` where the profiler saw no device events). The profiler
+    may miss the first operation of its window, so a count can read low."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_REPS):
+            fn()
+        sync()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            name = e.key.replace("(anonymous namespace)::", "").split("(")[0].split("::")[-1]
+            out[name] = out.get(name, 0.0) + e.count / PROFILE_REPS
+    return out
+
+
 #: A kernel following the block list counts as no slower than scan order
 #: while within this factor of it (the spread of repeated event timings).
 SKIP_TIE = 1.05
@@ -2112,6 +2153,231 @@ def time_skipping(db, db_dense, device) -> tuple[list[dict], float, list[dict]]:
     log(f"  following the list is no slower than scan order (within {SKIP_TIE}x) up to an"
         f" active fraction of {ok_up_to:.4f}")
     return rows, ok_up_to, list_rows
+
+
+#: The block counts of the list's threshold sweep: the first k blocks of an
+#: index, from CS's smallest SemMedDB index (13 blocks) and its largest (116)
+#: up to I_DA.Doc's 2,876 and I_DT.Term's 7,079 (a count past an index's own
+#: is not taken on it).
+THRESHOLD_BLOCKS = (13, 42, 116, 256, 512, 1024, 2048, 2400, 2876, 4096, 5600, 7079)
+#: The supports of the sweep: where the list could pay, a sparse frontier,
+#: and every source (where it skips nothing).
+THRESHOLD_SUPPORTS = ("one_seed", 0.01, 0.1, 1.0)
+#: Rounds of the sweep, scan and list timed in turns in each: the list wins
+#: at a count only where it was faster in every round.
+THRESHOLD_ROUNDS = 3
+
+
+def index_prefix(di, k: int) -> dict:
+    """The first ``k`` EDGE_BLOCK-edge blocks of a packed index ``di`` as a
+    hop's operands: src, the dst words and the packed measure words (each
+    block starts and ends word-aligned), the blocks' metadata, and the
+    degrees of the sources the prefix reaches (0 past its last source)."""
+    from repro_torch.kernels.fragment_spmv_packed import words_needed
+
+    E = min(int(di.src_ids.shape[0]), k * 4096)
+    src = di.src_ids[:E]
+    deg = di.degrees.clone()
+    deg[int(src[-1]) + 1:] = 0
+    meas = next(iter(di.measure_cols.values()), None)
+    out = dict(E=E, blocks=(di.block_src_min[:k], di.block_src_max[:k]), src=src,
+               words=di.dst_col.words[:words_needed(E, di.dst_col.width)],
+               kw=dict(dst_width=di.dst_col.width, m_mode="none", m_width=0),
+               measure=None, degrees=deg)
+    if meas is not None and hasattr(meas, "words"):
+        out["measure"] = meas.words[:words_needed(E, meas.width)]
+        out["kw"].update(m_mode="packed", m_width=meas.width)
+    elif meas is not None:
+        out["measure"] = meas.materialize()[:E]
+        out["kw"].update(m_mode="dense")
+    return out
+
+
+def time_list_threshold(db, device) -> tuple[list[dict], int | None]:
+    """Scan against list + active kernel, each the whole hop through
+    ``ops.fragment_spmv_packed`` (block_skipping 'off' against 'on': the
+    list's launch and host time included), by CUDA events over back-to-back
+    calls, THRESHOLD_ROUNDS rounds with the two in turns, on the first k
+    blocks (THRESHOLD_BLOCKS) of I_DA.Doc and I_DT.Term as the defaults
+    store them, sum, at THRESHOLD_SUPPORTS of the prefix's sources. Returns
+    the rows and the measured ``SKIP_MIN_BLOCKS``: the block count after the
+    largest one at which the list did not win (faster in every round) at
+    any support on either index (None where the list did not win at the
+    largest count, 2 where it won at every count)."""
+    import torch
+
+    from repro_torch.kernels import ops as K
+
+    gen = torch.Generator(device=device).manual_seed(31)
+    rows = []
+    for name, (table, key), dst_ent in (("I_DA.Doc", ("DA", "Doc"), "Author"),
+                                        ("I_DT.Term", ("DT", "Term"), "Document")):
+        di = db.device.index(table, key)
+        n_dst = db.schema.domain_size(dst_ent)
+        base = frontier(di.indptr.shape[0] - 1, "sum", gen, device)
+        for k in (k for k in THRESHOLD_BLOCKS if k <= di.block_src_min.shape[0]):
+            h = index_prefix(di, k)
+            for support in THRESHOLD_SUPPORTS:
+                w = sparse_frontier(base, h["degrees"], support, "sum", 33)
+
+                def hop(mode, w=w, h=h):
+                    return K.fragment_spmv_packed(
+                        w, h["src"], h["words"], h["measure"], n_dst=n_dst,
+                        blocks=h["blocks"], block_skipping=mode, hot_share=di.hot_share,
+                        **h["kw"])
+
+                got, want = hop("on"), hop("off")
+                compare(got, want, False, f"threshold {name} k={k} {support} on vs off")
+                n_act = int(K.active_block_list(w, 0.0, *h["blocks"])[1][0])
+                off, on = [], []
+                for _ in range(THRESHOLD_ROUNDS):
+                    off.append(time_device_ms(lambda: hop("off"), KERNEL_REPS))
+                    on.append(time_device_ms(lambda: hop("on"), KERNEL_REPS))
+                r = {"index": name, "blocks": k, "E": h["E"], "support": support,
+                     "n_active": n_act, "off_ms": float(np.median(off)),
+                     "on_ms": float(np.median(on)), "off_ms_rounds": off, "on_ms_rounds": on,
+                     "rounds_won": sum(b < a for a, b in zip(off, on))}
+                r["list_wins"] = r["rounds_won"] == THRESHOLD_ROUNDS
+                rows.append(r)
+            log(f"  threshold {name} first {k} blocks ({h['E']} edges), median of"
+                f" {THRESHOLD_ROUNDS}: " + ", ".join(
+                    f"{r['support']} {r['n_active']}/{k} active off {r['off_ms']:.4f} on"
+                    f" {r['on_ms']:.4f} ms (list won {r['rounds_won']}/{THRESHOLD_ROUNDS})"
+                    for r in rows[-len(THRESHOLD_SUPPORTS):]))
+    counts = sorted({r["blocks"] for r in rows})
+    lost = [k for k in counts if not any(r["list_wins"] for r in rows if r["blocks"] == k)]
+    if not lost:
+        measured = 2
+    elif lost[-1] == counts[-1]:
+        measured = None
+    else:
+        measured = counts[counts.index(lost[-1]) + 1]
+    log(f"  the list did not win in every round up to {lost[-1] if lost else 'no'} blocks:"
+        f" 'auto' lists from {measured} blocks (SKIP_MIN_BLOCKS measured)")
+    return rows, measured
+
+
+#: Host time of a wrapper: WRAPPER_ROUNDS rounds of back-to-back calls timed
+#: by the host clock (the median round kept: the host is shared), and calls
+#: under torch.profiler, each in a record_function range.
+WRAPPER_CALLS = 1000
+WRAPPER_ROUNDS = 5
+WRAPPER_PROFILED_CALLS = 200
+
+
+def host_us(fn, calls: int = WRAPPER_CALLS) -> dict:
+    """µs a call of ``fn`` over ``calls`` back-to-back calls, the median of
+    WRAPPER_ROUNDS rounds: the enqueue (host clock up to the last call's
+    return) and with the drain (up to the synchronise after it); and the
+    profiler's CPU time of a ``record_function`` range around each of
+    WRAPPER_PROFILED_CALLS calls."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    for _ in range(20):
+        fn()
+    sync()
+    rounds = []
+    for _ in range(WRAPPER_ROUNDS):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        t1 = time.perf_counter()
+        sync()
+        rounds.append((t1 - t0, time.perf_counter() - t0))
+    enqueue, drained = sorted(rounds)[len(rounds) // 2]
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(WRAPPER_PROFILED_CALLS):
+            with record_function("wrapper_call"):
+                fn()
+    sync()
+    ev = next(e for e in prof.key_averages() if e.key == "wrapper_call")
+    return {"us": enqueue / calls * 1e6, "us_with_drain": drained / calls * 1e6,
+            "us_rounds": [r[0] / calls * 1e6 for r in rounds],
+            "profiler_cpu_us": ev.cpu_time_total / ev.count}
+
+
+def wrapper_cases(di, ddi, bitmaps, device) -> dict:
+    """{name: call} of every wrapper on the single-query path at a shape of
+    a few µs of device work: the packed index ``di`` and its dense twin
+    ``ddi`` (the same edges) from one seed, sum; the bitmap pair on the two
+    ``bitmaps``. The list kernel, the four hop wrappers (lists built
+    beforehand), their ``ops`` entries with skipping 'off' and 'on',
+    ``ops._plan_skip`` ('on': the list) and ``ops._hop_streams``."""
+    import torch
+
+    from repro_torch.kernels import bitmap_ops as bm
+    from repro_torch.kernels import block_list as lk
+    from repro_torch.kernels import fragment_spmv as dk
+    from repro_torch.kernels import fragment_spmv_packed as pk
+    from repro_torch.kernels import ops as K
+
+    gen = torch.Generator(device=device).manual_seed(35)
+    n_src, E = di.indptr.shape[0] - 1, int(di.src_ids.shape[0])
+    n_dst = 1 << di.dst_col.width
+    w = sparse_frontier(frontier(n_src, "sum", gen, device), di.degrees, "one_seed", "sum", 36)
+    blocks = (di.block_src_min, di.block_src_max)
+    s, words, d = di.src_ids, di.dst_col.words, ddi.dst_ids
+    bi, na = lk.block_list(w, 0.0, *blocks)
+    nb = int(blocks[0].shape[0])
+    pkw = dict(dst_width=di.dst_col.width, m_mode="none")
+    a, b = bitmaps
+    return {
+        "block_list.block_list": lambda: lk.block_list(w, 0.0, *blocks),
+        "fragment_spmv.fragment_spmv": lambda: dk.fragment_spmv(w, s, d, None, n_dst,
+                                                                table=False),
+        "fragment_spmv.fragment_spmv_active": lambda: dk.fragment_spmv_active(
+            w, s, d, None, bi, na, n_dst, scan_above=nb, table=False),
+        "fragment_spmv_packed.fragment_spmv_packed": lambda: pk.fragment_spmv_packed(
+            w, s, words, None, None, n_dst, table=False, **pkw),
+        "fragment_spmv_packed.fragment_spmv_packed_active": lambda: (
+            pk.fragment_spmv_packed_active(w, s, words, None, None, bi, na, n_dst,
+                                           scan_above=nb, table=False, **pkw)),
+        "ops.fragment_spmv off": lambda: K.fragment_spmv(w, s, d, None, n_dst, blocks=blocks,
+                                                         block_skipping="off"),
+        "ops.fragment_spmv on": lambda: K.fragment_spmv(w, s, d, None, n_dst, blocks=blocks,
+                                                        block_skipping="on"),
+        "ops.fragment_spmv_packed off": lambda: K.fragment_spmv_packed(
+            w, s, words, n_dst=n_dst, blocks=blocks, block_skipping="off", **pkw),
+        "ops.fragment_spmv_packed on": lambda: K.fragment_spmv_packed(
+            w, s, words, n_dst=n_dst, blocks=blocks, block_skipping="on", **pkw),
+        "ops._plan_skip on": lambda: K._plan_skip(w, "sum", E, blocks, "on"),
+        "ops._hop_streams": lambda: K._hop_streams(s, words, None, None, di.dst_col.width,
+                                                   "none", 0, device),
+        "bitmap_ops.bitmap_and": lambda: bm.bitmap_and(a, b),
+        "bitmap_ops.bitmap_and_popcount": lambda: bm.bitmap_and_popcount(a, b),
+        "ops.bitmap_and": lambda: K.bitmap_and(a, b),
+        "ops.bitmap_and_popcount": lambda: K.bitmap_and_popcount(a, b),
+    }
+
+
+def smallest_index(dbs, dbs_dense):
+    """The packed SemMedDB index with the fewest blocks (more than one) and
+    its dense twin: CS's smallest hop."""
+    from repro_torch.kernels import active
+
+    key = min((k for k, di in dbs.device.indexes.items()
+               if active.n_edge_blocks(int(di.src_ids.shape[0])) > 1
+               and hasattr(di.dst_col, "words")),
+              key=lambda k: int(dbs.device.indexes[k].src_ids.shape[0]))
+    return key, dbs.device.indexes[key], dbs_dense.device.indexes[key]
+
+
+def time_wrappers(dbs, dbs_dense, masks, device) -> dict:
+    """Host µs a call of each wrapper on the single-query path
+    (:func:`wrapper_cases`) at CS's smallest index and path j's bitmaps."""
+    from repro_torch.kernels import active
+
+    key, di, ddi = smallest_index(dbs, dbs_dense)
+    nb = active.n_edge_blocks(int(di.src_ids.shape[0]))
+    rows = {}
+    for name, fn in wrapper_cases(di, ddi, masks, device).items():
+        rows[name] = host_us(fn)
+        r = rows[name]
+        log(f"  host {name:50s} {r['us']:8.2f} us a call (with the drain {r['us_with_drain']:8.2f},"
+            f" profiler CPU {r['profiler_cpu_us']:8.2f})")
+    log(f"  (the hops on I_{key[0]}.{key[1]}, {nb} blocks, one seed; the bitmaps"
+        f" {int(masks[0].shape[0])} words)")
+    return {"index": f"I_{key[0]}.{key[1]}", "blocks": nb, "rows": rows}
 
 
 # ---------------------------------------------------------------------------
@@ -2956,7 +3222,7 @@ def run(device) -> None:
     from repro_torch.kernels import active
     from repro_torch.kernels import fragment_spmv_fused as fk
     from repro_torch.kernels.cuda_build import build_all
-    from repro_torch.kernels.params import FUSED_SCRATCH_BUDGET_BYTES
+    from repro_torch.kernels.params import FUSED_SCRATCH_BUDGET_BYTES, SKIP_MIN_BLOCKS
 
     t_start = time.perf_counter()
     card = card_line()
@@ -3236,12 +3502,19 @@ def run(device) -> None:
     qtimes = time_modes(engines, SG, c0, {"defaults": ("auto", "auto", "auto"),
                                           "fusion_on": ("auto", "auto", "on"),
                                           "fusion_off": ("auto", "auto", "off"),
+                                          "skip_off": ("auto", "off", "auto"),
                                           "dense": ("dense", "off", "off")})
     over = {n: qtimes["defaults"][n]["median_ms"] / qtimes["dense"][n]["median_ms"]
             for n in qtimes["dense"]}
+    over_skip = {n: qtimes["defaults"][n]["median_ms"] / qtimes["skip_off"][n]["median_ms"]
+                 for n in qtimes["dense"]}
     log("  the defaults' wall against dense storage with skipping off (fault 2 closes at"
         f" {AUTO_OVER_SCAN}x for every query): " + ", ".join(
             f"{n} {v:.3f}x" for n, v in over.items()))
+    log("  the defaults' wall against the defaults with skipping off (skipping's own"
+        " cost): " + ", ".join(f"{n} {v:.3f}x" for n, v in over_skip.items()))
+    missed = [n for n, v in over.items() if v > AUTO_OVER_SCAN]
+    log(f"  fault 2: {'closed in this run' if not missed else f'open for {missed}'}")
     split = {"defaults": breakdown("defaults", engines["auto"], SG, c0, "auto", "auto", True),
              "dense": breakdown("dense", engines["dense"], SG, c0, "off", "off", nine=True),
              "fusion_on": breakdown("on", engines["auto"], SG, c0, "auto", "on", True),
@@ -3258,6 +3531,8 @@ def run(device) -> None:
     fused_rows, budget_rows, budget = time_fused(specs, device)
     ktimes.update(fused_rows)
     skipping, skip_fraction, ktimes["block_list"] = time_skipping(db, db_dense, device)
+    threshold_rows, min_blocks = time_list_threshold(db, device)
+    host = time_wrappers(dbs, dbs_dense, masks, device)
     phase("[5h] batched serving: execute_batch against B single calls, and the batched"
           " kernels", t_start)
     btimes = time_batched(engines["auto"], SG, c0, draws)
@@ -3267,6 +3542,7 @@ def run(device) -> None:
     log(f"  card state after timing (clocks.sm, power.draw, power.limit, temp): {state}")
     log(f"  SKIP_BLOCK_FRACTION in use: {active.SKIP_BLOCK_FRACTION}; measured here:"
         f" {skip_fraction:.4f}")
+    log(f"  SKIP_MIN_BLOCKS in use: {SKIP_MIN_BLOCKS}; measured here: {min_blocks}")
     log(f"  FUSED_SCRATCH_BUDGET_BYTES in use: {FUSED_SCRATCH_BUDGET_BYTES}; fused no slower"
         f" up to 4·n_mid = {budget} bytes here")
 
@@ -3320,6 +3596,9 @@ def run(device) -> None:
         "queries": qtimes, "query_device_breakdown": split, "kernel_times": ktimes,
         "hot_author_float32": hot_err, "query_float64_rel": float64_rel,
         "float64_limit": FLOAT64_LIMIT, "gate_ratios": gates, "top_gate_ratio": top_gate, "index_tables": tables,
+        "fault2_defaults_over_dense": over, "fault2_defaults_over_skip_off": over_skip,
+        "list_threshold": threshold_rows, "skip_min_blocks": SKIP_MIN_BLOCKS,
+        "skip_min_blocks_measured": min_blocks, "wrapper_host_us": host,
         "skipping": skipping, "skip_block_fraction": active.SKIP_BLOCK_FRACTION,
         "skip_block_fraction_measured": skip_fraction, "fused_vs_unfused": budget_rows,
         "fused_scratch_budget_bytes": FUSED_SCRATCH_BUDGET_BYTES,

@@ -3,18 +3,30 @@
 Word-wise AND of two uint32 bitmaps, and the popcount of the AND: the
 cardinality of the intersection of two sets held as bitmaps, 32 ids to a word.
 Words are int32 tensors holding the uint32 bits, as the BCA word streams are.
-The kernels are ``csrc/bitmap_ops.cu``: 16-byte vector loads where the
-operands share their alignment, and for the popcount one 64-bit atomic a CTA.
+The kernels are ``csrc/bitmap_ops.cu`` (its header says what bounds them and
+how they are built around that): one wave of CTAs streaming 16-byte words
+with evict-first loads where the operands share their alignment, and the
+popcount in one launch that writes its int32 count itself, its last CTA
+leaving the stream's scratch at zero.
 """
 from __future__ import annotations
 
 import torch
 
-from .cuda_build import I64, P, CudaLibrary, check_tensor, cuda_device, raise_on, stream_of
+from .cuda_build import (
+    I64,
+    P,
+    CudaLibrary,
+    check_tensor,
+    cuda_device,
+    launch,
+    stream_of,
+    stream_scratch,
+)
 
 LIB = CudaLibrary("bitmap_ops", {
     "bitmap_and_launch": [P, P, P, I64, P],
-    "bitmap_and_popcount_launch": [P, P, I64, P, P],
+    "bitmap_and_popcount_launch": [P, P, I64, P, P, P],
 })
 
 #: Launches of each kernel since import (or since a caller reset them).
@@ -59,30 +71,29 @@ def bitmap_and(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     out = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:
         return out
-    lib = build()
-    with torch.cuda.device(dev):
-        err = lib.bitmap_and_launch(a.data_ptr(), b.data_ptr(), out.data_ptr(), n,
-                                    stream_of(dev))
-    raise_on(err, "bitmap_and")
+    launch(build().bitmap_and_launch, "bitmap_and", dev, a.data_ptr(), b.data_ptr(),
+           out.data_ptr(), n, stream_of(dev))
     AND_LAUNCHES += 1
     return out
 
 
 def bitmap_and_popcount(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """The set bits of ``a & b`` counted on the card; a 0-d int32 tensor there
-    (the host does not wait for it). Raises on anything the kernel does not
-    take, and past :data:`MAX_POPCOUNT_WORDS` words."""
+    """The set bits of ``a & b`` counted on the card in one kernel launch; a
+    0-d int32 tensor there (the host does not wait for it). Raises on
+    anything the kernel does not take, and past :data:`MAX_POPCOUNT_WORDS`
+    words. The first launch on a stream also makes that stream's scratch
+    (one ``torch.zeros``)."""
     global POPCOUNT_LAUNCHES
     dev = cuda_device(a, "bitmap_and_popcount")
     n = check_pair(a, b, dev)
     check_popcount_words(n)
-    count = torch.zeros((), dtype=torch.int64, device=dev)
     if n == 0:
-        return count.to(torch.int32)
-    lib = build()
-    with torch.cuda.device(dev):
-        err = lib.bitmap_and_popcount_launch(a.data_ptr(), b.data_ptr(), n, count.data_ptr(),
-                                             stream_of(dev))
-    raise_on(err, "bitmap_and_popcount")
+        return torch.zeros((), dtype=torch.int32, device=dev)
+    count = torch.empty((), dtype=torch.int32, device=dev)
+    stream = stream_of(dev)
+    # 16 bytes: the CTAs' 64-bit sum and the last-CTA ticket
+    scratch = stream_scratch("bitmap_and_popcount", 2, torch.int64, dev, stream)
+    launch(build().bitmap_and_popcount_launch, "bitmap_and_popcount", dev, a.data_ptr(),
+           b.data_ptr(), n, scratch.data_ptr(), count.data_ptr(), stream)
     POPCOUNT_LAUNCHES += 1
-    return count.to(torch.int32)
+    return count

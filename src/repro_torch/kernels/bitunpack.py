@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from .cuda_build import I32, I64, P, CudaLibrary, check_tensor, cuda_device, raise_on, stream_of
+from .cuda_build import I32, I64, P, CudaLibrary, check_tensor, cuda_device, launch, stream_of
 from .fragment_spmv_packed import words_needed
 
 LIB = CudaLibrary("bitunpack", {"bitunpack_launch": [P, I64, I32, I64, P, P]})
@@ -41,10 +41,7 @@ def bitunpack(words: torch.Tensor, width: int, count: int) -> torch.Tensor:
     out = torch.empty(count, dtype=torch.int32, device=dev)
     if count == 0:
         return out
-    lib = build()
-    with torch.cuda.device(dev):
-        err = lib.bitunpack_launch(words.data_ptr(), words.shape[0], width, count,
-                                   out.data_ptr(), stream_of(dev))
-    raise_on(err, "bitunpack")
+    launch(build().bitunpack_launch, "bitunpack", dev, words.data_ptr(), words.shape[0], width,
+           count, out.data_ptr(), stream_of(dev))
     LAUNCHES += 1
     return out

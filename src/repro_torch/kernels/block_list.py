@@ -18,16 +18,21 @@ import ctypes
 
 import torch
 
-from .cuda_build import I32, I64, P, CudaLibrary, check_tensor, cuda_device, raise_on, stream_of
+from .cuda_build import (
+    I32,
+    I64,
+    P,
+    CudaLibrary,
+    check_tensor,
+    cuda_device,
+    launch,
+    stream_of,
+    stream_scratch,
+)
 
 LIB = CudaLibrary("block_list", {
     "block_list_launch": [P, I32, I64, ctypes.c_float, P, P, I32, P, P, P, P, P],
 })
-
-#: The last-CTA ticket of each (device, stream): a word that the kernel
-#: leaves 0 after every launch, so launches on one stream (which run in
-#: order) share it and launches on two streams never do.
-_TICKETS: dict[tuple[int, int], torch.Tensor] = {}
 
 #: Launches since import (or since a caller reset it): one per launch,
 #: counted nowhere else.
@@ -37,14 +42,6 @@ LAUNCHES = 0
 def build():
     """Compile (if needed) and load the kernel library; idempotent."""
     return LIB.load()
-
-
-def _ticket(dev: torch.device, stream: int) -> torch.Tensor:
-    """The ticket of ``stream``, the current stream of ``dev``."""
-    key = (dev.index, stream)
-    if key not in _TICKETS:
-        _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=dev)
-    return _TICKETS[key]
 
 
 def block_list(w: torch.Tensor, zero: float, src_min: torch.Tensor, src_max: torch.Tensor,
@@ -71,14 +68,13 @@ def block_list(w: torch.Tensor, zero: float, src_min: torch.Tensor, src_max: tor
     block_idx = torch.empty(nb, dtype=torch.int32, device=dev)
     n_active = torch.empty(1, dtype=torch.int32, device=dev)
     fl = torch.empty(nb, dtype=torch.bool, device=dev) if flags else None
-    lib = build()
-    with torch.cuda.device(dev):
-        stream = stream_of(dev)
-        err = lib.block_list_launch(
-            w.data_ptr(), B, n_src, float(zero), src_min.data_ptr(), src_max.data_ptr(), nb,
-            block_idx.data_ptr(), n_active.data_ptr(),
-            fl.data_ptr() if flags else None, _ticket(dev, stream).data_ptr(), stream,
-        )
-    raise_on(err, "block_list")
+    stream = stream_of(dev)
+    ticket = stream_scratch("block_list", 1, torch.int32, dev, stream)  # the last-CTA ticket
+    launch(
+        build().block_list_launch, "block_list", dev,
+        w.data_ptr(), B, n_src, float(zero), src_min.data_ptr(), src_max.data_ptr(), nb,
+        block_idx.data_ptr(), n_active.data_ptr(),
+        fl.data_ptr() if flags else None, ticket.data_ptr(), stream,
+    )
     LAUNCHES += 1
     return (block_idx, n_active, fl) if flags else (block_idx, n_active)

@@ -163,9 +163,45 @@ def cuda_device(t, kernel: str) -> torch.device:
 
 
 def stream_of(dev: torch.device) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
+    """The handle of ``dev``'s current stream, as
+    ``torch.cuda.current_stream(dev).cuda_stream`` gives it, without making
+    a Stream object."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)
+
+
+#: Zeroed buffers that a kernel leaves zero after every launch (a last-CTA
+#: ticket, a running sum), one for each (name, device, stream): launches on
+#: one stream, which run in order, share a buffer, and launches on two
+#: streams never do.
+_STREAM_SCRATCH: dict[tuple[str, int, int], torch.Tensor] = {}
+
+
+def stream_scratch(name: str, numel: int, dtype: torch.dtype, dev: torch.device,
+                   stream: int) -> torch.Tensor:
+    """The scratch ``name`` of ``stream``, the current stream of ``dev``: made
+    zero (one ``torch.zeros``) at its first use, and kept zero from then on by
+    the kernels that take it."""
+    key = (name, dev.index, stream)
+    if key not in _STREAM_SCRATCH:
+        _STREAM_SCRATCH[key] = torch.zeros(numel, dtype=dtype, device=dev)
+    return _STREAM_SCRATCH[key]
 
 
 def raise_on(err: int, kernel: str) -> None:
     if err != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")
+
+
+def launch(fn, kernel: str, dev: torch.device, *args) -> None:
+    """The launch path of every kernel wrapper: the C entry ``fn`` (a
+    function of a :class:`CudaLibrary`, returning a CUDA error code) called
+    with ``args`` on ``dev``, and a ``RuntimeError`` naming ``kernel`` on a
+    nonzero code. ``dev`` is made the current device only when it is not
+    already: the switch there and back is host time on every call (PERF.md
+    §5 has what each piece of this path costs)."""
+    if torch._C._cuda_getDevice() == dev.index:
+        err = fn(*args)
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args)
+    raise_on(err, kernel)

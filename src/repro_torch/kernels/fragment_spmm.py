@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from .cuda_build import I32, I64, P, CudaLibrary, check_tensor, cuda_device, raise_on, stream_of
+from .cuda_build import I32, I64, P, CudaLibrary, check_tensor, cuda_device, launch, stream_of
 from .fragment_spmv import OP_CODE, check_block_list
 from .ref import IDENTITY
 
@@ -115,19 +115,17 @@ def _launch(weights, src_ids, dst_ids, measures, n_dst, op, blocks, scan_above, 
         block_idx, n_active = blocks
         check_block_list(block_idx, n_active, E, dev)
     y, s, rb = row_scratch(B, n_dst, op, dev)
-    lib = build()
-    with torch.cuda.device(dev):
-        err = lib.fragment_spmm_launch(
-            weights.data_ptr(), n_src, B, src_ids.data_ptr(), dst_ids.data_ptr(),
-            measures.data_ptr() if measures is not None else None, stride, E,
-            y.data_ptr(), n_dst, OP_CODE[op],
-            block_idx.data_ptr() if blocks is not None else None,
-            block_idx.shape[0] if blocks is not None else 0,
-            n_active.data_ptr() if blocks is not None else None,
-            2**31 - 1 if scan_above is None else int(scan_above), s.data_ptr(), rb,
-            int(bool(table)), stream_of(dev),
-        )
-    raise_on(err, kernel)
+    launch(
+        build().fragment_spmm_launch, kernel, dev,
+        weights.data_ptr(), n_src, B, src_ids.data_ptr(), dst_ids.data_ptr(),
+        measures.data_ptr() if measures is not None else None, stride, E,
+        y.data_ptr(), n_dst, OP_CODE[op],
+        block_idx.data_ptr() if blocks is not None else None,
+        block_idx.shape[0] if blocks is not None else 0,
+        n_active.data_ptr() if blocks is not None else None,
+        2**31 - 1 if scan_above is None else int(scan_above), s.data_ptr(), rb,
+        int(bool(table)), stream_of(dev),
+    )
     return y, True
 
 

@@ -16,7 +16,8 @@ from __future__ import annotations
 
 import torch
 
-from .cuda_build import I32, I64, P, CudaLibrary, check_tensor, cuda_device, raise_on, stream_of
+from .active import n_edge_blocks
+from .cuda_build import I32, I64, P, CudaLibrary, check_tensor, cuda_device, launch, stream_of
 from .ref import IDENTITY
 
 OP_CODE = {"sum": 0, "min": 1, "max": 2, "bool": 3}
@@ -40,8 +41,6 @@ def build():
 def check_block_list(block_idx, n_active, E: int, dev) -> None:
     """A block list for an E-edge index: ``block_idx`` int32 with at most
     ceil(E / EDGE_BLOCK) entries, ``n_active`` int32[1], both on ``dev``."""
-    from .active import n_edge_blocks
-
     check_tensor(block_idx, "block_idx", torch.int32, dev)
     check_tensor(n_active, "n_active", torch.int32, dev)
     if n_active.shape[0] != 1:
@@ -92,14 +91,12 @@ def fragment_spmv(
                                  "fragment_spmv")
     if E == 0 or n_dst == 0:  # a grid of 0 blocks is an invalid launch
         return y
-    lib = build()
-    with torch.cuda.device(dev):
-        err = lib.fragment_spmv_launch(
-            weights.data_ptr(), weights.shape[0], src_ids.data_ptr(),
-            dst_ids.data_ptr(), measures.data_ptr() if measures is not None else None,
-            E, y.data_ptr(), n_dst, OP_CODE[op], int(bool(table)), stream_of(dev),
-        )
-    raise_on(err, "fragment_spmv")
+    launch(
+        build().fragment_spmv_launch, "fragment_spmv", dev,
+        weights.data_ptr(), weights.shape[0], src_ids.data_ptr(),
+        dst_ids.data_ptr(), measures.data_ptr() if measures is not None else None,
+        E, y.data_ptr(), n_dst, OP_CODE[op], int(bool(table)), stream_of(dev),
+    )
     LAUNCHES += 1
     return y
 
@@ -126,16 +123,14 @@ def fragment_spmv_active(
     if E == 0 or n_dst == 0:
         return y
     check_block_list(block_idx, n_active, E, dev)
-    lib = build()
-    with torch.cuda.device(dev):
-        err = lib.fragment_spmv_active_launch(
-            weights.data_ptr(), weights.shape[0], src_ids.data_ptr(),
-            dst_ids.data_ptr(), measures.data_ptr() if measures is not None else None,
-            E, y.data_ptr(), n_dst, OP_CODE[op], block_idx.data_ptr(),
-            block_idx.shape[0], n_active.data_ptr(),
-            2**31 - 1 if scan_above is None else int(scan_above), int(bool(table)),
-            stream_of(dev),
-        )
-    raise_on(err, "fragment_spmv_active")
+    launch(
+        build().fragment_spmv_active_launch, "fragment_spmv_active", dev,
+        weights.data_ptr(), weights.shape[0], src_ids.data_ptr(),
+        dst_ids.data_ptr(), measures.data_ptr() if measures is not None else None,
+        E, y.data_ptr(), n_dst, OP_CODE[op], block_idx.data_ptr(),
+        block_idx.shape[0], n_active.data_ptr(),
+        2**31 - 1 if scan_above is None else int(scan_above), int(bool(table)),
+        stream_of(dev),
+    )
     ACTIVE_LAUNCHES += 1
     return y

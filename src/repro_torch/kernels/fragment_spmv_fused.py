@@ -41,7 +41,7 @@ import ctypes
 import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
-from .cuda_build import I32, P, CudaLibrary, check_tensor, cuda_device, raise_on, stream_of
+from .cuda_build import I32, P, CudaLibrary, check_tensor, cuda_device, launch, stream_of
 from .fragment_spmm import ROW_CHUNK, check_rows, row_chunk, row_scratch
 from .fragment_spmv import OP_CODE, check_block_list
 from .fragment_spmv_packed import M_MODES, check_streams
@@ -179,18 +179,16 @@ def _fused1(kernel: str, rows: bool, weights, hop1, mid_mask, block_idx1, n_acti
     check_block_list(block_idx1, n_active1, h1.E, dev)
     lib = build()
     lists = (block_idx1.data_ptr(), block_idx1.shape[0], n_active1.data_ptr())
-    with torch.cuda.device(dev):
-        if rows:
-            out, s, rb = row_scratch(B, n_dst, op, dev)  # rb = 1: s is out, filled
-            err = lib.fragment_spmm_fused1_launch(
-                weights.data_ptr(), n_src, B, ctypes.byref(h1), keep, out.data_ptr(), n_dst,
-                OP_CODE[op], *lists, s.data_ptr(), rb, int(bool(table)), stream_of(dev))
-        else:
-            out = torch.full(shape, IDENTITY[op], dtype=torch.float32, device=dev)
-            err = lib.fragment_spmv_fused1_launch(
-                weights.data_ptr(), n_src, ctypes.byref(h1), keep, out.data_ptr(), n_dst,
-                OP_CODE[op], *lists, int(bool(table)), stream_of(dev))
-    raise_on(err, kernel)
+    if rows:
+        out, s, rb = row_scratch(B, n_dst, op, dev)  # rb = 1: s is out, filled
+        launch(lib.fragment_spmm_fused1_launch, kernel, dev,
+               weights.data_ptr(), n_src, B, ctypes.byref(h1), keep, out.data_ptr(), n_dst,
+               OP_CODE[op], *lists, s.data_ptr(), rb, int(bool(table)), stream_of(dev))
+    else:
+        out = torch.full(shape, IDENTITY[op], dtype=torch.float32, device=dev)
+        launch(lib.fragment_spmv_fused1_launch, kernel, dev,
+               weights.data_ptr(), n_src, ctypes.byref(h1), keep, out.data_ptr(), n_dst,
+               OP_CODE[op], *lists, int(bool(table)), stream_of(dev))
     return out, True
 
 
@@ -226,15 +224,13 @@ def _fused2(kernel: str, rows: bool, weights, hop1, hop2, mid_mask, block_idx1, 
             block_idx2.data_ptr(), block_idx2.shape[0], n_active2.data_ptr(),
             counters.data_ptr())
     flags = (int(bool(table1)), int(bool(table2)))
-    with torch.cuda.device(dev):
-        if rows:
-            err = lib.fragment_spmm_fused2_launch(
-                weights.data_ptr(), n_src, B, *args, s.data_ptr() if s is not None else None,
-                rb, *flags, stream_of(dev))
-        else:
-            err = lib.fragment_spmv_fused2_launch(weights.data_ptr(), n_src, *args, *flags,
-                                                  stream_of(dev))
-    raise_on(err, kernel)
+    if rows:
+        launch(lib.fragment_spmm_fused2_launch, kernel, dev,
+               weights.data_ptr(), n_src, B, *args, s.data_ptr() if s is not None else None,
+               rb, *flags, stream_of(dev))
+    else:
+        launch(lib.fragment_spmv_fused2_launch, kernel, dev,
+               weights.data_ptr(), n_src, *args, *flags, stream_of(dev))
     return out, True
 
 

@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import torch
 
-from .cuda_build import I32, I64, P, CudaLibrary, check_tensor, cuda_device, raise_on, stream_of
+from .cuda_build import I32, I64, P, CudaLibrary, check_tensor, cuda_device, launch, stream_of
 from .fragment_spmv import OP_CODE, check_block_list
 from .ref import IDENTITY
 
@@ -114,23 +114,21 @@ def _launch(weights, src_ids, dst, measure, mdict, n_dst, dst_width, m_mode,
     if blocks is not None:
         block_idx, n_active = blocks
         check_block_list(block_idx, n_active, E, dev)
-    lib = build()
-    with torch.cuda.device(dev):
-        err = lib.fragment_spmv_packed_launch(
-            weights.data_ptr(), weights.shape[0], src_ids.data_ptr(), E,
-            dst.data_ptr(), int(dst_width), dst.shape[0] if dst_width else 0,
-            M_MODES[m_mode],
-            measure.data_ptr() if m_mode != "none" else None, int(m_width),
-            measure.shape[0] if m_mode in ("packed", "dict") else 0,
-            mdict.data_ptr() if m_mode == "dict" else None, n_dict,
-            y.data_ptr(), n_dst, OP_CODE[op],
-            block_idx.data_ptr() if blocks is not None else None,
-            block_idx.shape[0] if blocks is not None else 0,
-            n_active.data_ptr() if blocks is not None else None,
-            2**31 - 1 if scan_above is None else int(scan_above),
-            int(bool(table)), stream_of(dev),
-        )
-    raise_on(err, kernel)
+    launch(
+        build().fragment_spmv_packed_launch, kernel, dev,
+        weights.data_ptr(), weights.shape[0], src_ids.data_ptr(), E,
+        dst.data_ptr(), int(dst_width), dst.shape[0] if dst_width else 0,
+        M_MODES[m_mode],
+        measure.data_ptr() if m_mode != "none" else None, int(m_width),
+        measure.shape[0] if m_mode in ("packed", "dict") else 0,
+        mdict.data_ptr() if m_mode == "dict" else None, n_dict,
+        y.data_ptr(), n_dst, OP_CODE[op],
+        block_idx.data_ptr() if blocks is not None else None,
+        block_idx.shape[0] if blocks is not None else 0,
+        n_active.data_ptr() if blocks is not None else None,
+        2**31 - 1 if scan_above is None else int(scan_above),
+        int(bool(table)), stream_of(dev),
+    )
     return y, True
 
 

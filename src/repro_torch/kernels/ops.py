@@ -16,10 +16,12 @@ Frontier-sparsity dispatch (:mod:`.active`): the hop entries take
 ``block_skipping`` mode ('off' | 'on' | 'auto'). With metadata present and
 skipping engaged, the hop builds the active-block list on the device
 (:func:`active_block_list`: one launch of :mod:`.block_list` on the card)
-and runs the ``*_active`` kernel over it. 'auto' never asks the host: the
+and runs the ``*_active`` kernel over it. 'auto' builds the list only on an
+index of at least ``params.SKIP_MIN_BLOCKS`` blocks (a choice from the
+index's size, made before any launch); past that it never asks the host: the
 kernel reads ``n_active`` and takes every block in scan order when more than
 ``SKIP_BLOCK_FRACTION`` of them survive (the reference's runtime
-``lax.cond``). Both choices give the scan's result.
+``lax.cond``). Every choice gives the scan's result.
 
 Pipelined fusion (:func:`fragment_spmv_fused`): a fused region of the plan
 runs as one launch of :mod:`.fragment_spmv_fused` — hop1's block list from
@@ -59,6 +61,17 @@ BLOCK_SKIPPING_MODES = ("off", "on", "auto")
 FUSION_MODES = ("off", "on", "auto")
 
 
+def _as(x, dtype: torch.dtype, device=None) -> torch.Tensor:
+    """``torch.as_tensor(x, dtype=dtype, device=device)``, returning ``x``
+    itself without a call into PyTorch when it is already such a tensor
+    (the executor's ``DeviceIndex`` tensors on every hop). ``device=None``
+    keeps a tensor's device and puts anything else on the CPU."""
+    if isinstance(x, torch.Tensor) and x.dtype == dtype and (
+            device is None or x.device == device):
+        return x
+    return torch.as_tensor(x, dtype=dtype, device=device)
+
+
 def _plain(t: torch.Tensor, use_kernel: bool) -> bool:
     """Plain version for CPU tensors or on request; the kernel for CUDA."""
     if not use_kernel or t.device.type == "cpu":
@@ -84,23 +97,38 @@ def active_block_list(w, zero: float, src_min, src_max, use_kernel: bool = True,
     return _block_list.block_list(w, zero, src_min, src_max, flags=flags)
 
 
-def _plan_skip(w, op: str, E: int, blocks, block_skipping: str, use_kernel: bool = True):
-    """Scan or skip for one hop, decided without the host seeing the frontier.
-    ``None`` → scan; otherwise ``(block_idx, n_active, scan_above)``, the
-    device-resident list and the count above which the kernel scans."""
+def _lists(nb: int, block_skipping: str) -> bool:
+    """Whether a hop over an ``nb``-block index with block metadata builds
+    its list (decided before any launch, from the index's size alone): 'on'
+    at every size, so that small shapes exercise the active kernels; 'auto'
+    from ``params.SKIP_MIN_BLOCKS`` blocks up (below it the list's launch
+    costs more than the blocks it could skip), and never on a 1-block index
+    (nothing to skip, as in the reference); 'off' never."""
+    if block_skipping == "on":
+        return True
+    return block_skipping == "auto" and nb > 1 and nb >= _params.SKIP_MIN_BLOCKS
+
+
+def _check_skipping(block_skipping: str) -> None:
     if block_skipping not in BLOCK_SKIPPING_MODES:
         raise ValidationError(
             f"unknown block_skipping mode {block_skipping!r}",
             block_skipping=block_skipping, valid=BLOCK_SKIPPING_MODES,
         )
-    if block_skipping == "off" or blocks is None or E == 0:
+
+
+def _plan_skip(w, op: str, E: int, blocks, block_skipping: str, use_kernel: bool = True):
+    """Scan or skip for one hop, decided without the host seeing the frontier
+    (:func:`_lists`). ``None`` → scan; otherwise ``(block_idx, n_active,
+    scan_above)``, the device-resident list and the count above which the
+    kernel scans."""
+    _check_skipping(block_skipping)
+    if blocks is None or E == 0:
         return None
     nb = _active.n_edge_blocks(E)
-    if nb <= 1 and block_skipping != "on":
-        # nothing to skip on a 1-block index; 'on' still engages the active
-        # kernel so small shapes exercise the real code path
+    if not _lists(nb, block_skipping):
         return None
-    src_min, src_max = (torch.as_tensor(b, device=w.device) for b in blocks)
+    src_min, src_max = (_as(b, torch.int32, w.device) for b in blocks)
     bi, na = active_block_list(w, IDENTITY[op], src_min, src_max, use_kernel)
     if block_skipping == "on":
         return bi, na, nb
@@ -122,16 +150,15 @@ def _hop_streams(src_ids, dst, measure, mdict, dst_width: int, m_mode: str,
                  m_width: int, device) -> HopStreams:
     """A hop's streams as ``device`` tensors of the kernels' types: word
     streams stay words, the measure follows ``m_mode``."""
-    s = torch.as_tensor(src_ids, dtype=torch.int32, device=device)
-    d = _words(dst, device) if dst_width else torch.as_tensor(
-        dst, dtype=torch.int32, device=device)
+    s = _as(src_ids, torch.int32, device)
+    d = _words(dst, device) if dst_width else _as(dst, torch.int32, device)
     m, md = None, None
     if m_mode == "dense":
-        m = torch.as_tensor(measure, dtype=torch.float32, device=device)
+        m = _as(measure, torch.float32, device)
     elif m_mode in ("packed", "dict"):
         m = _words(measure, device)
         if m_mode == "dict":
-            md = torch.as_tensor(mdict, dtype=torch.float32, device=device)
+            md = _as(mdict, torch.float32, device)
     elif m_mode != "none":
         raise ValidationError(f"unknown measure mode {m_mode!r}", m_mode=m_mode)
     return HopStreams(s, d, m, md, dst_width, m_mode, m_width)
@@ -156,12 +183,10 @@ def fragment_spmv(weights, src_ids, dst_ids, measures, n_dst: int,
     (:func:`uses_table`)."""
     if op not in IDENTITY:
         raise ValueError(f"unknown combine op {op!r}")
-    w = torch.as_tensor(weights, dtype=torch.float32)
-    s = torch.as_tensor(src_ids, dtype=torch.int32, device=w.device)
-    d = torch.as_tensor(dst_ids, dtype=torch.int32, device=w.device)
-    m = None if measures is None else torch.as_tensor(
-        measures, dtype=torch.float32, device=w.device
-    )
+    w = _as(weights, torch.float32)
+    s = _as(src_ids, torch.int32, w.device)
+    d = _as(dst_ids, torch.int32, w.device)
+    m = None if measures is None else _as(measures, torch.float32, w.device)
     table = uses_table(hot_share)
     plain = _plain(w, use_kernel)
     plan = _plan_skip(w, op, s.shape[0], blocks, block_skipping, use_kernel)
@@ -197,7 +222,7 @@ def fragment_spmv_packed(weights, src_ids, dst, measure=None, mdict=None, *,
     per-CTA aggregation table (:func:`uses_table`)."""
     if op not in IDENTITY:
         raise ValueError(f"unknown combine op {op!r}")
-    w = torch.as_tensor(weights, dtype=torch.float32)
+    w = _as(weights, torch.float32)
     s, d, m, md, *_ = _hop_streams(src_ids, dst, measure, mdict, dst_width, m_mode,
                                    m_width, w.device)
     kw = dict(dst_width=dst_width, m_mode=m_mode, m_width=m_width, op=op)
@@ -224,7 +249,7 @@ def fragment_spmv_packed(weights, src_ids, dst, measure=None, mdict=None, *,
 
 
 def _frontier_rows(weights) -> torch.Tensor:
-    w = torch.as_tensor(weights, dtype=torch.float32)
+    w = _as(weights, torch.float32)
     if w.dim() != 2:
         raise ValidationError(f"a batched hop takes a [B, n_src] frontier, got shape "
                               f"{tuple(w.shape)}", shape=tuple(w.shape))
@@ -245,10 +270,9 @@ def fragment_spmm(weights, src_ids, dst_ids, measures, n_dst: int,
     if op not in IDENTITY:
         raise ValueError(f"unknown combine op {op!r}")
     w = _frontier_rows(weights)
-    s = torch.as_tensor(src_ids, dtype=torch.int32, device=w.device)
-    d = torch.as_tensor(dst_ids, dtype=torch.int32, device=w.device)
-    m = None if measures is None else torch.as_tensor(
-        measures, dtype=torch.float32, device=w.device)
+    s = _as(src_ids, torch.int32, w.device)
+    d = _as(dst_ids, torch.int32, w.device)
+    m = None if measures is None else _as(measures, torch.float32, w.device)
     table = uses_table(hot_share)
     plain = _plain(w, use_kernel)
     plan = _plan_skip(w, op, s.shape[0], blocks, block_skipping, use_kernel)
@@ -357,23 +381,15 @@ def _fused_block_lists(w, op: str, h1: FusedHopOperands, h2: FusedHopOperands | 
     flags hop2 needs); hop2's is derived WITHOUT reading the
     intermediate, by OR-ing the reach rows of hop1's active blocks
     (:func:`.active.reach_flags` — a conservative superset, so the result is
-    the scan's). Skipping off or unavailable passes full lists: one
-    kernel body serves every mode. 'auto' follows the lists like 'on' (the
-    reference's traced tier; on the H100 ``SKIP_BLOCK_FRACTION`` is 1.0)."""
-    if block_skipping not in BLOCK_SKIPPING_MODES:
-        raise ValidationError(
-            f"unknown block_skipping mode {block_skipping!r}",
-            block_skipping=block_skipping, valid=BLOCK_SKIPPING_MODES,
-        )
+    the scan's). Skipping off, unavailable or not worth a list on hop1's
+    index (:func:`_lists`) passes full lists: one kernel body serves every
+    mode."""
+    _check_skipping(block_skipping)
     dev = w.device
     nb1 = _active.n_edge_blocks(E1)
-    skip1 = (
-        block_skipping != "off" and h1.blocks is not None
-        and not (nb1 <= 1 and block_skipping != "on")
-    )
     flags1 = None
-    if skip1:
-        smin1, smax1 = (torch.as_tensor(b, device=dev) for b in h1.blocks)
+    if h1.blocks is not None and _lists(nb1, block_skipping):
+        smin1, smax1 = (_as(b, torch.int32, dev) for b in h1.blocks)
         lists1 = active_block_list(w, IDENTITY[op], smin1, smax1, use_kernel,
                                    flags=h2 is not None)
         bi1, na1 = lists1[:2]
@@ -451,9 +467,8 @@ def _fused_dispatch(batched: bool, weights, hop1, hop2, mid_mask, *, op, mid_bin
                     use_kernel, fusion, block_skipping) -> torch.Tensor:
     if op not in IDENTITY:
         raise ValueError(f"unknown combine op {op!r}")
-    w = _frontier_rows(weights) if batched else torch.as_tensor(weights, dtype=torch.float32)
-    mm = None if mid_mask is None else torch.as_tensor(
-        mid_mask, dtype=torch.float32, device=w.device)
+    w = _frontier_rows(weights) if batched else _as(weights, torch.float32)
+    mm = None if mid_mask is None else _as(mid_mask, torch.float32, w.device)
     E1 = hop1.src_ids.shape[0]
     E2 = hop2.src_ids.shape[0] if hop2 is not None else 0
     n_mid = hop1.n_dst

@@ -45,3 +45,18 @@ FUSED_SCRATCH_BUDGET_BYTES = 0
 #: (0.82 ms against 0.98-1.0 per edge at 0.003, 6.5 at 0.08) and equal below
 #: (the H100, scripts/spmm_probe.py part 5; PERF.md).
 HOP_TABLE_HOT_SHARE = 0.003
+
+#: ``block_skipping="auto"`` builds a hop's block list only on an index of at
+#: least this many EDGE_BLOCK-edge blocks; below it the hop scans (``"on"``
+#: lists at every size). Set from ``chip_smoke.time_list_threshold`` on an
+#: NVIDIA H100 80GB HBM3 at 700 W: the whole hop through ``ops`` with
+#: skipping 'off' against 'on' (the list's launch and host time included,
+#: CUDA events over back-to-back calls, three rounds in turns) on the first
+#: k blocks of I_DA.Doc and I_DT.Term, k from CS's 13 up to I_DT.Term's
+#: 7,079, at supports from one seed to every source. In two runs, each in
+#: its own process, the list was faster in every round at no count from
+#: 2,048 to 4,096 blocks (it won at 2,876 in some runs and lost in others:
+#: the listed hop is host-bound), and at every count from 5,600 up (PERF.md
+#: §5). So SemMedDB's indexes (13-116 blocks) and I_DA's (2,876) scan under
+#: ``"auto"``, and I_DT's (7,079) list.
+SKIP_MIN_BLOCKS = 5600

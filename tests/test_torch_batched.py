@@ -38,6 +38,7 @@ from repro_torch.core.semiring import SEMIRINGS  # noqa: E402
 from repro_torch.data import synth_graph as SG  # noqa: E402
 from repro_torch.kernels import active, ops  # noqa: E402
 from repro_torch.robust.errors import ValidationError  # noqa: E402
+from torch_fixtures import lists_at_every_size  # noqa: E402,F401 (autouse)
 
 N_DOCS, N_TERMS, N_AUTHORS = 300, 40, 120
 SEM = dict(n_concepts=200, n_csemtypes=250, n_predications=400, n_sentences=1500)

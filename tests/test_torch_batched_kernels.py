@@ -29,6 +29,7 @@ from repro.kernels import ops as jops  # noqa: E402
 from repro_torch.kernels import active, ops  # noqa: E402
 from repro_torch.kernels import fragment_spmm as skernel  # noqa: E402
 from repro_torch.kernels import fragment_spmm_packed as spkernel  # noqa: E402
+from torch_fixtures import lists_at_every_size  # noqa: E402,F401 (autouse)
 
 OPS = ["sum", "min", "max", "bool"]
 M_MODES = ["none", "dense", "packed", "dict"]

@@ -37,6 +37,7 @@ from repro_torch.kernels import fragment_spmv as kernel  # noqa: E402
 from repro_torch.kernels import fragment_spmv_fused as fkernel  # noqa: E402
 from repro_torch.kernels import fragment_spmv_packed as pkernel  # noqa: E402
 from repro_torch.kernels.params import EDGE_BLOCK  # noqa: E402
+from torch_fixtures import lists_at_every_size  # noqa: E402,F401 (autouse)
 
 OPS = ["sum", "min", "max", "bool"]
 ZERO = {"sum": 0.0, "min": np.inf, "max": -np.inf, "bool": 0.0}

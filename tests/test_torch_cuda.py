@@ -34,6 +34,8 @@ from repro_torch.kernels import fragment_spmv_fused as fkernel  # noqa: E402
 from repro_torch.kernels import fragment_spmv_packed as pkernel  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 
+from torch_fixtures import lists_at_every_size  # noqa: E402,F401 (autouse)
+
 pytestmark = pytest.mark.cuda
 
 OPS = ["sum", "min", "max", "bool"]
@@ -630,6 +632,74 @@ def test_bitmap_dispatch_launches_the_kernels_on_cuda(cuda):
     assert (bmkernel.AND_LAUNCHES, bmkernel.POPCOUNT_LAUNCHES) == (before[0] + 1, before[1] + 1)
     assert got.device == ta.device and pc.device == ta.device
     assert torch.equal(got, plain) and int(pc) == int(plain_pc) == _popcount_np(a & b)
+
+
+@pytest.mark.parametrize("n", [1, 1029, 125_000, 2**20 + 3])
+def test_bitmap_popcount_is_one_kernel_a_call(cuda, n):
+    """One launch writes the int32 count: no fill before it, no cast after
+    it (the launch counter; and every device operation the profiler sees is
+    the kernel, which it may miss once at the start of its window)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    a, b, ta, tb = _bitmaps(n, 5, cuda)
+    bmkernel.bitmap_and_popcount(ta, tb)  # the stream's scratch exists from here on
+    torch.cuda.synchronize()
+    before = bmkernel.POPCOUNT_LAUNCHES
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        pcs = [bmkernel.bitmap_and_popcount(ta, tb) for _ in range(4)]
+        torch.cuda.synchronize()
+    assert bmkernel.POPCOUNT_LAUNCHES == before + 4
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    if events:  # a profiler that saw the card: the kernel and nothing else
+        assert all("bitmap_and_popcount_kernel" in e.key for e in events), [
+            (e.key, e.count) for e in events]
+        assert 3 <= sum(e.count for e in events) <= 4, [(e.key, e.count) for e in events]
+    for pc in pcs:
+        assert pc.dtype == torch.int32 and pc.shape == () and pc.device == ta.device
+        assert int(pc) == _popcount_np(a & b)
+
+
+def test_bitmap_popcount_scratch_resets_between_launches(cuda):
+    """100 back-to-back counts on one stream with no synchronise between
+    them, then counts interleaved on two streams: each equals the plain
+    version, so every launch leaves its stream's scratch at zero."""
+    cases = [_bitmaps(n, n, cuda) for n in (7, 1025, 100_003, 2**20 + 3)]
+    pcs = [bmkernel.bitmap_and_popcount(c[2], c[3]) for _ in range(25) for c in cases]
+    torch.cuda.synchronize()
+    want = [_popcount_np(c[0] & c[1]) for c in cases]
+    assert [int(p) for p in pcs] == want * 25
+    s1, s2 = torch.cuda.Stream(), torch.cuda.Stream()
+    for s in (s1, s2):
+        s.wait_stream(torch.cuda.current_stream())
+    got = {id(s1): [], id(s2): []}
+    for i in range(40):
+        s = s1 if i % 2 == 0 else s2
+        c = cases[i % len(cases)]
+        with torch.cuda.stream(s):
+            got[id(s)].append((bmkernel.bitmap_and_popcount(c[2], c[3]), i % len(cases)))
+    torch.cuda.synchronize()
+    for pairs in got.values():
+        for pc, k in pairs:
+            assert int(pc) == want[k] == int(ref.bitmap_and_popcount_ref(cases[k][2],
+                                                                          cases[k][3]))
+
+
+@pytest.mark.parametrize("off_a,off_b", [(0, 0), (1, 1), (2, 2), (3, 3), (1, 0), (0, 3),
+                                         (2, 1)])
+@pytest.mark.parametrize("n", BITMAP_SIZES)
+def test_bitmap_pair_at_every_length_and_alignment(cuda, n, off_a, off_b):
+    """Every length of the bitmap sweep, the operands as views off a
+    16-byte boundary (both alike: scalar head and tail around the vectors;
+    not alike: scalar words), against the plain versions."""
+    a, b, ta, tb = _bitmaps(n + 3, n + 11 * off_a + off_b, cuda)
+    va, vb = ta[off_a:off_a + n], tb[off_b:off_b + n]
+    want = a[off_a:off_a + n] & b[off_b:off_b + n]
+    got = bmkernel.bitmap_and(va, vb)
+    pc = bmkernel.bitmap_and_popcount(va, vb)
+    assert torch.equal(got, ref.bitmap_and_ref(va, vb))
+    assert np.array_equal(got.cpu().numpy().view(np.uint32), want)
+    assert int(pc) == int(ref.bitmap_and_popcount_ref(va, vb)) == _popcount_np(want)
 
 
 # ---------------------------------------------------------------------------

@@ -21,6 +21,7 @@ from repro_torch.core.engine import GQFastDatabase, GQFastEngine  # noqa: E402
 from repro_torch.core.reference import run_sql  # noqa: E402
 from repro_torch.data import synth_graph as SG  # noqa: E402
 from repro_torch.robust.errors import ValidationError  # noqa: E402
+from torch_fixtures import lists_at_every_size  # noqa: E402,F401 (autouse)
 
 CASES = [
     ("SD", SG.QUERY_SD, {"d0": 5}),

@@ -51,6 +51,7 @@ from repro_torch.kernels import active, ops  # noqa: E402
 from repro_torch.kernels.params import EDGE_BLOCK  # noqa: E402
 from repro_torch.robust.errors import ValidationError  # noqa: E402
 from repro_torch.storage import DenseColumn  # noqa: E402
+from torch_fixtures import lists_at_every_size  # noqa: E402,F401 (autouse)
 
 OPS = ["sum", "min", "max", "bool"]
 ZERO = {"sum": 0.0, "min": np.inf, "max": -np.inf, "bool": 0.0}

@@ -21,6 +21,7 @@ from repro_torch.core.lower import HopOp  # noqa: E402
 from repro_torch.data import synth_graph as SG  # noqa: E402
 from repro_torch.kernels import active, ops, params  # noqa: E402
 from repro_torch.kernels import fragment_spmv_packed as pkernel  # noqa: E402
+from torch_fixtures import lists_at_every_size  # noqa: E402,F401 (autouse)
 
 OPS = ["sum", "min", "max", "bool"]
 

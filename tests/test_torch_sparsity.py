@@ -29,6 +29,7 @@ from repro_torch.data import synth_graph as SG  # noqa: E402
 from repro_torch.kernels import active, ops, ref  # noqa: E402
 from repro_torch.kernels.params import EDGE_BLOCK  # noqa: E402
 from repro_torch.robust.errors import ValidationError  # noqa: E402
+from torch_fixtures import lists_at_every_size  # noqa: E402,F401 (autouse)
 
 N_DST = 256
 OPS = ["sum", "min", "max", "bool"]

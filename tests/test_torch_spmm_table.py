@@ -22,6 +22,7 @@ from repro_torch.data import synth_graph as SG  # noqa: E402
 from repro_torch.kernels import active, ops, params, ref  # noqa: E402
 from repro_torch.kernels import fragment_spmm as skernel  # noqa: E402
 from repro_torch.kernels import fragment_spmm_packed as spkernel  # noqa: E402
+from torch_fixtures import lists_at_every_size  # noqa: E402,F401 (autouse)
 
 OPS = ["sum", "min", "max", "bool"]
 ZERO = {"sum": 0.0, "min": np.inf, "max": -np.inf, "bool": 0.0}

@@ -40,6 +40,7 @@ from repro_torch.storage import (  # noqa: E402
     device_space_report,
     resolve_device_encoding,
 )
+from torch_fixtures import lists_at_every_size  # noqa: E402,F401 (autouse)
 
 OPS = ["sum", "min", "max", "bool"]
 M_MODES = ["none", "dense", "packed", "dict"]
