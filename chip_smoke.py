@@ -13,7 +13,11 @@ Phases (any failure exits non-zero; nothing is caught while the run goes on):
     SemMedDB-shaped graph at 10× the generator's defaults, each twice on the
     card: dense device encodings, and the reference's default
     ``device_encodings="auto"`` (bit-packed keys) built from the same host
-    indexes. Device bytes per index and the ratio to dense.
+    indexes. Device bytes per index and the ratio to dense. The scalar
+    walk's path counts per document (SD) and author (AS) on the host, and
+    the column store's bytes before and after ``fragment_loop`` prepares and
+    runs SD, FSD and AS: unchanged (it reads packed columns by ``gather``,
+    no dense copy), the allocator's live bytes beside them.
  3. Kernels against their plain PyTorch versions on the card (sum within
     rtol=atol=1e-4, min/max/bool equal): the dense pair in both forms (the
     per-CTA table and the atomic an edge), scan and active, at
@@ -96,7 +100,25 @@ Phases (any failure exits non-zero; nothing is caught while the run goes on):
          card from I_DT.Term (32 documents a word), their AND and its
          popcount through ``ops.bitmap_and`` / ``bitmap_and_popcount`` (one
          launch each), equal to the plain versions, the count equal to
-         ``np.intersect1d`` of the two terms' document lists on the host.
+         ``np.intersect1d`` of the two terms' document lists on the host;
+      k. ``GQFastEngine(strategy="fragment_loop")`` and ``"auto"`` over the
+         nine queries (AS and AS-recent from an author whose walk holds
+         about LOOP_AUTHOR_PATHS paths: from a0=7 it would hold ~1.3e12) and
+         ``query_topk``: per query no kernel launches at all where the plan
+         walks path by path, the frontier's launches where it falls back
+         (mask seeds, semijoins) or ``auto`` picks it; ``auto``'s pick per
+         query with the estimated and the observed worst fraction; each
+         result against the defaults' (exact for the counts, gated) and the
+         float sums against the float64 sums within FLOAT64_LIMIT;
+         ``execute_batch`` at B = 8 under both, every row against its
+         single call;
+      l. ``profile()`` and ``explain(analyze=True)`` of SD, AS and AD under
+         the defaults and under ``fragment_loop``: the self walls summing to
+         ``total_wall_ms``, the observed fractions on the card equal to a
+         numpy walk of the same plan on the host (integers), the result
+         against ``__call__``'s (exact for the counts, gated: a float sum's
+         last bits can differ between two calls on the card) and the
+         float64 sums.
     Each result is compared with the same lowered plan run through the plain
     versions on the card with float64 sums (each comparison's gate ratio
     logged and kept), the defaults with skipping off and with the dense
@@ -137,7 +159,11 @@ Phases (any failure exits non-zero; nothing is caught while the run goes on):
     scalar reduction floor, B × the SpMV kernel's, the plain version's (B =
     8) and ``torch.sparse.mm`` on the CSR matrix; the fused regions' SpMM
     form at B = 8 in every form beside the unfused SpMM kernels (held to
-    them, and to the float64 sums within ``FLOAT64_LIMIT``).
+    them, and to the float64 sums within ``FLOAT64_LIMIT``). The strategies
+    (5k): SD and FSD at documents and AS at authors picked at quantiles of
+    the walk's paths, from one fragment to most of an index, the defaults
+    and ``fragment_loop`` in turns for three rounds of 20 calls each, which
+    sets ``FRAGMENT_LOOP_CROSSOVER``.
 
 Output: progress lines, then the card line, the ``{"kernels": [...]}`` line and
 last ``{"ok": true, "device": {...}}``. Everything measured is also written to
@@ -1531,15 +1557,15 @@ def drive_intersection(db_dense, device) -> tuple[dict, tuple]:
 # ---------------------------------------------------------------------------
 
 
-def time_modes(engines, SG, c0, modes: dict) -> dict:
-    """Median wall ms of QUERY_REPS executions per query under each of
-    ``modes`` ({label: (storage, block_skipping, fusion)}, storage naming
-    the engines of ``engines``), taken in turns — the modes' order rotates
-    from one repetition to the next — so that the shared host's drift falls
-    on every mode alike."""
+def time_modes(engines, SG, c0, modes: dict, qs=None) -> dict:
+    """Median wall ms of QUERY_REPS executions per query (of ``qs``, else
+    the nine) under each of ``modes`` ({label: (storage, block_skipping,
+    fusion)}, storage naming the engines of ``engines``), taken in turns —
+    the modes' order rotates from one repetition to the next — so that the
+    shared host's drift falls on every mode alike."""
     out = {label: {} for label in modes}
     labels = list(modes)
-    for name, q, params in cases(SG, c0, nine=True):
+    for name, q, params in qs or cases(SG, c0, nine=True):
         pqs = {lb: engines[st][name].prepare(q, block_skipping=bs, fusion=fu)
                for lb, (st, bs, fu) in modes.items()}
         ts = {lb: [] for lb in labels}
@@ -1558,7 +1584,8 @@ def time_modes(engines, SG, c0, modes: dict) -> dict:
     return out
 
 
-def breakdown(label, engines, SG, c0, block_skipping, fusion="auto", nine=False) -> dict:
+def breakdown(label, engines, SG, c0, block_skipping, fusion="auto", nine=False,
+              qs=None) -> dict:
     """Where a query's time goes. torch.profiler over PROFILE_REPS runs gives
     the device's busy time per run, split into the hop kernels, bitunpack,
     the list kernel, copies (the result to the host) and everything else
@@ -1570,7 +1597,7 @@ def breakdown(label, engines, SG, c0, block_skipping, fusion="auto", nine=False)
     from torch.profiler import ProfilerActivity, profile
 
     out = {}
-    for name, q, params in cases(SG, c0, nine):
+    for name, q, params in qs or cases(SG, c0, nine):
         pq = engines[name].prepare(q, block_skipping=block_skipping, fusion=fusion)
         pq(**params)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -3180,6 +3207,349 @@ def time_spmm_fused(specs, device) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# the strategies and query profiling (phases 2, 4k, 4l and the crossover of 5)
+# ---------------------------------------------------------------------------
+
+#: The scalar walk's paths grow with the seed's reach, not with the edges it
+#: touches (paths never merge): AS from a0=7 would walk ~1.3e12 of them. The
+#: fragment_loop paths seed AS and AS-recent from authors whose walk holds
+#: about this many paths at its last hop (``walk_sizes``).
+LOOP_AUTHOR_PATHS = 10_000_000
+#: phase 5's crossover sweep: SD and FSD at documents, AS at authors, picked
+#: at these quantiles of the walk's paths (authors among those whose walk
+#: holds at most CROSSOVER_MAX_PATHS), both strategies in turns for
+#: CROSSOVER_ROUNDS rounds of QUERY_REPS calls each
+CROSSOVER_DOC_QUANTILES = (0.0, 0.01, 0.05, 0.2, 0.5, 0.8, 0.95, 1.0)
+CROSSOVER_AUTHOR_QUANTILES = (0.0, 0.1, 0.5, 0.9, 0.99, 1.0)
+CROSSOVER_MAX_PATHS = 30_000_000
+CROSSOVER_ROUNDS = 3
+#: path l: the queries profiled under the defaults and under fragment_loop
+PROFILED = ("SD", "AS", "AD")
+
+
+def walk_sizes(pub) -> dict:
+    """The scalar walk's path counts, on the host: per document the paths SD
+    holds after its second hop (the sum of its terms' degrees), per author
+    the paths AS holds after its fourth (over its documents' terms, each
+    term's documents' author counts)."""
+    dt, da = pub.relationships["DT"].columns, pub.relationships["DA"].columns
+    n_docs = pub.entities["Document"].size
+    n_terms = pub.entities["Term"].size
+    term_deg = np.bincount(dt["Term"], minlength=n_terms).astype(np.float64)
+    doc_paths = np.bincount(dt["Doc"], weights=term_deg[dt["Term"]], minlength=n_docs)
+    doc_authors = np.bincount(da["Doc"], minlength=n_docs).astype(np.float64)
+    term_authors = np.bincount(dt["Term"], weights=doc_authors[dt["Doc"]], minlength=n_terms)
+    doc_paths4 = np.bincount(dt["Doc"], weights=term_authors[dt["Term"]], minlength=n_docs)
+    author_paths = np.bincount(da["Author"], weights=doc_paths4[da["Doc"]],
+                               minlength=pub.entities["Author"].size)
+    return {"doc": doc_paths, "author": author_paths}
+
+
+def near(paths: np.ndarray, target: float, n: int) -> np.ndarray:
+    """The ``n`` ids whose path counts lie nearest ``target`` (by ratio)."""
+    ok = np.flatnonzero(paths > 0)
+    return ok[np.argsort(np.abs(np.log(paths[ok] / target)), kind="stable")[:n]]
+
+
+def at_quantiles(paths: np.ndarray, quantiles, cap: float = np.inf) -> list[int]:
+    """Distinct ids at the given quantiles of the nonzero path counts up to
+    ``cap``."""
+    ok = np.flatnonzero((paths > 0) & (paths <= cap))
+    order = ok[np.argsort(paths[ok], kind="stable")]
+    picks = [int(order[min(int(q * (order.shape[0] - 1)), order.shape[0] - 1)])
+             for q in quantiles]
+    return list(dict.fromkeys(picks))
+
+
+def loop_cases(SG, c0, sizes: dict) -> list:
+    """The nine queries for the fragment_loop paths: AS and AS-recent from
+    the author nearest LOOP_AUTHOR_PATHS paths, the others as ``cases``."""
+    a0 = int(near(sizes["author"], LOOP_AUTHOR_PATHS, 1)[0])
+    return [(n, q, {"a0": a0} if n in ("AS", "AS_RECENT") else p)
+            for n, q, p in cases(SG, c0, True)]
+
+
+def strategy_launches(pq) -> list[int]:
+    """[hop-kernel launches, fused1, fused2] one call of ``pq`` makes: none
+    for a plan fragment_loop walks path by path, the unfused frontier's for
+    one it falls back on."""
+    from repro_torch.core import executor as X
+
+    if pq.strategy == "fragment_loop":
+        return [0, 0, 0] if X.walks_scalar(pq.phys) else expected_launches(pq.phys, "off")
+    return expected_launches(pq.phys, pq.fusion)
+
+
+def truth_for(engines, qs) -> dict:
+    """Each float query of ``qs`` through the plain versions with float64
+    sums (skipping and fusion off), at its own parameters."""
+    from repro_torch.core import executor as X
+
+    out = {}
+    with float64_sums():
+        for name, q, params in qs:
+            if name in EXACT_QUERIES:
+                continue
+            pq = engines[name].prepare(q, block_skipping="off", fusion="off")
+            run = X.compile_frontier(engines[name].db.device, pq.phys, block_skipping="off",
+                                     use_kernel=False, fusion="off")
+            out[name] = run(*[params[n] for n in pq.param_names]).cpu().numpy()
+    return out
+
+
+def walk_bytes(db, eng, SG, a0: int) -> dict:
+    """Device bytes before and after fragment_loop prepares and runs SD, FSD
+    and AS on ``db``: the column store's (device_space_report, with the
+    bytes a materialize() memo pins) must not move, as the walk reads packed
+    columns by gather; the allocator's live bytes are logged beside."""
+    import gc
+
+    import torch
+
+    from repro_torch.storage import device_space_report
+
+    def state():
+        gc.collect()
+        sync()
+        rep = device_space_report(db.device)
+        return {"total_bytes": rep["total_bytes"], "materialized_bytes":
+                rep["materialized_bytes"], "allocated": torch.cuda.memory_allocated()}
+
+    before = state()
+    for q, params in ((SG.QUERY_SD, {"d0": 5}), (SG.QUERY_FSD, {"d0": 5}),
+                      (SG.QUERY_AS, {"a0": a0})):
+        eng.prepare(q)(**params)
+    after = state()
+    log(f"  fragment_loop prepare and run of SD, FSD, AS (a0={a0}): device bytes {before} ->"
+        f" {after}")
+    if (after["total_bytes"], after["materialized_bytes"]) != (before["total_bytes"], 0):
+        raise AssertionError(f"the scalar walk changed the column store's bytes: {before} ->"
+                             f" {after}")
+    return {"before": before, "after": after}
+
+
+def drive_strategy(label, engines, defaults, SG, qs, truth, gates) -> tuple[dict, dict, dict]:
+    """One strategy path over ``qs`` through ``GQFastEngine.query`` and
+    ``query_topk`` (AS), every counter set to 0 just before and read just
+    after. Per query the hop kernels' launches must equal the plan's: none
+    for a scalar walk (no kernel at all), the frontier's otherwise. Each
+    result against the defaults' frontier result (``defaults``: exact for
+    the counts, gated) and the float sums against ``truth`` within
+    FLOAT64_LIMIT. Returns (results, counts, per-query records)."""
+    from repro_torch.core import executor as X
+    from repro_torch.obs.profile import observed_hop_fractions
+
+    prepared = {n: engines[n].prepare(q) for n, q, _ in qs}
+    hops = PACKED_HOPS + ["fragment_spmv", "fragment_spmv_active"]
+    results, records = {}, {}
+    reset_counts()
+    for name, q, params in qs:
+        before = read_counts()
+        results[name] = engines[name].query(q, **params)
+        d = {k: v - before[k] for k, v in read_counts().items()}
+        pq = prepared[name]
+        want = strategy_launches(pq)
+        got = [sum(d[k] for k in hops), d["fragment_spmv_fused1"], d["fragment_spmv_fused2"]]
+        scalar = pq.strategy == "fragment_loop" and X.walks_scalar(pq.phys)
+        if got != want or (scalar and any(d.values())):
+            raise AssertionError(f"path {label} {name} ({pq.strategy}): [hops, fused1, fused2]"
+                                 f" launched {got}, expected {want} ({d})")
+        records[name] = {"strategy": pq.strategy, "scalar": scalar, "launches": got,
+                         "est_worst": max((h["est_active_fraction"]
+                                           for h in pq.hop_estimates), default=1.0)}
+    top = engines["AS"].query_topk(SG.QUERY_AS, k=10, **next(p for n, _, p in qs if n == "AS"))
+    counts = read_counts()
+    if not any(r["scalar"] for r in records.values()) and label.startswith("k: fragment"):
+        raise AssertionError(f"path {label}: no plan walked path by path")
+    want = engines["AS"]._topk(results["AS"], 10)
+    if [i for i, _ in top] != [i for i, _ in want]:
+        raise AssertionError(f"path {label}: query_topk ids {top} != query's {want}")
+    ratios = {}
+    for name, q, params in qs:
+        got = results[name]
+        if got.shape != defaults[name].shape or not np.isfinite(got).all() or not got.any():
+            raise AssertionError(f"path {label} {name}: shape {got.shape}, non-finite or empty")
+        compare_gated(got, defaults[name], name, f"{label} {name} vs the defaults", ratios)
+        obs = observed_hop_fractions(prepared[name].phys, params)
+        records[name]["observed_worst"] = max(h["observed_active_fraction"] for h in obs)
+        records[name]["touched_edges"] = [h["touched_edges"] for h in obs]
+    log_gates(f"path {label} vs the defaults", ratios, gates)
+    rel = hold_f64(label, results, truth, "single")
+    for name, r in records.items():
+        log(f"    {name:10s} {r['strategy']:13s} {'scalar walk' if r['scalar'] else 'frontier'}"
+            f" launches {r['launches']}, worst fraction estimated {r['est_worst']:.4g},"
+            f" observed {r['observed_worst']:.4g}")
+    log(f"  path {label}: launches {({k: v for k, v in counts.items() if v})}")
+    return results, counts, {"queries": records, "float64_rel": rel}
+
+
+def drive_strategy_batched(label, engines, SG, qs, rows: dict, gates) -> dict:
+    """``execute_batch`` at B = 8 over ``qs`` (parameters ``rows[name]``),
+    every row against its single call (exact for the counts, gated)."""
+    ratios, worst = {}, 0.0
+    for name, q, _ in qs:
+        pq = engines[name].prepare(q)
+        out = pq.execute_batch(**rows[name])
+        if out.shape != (8, pq.phys.out_dom) or not np.isfinite(out).all():
+            raise AssertionError(f"path {label} {name}: shape {out.shape} or non-finite values")
+        for i in range(8):
+            single = pq(**{k: int(v[i]) for k, v in rows[name].items()})
+            worst = max(worst, compare_gated(out[i], single, name,
+                                             f"{label} {name} B=8 row {i} vs single call",
+                                             ratios))
+    log(f"  path {label}: execute_batch B = 8, every row equals its single call (max abs err"
+        f" {worst:.3g})")
+    log_gates(f"path {label} B=8 rows vs single calls", ratios, gates)
+    return ratios
+
+
+def host_walk(phys, params, hops_out) -> np.ndarray:
+    """The observed hop fractions by a numpy walk of the plan on the host, as
+    the JAX package computes them: the support as a host array, each hop's
+    sources from the card and its destinations from the host index
+    (``HopOp.host_dst``)."""
+    from repro_torch.core.lower import (
+        DegreeFilterOp, EntityFilterOp, HopOp, LParam, SeedOp, iter_flat_ops,
+    )
+    from repro_torch.kernels.active import active_block_list_np
+
+    host = lambda t: t.cpu().numpy()
+    sup = None
+    for op in iter_flat_ops(phys):
+        if isinstance(op, SeedOp):
+            if op.ids is not None:
+                sup = np.zeros(op.dom, bool)
+                sup[[int(params[i.name]) if isinstance(i, LParam) else int(i)
+                     for i in op.ids]] = True
+            else:
+                sup = np.ones(op.dom, bool)
+                for prog in op.programs:
+                    sup &= host_walk(prog, params, None)
+                if op.const_mask is not None:
+                    sup &= host(op.const_mask) > 0
+                for c in op.param_conds:
+                    sup &= host(c.mask(params, lambda c: c.array))
+        elif isinstance(op, HopOp):
+            active = sup[host(op.src_ids)]
+            reached = np.zeros(op.dom_dst, bool)
+            reached[np.asarray(op.host_dst)[active]] = True
+            if hops_out is not None:
+                _, na, _ = active_block_list_np(sup, host(op.block_src_min),
+                                                host(op.block_src_max))
+                hops_out.append({"touched_edges": int(active.sum()),
+                                 "frontier_nnz": int(sup.sum()),
+                                 "reached": int(reached.sum()), "active_blocks": int(na[0])})
+            sup = reached
+        elif isinstance(op, DegreeFilterOp):
+            sup = sup & (host(op.degrees) > 0)
+        elif isinstance(op, EntityFilterOp):
+            if op.const_mask is not None:
+                sup = sup & (host(op.const_mask) > 0)
+            for c in op.param_conds:
+                sup = sup & host(c.mask(params, lambda c: c.array))
+    return sup
+
+
+def drive_profiles(engines_by_strategy, SG, qs, truth, gates) -> dict:
+    """Path l: ``profile()`` and ``explain(analyze=True)`` of PROFILED under
+    each strategy of ``engines_by_strategy``. The self walls must sum to
+    ``total_wall_ms``; the observed fractions on the card must equal the
+    host's numpy walk of the same plan, integer for integer; the result must
+    equal ``__call__``'s (exact for the counts, gated; on the card a float
+    sum's last bits may differ from call to call) and hold to the float64
+    sums within FLOAT64_LIMIT."""
+    out, ratios = {}, {}
+    for strategy, engines in engines_by_strategy.items():
+        for name, q, params in qs:
+            if name not in PROFILED:
+                continue
+            pq = engines[name].prepare(q)
+            prof = pq.profile(reps=PROFILE_REPS, **params)
+            walls = [o.wall_ms for o in prof.ops if o.wall_ms is not None]
+            if abs(sum(walls) - prof.total_wall_ms) > 1e-6 * prof.total_wall_ms:
+                raise AssertionError(f"path l {strategy} {name}: self walls sum to {sum(walls)},"
+                                     f" total {prof.total_wall_ms}")
+            want = []
+            host_walk(pq.phys, params, want)
+            keys = ("touched_edges", "frontier_nnz", "reached", "active_blocks")
+            got = [{k: h.meta[k] for k in keys} for h in prof.hops]
+            if got != want:
+                raise AssertionError(f"path l {strategy} {name}: observed fractions on the card"
+                                     f" {got} != the host walk's {want}")
+            compare_gated(prof.result, pq(**params), name,
+                          f"l {strategy} {name} profile vs __call__", ratios)
+            if name in truth:
+                hold_f64(f"l {strategy} {name}", {name: prof.result}, {name: truth[name]},
+                         "single")
+            text = pq.explain(analyze=True, **params)
+            if not text.startswith(pq.explain()) or "analyze: total" not in text:
+                raise AssertionError(f"path l {strategy} {name}: explain(analyze=True) is not"
+                                     " explain() extended")
+            out[f"{strategy} {name}"] = {
+                "strategy": pq.strategy, "total_wall_ms": prof.total_wall_ms,
+                "timing_method": prof.timing_method, "phases": prof.phase_summary(),
+                "calls": [o.calls for o in prof.ops],
+                "hops": [h.to_dict() for h in prof.hops]}
+            log(f"  path l {strategy:13s} {name}: {pq.strategy}, total {prof.total_wall_ms:.4f}"
+                f" ms; self walls {prof.phase_summary()}; calls {[o.calls for o in prof.ops]};"
+                f" hops est/obs " + ", ".join(
+                    f"I_{h.table}.{h.src_key} {h.est_active_fraction:.4g}/"
+                    f"{h.observed_active_fraction:.4g}" for h in prof.hops))
+    log_gates("path l profile vs __call__", ratios, gates)
+    return out
+
+
+def time_crossover(eng_f, eng_l, SG, sizes) -> tuple[list[dict], float]:
+    """The strategies' crossover: SD and FSD at documents, AS at authors,
+    chosen at quantiles of the walk's paths (CROSSOVER_*_QUANTILES), each
+    through the defaults (frontier) and fragment_loop, CROSSOVER_ROUNDS
+    rounds with the two in turns, the median wall of QUERY_REPS calls each
+    round. Returns the rows and the measured FRAGMENT_LOOP_CROSSOVER: the
+    observed worst fraction of the first point (by that fraction) at which
+    fragment_loop did not win every round, 0 where that is the first point,
+    the largest fraction measured where it won everywhere."""
+    from repro_torch.obs.profile import observed_hop_fractions
+
+    docs = at_quantiles(sizes["doc"], CROSSOVER_DOC_QUANTILES)
+    authors = at_quantiles(sizes["author"], CROSSOVER_AUTHOR_QUANTILES, CROSSOVER_MAX_PATHS)
+    rows = []
+    for name, q, key, seeds, paths in (("SD", SG.QUERY_SD, "d0", docs, sizes["doc"]),
+                                       ("FSD", SG.QUERY_FSD, "d0", docs, sizes["doc"]),
+                                       ("AS", SG.QUERY_AS, "a0", authors, sizes["author"])):
+        pf, pl = eng_f.prepare(q), eng_l.prepare(q)
+        for s in seeds:
+            params = {key: s}
+            obs = observed_hop_fractions(pl.phys, params)
+            compare(pl(**params), pf(**params), name == "SD", f"crossover {name} {params}")
+            ms = {"frontier": [], "fragment_loop": []}
+            for r in range(CROSSOVER_ROUNDS):
+                for label, pq in (("frontier", pf), ("fragment_loop", pl))[::1 - 2 * (r % 2)]:
+                    ts = []
+                    for _ in range(QUERY_REPS):
+                        t0 = time.perf_counter()
+                        pq(**params)  # returns host numpy: waits for the device
+                        ts.append((time.perf_counter() - t0) * 1e3)
+                    ms[label].append(statistics.median(ts))
+            row = {"query": name, key: s, "paths": float(paths[s]),
+                   "worst": max(h["observed_active_fraction"] for h in obs),
+                   "fractions": [h["observed_active_fraction"] for h in obs],
+                   "frontier_ms": ms["frontier"], "fragment_loop_ms": ms["fragment_loop"]}
+            row["loop_wins"] = all(b < a for a, b in zip(ms["frontier"], ms["fragment_loop"]))
+            rows.append(row)
+            log(f"  crossover {name} {key}={s}: {row['paths']:.0f} paths, worst fraction"
+                f" {row['worst']:.4g}; median ms by round frontier "
+                + "/".join(f"{v:.4f}" for v in ms["frontier"]) + ", fragment_loop "
+                + "/".join(f"{v:.4f}" for v in ms["fragment_loop"])
+                + (" (fragment_loop won every round)" if row["loop_wins"] else ""))
+    pts = sorted(rows, key=lambda r: r["worst"])
+    lost = [i for i, r in enumerate(pts) if not r["loop_wins"]]
+    measured = pts[-1]["worst"] if not lost else (0.0 if lost[0] == 0 else pts[lost[0]]["worst"])
+    log(f"  fragment_loop won every round below a worst fraction of {measured:.6g}"
+        " (FRAGMENT_LOOP_CROSSOVER measured)")
+    return rows, measured
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -3222,7 +3592,11 @@ def run(device) -> None:
     from repro_torch.kernels import active
     from repro_torch.kernels import fragment_spmv_fused as fk
     from repro_torch.kernels.cuda_build import build_all
-    from repro_torch.kernels.params import FUSED_SCRATCH_BUDGET_BYTES, SKIP_MIN_BLOCKS
+    from repro_torch.kernels.params import (
+        FRAGMENT_LOOP_CROSSOVER,
+        FUSED_SCRATCH_BUDGET_BYTES,
+        SKIP_MIN_BLOCKS,
+    )
 
     t_start = time.perf_counter()
     card = card_line()
@@ -3289,6 +3663,16 @@ def run(device) -> None:
                                                   "table": uses_table(di)}
     log("  packed hop per index (hot share: table on/off): " + ", ".join(
         f"{k} {v['hot_share']:.3g}: {'on' if v['table'] else 'off'}" for k, v in tables.items()))
+    # the scalar walk's sizes, and the column store's bytes around it
+    t0 = time.perf_counter()
+    sizes = walk_sizes(pub)
+    loop_a0 = int(near(sizes["author"], LOOP_AUTHOR_PATHS, 1)[0])
+    log(f"  the walk's paths (host, {time.perf_counter() - t0:.1f} s): SD from d0=5"
+        f" {sizes['doc'][5]:.0f} (documents' median {np.median(sizes['doc']):.0f}, max"
+        f" {sizes['doc'].max():.0f}); AS from a0=7 {sizes['author'][7]:.4g}, from a0={loop_a0}"
+        f" {sizes['author'][loop_a0]:.0f} (fragment_loop's AS seed)")
+    space["fragment_loop_walk"] = walk_bytes(db, GQFastEngine(db, strategy="fragment_loop"),
+                                             SG, loop_a0)
 
     # phase 3: kernels against their plain versions
     phase("[3] kernels against their plain versions on the card", t_start)
@@ -3497,6 +3881,32 @@ def run(device) -> None:
     phase("[4j] the merge intersection through ops.bitmap_and / bitmap_and_popcount", t_start)
     paths["j_intersection"], masks = drive_intersection(db_dense, device)
 
+    # phase 4k/4l: the strategies and query profiling
+    phase("[4k] fragment_loop and auto through GQFastEngine.query / query_topk /"
+          " execute_batch", t_start)
+    lqs = loop_cases(SG, c0, sizes)
+    strat, strategy_records = {}, {}
+    for s in ("fragment_loop", "auto"):
+        ep, es = GQFastEngine(db, strategy=s), GQFastEngine(dbs, strategy=s)
+        strat[s] = {n: (es if n == "CS" else ep) for n, _, _ in lqs}
+    defaults_k = {n: engines["auto"][n].query(q, **p) for n, q, p in lqs}
+    truth_k = truth_for(engines["auto"], lqs)
+    rows8 = {n: ({"a0": near(sizes["author"], LOOP_AUTHOR_PATHS / 5, 8)}
+                 if n in ("AS", "AS_RECENT") else draws[n][8]) for n, _, _ in lqs}
+    for s in strat:
+        _, counts, strategy_records[s] = drive_strategy(f"k: {s}", strat[s], defaults_k, SG,
+                                                        lqs, truth_k, gates)
+        paths[f"k_{s}"] = {"counts": counts}
+        if counts["fragment_spmv_packed"] < 1:
+            raise AssertionError(f"path k {s}: the frontier's packed hop never launched")
+        strategy_records[s]["batched_gates"] = drive_strategy_batched(
+            f"k: {s}", strat[s], SG, lqs, rows8, gates)
+    phase("[4l] profile() and explain(analyze=True) on the card", t_start)
+    reset_counts()
+    profiles = drive_profiles({"defaults": engines["auto"],
+                               "fragment_loop": strat["fragment_loop"]}, SG, lqs, truth_k, gates)
+    paths["l_profile"] = {"counts": read_counts()}
+
     # phase 5: times
     phase("[5] times", t_start)
     qtimes = time_modes(engines, SG, c0, {"defaults": ("auto", "auto", "auto"),
@@ -3533,6 +3943,14 @@ def run(device) -> None:
     skipping, skip_fraction, ktimes["block_list"] = time_skipping(db, db_dense, device)
     threshold_rows, min_blocks = time_list_threshold(db, device)
     host = time_wrappers(dbs, dbs_dense, masks, device)
+    phase("[5k] the strategies' crossover", t_start)
+    crossover_rows, crossover = time_crossover(engines["auto"]["SD"], strat["fragment_loop"]["SD"],
+                                               SG, sizes)
+    stimes = time_modes({"defaults": engines["auto"], "fragment_loop": strat["fragment_loop"],
+                         "auto": strat["auto"]}, SG, c0,
+                        {k: (k, "auto", "auto") for k in ("defaults", "fragment_loop", "auto")},
+                        qs=lqs)
+    ssplit = {s: breakdown(s, strat[s], SG, c0, "auto", qs=lqs) for s in strat}
     phase("[5h] batched serving: execute_batch against B single calls, and the batched"
           " kernels", t_start)
     btimes = time_batched(engines["auto"], SG, c0, draws)
@@ -3545,6 +3963,8 @@ def run(device) -> None:
     log(f"  SKIP_MIN_BLOCKS in use: {SKIP_MIN_BLOCKS}; measured here: {min_blocks}")
     log(f"  FUSED_SCRATCH_BUDGET_BYTES in use: {FUSED_SCRATCH_BUDGET_BYTES}; fused no slower"
         f" up to 4·n_mid = {budget} bytes here")
+    log(f"  FRAGMENT_LOOP_CROSSOVER in use: {FRAGMENT_LOOP_CROSSOVER}; measured here:"
+        f" {crossover:.6g}")
 
     launches = {k: sum(p["counts"][k] for p in paths.values()) for k in KERNELS}
     table_launches = {k: sum(t[k] for t in TABLE_BY_PATH.values())
@@ -3603,6 +4023,11 @@ def run(device) -> None:
         "skip_block_fraction_measured": skip_fraction, "fused_vs_unfused": budget_rows,
         "fused_scratch_budget_bytes": FUSED_SCRATCH_BUDGET_BYTES,
         "fused_scratch_budget_measured": budget,
+        "strategies": {"walk_author": loop_a0, "paths": strategy_records,
+                       "profiles": profiles, "crossover": crossover_rows,
+                       "times": stimes, "device_breakdown": ssplit,
+                       "fragment_loop_crossover": FRAGMENT_LOOP_CROSSOVER,
+                       "fragment_loop_crossover_measured": crossover},
         "batched": {"checks": {"spmm_small": n_spmm_small, "spmm_path": spmm_path_checks,
                                "spmm_hot": n_spmm_hot,
                                "spmm_fused": n_spmm_fused, **batched},

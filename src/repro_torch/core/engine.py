@@ -12,9 +12,13 @@ The defaults are the reference's storage, skipping and fusion:
 and ``prepare(block_skipping="auto", fusion="auto")``. Batched serving
 (``PreparedQuery.execute_batch``, ``GQFastEngine.query_topk_batch``) answers
 B parameter bindings in one pass whose hops each stream the edges once for
-the whole batch. Settings the reference has and this port does not run yet
-(other strategies, meshes, profiling) raise :class:`ValidationError` naming
-the ROADMAP item that brings them.
+the whole batch. ``GQFastEngine(strategy=...)`` runs the frontier, the
+fragment-at-a-time walk (``"fragment_loop"``) or picks between them per plan
+(``"auto"``, from the selectivity estimate or a profile's observed
+fractions); ``PreparedQuery.profile()`` and ``explain(analyze=True)`` time
+every op and hold the estimate against what a run touched. A mesh, which the
+reference has and this port does not run yet, raises
+:class:`ValidationError` naming the ROADMAP item that brings it.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from ..kernels import params as KP
 from ..obs import trace as T
 from ..robust.admission import PreparedCache
 from ..robust.errors import QueryError, ValidationError
@@ -35,6 +40,10 @@ from .lower import PhysicalPlan, lower
 from .planner import plan_query
 from .schema import Schema
 from .sql import parse
+
+#: The strategies ``GQFastEngine`` runs: the two compilers of
+#: ``executor.STRATEGIES`` and ``"auto"``, which picks one of them per plan.
+STRATEGY_MODES = ("frontier", "fragment_loop", "auto")
 
 
 def resolve_device(device) -> torch.device:
@@ -155,7 +164,10 @@ class PreparedQuery:
     block_skipping: str = "auto"  # frontier-sparsity mode baked into fn
     fusion: str = "auto"  # multi-hop fusion mode baked into fn
     hop_estimates: list[dict] | None = None  # per-hop selectivity estimates
-    batched_fn: Callable[..., Any] | None = None  # the batched (SpMM) entry
+    batched_fn: Callable[..., Any] | None = None  # the batched entry
+    plan_sig: str | None = None  # unfused op signature (the calibration key)
+    calibration: Any = None  # the engine's CalibrationStore (shared)
+    device_db: Any = None  # the device DB, for the profile's memory report
 
     def validate_params(self, params: dict) -> None:
         """Typed parameter-binding validation: every declared parameter bound,
@@ -189,14 +201,23 @@ class PreparedQuery:
             return out.cpu().numpy()
 
     def profile(self, reps: int = 3, **params) -> Any:
-        raise X.not_ported("profile()", "9 (observability)")
+        """Execute under instrumentation and return a
+        :class:`repro_torch.obs.profile.QueryProfile`: per-IR-op wall and
+        fenced times, predicted against observed hop fractions (a hop off by
+        more than 2× adds to the ``strategy_mispredict`` counter), the device
+        memory report and the fenced median of ``reps`` runs. The observed
+        fractions feed the engine's calibration store. The result comes from
+        the executable ``__call__`` runs, with the same arguments."""
+        from ..obs.profile import profile_prepared
+
+        return profile_prepared(self, params, reps=reps)
 
     def explain(self, analyze: bool = False, **params) -> str:
-        """Human-readable execution summary: the op pipeline, the strategy,
-        the block-skipping and fusion modes, and per-hop estimated active
-        fractions. ``analyze=True`` (EXPLAIN ANALYZE) waits for the profiler."""
-        if analyze:
-            raise X.not_ported("explain(analyze=True)", "9 (observability)")
+        """Human-readable execution summary: the op pipeline, the resolved
+        strategy, the block-skipping and fusion modes, and per-hop estimated
+        active fractions. ``analyze=True`` (EXPLAIN ANALYZE) also runs the
+        query with the given bindings and appends the :meth:`profile`
+        report."""
         lines = [
             f"query: {' '.join(self.sql.split())}",
             f"strategy: {self.strategy}",
@@ -214,6 +235,8 @@ class PreparedQuery:
                 f"  hop I_{h['table']}.{h['src_key']}: "
                 f"est_active_fraction={h['est_active_fraction']:.4g}"
             )
+        if analyze:
+            lines.append(self.profile(**params).render())
         return "\n".join(lines)
 
     def _batch_args(self, param_arrays: dict) -> tuple[list[np.ndarray], int]:
@@ -262,8 +285,10 @@ class PreparedQuery:
 
     def execute_batch(self, **param_arrays) -> np.ndarray:
         """Answer B parameter bindings of this query in one pass → ``[B,
-        out_dom]`` on the host. Each hop streams the index's edges once for
-        the whole batch (``compile_frontier_batched``). A ragged B pads up
+        out_dom]`` on the host. On the frontier each hop streams the index's
+        edges once for the whole batch (``compile_frontier_batched``); the
+        scalar walk carries every row's paths at once
+        (``compile_fragment_loop_batched``). A ragged B pads up
         to its bucket (:func:`batch_bucket`) by repeating the last row; the
         pad rows are sliced off on the device, before the copy to the host."""
         args, B = self._batch_args(param_arrays)
@@ -278,13 +303,38 @@ class PreparedQuery:
             return out.cpu().numpy()
 
 
+class CalibrationStore:
+    """Observed per-hop active fractions keyed by (unfused) plan signature.
+
+    ``profile()`` records what a run touched; the next ``prepare`` of a query
+    lowering to the same op shape under ``strategy="auto"`` picks from the
+    observation instead of the fanout model (:meth:`GQFastEngine.
+    _pick_strategy`). Bounded: the oldest entry goes past ``max_entries``."""
+
+    def __init__(self, max_entries: int = 256):
+        self.max_entries = max_entries
+        self._obs: dict[str, list[float]] = {}
+
+    def record(self, plan_sig: str, fractions: list) -> None:
+        vals = [float(f) for f in fractions if f is not None]
+        if not vals:
+            return
+        self._obs.pop(plan_sig, None)
+        self._obs[plan_sig] = vals
+        while len(self._obs) > self.max_entries:
+            self._obs.pop(next(iter(self._obs)))
+
+    def get(self, plan_sig: str) -> list[float] | None:
+        return self._obs.get(plan_sig)
+
+    def __len__(self) -> int:
+        return len(self._obs)
+
+
 class GQFastEngine:
     def __init__(self, db: GQFastDatabase, strategy: str = "frontier",
                  mesh=None, max_prepared: int = 64):
-        if strategy != "frontier":
-            raise X.not_ported(
-                f"strategy={strategy!r}", "8 (fragment_loop and the auto strategy)"
-            )
+        X.require_supported("strategy", strategy, STRATEGY_MODES)
         if mesh is not None:
             raise X.not_ported("mesh", "13 (distributed strategy)")
         self.db = db
@@ -292,6 +342,8 @@ class GQFastEngine:
         # fixed-size LRU: each entry pins a lowered plan bound to device
         # tensors, so the prepare cache must not grow without bound
         self._cache: PreparedCache = PreparedCache(max_prepared)
+        # per-plan-signature observed active fractions (fed by profile runs)
+        self.calibration = CalibrationStore()
 
     def prepare(self, sql: str, block_skipping: str = "auto",
                 fusion: str = "auto") -> PreparedQuery:
@@ -303,7 +355,9 @@ class GQFastEngine:
         'off') collapses adjacent hops (and constant-mask filters) into
         pipelined regions run in one launch each: 'on' every eligible region,
         'auto' those whose reach matrix is sparse and whose intermediate fits
-        the scratch budget, 'off' none."""
+        the scratch budget, 'off' none. Frontier strategy only: a
+        fragment_loop plan runs unfused. Under ``strategy="auto"`` the
+        strategy is picked here, once (:meth:`_pick_strategy`)."""
         X.require_supported("block_skipping", block_skipping, X.BLOCK_SKIPPING_MODES)
         X.require_supported("fusion", fusion, X.FUSION_MODES)
         key = (sql, self.strategy, block_skipping, fusion)
@@ -323,24 +377,37 @@ class GQFastEngine:
             except QueryError as e:
                 # every prepare-stage failure carries the query text
                 raise e.with_context(query=" ".join(sql.split()))
-            if fusion != "off":
-                with T.span("fuse"):
-                    phys = fuse_plan(phys, fusion)
+            # the UNFUSED signature keys the calibration store, so a fused
+            # and an unfused prepare of the same shape share observations
+            plan_sig = " -> ".join(phys.op_signature())
+            strategy = self.strategy
+            if strategy == "auto":
+                strategy = self._pick_strategy(plan, plan_sig)
             with T.span("compile") as csp:
-                fn = X.compile_frontier(self.db.device, phys,
-                                        block_skipping=block_skipping, fusion=fusion)
-                # the batched serving entry, sharing the reach copies
-                bfn = X.compile_frontier_batched(
-                    self.db.device, phys, block_skipping=block_skipping, fusion=fusion,
-                    reach=fn.reach,
-                ) if phys.param_names else None
-                csp.annotate(strategy=self.strategy, n_ops=len(phys.ops),
+                if strategy == "frontier":
+                    if fusion != "off":
+                        with T.span("fuse"):
+                            phys = fuse_plan(phys, fusion)
+                    fn = X.compile_frontier(self.db.device, phys,
+                                            block_skipping=block_skipping, fusion=fusion)
+                    # the batched serving entry, sharing the reach copies
+                    bfn = X.compile_frontier_batched(
+                        self.db.device, phys, block_skipping=block_skipping,
+                        fusion=fusion, reach=fn.reach,
+                    ) if phys.param_names else None
+                else:
+                    single, batched = X.STRATEGIES[strategy]
+                    fn = single(self.db.device, phys, block_skipping=block_skipping)
+                    bfn = batched(self.db.device, phys, block_skipping=block_skipping
+                                  ) if phys.param_names else None
+                csp.annotate(strategy=strategy, n_ops=len(phys.ops),
                              fused=has_fused(phys))
             pq = PreparedQuery(
                 sql, plan, fn, list(phys.param_names), plan.group_entity, phys,
-                strategy=self.strategy, block_skipping=block_skipping,
+                strategy=strategy, block_skipping=block_skipping,
                 fusion=fusion, hop_estimates=self._hop_fractions(plan),
-                batched_fn=bfn,
+                batched_fn=bfn, plan_sig=plan_sig, calibration=self.calibration,
+                device_db=self.db.device,
             )
         self._cache.put(key, pq)
         return pq
@@ -379,6 +446,23 @@ class GQFastEngine:
             })
             frontier_est = min(touched, float(self.db.schema.domain_size(s.dst_entity)))
         return hops
+
+    def _pick_strategy(self, plan: ChainPlan, plan_sig: str | None = None) -> str:
+        """Cost-based strategy choice: the fragment walk touches only the
+        reached fragments (work-efficient), the frontier streams whole
+        indexes (throughput-efficient). An id-seeded plan whose worst hop
+        touches less than ``params.FRAGMENT_LOOP_CROSSOVER`` of its index's
+        edges walks fragments; any other runs the frontier. The fractions are
+        the ones a ``profile()`` of the same plan signature observed, when
+        the calibration store holds them, else :meth:`_hop_fractions`'
+        estimate."""
+        if not isinstance(plan.seed, SeedIds):
+            return "frontier"  # a mask seed is whole-domain already
+        fracs = self.calibration.get(plan_sig) if plan_sig is not None else None
+        if fracs is None:
+            fracs = [h["est_active_fraction"] for h in self._hop_fractions(plan)]
+        worst = max(fracs, default=1.0)
+        return "fragment_loop" if worst < KP.FRAGMENT_LOOP_CROSSOVER else "frontier"
 
     def query(self, sql: str, **params) -> np.ndarray:
         return self.prepare(sql)(**params)

@@ -3,9 +3,9 @@
 Every strategy is a *thin interpreter* over the IR built by
 :mod:`repro_torch.core.lower`: one continuation-passing walker
 (:func:`walk_ir`) folds the op sequence, and a strategy chooses the primitive
-each op maps to. This port has the ``frontier`` strategy: bottom-up, fully
-pipelined execution over dense per-entity-domain frontier vectors, where each
-HopOp is one call of :func:`repro_torch.kernels.ops.fragment_spmv` or, when
+each op maps to. The ``frontier`` strategy is bottom-up, fully pipelined
+execution over dense per-entity-domain frontier vectors, where each HopOp is
+one call of :func:`repro_torch.kernels.ops.fragment_spmv` or, when
 the index's columns are stored bit-packed by the device column store
 (:mod:`repro_torch.storage`), of the decode-fused
 :func:`repro_torch.kernels.ops.fragment_spmv_packed`, which decodes dst ids and
@@ -22,7 +22,10 @@ query is a plain Python closure over the lowered plan. The batched form
 carries ``[B, dom]`` frontier matrices through the same walker, and each
 HopOp becomes one batched hop (:func:`repro_torch.kernels.ops.fragment_spmm`
 and its decode-fused and fused-region forms) that reads the edges once for
-all B parameter bindings.
+all B parameter bindings. The ``fragment_loop`` strategy
+(:func:`compile_fragment_loop`) is the paper's fragment-at-a-time walk,
+vectorised over the paths it holds: each hop expands every path over its
+source's fragment and reads only the reached fragments' edges.
 
 Aggregation semantics are pluggable: the walker is parameterized by a
 :class:`repro_torch.core.semiring.Semiring`, so SUM/COUNT, MIN/MAX, EXISTS and
@@ -33,6 +36,7 @@ aggregation array; size = domain of the group key).
 from __future__ import annotations
 
 import dataclasses
+import time
 from dataclasses import dataclass, field
 from typing import Any, Callable
 
@@ -40,7 +44,9 @@ import numpy as np
 import torch
 
 from ..kernels import ops as K
-from ..kernels.active import block_ranges
+from ..kernels import params as KP
+from ..kernels.active import active_flags, block_ranges
+from ..obs import trace as T
 from ..robust.errors import ExecutionError, ValidationError
 from ..storage import (
     DenseColumn,
@@ -66,6 +72,7 @@ from .lower import (
     PhysicalPlan,
     SeedOp,
     eval_lexpr,
+    iter_flat_ops,
     lower,
 )
 from .schema import Schema
@@ -289,8 +296,9 @@ def ensure_lowered(db: DeviceDB, plan: ChainPlan | PhysicalPlan) -> PhysicalPlan
 def densify_plan(phys: PhysicalPlan) -> PhysicalPlan:
     """Materialize every packed column bound in the IR, once, producing an
     all-dense twin of the plan — the path for a caller that needs decoded
-    columns (the reference's fragment_loop and distributed strategies, which
-    the port has not ported yet, take it)."""
+    columns (the reference's fragment_loop and distributed strategies take
+    it; the port's fragment_loop reads packed columns by ``gather``
+    instead)."""
 
     def dcol(col: DeviceColumn) -> DeviceColumn:
         return col if isinstance(col, DenseColumn) else DenseColumn(col.materialize())
@@ -338,15 +346,111 @@ def _host_scalar(v):
 # ---------------------------------------------------------------------------
 
 
-def walk_ir(phys: PhysicalPlan, interp: "_Interp"):
-    """Fold the op sequence through ``interp``. Continuation-passing so a
-    scalar strategy can emit nested fragment loops from the same walk."""
-    ops = phys.ops
+def walk_ir(phys: PhysicalPlan, interp: "_Interp", stop: int | None = None):
+    """Fold the op sequence through ``interp``. Continuation-passing so the
+    scalar strategy carries its paths through the rest of the plan from
+    inside each hop.
+
+    ``stop`` truncates the walk to the first ``stop`` ops and returns the raw
+    interpreter state (no finalize): the profiling prefix entry.
+
+    While an observability tracer is recording (``obs.trace``) every op runs
+    in a span of its own, fenced, with its hop metadata: the per-op
+    breakdown behind ``PreparedQuery.profile()``. With no tracer the walk is
+    the plain fold."""
+    ops = phys.ops if stop is None else phys.ops[:stop]
+    if T.current() is not None:
+        return _walk_ir_recorded(phys, ops, interp)
 
     def go(i: int, state):
         if i == len(ops):
             return state
         return interp.apply(ops[i], state, lambda st: go(i + 1, st))
+
+    return go(0, None)
+
+
+def _annotate_op_span(sp, op, state, interp) -> None:
+    """Static and observed metadata for one op span: shapes, the skipping
+    mode and, for a HopOp with a frontier vector coming in, the observed
+    support and active-block count (computed on the frontier's device; only
+    the counts reach the host). A FusedHopOp region reports one span
+    annotated with its member ops and its first hop's frontier metadata. The
+    scalar walk's state is a set of paths, not a frontier: its hops carry
+    only the static part."""
+    if isinstance(op, FusedHopOp):
+        sp.annotate(
+            fused=True,
+            members=[
+                f"Hop({m.table}.{m.src_key}->{m.dst_entity})"
+                if isinstance(m, HopOp) else type(m).__name__
+                for m in op.members
+            ],
+        )
+        _annotate_op_span(sp, op.hops[0], state, interp)
+        return
+    if not isinstance(op, HopOp):
+        return
+    E = int(op.src_ids.shape[0])
+    sp.annotate(
+        table=op.table, src_key=op.src_key, E=E, dom_dst=int(op.dom_dst),
+        block_skipping=getattr(interp, "block_skipping", None),
+    )
+    if not isinstance(state, torch.Tensor):
+        return
+    sup = state != interp.sr.zero
+    if sup.dim() == 2:
+        sup = sup.any(dim=0)
+    if sup.shape[0] != op.indptr.shape[0] - 1:
+        return
+    touched = int(((op.indptr[1:] - op.indptr[:-1]) * sup).sum())
+    sp.annotate(
+        frontier_nnz=int(sup.sum()),
+        observed_active_fraction=round(touched / max(E, 1), 6),
+    )
+    if op.block_src_min is not None:
+        n_blocks = int(op.block_src_min.shape[0])
+        active = int(active_flags(sup, op.block_src_min, op.block_src_max).sum())
+        sp.annotate(active_blocks=active, n_blocks=n_blocks,
+                    active_block_fraction=round(active / n_blocks, 6))
+
+
+def _walk_ir_recorded(phys: PhysicalPlan, ops, interp: "_Interp"):
+    """The instrumented fold: one span per op, nested along the continuation
+    chain (op k's span contains ops k+1..n, so self time = wall − children).
+    The card is synchronised at each op's entry, and the span's
+    ``kernel_ms`` is the fenced time from its entry to the op's own output
+    being done (the first time its continuation runs). An op whose
+    continuation runs several times (a chunked scalar hop) counts them in
+    ``calls``; one whose continuation never ran is closed after ``apply``
+    returns and flagged ``fused_tail``."""
+    labels = phys.op_signature()
+    plan_key = id(phys.ops)
+
+    def go(i: int, state):
+        if i == len(ops):
+            return state
+        op = ops[i]
+        with T.span(labels[i], op_index=i, plan=plan_key) as sp:
+            T.sync()
+            _annotate_op_span(sp, op, state, interp)
+            t0 = time.perf_counter()
+            seen = [0]
+
+            def cont(st):
+                seen[0] += 1
+                if seen[0] == 1:
+                    sp.annotate(dispatch_ms=round((time.perf_counter() - t0) * 1e3, 4))
+                    sp.fence(st)
+                return go(i + 1, st)
+
+            out = interp.apply(op, state, cont)
+            if seen[0] == 0:
+                sp.annotate(dispatch_ms=round((time.perf_counter() - t0) * 1e3, 4),
+                            fused_tail=True)
+                sp.fence(out)
+            sp.annotate(calls=max(seen[0], 1))
+        return out
 
     return go(0, None)
 
@@ -764,29 +868,14 @@ class _BatchedFrontierInterp(_FrontierInterp):
             block_skipping=self.block_skipping, fusion=self.fusion, reach=self.reach,
         )
 
-    def _seed_ids(self, i) -> np.ndarray:
-        """One seed slot → int64[B] on the host (a constant for every row)."""
-        v = self.host_params[i.name] if isinstance(i, LParam) else i
-        return np.broadcast_to(np.asarray(v).astype(np.int64), (self.batch,))
-
     def capture_scalars(self, op: SeedOp, sid):
-        """Seed scalars as ``[B, 1]`` columns: row b reads the attribute at
-        its first seed id, indexed as the single query indexes it (a negative
-        id counts from the end; an id outside the domain raises)."""
-        out = {}
-        for s in op.scalars.values():
-            col = self.attr_col(s)
-            n = col.shape[0]
-            if ((sid < -n) | (sid >= n)).any():
-                raise IndexError(f"seed id outside the domain of size {n}: {sid.tolist()}")
-            idx = torch.from_numpy(np.where(sid < 0, sid + n, sid)).to(self.device)
-            out[s.key] = col[idx][:, None]
-        self.scalars = out
+        """Seed scalars as ``[B, 1]`` columns (:func:`_row_scalars`)."""
+        self.scalars = {k: v[:, None] for k, v in _row_scalars(op, sid, self.device).items()}
 
     def seed(self, op: SeedOp, state, cont):
         sr, B = self.sr, self.batch
         if op.ids is not None:
-            cols = [self._seed_ids(i) for i in op.ids]
+            cols = [_seed_column(i, self.host_params, B) for i in op.ids]
             idx, kept = _seed_rows(np.stack(cols, axis=1), op.dom)
             val = np.where(kept, sr.one, sr.zero).astype(np.float32)
             w = torch.full((B, op.dom), sr.zero, dtype=torch.float32, device=self.device)
@@ -860,6 +949,27 @@ class _BatchedFrontierInterp(_FrontierInterp):
         )
 
 
+def _seed_column(i, host_params: dict[str, np.ndarray], batch: int) -> np.ndarray:
+    """One seed slot of a batch → int64[B] on the host (a constant for every
+    row)."""
+    v = host_params[i.name] if isinstance(i, LParam) else i
+    return np.broadcast_to(np.asarray(v).astype(np.int64), (batch,))
+
+
+def _row_scalars(op: SeedOp, sid: np.ndarray, device) -> dict:
+    """Seed scalars of a batch, ``[B]`` each: row b reads the attribute at its
+    first seed id ``sid[b]``, indexed as the single query indexes it (a
+    negative id counts from the end; an id outside the domain raises)."""
+    out = {}
+    for s in op.scalars.values():
+        col = s.array
+        n = col.shape[0]
+        if ((sid < -n) | (sid >= n)).any():
+            raise IndexError(f"seed id outside the domain of size {n}: {sid.tolist()}")
+        out[s.key] = col[torch.from_numpy(np.where(sid < 0, sid + n, sid)).to(device)]
+    return out
+
+
 def _param_column(a: np.ndarray, device) -> torch.Tensor:
     """One parameter's ``[B]`` values as a ``[B, 1]`` device column: float32
     for floats (a Python float meets a float32 column as float32 in the
@@ -903,3 +1013,218 @@ def compile_frontier_batched(
 
     run.reach = reach
     return run
+
+
+# ---------------------------------------------------------------------------
+# The fragment-at-a-time strategy (paper Fig. 3), vectorised over paths
+# ---------------------------------------------------------------------------
+
+
+class _AtRows(dict):
+    """Per-row values (``[B]`` tensors) read at each path's row, gathered the
+    first time an expression asks for a name."""
+
+    def __init__(self, cols: dict, row: torch.Tensor):
+        super().__init__()
+        self.cols, self.row = cols, row
+
+    def __missing__(self, key):
+        v = self[key] = self.cols[key][self.row]
+        return v
+
+
+class _FragmentLoopInterp(_Interp):
+    """The paper's generated code walks one join path at a time: nested loops
+    over one fragment a hop, one ⊕-update of ℛ a finished path. This
+    interpreter walks the same path set with every path it holds at once, as
+    tensors on the database's device: the state is ``(cur, weight, row, R)``
+    — each path's current entity id, its ⊗-weight, its batch row (None for a
+    single query) and the accumulator ℛ.
+
+      * SeedOp — one path a seed id, of weight 1̄ (duplicates stay separate
+        paths, so they accumulate multiplicity); seed scalars come from the
+        first seed id;
+      * HopOp — every path expands over its source's fragment: the degrees'
+        inclusive scan sizes the expansion (one host read of the new path
+        count a hop), and the destinations and the measure are read at the
+        reached edge positions through each column's ``gather`` (a packed
+        column decodes only those positions; no dense copy is made). A path
+        whose weight is 0̄ is not expanded: it could only scatter 0̄. When
+        the new paths would exceed ``params.FRAGMENT_LOOP_MAX_PATHS`` the
+        expansion runs in chunks of that many edges, each carried through
+        the rest of the plan before the next (depth first);
+      * DegreeFilterOp / EntityFilterOp — a per-path factor and mask;
+      * GroupOp — one scatter-⊕ of every path into ℛ (``[B · out_dom]``
+        for a batch, at ``row · out_dom + cur``). Under the sum semiring ℛ
+        holds float64 and each destination's sum rounds to float32 once, at
+        the end: a destination sums one term a path, and the paths are far
+        more than the edges into it, which bound the frontier's sums.
+
+    It reads only the fragments the seeds reach and never merges paths at an
+    intermediate vertex, which the frontier does."""
+
+    def __init__(self, params: dict[str, Any], sr: Semiring, use_measures: bool = True,
+                 *, out_dom: int, device, batch: int | None = None,
+                 host_params: dict[str, np.ndarray] | None = None):
+        super().__init__(params, sr, use_measures)
+        self.out_dom = out_dom
+        self.device = torch.device(device)
+        self.batch = batch
+        self.host_params = host_params
+
+    def _accumulator(self, n: int) -> torch.Tensor:
+        dtype = torch.float64 if self.sr.name == "sum" else torch.float32
+        return torch.full((n,), self.sr.zero, dtype=dtype, device=self.device)
+
+    def _env(self, row):
+        """(params, seed scalars) at the paths' rows; the query's own for a
+        single query."""
+        if row is None:
+            return self.params, self.scalars
+        return _AtRows(self.params, row), _AtRows(self.scalars, row)
+
+    def seed(self, op: SeedOp, state, cont):
+        sr = self.sr
+        if self.batch is None:
+            ids = [int(self.resolve(i)) for i in op.ids]
+            cur, row = _seed_index(ids, op.dom, self.device), None
+            if op.scalars:
+                self.capture_scalars(op, ids[0])
+            R = self._accumulator(self.out_dom)
+        else:
+            cols = [_seed_column(i, self.host_params, self.batch) for i in op.ids]
+            idx, kept = _seed_rows(np.stack(cols, axis=1), op.dom)
+            rows, _ = np.nonzero(kept)
+            cur = torch.from_numpy(idx[kept]).to(self.device)
+            row = torch.from_numpy(rows).to(self.device)
+            if op.scalars:
+                self.scalars = _row_scalars(op, cols[0], self.device)
+            R = self._accumulator(self.batch * self.out_dom)
+        wgt = torch.full(cur.shape, sr.one, dtype=torch.float32, device=self.device)
+        return cont((cur, wgt, row, R))
+
+    def hop(self, op: HopOp, state, cont):
+        cur, wgt, row, R = state
+        start = op.indptr[cur].to(torch.int64)
+        deg = op.indptr[cur + 1].to(torch.int64) - start
+        deg = torch.where(wgt != self.sr.zero, deg, 0)
+        ends = torch.cumsum(deg, 0)
+        total = int(ends[-1]) if ends.numel() else 0
+        base = start - (ends - deg)  # edge position = base[path] + output position
+        cap = KP.FRAGMENT_LOOP_MAX_PATHS
+        for a in range(0, total, cap) or (0,):
+            b = min(a + cap, total)
+            pos = torch.arange(a, b, device=self.device)
+            if b - a == total:
+                k = torch.repeat_interleave(deg, output_size=total)
+            else:
+                k = torch.searchsorted(ends, pos, right=True)
+            e = base[k] + pos
+            w = wgt[k]
+            r = None if row is None else row[k]
+            if op.measure is not None and self.use_measures:
+                params, scalars = self._env(r)
+                m = eval_lexpr(op.measure, params, scalars, lambda c: c.col.gather(e))
+                w = self.sr.extend(w, torch.as_tensor(m, dtype=torch.float32,
+                                                      device=self.device))
+            R = cont((op.dst_col.gather(e).to(torch.int64), w, r, R))
+        return R
+
+    def degree_filter(self, op: DegreeFilterOp, state, cont):
+        cur, wgt, row, R = state
+        return cont((cur, self.sr.mask(wgt, op.degrees[cur] > 0), row, R))
+
+    def entity_filter(self, op: EntityFilterOp, state, cont):
+        cur, wgt, row, R = state
+        params, scalars = self._env(row)
+        if op.factor is not None and self.use_measures:
+            f = eval_lexpr(op.factor, params, scalars, lambda c: c.col.gather(cur))
+            wgt = self.sr.extend(wgt, torch.as_tensor(f, dtype=torch.float32,
+                                                      device=self.device))
+        keep = None
+        if op.const_mask is not None:
+            keep = op.const_mask[cur] > 0
+        for c in op.param_conds:
+            k = c.mask(params, lambda cc: cc.array[cur])
+            keep = k if keep is None else keep & k
+        if keep is not None:
+            wgt = self.sr.mask(wgt, keep)
+        return cont((cur, wgt, row, R))
+
+    def group(self, op: GroupOp, state, cont):
+        cur, wgt, row, R = state
+        idx = cur if row is None else row * self.out_dom + cur
+        if R.dtype == torch.float64:
+            return cont(R.index_add_(0, idx, wgt.to(torch.float64)))
+        return cont(self.sr.scatter(R, idx, wgt))
+
+
+def walks_scalar(phys: PhysicalPlan) -> bool:
+    """Whether ``fragment_loop`` walks ``phys`` path by path: an id seed and
+    no semijoin hop. A mask seed or a semijoin runs the frontier, as in the
+    reference."""
+    return phys.ops[0].ids is not None and not any(
+        isinstance(op, HopOp) and op.semijoin for op in iter_flat_ops(phys)
+    )
+
+
+def compile_fragment_loop(
+    db: DeviceDB, plan: ChainPlan | PhysicalPlan, block_skipping: str = "auto",
+) -> Callable[..., torch.Tensor]:
+    """The ``fragment_loop`` strategy: ``run(*args)`` as
+    :func:`compile_frontier`'s, walking the plan path by path
+    (:class:`_FragmentLoopInterp`) where :func:`walks_scalar` allows, and
+    through :func:`compile_frontier` (unfused, ``block_skipping`` passed on)
+    where it does not."""
+    phys = ensure_lowered(db, plan)
+    if not walks_scalar(phys):
+        return compile_frontier(db, phys, block_skipping=block_skipping, fusion="off")
+    names = list(phys.param_names)
+    device = db.device
+
+    def run(*args):
+        params = {n: _host_scalar(a) for n, a in zip(names, args)}
+        return execute_ir(
+            phys,
+            lambda sr, um: _FragmentLoopInterp(params, sr, um, out_dom=phys.out_dom,
+                                               device=device),
+        ).to(torch.float32)
+
+    return run
+
+
+def compile_fragment_loop_batched(
+    db: DeviceDB, plan: ChainPlan | PhysicalPlan, block_skipping: str = "auto",
+) -> Callable[..., torch.Tensor]:
+    """The batched ``fragment_loop`` entry, ``run(*arrays)`` as
+    :func:`compile_frontier_batched`'s: one scalar walk for the whole batch,
+    every path carrying its row, scattering into ``[B · out_dom]``; a plan
+    that falls back to the frontier runs :func:`compile_frontier_batched`."""
+    phys = ensure_lowered(db, plan)
+    if not walks_scalar(phys):
+        return compile_frontier_batched(db, phys, block_skipping=block_skipping,
+                                        fusion="off")
+    names = list(phys.param_names)
+    if not names:
+        raise ValidationError("batched execution needs at least one query parameter")
+    device = db.device
+
+    def run(*arrays):
+        host = {n: np.asarray(a) for n, a in zip(names, arrays)}
+        B = host[names[0]].shape[0]
+        params = {n: _param_column(a, device)[:, 0] for n, a in host.items()}
+        out = execute_ir(
+            phys,
+            lambda sr, um: _FragmentLoopInterp(params, sr, um, out_dom=phys.out_dom,
+                                               device=device, batch=B, host_params=host),
+        )
+        return out.to(torch.float32).reshape(B, phys.out_dom)
+
+    return run
+
+
+#: The strategies' compilers: (single query, batched).
+STRATEGIES = {
+    "frontier": (compile_frontier, compile_frontier_batched),
+    "fragment_loop": (compile_fragment_loop, compile_fragment_loop_batched),
+}

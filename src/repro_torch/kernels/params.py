@@ -60,3 +60,25 @@ HOP_TABLE_HOT_SHARE = 0.003
 #: §5). So SemMedDB's indexes (13-116 blocks) and I_DA's (2,876) scan under
 #: ``"auto"``, and I_DT's (7,079) list.
 SKIP_MIN_BLOCKS = 5600
+
+#: The ``fragment_loop`` strategy's scalar walk holds at most this many paths
+#: at once: a hop whose paths would exceed it expands its current paths in
+#: chunks of this many edges and carries each chunk depth-first through the
+#: rest of the plan (the result does not depend on it). 2^24 paths keep the
+#: walk's per-hop temporaries (about 60 bytes a path) near 1 GB.
+FRAGMENT_LOOP_MAX_PATHS = 1 << 24
+
+#: ``strategy="auto"`` picks ``fragment_loop`` for an id-seeded plan whose
+#: worst hop touches less than this fraction of its index's edges (the
+#: estimate of ``GQFastEngine._hop_fractions``, or the fractions a
+#: ``profile()`` observed), else the frontier. Set from
+#: ``chip_smoke.time_crossover`` on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md
+#: §6): SD and FSD at eight documents and AS at six authors, from 47 paths
+#: (a worst fraction of 1.6e-6) to 3e7 (0.92), both strategies in turns for
+#: three rounds. The walk lost every round at every point: 1.3-3.3× the
+#: frontier's wall at the smallest seeds (47 and 156 paths: 2.65-5.87 ms
+#: against 1.75-1.99; its ~90 PyTorch calls and a host read a hop cost more
+#: than the frontier's hops) and up to 16× at the largest (3e7 paths:
+#: 21.9-22.1 ms against 1.38-1.43). So 0: ``"auto"`` runs the frontier
+#: everywhere. (The reference's TPU value is 0.15.)
+FRAGMENT_LOOP_CROSSOVER = 0.0

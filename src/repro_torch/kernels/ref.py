@@ -73,7 +73,6 @@ def bitgather_ref(packed: torch.Tensor, width: int, ids) -> torch.Tensor:
     idx = torch.as_tensor(ids, device=packed.device).to(torch.int64)
     if idx.numel() == 0:
         return torch.zeros(idx.shape, dtype=torch.int32, device=packed.device)
-    words = packed.to(torch.int64) & 0xFFFFFFFF
     # the reference's split of the bit offset, 32·q·width + r·width with
     # q = idx // 32: no intermediate passes the word count, where a plain
     # idx * width wraps a 32-bit offset past 2^32 bits (int64 here does not
@@ -82,8 +81,9 @@ def bitgather_ref(packed: torch.Tensor, width: int, ids) -> torch.Tensor:
     bitr = r * width
     w0 = q * width + (bitr >> 5)
     off = bitr & 31
-    lo = words[w0]
-    hi = words[torch.clamp(w0 + 1, max=words.shape[0] - 1)]
+    # only the words asked for widen to int64, never the whole stream
+    lo = packed[w0].to(torch.int64) & 0xFFFFFFFF
+    hi = packed[torch.clamp(w0 + 1, max=packed.shape[0] - 1)].to(torch.int64) & 0xFFFFFFFF
     val = ((lo | (hi << 32)) >> off) & ((1 << width) - 1)
     return torch.where(val >= 2**31, val - 2**32, val).to(torch.int32)
 

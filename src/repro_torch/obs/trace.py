@@ -50,10 +50,7 @@ class Span:
         the fenced duration since span entry as ``kernel_ms``. Returns
         ``value`` so call sites can fence inline. CPU tensors need no fence;
         once CUDA is initialised the whole device is synchronised."""
-        import torch
-
-        if torch.cuda.is_initialized():
-            torch.cuda.synchronize()
+        sync()
         self.kernel_ms = (time.perf_counter() - self.t0) * 1e3
         return value
 
@@ -94,6 +91,15 @@ class Span:
         if self.children:
             d["children"] = [c.to_dict() for c in self.children]
         return d
+
+
+def sync() -> None:
+    """Wait for the card's queued work, once CUDA is initialised (a CPU-only
+    run has nothing to wait for)."""
+    import torch
+
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
 
 
 class _NullSpan:

@@ -1847,3 +1847,71 @@ def test_fused_kernels_read_the_float_mask_as_bytes(cuda, op, batched):
             got = f1(w, h1, keep, bi1, na1, N_HOT, op=op, table=True)
         torch.cuda.synchronize()
         _assert_match(got, want, op)
+
+
+SCALAR_CASES = [c for c in CASES if c[0] in ("SD", "FSD", "AS")] + [
+    ("AS_RECENT", SG.QUERY_AS_RECENT, {"a0": 7}),
+]
+
+
+def _hop_launches():
+    """Every single-query and batched hop kernel's launches, fused included."""
+    from repro_torch.kernels import fragment_spmm as mkernel
+    from repro_torch.kernels import fragment_spmm_packed as mpkernel
+
+    return (kernel.LAUNCHES + kernel.ACTIVE_LAUNCHES + pkernel.LAUNCHES
+            + pkernel.ACTIVE_LAUNCHES + sum(_fused_counts()) + mkernel.LAUNCHES
+            + mkernel.ACTIVE_LAUNCHES + mpkernel.LAUNCHES + mpkernel.ACTIVE_LAUNCHES
+            + fkernel.SPMM_FUSED1_LAUNCHES + fkernel.SPMM_FUSED2_LAUNCHES)
+
+
+@pytest.mark.parametrize("name,q,params", SCALAR_CASES, ids=[c[0] for c in SCALAR_CASES])
+def test_scalar_walk_on_the_card_matches_cpu(cuda, name, q, params):
+    """fragment_loop's walk on the card: the same paths as on the CPU (counts
+    exact, sums within the gate), single and batched, no hop kernel
+    launched, and no packed column decoded whole."""
+    from repro_torch.storage import device_space_report
+
+    schema = _schema(name)
+    gpu_db = GQFastDatabase(schema, account_space=False, device=cuda)
+    gpu = GQFastEngine(gpu_db, strategy="fragment_loop")
+    cpu = GQFastEngine(GQFastDatabase(schema, account_space=False, device="cpu"),
+                       strategy="fragment_loop")
+    key = next(iter(params))
+    rows = {key: [params[key], params[key] + 1, params[key] + 2]}
+    before = _hop_launches()
+    got, got_b = gpu.query(q, **params), gpu.prepare(q).execute_batch(**rows)
+    assert _hop_launches() == before
+    assert device_space_report(gpu_db.device)["materialized_bytes"] == 0
+    want, want_b = cpu.query(q, **params), cpu.prepare(q).execute_batch(**rows)
+    if name == "SD":
+        np.testing.assert_array_equal(got, want)
+        np.testing.assert_array_equal(got_b, want_b)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got_b, want_b, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got, run_sql(schema, q, params), rtol=1e-4, atol=1e-4)
+    assert (got != 0).any()
+
+
+@pytest.mark.parametrize("strategy", ["frontier", "fragment_loop"])
+@pytest.mark.parametrize("name,q,params", [c for c in CASES if c[0] in ("SD", "AS", "AD")],
+                         ids=["SD", "AS", "AD"])
+def test_profile_on_the_card(cuda, strategy, name, q, params):
+    """profile() on the card: its result against __call__ (counts exact), the
+    self walls summing to the total, and the observed fractions equal to
+    the same walk on the CPU."""
+    from repro_torch.obs.profile import observed_hop_fractions
+
+    schema = _schema(name)
+    pq = GQFastEngine(GQFastDatabase(schema, account_space=False, device=cuda),
+                      strategy=strategy).prepare(q)
+    prof = pq.profile(reps=2, **params)
+    if name in ("SD", "AD"):
+        np.testing.assert_array_equal(prof.result, pq(**params))
+    np.testing.assert_allclose(prof.result, pq(**params), rtol=1e-4, atol=1e-4)
+    walls = [o.wall_ms for o in prof.ops if o.wall_ms is not None]
+    assert abs(sum(walls) - prof.total_wall_ms) <= 1e-6 * prof.total_wall_ms
+    cpu = GQFastEngine(GQFastDatabase(schema, account_space=False, device="cpu"),
+                       strategy=strategy).prepare(q)
+    assert ([h.meta["touched_edges"] for h in prof.hops]
+            == [h["touched_edges"] for h in observed_hop_fractions(cpu.phys, params)])

@@ -171,7 +171,8 @@ def test_explain_matches_jax(pubmed, name, q):
 #: batching).
 PORTED = ("device_encodings=auto", "device_encodings=packed", "block_skipping=on",
           "block_skipping=auto", "fusion=on", "fusion=auto", "space_report",
-          "execute_batch")
+          "execute_batch", "strategy=fragment_loop", "strategy=auto", "explain_analyze",
+          "profile")
 
 
 @pytest.mark.parametrize("call", [

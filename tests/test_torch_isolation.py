@@ -129,3 +129,32 @@ def test_port_block_list_loads_neither_jax_nor_repro():
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "LOADED []" in proc.stdout
+
+
+def test_port_strategies_and_profile_load_neither_jax_nor_repro():
+    """fragment_loop (single and batched), auto, profile() and
+    explain(analyze=True) run without JAX or the JAX package."""
+    code = textwrap.dedent("""
+        import sys
+        from repro_torch.core.engine import GQFastDatabase, GQFastEngine
+        from repro_torch.data import synth_graph as SG
+        schema = SG.make_pubmed(n_docs=200, n_terms=20, n_authors=50, seed=1)
+        db = GQFastDatabase(schema, account_space=False, device="cpu")
+        loop = GQFastEngine(db, strategy="fragment_loop")
+        assert loop.query(SG.QUERY_AS, a0=3).shape == (50,)
+        assert loop.prepare(SG.QUERY_SD).execute_batch(d0=[1, 2]).shape == (2, 200)
+        pq = GQFastEngine(db, strategy="auto").prepare(SG.QUERY_FSD)
+        assert pq.profile(reps=1, d0=4).hops
+        assert "analyze: total" in pq.explain(analyze=True, d0=4)
+        assert "repro_torch.obs.profile" in sys.modules
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+        print("LOADED", bad)
+        assert not bad, bad
+    """)
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")}, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LOADED []" in proc.stdout
