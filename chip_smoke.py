@@ -6,7 +6,7 @@
 Phases (any failure exits non-zero; nothing is caught while the run goes on):
 
  1. Card, power limit, torch/CUDA versions; build every CUDA kernel from
-    ``src/repro_torch/kernels/csrc`` (eight libraries, one nvcc per source,
+    ``src/repro_torch/kernels/csrc`` (nine libraries, one nvcc per source,
     all started together) and report the build times and ptxas
     register/spill lines.
  2. Load a PubMed-shaped graph (4M documents, 27,000 terms, 2M authors) and a
@@ -45,6 +45,11 @@ Phases (any failure exits non-zero; nothing is caught while the run goes on):
     in a block than the table has slots, Zipf-hot ones, for every op, scan
     and active, with the table and without. The bitmap AND and popcount at n ∈ {0, 1, 3, 4, 5, 1023,
     1024, 1025, 2^20 + 3} words and on views off a 16-byte boundary, exact.
+    3c. CRC-32C (``crc32c.cu``, not a TPU kernel: the integrity layer's hash)
+    against its plain version at CRC_SIZES bytes × CRC_OFFSETS offsets off a
+    16-byte boundary, from 0 and from a previous value, and the check value
+    0xE3069283 of "123456789"; then on every encoded part and decoded view
+    of every column of the PubMed cell, value for value.
     3h. The batched kernels: the four SpMM kernels, with the per-CTA table
     and without, at E ∈ {0, 1, 4097} × B ∈ {1, 3, 8, 13, 64} for every op
     and measure (none, shared, per-row [B, E]; packed/dense dst × every
@@ -118,7 +123,29 @@ Phases (any failure exits non-zero; nothing is caught while the run goes on):
          numpy walk of the same plan on the host (integers), the result
          against ``__call__``'s (exact for the counts, gated: a float sum's
          last bits can differ between two calls on the card) and the
-         float64 sums.
+         float64 sums;
+      m. the degradation ladder: with no fault plan the nine (k's
+         parameters) through ``run_with_policy`` and at B = 8 through
+         ``run_batch_with_policy`` all ``ok`` on ``active``; every rung
+         (active, unfused, scan, xla — the plain versions —, fragment_loop)
+         gated against the defaults; ``ops.`` poisoned lands AD on xla, the
+         fused site poisoned lands AS under fusion on on unfused; with
+         every kernel's build failing SD and AD end with a KERNEL error on
+         active, not on a plain rung; AS from a0 = 7 (1.3e12 paths) on the fragment_loop rung under
+         LADDER_DEADLINE_MS returns DEADLINE within it plus one chunk's
+         time (a walk of ~2^24 paths); an AdmissionController budget
+         between SD's B = 1 and B = 64 estimates demotes B = 64 to serial
+         calls equal to ``execute_batch``'s rows; each query's estimated
+         working bytes at B = 1 and 8 at least the allocator's measured
+         peak;
+      n. durability at the PubMed cell (and SemMedDB for CS): each DB
+         snapshotted to a temporary directory and restored on the card,
+         every CRC verified and the restored manifest equal to a fresh one;
+         the nine on the restored DBs against the defaults; one bit of a
+         destination in I_DT.Term flipped in place on the card changes
+         SD's answer until the scrubber heals the column, and SD after
+         ``invalidate_prepared`` equals the original; the directory removed
+         at the end (crc32c must launch here).
     Each result is compared with the same lowered plan run through the plain
     versions on the card with float64 sums (each comparison's gate ratio
     logged and kept), the defaults with skipping off and with the dense
@@ -151,7 +178,11 @@ Phases (any failure exits non-zero; nothing is caught while the run goes on):
     whole hop with skipping 'off' against 'on' on the first k blocks of
     I_DA.Doc and I_DT.Term, which sets ``SKIP_MIN_BLOCKS``; every wrapper's
     host µs a call at CS's smallest index; the popcount's device operations
-    (its one kernel alone). Batched (5h): per query and B ∈ {1, 8,
+    (its one kernel alone); CRC-32C's kernel time beside its bound and plain
+    version on I_DT's packed words and summed over every encoded part and
+    decoded view; SD and AS with an integrity manifest attached against
+    without (every materialize() verified), auto and dense storage, in
+    turns. Batched (5h): per query and B ∈ {1, 8,
     64} the median wall of ``execute_batch`` and queries/s beside B single
     calls, the result copy and the profiler's device time and idle share;
     per SpMM kernel at I_DT.Term / I_DA.Doc and B ∈ {1, 8, 64} its time in
@@ -253,6 +284,9 @@ KERNELS = {
     # program (jnp), which the port ran as 14 eager calls a hop
     "block_list": ("block_list", "LAUNCHES", "block_list.cu",
                    "src/repro/kernels/active.py:102"),
+    # not a TPU kernel: CRC-32C of the column store, which the reference
+    # computes on the host
+    "crc32c": ("crc32c", "LAUNCHES", "crc32c.cu", "src/repro/storage/integrity.py:64"),
 }
 PACKED_HOPS = ["fragment_spmv_packed", "fragment_spmv_packed_active"]
 
@@ -3550,6 +3584,465 @@ def time_crossover(eng_f, eng_l, SG, sizes) -> tuple[list[dict], float]:
 
 
 # ---------------------------------------------------------------------------
+# CRC-32C and the durability layer (phases 3c, 4m, 4n and their times in 5)
+# ---------------------------------------------------------------------------
+
+#: 3c: stream lengths (bytes) the CRC kernel is held to its plain version at,
+#: each at these byte offsets off a 16-byte boundary
+CRC_SIZES = (0, 1, 3, 4, 7, 8, 9, 4095, 4096, 4097, 2**20 + 3)
+CRC_OFFSETS = (0, 1, 2, 3, 5, 15)
+#: 4m: the AS deadline on the fragment_loop rung, and the paths of the walk
+#: whose time stands for one chunk's (params.FRAGMENT_LOOP_MAX_PATHS)
+LADDER_DEADLINE_MS = 2000.0
+CHUNK_WALKS = 3
+#: 5: walls with a manifest attached against without, in turns
+MANIFEST_REPS = 50
+MANIFEST_QUERIES = ("SD", "AS")
+
+
+def crc_parts(db) -> list[tuple[str, object]]:
+    """Every encoded part and decoded view of every column of ``db`` as
+    (label, tensor): what manifests, verified reads and the scrubber hash."""
+    from repro_torch.storage import decode_fresh, encoded_parts, iter_columns
+
+    out = []
+    for addr, _, _, col in iter_columns(db.device):
+        for i, part in enumerate(encoded_parts(col)):
+            out.append((f"{addr} encoded[{i}]", part))
+        out.append((f"{addr} decoded", decode_fresh(col)))
+    return out
+
+
+def check_crc(db, device) -> dict:
+    """3c: the CRC kernel against its plain version (and, at 9 bytes, the
+    check value 0xE3069283) at CRC_SIZES × CRC_OFFSETS from 0 and from a
+    random previous value, then on every encoded part and decoded view of
+    every column of the PubMed cell's ``db``, equal value for value."""
+    import torch
+
+    from repro_torch.kernels import crc32c as ck
+    from repro_torch.kernels import ref
+
+    gen = np.random.default_rng(21)
+    n_small = 0
+    for n in CRC_SIZES:
+        raw = torch.tensor(gen.integers(0, 256, n + 16, dtype=np.uint8), device=device)
+        for off in CRC_OFFSETS:
+            data = raw[off:off + n]
+            for value in (0, int(gen.integers(0, 2**32))):
+                got, want = int(ck.crc32c(data, value)), int(ref.crc32c_ref(data, value))
+                if got != want:
+                    raise AssertionError(f"crc32c n={n} offset={off} value={value}: kernel"
+                                         f" {got:#010x} != plain {want:#010x}")
+                n_small += 1
+    check = torch.tensor(list(b"123456789"), dtype=torch.uint8, device=device)
+    if int(ck.crc32c(check)) != 0xE3069283:
+        raise AssertionError(f"crc32c check value {int(ck.crc32c(check)):#010x} != 0xe3069283")
+    cols, nbytes = 0, 0
+    for label, part in crc_parts(db):
+        b = ck.as_bytes(part)
+        got, want = int(ck.crc32c(b)), int(ref.crc32c_ref(b))
+        if got != want:
+            raise AssertionError(f"crc32c {label}: kernel {got:#010x} != plain {want:#010x}")
+        cols += 1
+        nbytes += b.shape[0]
+    sync()
+    log(f"  crc32c: {n_small} streams (n = {CRC_SIZES}, offsets {CRC_OFFSETS}) and the check"
+        f" value equal to the plain version; every column of the PubMed cell: {cols} encoded"
+        f" parts and decoded views, {nbytes} bytes, equal")
+    return {"small_cases": n_small, "parts": cols, "bytes": nbytes}
+
+
+def time_crc(db, device) -> list[dict]:
+    """CUDA-event ms of the CRC kernel beside its bound (bytes / HBM), its
+    plain version's ms (no library call computes CRC-32C): first on the
+    largest encoded part of the PubMed cell (I_DT's packed words), then
+    summed over every encoded part, every decoded view, and both (the whole
+    column store as manifests hash it)."""
+    from repro_torch.kernels import crc32c as ck
+    from repro_torch.kernels import ref
+
+    parts = [(label, ck.as_bytes(t)) for label, t in crc_parts(db)]
+    timed = []
+    for label, b in parts:
+        ms = time_device_ms(lambda: ck.crc32c(b), KERNEL_REPS)
+        plain = time_device_ms(lambda: ref.crc32c_ref(b), 1)
+        timed.append((label, int(b.shape[0]), ms, plain))
+    rows = []
+    big = max((t for t in timed if "encoded" in t[0]), key=lambda t: t[1])
+    groups = [(big[0], [big]),
+              ("every encoded part", [t for t in timed if "encoded" in t[0]]),
+              ("every decoded view", [t for t in timed if "decoded" in t[0]]),
+              ("the whole store, encoded and decoded", timed)]
+    for shape, ts in groups:
+        nbytes = sum(t[1] for t in ts)
+        b, by = bound_ms(nbytes + 8 * len(ts), nbytes)
+        rows.append(dict(shape=shape, E=nbytes, calls=len(ts), ms=sum(t[2] for t in ts),
+                         plain_ms=sum(t[3] for t in ts), bound_ms=b, bound_by=by,
+                         library_ms=None))
+        r = rows[-1]
+        log(f"  {'crc32c':28s} {shape}: {nbytes} bytes in {len(ts)} calls {r['ms']:.4f} ms"
+            f"  bound {b:.4f} ms ({by})  plain {r['plain_ms']:.4f} ms  library none")
+    return rows
+
+
+def chunk_ms(pq, sizes) -> float:
+    """The longest of CHUNK_WALKS fragment_loop walks of AS (the ladder's
+    terminus) from the author whose walk holds nearest
+    ``params.FRAGMENT_LOOP_MAX_PATHS`` paths: one chunk's time, with the
+    hops before it."""
+    from repro_torch.kernels import params as KP
+    from repro_torch.robust.runner import rung_fn
+
+    a = int(near(sizes["author"], KP.FRAGMENT_LOOP_MAX_PATHS, 1)[0])
+    fn = rung_fn(pq, "fragment_loop")
+    fn(a)
+    sync()
+    ts = []
+    for _ in range(CHUNK_WALKS):
+        t0 = time.perf_counter()
+        fn(a)
+        sync()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    log(f"  one chunk: AS from a0={a} ({sizes['author'][a]:.0f} paths) on the fragment_loop"
+        f" rung {', '.join(f'{t:.1f}' for t in ts)} ms")
+    return max(ts)
+
+
+def drive_ladder(engines, SG, qs, defaults, rows8, draws, sizes, gates) -> tuple[dict, dict]:
+    """Path m: the degradation ladder on the card. With no fault plan every
+    one of ``qs`` comes back ``ok`` on ``active`` through
+    ``run_with_policy`` and the B = 8 batches through
+    ``run_batch_with_policy``; each rung's result (``rung_fn``) is gated
+    against the defaults'; ``ops.`` poisoned lands AD on ``xla`` and the
+    fused site poisoned lands AS under fusion on on ``unfused``; with every
+    kernel's ``build`` failing, SD and AD end with a KERNEL error on
+    ``active``; AS from a0 = 7 (1.3e12 paths) on the ``fragment_loop`` rung under
+    LADDER_DEADLINE_MS returns DEADLINE within it plus one chunk's time; an
+    AdmissionController budget between SD's B = 1 and B = 64 estimates
+    demotes B = 64 to serial calls equal to ``execute_batch``'s rows; each
+    query's estimate at B = 1 and 8 at least the allocator's measured peak.
+    Returns (the record, the launch counts of the policy runs)."""
+    import torch
+
+    from repro_torch.core.fuse import has_fused
+    from repro_torch.robust import (
+        LADDER,
+        AdmissionController,
+        MemoryBudget,
+        RetryPolicy,
+        RobustPolicy,
+        estimate_query_bytes,
+        faults,
+        run_batch_with_policy,
+        run_with_policy,
+    )
+    from repro_torch.obs.metrics import MetricsRegistry
+    from repro_torch.robust.runner import rung_fn
+
+    rec, ratios = {"queries": {}}, {}
+    prepared = {n: engines[n].prepare(q) for n, q, _ in qs}
+    reset_counts()
+    for name, q, params in qs:
+        oc = run_with_policy(prepared[name], params)
+        if oc.status != "ok" or oc.rung != "active":
+            raise AssertionError(f"path m {name}: with no plan {oc.to_dict()}, expected ok on"
+                                 " active")
+        compare_gated(oc.value, defaults[name], name, f"m {name} run_with_policy vs defaults",
+                      ratios)
+        rec["queries"][name] = {"elapsed_ms": oc.elapsed_ms}
+    for name, q, _ in qs:
+        outs = run_batch_with_policy(prepared[name], rows8[name])
+        want = prepared[name].execute_batch(**rows8[name])
+        if any(o.status != "ok" or o.rung != "active" for o in outs) or len(outs) != 8:
+            raise AssertionError(f"path m {name} B=8: {[o.to_dict() for o in outs]}")
+        for i, o in enumerate(outs):
+            compare_gated(o.value, want[i], name, f"m {name} B=8 row {i} vs execute_batch",
+                          ratios)
+    counts = read_counts()
+    log(f"  path m: the nine through run_with_policy and B = 8 through run_batch_with_policy:"
+        f" every outcome ok on active; launches {({k: v for k, v in counts.items() if v})}")
+    rung_ms = {}
+    for rung in LADDER:
+        for name, q, params in qs:
+            args = [params[n] for n in prepared[name].param_names]
+            fn = rung_fn(prepared[name], rung)
+            fn(*args)
+            sync()
+            t0 = time.perf_counter()
+            got = fn(*args).cpu().numpy()
+            rung_ms[f"{rung} {name}"] = (time.perf_counter() - t0) * 1e3
+            compare_gated(got, defaults[name], name, f"m {name} rung {rung} vs defaults", ratios)
+    log("  path m: every rung's result against the defaults' (exact for the counts): "
+        + ", ".join(f"{rung} {sum(v for k, v in rung_ms.items() if k.startswith(rung + ' ')):.1f}"
+                    " ms" for rung in LADDER) + " for the nine")
+    rec["rung_ms"] = rung_ms
+    one_try = RobustPolicy(retry=RetryPolicy(max_attempts=1), registry=MetricsRegistry())
+    # a kernel fault: every kernel rung fails, the plain versions answer
+    ad = cases(SG, 0)[3]
+    plan = faults.FaultPlan(seed=3).add(faults.FaultSpec(site="ops.", mode="raise"))
+    with faults.active(plan):
+        oc = run_with_policy(prepared["AD"], ad[2], policy=one_try)
+    if oc.rung != "xla" or oc.demotions != ("active", "unfused", "scan"):
+        raise AssertionError(f"path m: ops. poisoned landed on {oc.to_dict()}, expected xla")
+    compare(oc.value, defaults["AD"], True, "m AD on xla vs defaults")
+    rec["ops_fault"] = {**oc.to_dict(), "fires": plan.total_fires()}
+    # a fused-region fault: the ladder sheds the fused kernels
+    as_q, as_p = SG.QUERY_AS, {"a0": 7}
+    fused = engines["AS"].prepare(as_q, fusion="on")
+    if not has_fused(fused.phys):
+        raise AssertionError("path m: AS under fusion on formed no region")
+    plan = faults.FaultPlan(seed=4).add(faults.FaultSpec(site="ops.fragment_spmv_fused",
+                                                         mode="raise"))
+    with faults.active(plan):
+        oc = run_with_policy(fused, as_p, policy=one_try)
+    if oc.rung != "unfused" or oc.demotions != ("active",):
+        raise AssertionError(f"path m: the fused site poisoned landed on {oc.to_dict()}")
+    compare_gated(oc.value, engines["AS"].prepare(as_q)(**as_p), "AS",
+                  "m AS unfused vs defaults (a0=7)", ratios)
+    rec["fused_fault"] = {**oc.to_dict(), "fires": plan.total_fires()}
+    log(f"  path m: ops. poisoned → {rec['ops_fault']['rung']} after"
+        f" {rec['ops_fault']['demotions']} ({rec['ops_fault']['fires']} fires); the fused site"
+        f" poisoned → {rec['fused_fault']['rung']} ({rec['fused_fault']['fires']} fires)")
+    # a kernel that fails to build ends the query on its rung: no rung below
+    # answers from the plain versions
+    from repro_torch.kernels import ops as K
+    from repro_torch.kernels.cuda_build import KernelError
+
+    def failed_build():
+        raise KernelError("nvcc failed building the kernel (a stand-in)")
+
+    mods = [K._dense, K._packed, K._fused, K._dense_rows, K._packed_rows, K._bitunpack,
+            K._block_list, K._crc32c, K._bitmaps]
+    builds = [m.build for m in mods]
+    try:
+        for m in mods:
+            m.build = failed_build
+        kernel_faults = {}
+        for name in ("SD", "AD"):
+            params = next(p for n, _, p in qs if n == name)
+            oc = run_with_policy(prepared[name], params,
+                                 policy=RobustPolicy(registry=MetricsRegistry()))
+            if oc.status != "error" or oc.error.code != "KERNEL" or oc.demotions:
+                raise AssertionError(f"path m: {name} with no kernel built: {oc.to_dict()},"
+                                     " expected a KERNEL error on active")
+            kernel_faults[name] = oc.to_dict()
+    finally:
+        for m, b in zip(mods, builds):
+            m.build = b
+    rec["kernel_fault"] = kernel_faults
+    log("  path m: with every kernel's build failing, SD and AD end with a KERNEL error on"
+        " active, no demotion")
+    # the deadline inside the terminus' walk
+    pq_as = engines["AS"].prepare(as_q)
+    one_chunk = chunk_ms(pq_as, sizes)
+    term = RobustPolicy(ladder=("fragment_loop",), retry=RetryPolicy(max_attempts=1),
+                        registry=MetricsRegistry())
+    oc = run_with_policy(pq_as, as_p, deadline_ms=LADDER_DEADLINE_MS, policy=term)
+    if oc.status != "error" or oc.error.code != "DEADLINE":
+        raise AssertionError(f"path m: AS a0=7 on fragment_loop: {oc.to_dict()}")
+    if oc.elapsed_ms > LADDER_DEADLINE_MS + one_chunk:
+        raise AssertionError(f"path m: DEADLINE after {oc.elapsed_ms:.1f} ms, past"
+                             f" {LADDER_DEADLINE_MS} + one chunk {one_chunk:.1f} ms")
+    rec["deadline"] = {**oc.to_dict(), "deadline_ms": LADDER_DEADLINE_MS,
+                       "chunk_ms": one_chunk}
+    log(f"  path m: AS a0=7 on the fragment_loop rung under {LADDER_DEADLINE_MS:.0f} ms:"
+        f" DEADLINE at {oc.error.context.get('where')} after {oc.elapsed_ms:.1f} ms (one"
+        f" chunk {one_chunk:.1f} ms)")
+    # admission: B = 64 over budget, B = 1 within it
+    sd = prepared["SD"]
+    est1 = estimate_query_bytes(sd, 1)["total_bytes"]
+    est64 = estimate_query_bytes(sd, 64)["total_bytes"]
+    ctl = AdmissionController(MemoryBudget(limit_bytes=int((est1 + est64) / 2 / 0.9)),
+                              MetricsRegistry())
+    d64 = draws["SD"][64]
+    outs = run_batch_with_policy(sd, d64, policy=RobustPolicy(admission=ctl,
+                                                              registry=MetricsRegistry()))
+    want = sd.execute_batch(**d64)
+    if any(o.status != "degraded" for o in outs):
+        raise AssertionError("path m: the over-budget B = 64 was not demoted to serial")
+    for i, o in enumerate(outs):
+        compare(o.value, want[i], True, f"m SD B=64 serial row {i} vs execute_batch")
+    rec["admission"] = {"est_b1": est1, "est_b64": est64, "limit": ctl.budget.limit_bytes}
+    log(f"  path m: budget {ctl.budget.limit_bytes} B between SD's estimates at B = 1"
+        f" ({est1}) and 64 ({est64}): B = 64 demoted to 64 serial calls, each equal to"
+        " execute_batch's row")
+    # the estimate beside the allocator's peak a query, at B = 1 and B = 8:
+    # the working term must bound what the run allocates
+    peaks = {}
+    for name, q, params in qs:
+        for batch, run in ((1, lambda: prepared[name](**params)),
+                           (8, lambda: prepared[name].execute_batch(**rows8[name]))):
+            sync()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            run()
+            sync()
+            est = estimate_query_bytes(prepared[name], batch)
+            peaks[f"{name} B={batch}"] = {
+                "estimated_working": est["working_bytes"],
+                "reference_working": est["reference_working_bytes"],
+                "estimated_resident": est["resident_bytes"],
+                "measured_peak_over_live": torch.cuda.max_memory_allocated() - base}
+    rec["estimate_vs_peak"] = peaks
+    log("  path m: working bytes estimated (the reference's term) / the allocator's peak over"
+        " the live bytes a query: "
+        + ", ".join(f"{n} {v['estimated_working']} ({v['reference_working']})"
+                    f"/{v['measured_peak_over_live']}" for n, v in peaks.items()))
+    under = {n: v for n, v in peaks.items()
+             if v["estimated_working"] < v["measured_peak_over_live"]}
+    if under:
+        raise AssertionError(f"path m: the admission estimate is under the allocator's peak: {under}")
+    log_gates("path m vs the defaults", ratios, gates)
+    return rec, counts
+
+
+def drive_durability(dbs_by_graph, SG, c0, defaults, gates) -> tuple[dict, dict]:
+    """Path n, at the PubMed cell (and the SemMedDB graph for CS): each DB
+    snapshotted to a temporary directory and restored on the card with every
+    CRC verified, the restored manifest equal to a fresh one of the original;
+    the nine queries on the restored DBs against the defaults'; a packed word
+    of I_DT.Term flipped in place on the card, which changes SD's answer
+    until the scrubber detects and heals the column and
+    ``invalidate_prepared`` lets a new prepare read the healed tensor; a
+    clean ``scrub_full`` timed; the directory removed at the end. Returns
+    (the record, the launch counts)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.core.engine import GQFastEngine
+    from repro_torch.obs.metrics import MetricsRegistry
+    from repro_torch.robust import Scrubber
+    from repro_torch.storage import build_manifest, restore_db, snapshot_db
+
+    tmp = tempfile.mkdtemp(prefix="gqfast_snapshot_")
+    rec, ratios = {}, {}
+    try:
+        reset_counts()
+        restored = {}
+        for graph, db in dbs_by_graph.items():
+            d = f"{tmp}/{graph}"
+            sync()
+            t0 = time.perf_counter()
+            gen_path = snapshot_db(db, d)
+            sync()
+            t_write = time.perf_counter() - t0
+            size = sum(f.stat().st_size for f in Path(gen_path).rglob("*") if f.is_file())
+            t0 = time.perf_counter()
+            db2 = restore_db(d, device=db.device.device)
+            sync()
+            t_restore = time.perf_counter() - t0
+            if db2.device.integrity != build_manifest(db.device):
+                raise AssertionError(f"path n {graph}: restored manifest != the original's")
+            restored[graph] = (db2, d)
+            rec[graph] = {"write_s": t_write, "restore_s": t_restore, "bytes": size}
+            log(f"  path n {graph}: snapshot {size} bytes written in {t_write:.2f} s,"
+                f" restored on the card with every CRC verified in {t_restore:.2f} s")
+        engines = {n: GQFastEngine(restored["semmed" if n == "CS" else "pubmed"][0])
+                   for n, _, _ in cases(SG, c0, True)}
+        for name, q, params in cases(SG, c0, True):
+            compare_gated(engines[name].query(q, **params), defaults[name], name,
+                          f"n {name} restored vs the defaults", ratios)
+        log("  path n: the nine on the restored DBs equal the defaults' (exact for the counts)")
+        db2, d = restored["pubmed"]
+        eng = engines["SD"]
+        sd = cases(SG, c0)[0]
+        pq = eng.prepare(sd[1])
+        want = pq(**sd[2])
+        reg = MetricsRegistry()
+        healed = []
+        scrubber = Scrubber(db2, snapshot_dir=d, registry=reg, on_heal=healed.append)
+        # the lowest bit of one destination in the middle of the fragment of
+        # d0's busiest term, which SD's second hop reads: a document id moves
+        # by one, in place, where the prepared plan reads it
+        col = db2.device.index("DT", "Term").dst_col
+        host = db2.host_indexes[("DT", "Term")]
+        terms = db2.host_indexes[("DT", "Doc")].fragment(sd[2]["d0"], "Term")
+        t = int(max(terms, key=lambda x: int(host.indptr[x + 1] - host.indptr[x])))
+        e = int(host.indptr[t] + (host.indptr[t + 1] - host.indptr[t]) // 2)
+        word, bit = divmod(e * col.width, 32)
+        col.words[word] ^= (1 << bit) - (1 << 32 if bit == 31 else 0)
+        flipped = pq(**sd[2])
+        if np.array_equal(flipped, want):
+            raise AssertionError("path n: the flipped word did not change SD's answer")
+        sync()
+        t0 = time.perf_counter()
+        stats = scrubber.scrub_full()
+        t_heal = (time.perf_counter() - t0) * 1e3
+        if stats["healed"] != 1 or stats["failed"] or healed != ["I_DT.Term/__dst__"]:
+            raise AssertionError(f"path n: scrub after the flip {stats}, healed {healed}")
+        eng.invalidate_prepared()
+        compare(eng.prepare(sd[1])(**sd[2]), want, True, "n SD after the heal")
+        t0 = time.perf_counter()
+        clean = scrubber.scrub_full()
+        t_clean = (time.perf_counter() - t0) * 1e3
+        if clean["healed"] or clean["failed"]:
+            raise AssertionError(f"path n: a clean scrub found {clean}")
+        rec["scrub"] = {"heal_pass_ms": t_heal, "clean_pass_ms": t_clean,
+                        "columns": len(scrubber._columns()), "stats": stats,
+                        "counters": reg.counters_with_prefix("robust.integrity.")}
+        log(f"  path n: bit {bit} of word {word} of I_DT.Term (term {t}'s edge {e}) flipped on"
+            f" the card changed SD's answer; the"
+            f" scrubber detected and healed it ({stats}, a pass of"
+            f" {len(scrubber._columns())} columns {t_heal:.1f} ms), SD after"
+            f" invalidate_prepared equals the original; a clean scrub_full {t_clean:.1f} ms")
+        counts = read_counts()
+        if counts["crc32c"] < 1:
+            raise AssertionError(f"path n: crc32c never launched ({counts})")
+        log(f"  path n: launches {({k: v for k, v in counts.items() if v})}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if Path(tmp).exists():
+        raise AssertionError(f"path n: {tmp} was not removed")
+    log_gates("path n restored vs the defaults", ratios, gates)
+    return rec, counts
+
+
+def time_manifest(engines, SG, c0) -> dict:
+    """Median wall ms of SD and AS with an integrity manifest attached (every
+    materialize() verified) against without, MANIFEST_REPS runs in turns, on
+    auto and dense storage, with the CRC launches a call under each; the
+    manifest is built once a DB and detached at the end."""
+    from repro_torch.kernels import crc32c as ck
+    from repro_torch.storage import attach_manifest, build_manifest, detach_manifest
+
+    out = {}
+    for storage in ("auto", "dense"):
+        qs = [c for c in cases(SG, c0) if c[0] in MANIFEST_QUERIES]
+        dev_db = engines[storage]["SD"].db.device
+        t0 = time.perf_counter()
+        man = build_manifest(dev_db)
+        sync()
+        t_build = time.perf_counter() - t0
+        for name, q, params in qs:
+            pq = engines[storage][name].prepare(q)
+            ts = {"with": [], "without": []}
+            crcs = {"with": 0, "without": 0}
+            for i in range(MANIFEST_REPS):
+                for mode in (("with", "without") if i % 2 == 0 else ("without", "with")):
+                    if mode == "with":
+                        attach_manifest(dev_db, man)
+                    else:
+                        detach_manifest(dev_db)
+                    before = ck.LAUNCHES
+                    t0 = time.perf_counter()
+                    pq(**params)
+                    ts[mode].append((time.perf_counter() - t0) * 1e3)
+                    crcs[mode] += ck.LAUNCHES - before
+            detach_manifest(dev_db)
+            row = {m: statistics.median(v) for m, v in ts.items()}
+            out[f"{storage} {name}"] = {**row, "ratio": row["with"] / row["without"],
+                                        "crc_launches_a_call": crcs["with"] / MANIFEST_REPS}
+            log(f"  manifest {storage:5s} {name}: median ms with {row['with']:.4f}, without"
+                f" {row['without']:.4f} ({row['with'] / row['without']:.3f}x); crc32c launches"
+                f" a call with {crcs['with'] / MANIFEST_REPS:g}, without"
+                f" {crcs['without'] / MANIFEST_REPS:g}")
+        out[f"{storage} build_manifest_s"] = t_build
+        log(f"  build_manifest of the {storage} PubMed store: {t_build:.2f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -3693,6 +4186,10 @@ def run(device) -> None:
         worst[k] = max(worst[k], hot)
     worst.update(check_bitmap(device))
     del dict_db
+    phase("[3c] crc32c against its plain version, then on every column of the PubMed cell",
+          t_start)
+    crc_checks = check_crc(db, device)
+    worst["crc32c"] = 0.0  # every value equal
     fused_small, n_small = check_fused_small(device)
     specs = region_specs(db, SG, device)
     from repro_torch.core.fuse import REACH_DENSITY_MAX
@@ -3906,6 +4403,15 @@ def run(device) -> None:
     profiles = drive_profiles({"defaults": engines["auto"],
                                "fragment_loop": strat["fragment_loop"]}, SG, lqs, truth_k, gates)
     paths["l_profile"] = {"counts": read_counts()}
+    phase("[4m] the degradation ladder: run_with_policy / run_batch_with_policy, faults,"
+          " deadlines, admission", t_start)
+    ladder, counts = drive_ladder(engines["auto"], SG, lqs, defaults_k, rows8, draws, sizes,
+                                  gates)
+    paths["m_ladder"] = {"counts": counts}
+    phase("[4n] durability: snapshot, restore, scrub and heal at the PubMed cell", t_start)
+    durability, counts = drive_durability({"pubmed": db, "semmed": dbs}, SG, c0,
+                                          fused_res["auto"], gates)
+    paths["n_durability"] = {"counts": counts}
 
     # phase 5: times
     phase("[5] times", t_start)
@@ -3925,6 +4431,7 @@ def run(device) -> None:
         " cost): " + ", ".join(f"{n} {v:.3f}x" for n, v in over_skip.items()))
     missed = [n for n, v in over.items() if v > AUTO_OVER_SCAN]
     log(f"  fault 2: {'closed in this run' if not missed else f'open for {missed}'}")
+    manifest_walls = time_manifest(engines, SG, c0)
     split = {"defaults": breakdown("defaults", engines["auto"], SG, c0, "auto", "auto", True),
              "dense": breakdown("dense", engines["dense"], SG, c0, "off", "off", nine=True),
              "fusion_on": breakdown("on", engines["auto"], SG, c0, "auto", "on", True),
@@ -3938,6 +4445,7 @@ def run(device) -> None:
             f" {t['fragment_spmv_packed_active'] / t['fragment_spmv']:.3f}x its time")
     hot_err = hot_author_error(db, db_dense, device)
     ktimes.update(time_bitmap(masks, device))
+    ktimes["crc32c"] = time_crc(db, device)
     fused_rows, budget_rows, budget = time_fused(specs, device)
     ktimes.update(fused_rows)
     skipping, skip_fraction, ktimes["block_list"] = time_skipping(db, db_dense, device)
@@ -3985,6 +4493,8 @@ def run(device) -> None:
             timed = f"{primary['shape']}, {primary['E']} words"
         elif k == "block_list":
             timed = f"{primary['shape']}, {primary['E']} blocks"
+        elif k == "crc32c":
+            timed = f"{primary['shape']}, {primary['E']} bytes"
         else:
             timed = (f"{primary['shape']} sum, E={primary['E']}"
                      + (f", B={primary['B']}" if "B" in primary else "")
@@ -4032,6 +4542,8 @@ def run(device) -> None:
                                "spmm_hot": n_spmm_hot,
                                "spmm_fused": n_spmm_fused, **batched},
                     "launch_records": brecords, "times": btimes},
+        "robust": {"crc_checks": crc_checks, "ladder": ladder, "durability": durability,
+                   "manifest_walls": manifest_walls},
         "kernels": entries,
         "total_seconds": time.perf_counter() - t_start,
     }

@@ -30,6 +30,7 @@ import torch
 
 from ..kernels import params as KP
 from ..obs import trace as T
+from ..robust import faults as _faults
 from ..robust.admission import PreparedCache
 from ..robust.errors import QueryError, ValidationError
 from . import executor as X
@@ -345,6 +346,14 @@ class GQFastEngine:
         # per-plan-signature observed active fractions (fed by profile runs)
         self.calibration = CalibrationStore()
 
+    def invalidate_prepared(self) -> int:
+        """Drop every cached prepared query. Required after the device tensors
+        under the prepared plans change — a scrubber heal or a snapshot
+        generation swap — because a lowered plan holds the tensors it was
+        bound to; the next prepare reads the new ones. Returns the number of
+        entries dropped."""
+        return self._cache.clear()
+
     def prepare(self, sql: str, block_skipping: str = "auto",
                 fusion: str = "auto") -> PreparedQuery:
         """Parse, plan and lower ``sql`` once for repeated execution.
@@ -364,6 +373,7 @@ class GQFastEngine:
         cached = self._cache.get(key)
         if cached is not None:
             return cached
+        _faults.fire("engine.prepare", query=" ".join(sql.split()))
         with T.span("prepare", query=" ".join(sql.split())):
             try:
                 with T.span("parse"):

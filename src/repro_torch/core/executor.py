@@ -48,6 +48,7 @@ from ..kernels import params as KP
 from ..kernels.active import active_flags, block_ranges
 from ..obs import trace as T
 from ..robust.errors import ExecutionError, ValidationError
+from ..robust.runner import check_deadline
 from ..storage import (
     DenseColumn,
     DeviceColumn,
@@ -141,6 +142,9 @@ class DeviceDB:
     indexes: dict[tuple[str, str], DeviceIndex]
     entity_attrs: dict[tuple[str, str], torch.Tensor]
     host_indexes: dict[tuple[str, str], FragmentIndex]
+    # the attached integrity manifest (storage/integrity.py), None until one
+    # is attached
+    integrity: dict | None = None
 
     def index(self, table: str, key: str) -> DeviceIndex:
         return self.indexes[(table, key)]
@@ -357,7 +361,9 @@ def walk_ir(phys: PhysicalPlan, interp: "_Interp", stop: int | None = None):
     While an observability tracer is recording (``obs.trace``) every op runs
     in a span of its own, fenced, with its hop metadata: the per-op
     breakdown behind ``PreparedQuery.profile()``. With no tracer the walk is
-    the plain fold."""
+    the plain fold. Both read the ambient query deadline
+    (``robust.runner.check_deadline``: one ContextVar read when none is set)
+    at each op's entry."""
     ops = phys.ops if stop is None else phys.ops[:stop]
     if T.current() is not None:
         return _walk_ir_recorded(phys, ops, interp)
@@ -365,7 +371,9 @@ def walk_ir(phys: PhysicalPlan, interp: "_Interp", stop: int | None = None):
     def go(i: int, state):
         if i == len(ops):
             return state
-        return interp.apply(ops[i], state, lambda st: go(i + 1, st))
+        op = ops[i]
+        check_deadline(type(op).__name__)
+        return interp.apply(op, state, lambda st: go(i + 1, st))
 
     return go(0, None)
 
@@ -431,6 +439,7 @@ def _walk_ir_recorded(phys: PhysicalPlan, ops, interp: "_Interp"):
         if i == len(ops):
             return state
         op = ops[i]
+        check_deadline(labels[i])
         with T.span(labels[i], op_index=i, plan=plan_key) as sp:
             T.sync()
             _annotate_op_span(sp, op, state, interp)
@@ -1052,7 +1061,8 @@ class _FragmentLoopInterp(_Interp):
         whose weight is 0̄ is not expanded: it could only scatter 0̄. When
         the new paths would exceed ``params.FRAGMENT_LOOP_MAX_PATHS`` the
         expansion runs in chunks of that many edges, each carried through
-        the rest of the plan before the next (depth first);
+        the rest of the plan before the next (depth first), the query's
+        deadline read before each chunk;
       * DegreeFilterOp / EntityFilterOp — a per-path factor and mask;
       * GroupOp — one scatter-⊕ of every path into ℛ (``[B · out_dom]``
         for a batch, at ``row · out_dom + cur``). Under the sum semiring ℛ
@@ -1113,6 +1123,7 @@ class _FragmentLoopInterp(_Interp):
         base = start - (ends - deg)  # edge position = base[path] + output position
         cap = KP.FRAGMENT_LOOP_MAX_PATHS
         for a in range(0, total, cap) or (0,):
+            check_deadline("fragment_loop chunk")
             b = min(a + cap, total)
             pos = torch.arange(a, b, device=self.device)
             if b - a == total:
@@ -1170,15 +1181,18 @@ def walks_scalar(phys: PhysicalPlan) -> bool:
 
 def compile_fragment_loop(
     db: DeviceDB, plan: ChainPlan | PhysicalPlan, block_skipping: str = "auto",
+    use_kernel: bool = True,
 ) -> Callable[..., torch.Tensor]:
     """The ``fragment_loop`` strategy: ``run(*args)`` as
     :func:`compile_frontier`'s, walking the plan path by path
-    (:class:`_FragmentLoopInterp`) where :func:`walks_scalar` allows, and
-    through :func:`compile_frontier` (unfused, ``block_skipping`` passed on)
-    where it does not."""
+    (:class:`_FragmentLoopInterp`, which launches no kernel) where
+    :func:`walks_scalar` allows, and through :func:`compile_frontier`
+    (unfused, ``block_skipping`` and ``use_kernel`` passed on) where it does
+    not."""
     phys = ensure_lowered(db, plan)
     if not walks_scalar(phys):
-        return compile_frontier(db, phys, block_skipping=block_skipping, fusion="off")
+        return compile_frontier(db, phys, block_skipping=block_skipping,
+                                use_kernel=use_kernel, fusion="off")
     names = list(phys.param_names)
     device = db.device
 
@@ -1195,15 +1209,17 @@ def compile_fragment_loop(
 
 def compile_fragment_loop_batched(
     db: DeviceDB, plan: ChainPlan | PhysicalPlan, block_skipping: str = "auto",
+    use_kernel: bool = True,
 ) -> Callable[..., torch.Tensor]:
     """The batched ``fragment_loop`` entry, ``run(*arrays)`` as
     :func:`compile_frontier_batched`'s: one scalar walk for the whole batch,
     every path carrying its row, scattering into ``[B · out_dom]``; a plan
-    that falls back to the frontier runs :func:`compile_frontier_batched`."""
+    that falls back to the frontier runs :func:`compile_frontier_batched`
+    (``use_kernel`` passed on)."""
     phys = ensure_lowered(db, plan)
     if not walks_scalar(phys):
         return compile_frontier_batched(db, phys, block_skipping=block_skipping,
-                                        fusion="off")
+                                        use_kernel=use_kernel, fusion="off")
     names = list(phys.param_names)
     if not names:
         raise ValidationError("batched execution needs at least one query parameter")

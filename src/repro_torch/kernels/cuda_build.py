@@ -10,7 +10,9 @@ built at its first launch, or by :func:`build_all`, which starts one ``nvcc``
 for each source at once (every library of the package by default:
 ``fragment_spmv``, ``fragment_spmv_packed``, ``fragment_spmv_fused``,
 ``fragment_spmm``, ``fragment_spmm_packed``, ``bitunpack``, ``bitmap_ops``,
-``block_list``) and waits for all of them.
+``block_list``, ``crc32c``) and waits for all of them. A kernel that does
+not build, load or launch raises :class:`KernelError`, which no caller turns
+into a run of the plain version.
 """
 from __future__ import annotations
 
@@ -38,6 +40,11 @@ P, I32, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 LIBRARIES: list["CudaLibrary"] = []
 
 
+class KernelError(RuntimeError):
+    """A hand-written kernel failed to build (no ``nvcc``, a compile error),
+    to load (``ctypes``) or to launch (a nonzero CUDA error code)."""
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
@@ -45,7 +52,7 @@ def _nvcc() -> str:
     cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
     if cand.exists():
         return str(cand)
-    raise RuntimeError(
+    raise KernelError(
         "nvcc not found on PATH or under CUDA_HOME; the CUDA kernels are built "
         "from source at first use"
     )
@@ -102,7 +109,7 @@ class CudaLibrary:
         self.build_log = out
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed building {self.source.name}:\n{out}")
+            raise KernelError(f"nvcc failed building {self.source.name}:\n{out}")
         os.replace(tmp, so)  # atomic: a concurrent build sees all or nothing
 
     def load(self) -> ctypes.CDLL:
@@ -113,11 +120,14 @@ class CudaLibrary:
             started = self.start()
             if started is not None:
                 self.finish(started)
-            lib = ctypes.CDLL(str(self._so()))
-            for fn, argtypes in self.functions.items():
-                f = getattr(lib, fn)
-                f.argtypes = argtypes
-                f.restype = ctypes.c_int
+            try:
+                lib = ctypes.CDLL(str(self._so()))
+                for fn, argtypes in self.functions.items():
+                    f = getattr(lib, fn)
+                    f.argtypes = argtypes
+                    f.restype = ctypes.c_int
+            except (OSError, AttributeError) as e:
+                raise KernelError(f"loading {self.source.name}'s library failed: {e}") from e
             self._lib = lib
             return lib
 
@@ -189,13 +199,13 @@ def stream_scratch(name: str, numel: int, dtype: torch.dtype, dev: torch.device,
 
 def raise_on(err: int, kernel: str) -> None:
     if err != 0:
-        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")
+        raise KernelError(f"{kernel} kernel launch failed: CUDA error {err}")
 
 
 def launch(fn, kernel: str, dev: torch.device, *args) -> None:
     """The launch path of every kernel wrapper: the C entry ``fn`` (a
     function of a :class:`CudaLibrary`, returning a CUDA error code) called
-    with ``args`` on ``dev``, and a ``RuntimeError`` naming ``kernel`` on a
+    with ``args`` on ``dev``, and a :class:`KernelError` naming ``kernel`` on a
     nonzero code. ``dev`` is made the current device only when it is not
     already: the switch there and back is host time on every call (PERF.md
     §5 has what each piece of this path costs)."""

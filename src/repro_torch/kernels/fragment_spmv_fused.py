@@ -41,7 +41,16 @@ import ctypes
 import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
-from .cuda_build import I32, P, CudaLibrary, check_tensor, cuda_device, launch, stream_of
+from .cuda_build import (
+    I32,
+    P,
+    CudaLibrary,
+    KernelError,
+    check_tensor,
+    cuda_device,
+    launch,
+    stream_of,
+)
 from .fragment_spmm import ROW_CHUNK, check_rows, row_chunk, row_scratch
 from .fragment_spmv import OP_CODE, check_block_list
 from .fragment_spmv_packed import M_MODES, check_streams
@@ -102,7 +111,7 @@ def max_grid(op: str = "sum", batched: bool = False, table: bool = False,
     else:
         g = lib.fragment_spmv_fused2_max_grid(OP_CODE[op], int(table))
     if g <= 0:
-        raise RuntimeError(f"fragment_spmv_fused2: no co-resident grid (CUDA error {-g})")
+        raise KernelError(f"fragment_spmv_fused2: no co-resident grid (CUDA error {-g})")
     return g
 
 

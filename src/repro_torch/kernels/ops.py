@@ -4,12 +4,18 @@
   * CUDA tensors with ``use_kernel=True`` launch the CUDA kernels
     (:mod:`.fragment_spmv`, :mod:`.fragment_spmv_packed`,
     :mod:`.fragment_spmv_fused`, :mod:`.bitunpack`, :mod:`.bitmap_ops`,
-    :mod:`.block_list`, and for a batch of B frontier rows
+    :mod:`.block_list`, :mod:`.crc32c`, and for a batch of B frontier rows
     :mod:`.fragment_spmm`, :mod:`.fragment_spmm_packed` and the fused
     regions' SpMM form).
     A kernel that fails to build or launch raises: there is no quiet fallback;
   * ``use_kernel=False`` is the explicit plain-version path on any device —
     what the tests and the on-card check compare the kernels with.
+
+Fault sites (:mod:`repro_torch.robust.faults`): the four hop entries and a
+fused region that really fuses fire ``ops.<entry>`` whenever the caller asked
+for the kernel (``use_kernel=True``), before the dispatch decides where it
+runs, so a chaos plan poisons the kernel path on the CPU as on the card.
+With no plan active each costs one ContextVar read.
 
 Frontier-sparsity dispatch (:mod:`.active`): the hop entries take
 ``blocks=(src_min, src_max)`` per-block metadata (device tensors) and a
@@ -39,11 +45,13 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..robust import faults as _faults
 from ..robust.errors import ValidationError
 from . import active as _active
 from . import bitmap_ops as _bitmaps
 from . import bitunpack as _bitunpack
 from . import block_list as _block_list
+from . import crc32c as _crc32c
 from . import fragment_spmm as _dense_rows
 from . import fragment_spmm_packed as _packed_rows
 from . import fragment_spmv as _dense
@@ -172,6 +180,17 @@ def bitunpack(words, width: int, count: int, use_kernel: bool = True) -> torch.T
     return _bitunpack.bitunpack(wt, width, count)
 
 
+def crc32c(data: torch.Tensor, value: int = 0, use_kernel: bool = True) -> torch.Tensor:
+    """CRC-32C of the bytes of the contiguous tensor ``data`` continuing from
+    ``value``: a 0-d int64 tensor on data's device holding the unsigned
+    32-bit value (the CUDA kernel on the card, ``ref.crc32c_ref`` on the CPU
+    or with ``use_kernel=False``)."""
+    b = _crc32c.as_bytes(data)
+    if _plain(b, use_kernel):
+        return ref.crc32c_ref(b, value)
+    return _crc32c.crc32c(b, value)
+
+
 def fragment_spmv(weights, src_ids, dst_ids, measures, n_dst: int,
                   op: str = "sum", use_kernel: bool = True,
                   blocks=None, block_skipping: str = "off",
@@ -188,6 +207,8 @@ def fragment_spmv(weights, src_ids, dst_ids, measures, n_dst: int,
     d = _as(dst_ids, torch.int32, w.device)
     m = None if measures is None else _as(measures, torch.float32, w.device)
     table = uses_table(hot_share)
+    if use_kernel:
+        _faults.fire("ops.fragment_spmv", op=op, n_dst=n_dst)
     plain = _plain(w, use_kernel)
     plan = _plan_skip(w, op, s.shape[0], blocks, block_skipping, use_kernel)
     if plan is None:
@@ -227,6 +248,8 @@ def fragment_spmv_packed(weights, src_ids, dst, measure=None, mdict=None, *,
                                    m_width, w.device)
     kw = dict(dst_width=dst_width, m_mode=m_mode, m_width=m_width, op=op)
     table = uses_table(hot_share)
+    if use_kernel:
+        _faults.fire("ops.fragment_spmv_packed", op=op, n_dst=n_dst)
     plain = _plain(w, use_kernel)
     plan = _plan_skip(w, op, s.shape[0], blocks, block_skipping, use_kernel)
     if plan is None:
@@ -274,6 +297,8 @@ def fragment_spmm(weights, src_ids, dst_ids, measures, n_dst: int,
     d = _as(dst_ids, torch.int32, w.device)
     m = None if measures is None else _as(measures, torch.float32, w.device)
     table = uses_table(hot_share)
+    if use_kernel:
+        _faults.fire("ops.fragment_spmm", op=op, n_dst=n_dst)
     plain = _plain(w, use_kernel)
     plan = _plan_skip(w, op, s.shape[0], blocks, block_skipping, use_kernel)
     if plan is None:
@@ -304,6 +329,8 @@ def fragment_spmm_packed(weights, src_ids, dst, measure=None, mdict=None, *,
                                    m_width, w.device)
     kw = dict(dst_width=dst_width, m_mode=m_mode, m_width=m_width, op=op)
     table = uses_table(hot_share)
+    if use_kernel:
+        _faults.fire("ops.fragment_spmm_packed", op=op, n_dst=n_dst)
     plain = _plain(w, use_kernel)
     plan = _plan_skip(w, op, s.shape[0], blocks, block_skipping, use_kernel)
     if plan is None:
@@ -479,6 +506,9 @@ def _fused_dispatch(batched: bool, weights, hop1, hop2, mid_mask, *, op, mid_bin
             or (hop2 is not None and E2 == 0)):
         return _compose_unfused(w, hop1, hop2, mm, mid_binarize, op, use_kernel,
                                 block_skipping)
+    if use_kernel:
+        _faults.fire("ops.fragment_spmm_fused" if batched else "ops.fragment_spmv_fused",
+                     op=op, n_dst=n_dst)
     s1 = _streams(hop1, w.device)
     s2 = _streams(hop2, w.device) if hop2 is not None else None
     bi1, na1, bi2, na2 = _fused_block_lists(w, op, hop1, hop2, E1, E2, block_skipping,

@@ -351,3 +351,117 @@ def bitmap_and_popcount_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     x = (x + (x >> 4)) & 0x0F0F0F0F
     x = ((x * 0x01010101) & 0xFFFFFFFF) >> 24
     return x.sum().to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# CRC-32C (Castagnoli): the integrity digests of the column store
+# (storage/integrity.py). Not a TPU kernel: the reference hashes on the host.
+# ---------------------------------------------------------------------------
+
+#: CRC-32C's reflected polynomial (iSCSI, ext4, Parquet pages).
+CRC32C_POLY = 0x82F63B78
+MASK32 = 0xFFFFFFFF
+
+
+def multmodp(a: int, b: int) -> int:
+    """``a · b mod P(x)`` over GF(2), in the reflected representation of a
+    CRC register (the coefficient of x^0 is bit 31)."""
+    p, m = 0, 1 << 31
+    while m:
+        if a & m:
+            p ^= b
+        b = (b >> 1) ^ CRC32C_POLY if b & 1 else b >> 1
+        m >>= 1
+    return p
+
+
+def _x2n_table() -> list[int]:
+    out = [1 << 30]  # x^1
+    for _ in range(63):
+        out.append(multmodp(out[-1], out[-1]))
+    return out
+
+
+#: ``X2N[k]`` = x^(2^k) mod P for k < 64; ``csrc/crc32c.cu`` holds the same
+#: constants (``kX2n``).
+X2N = _x2n_table()
+
+
+def x8nmodp(n: int) -> int:
+    """x^(8n) mod P: multiplying a raw CRC register by it carries the
+    register over n zero bytes (zlib's ``x2nmodp(n, 3)``)."""
+    p, k = 1 << 31, 3
+    while n:
+        if n & 1:
+            p = multmodp(X2N[k], p)
+        n >>= 1
+        k += 1
+    return p
+
+
+def _crc32c_table() -> list[int]:
+    out = []
+    for i in range(256):
+        c = i
+        for _ in range(8):
+            c = (c >> 1) ^ CRC32C_POLY if c & 1 else c >> 1
+        out.append(c)
+    return out
+
+
+CRC32C_TABLE = _crc32c_table()
+
+
+def _mulmod_const(a: int, b: torch.Tensor) -> torch.Tensor:
+    """:func:`multmodp` of the constant ``a`` with every entry of ``b``
+    (int64 holding uint32): one GF(2) operator applied to a vector."""
+    p = torch.zeros_like(b)
+    for i in range(31, -1, -1):
+        if (a >> i) & 1:
+            p = p ^ b
+        b = torch.where((b & 1) == 1, (b >> 1) ^ CRC32C_POLY, b >> 1)
+    return p
+
+
+#: The most chunks :func:`crc32c_ref` cuts a stream into (a chunk is at
+#: least 16 bytes): many on the card, where each step gathers for every
+#: chunk at once, few on the CPU. The value does not depend on it.
+CRC_CHUNKS = {"cuda": 1 << 20, "cpu": 1 << 12}
+
+
+def crc32c_ref(data: torch.Tensor, value: int = 0) -> torch.Tensor:
+    """CRC-32C of the bytes ``data`` (uint8, 1-D) continuing from ``value``,
+    as a 0-d int64 tensor on ``data``'s device — the chunked algorithm of
+    ``csrc/crc32c.cu`` in PyTorch, vectorised over chunks:
+
+      * the stream is zero-padded at the front to ``C`` chunks of ``L`` bytes
+        (leading zeros leave a CRC that starts at 0 unchanged);
+      * each chunk's raw CRC (register 0, no final XOR) by table gathers, one
+        byte position a step for every chunk at once;
+      * the chunk CRCs combine pairwise, level k shifting the left one over
+        ``L · 2^k`` bytes (the GF(2) operator x^(8 · L · 2^k) mod P, zlib's
+        ``crc32_combine``), into the raw CRC of the stream;
+      * ``value`` folds in as ``raw ⊕ shift(value ⊕ 0xFFFFFFFF, n) ⊕
+        0xFFFFFFFF``.
+
+    C is at most :data:`CRC_CHUNKS` of the device."""
+    n = int(data.numel())
+    dev = data.device
+    if n == 0:
+        return torch.tensor(value & MASK32, dtype=torch.int64, device=dev)
+    L = max(16, -(-n // CRC_CHUNKS.get(dev.type, CRC_CHUNKS["cpu"])))
+    C = -(-n // L)
+    padded = torch.cat([torch.zeros(C * L - n, dtype=torch.uint8, device=dev),
+                        data.reshape(-1)])
+    cols = padded.view(C, L).t().contiguous()  # byte position j of every chunk
+    tab = torch.tensor(CRC32C_TABLE, dtype=torch.int64, device=dev)
+    crc = torch.zeros(C, dtype=torch.int64, device=dev)
+    for j in range(L):
+        crc = tab[(crc ^ cols[j].to(torch.int64)) & 255] ^ (crc >> 8)
+    span = L
+    while crc.numel() > 1:
+        if crc.numel() % 2:  # a zero chunk in front changes nothing
+            crc = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev), crc])
+        crc = _mulmod_const(x8nmodp(span), crc[0::2]) ^ crc[1::2]
+        span *= 2
+    return crc[0] ^ (multmodp(x8nmodp(n), (value & MASK32) ^ MASK32) ^ MASK32)

@@ -21,6 +21,7 @@ The hierarchy:
     ├── ResourceError      (RuntimeError)  code=RESOURCE     retryable=False
     ├── DeadlineExceeded   (TimeoutError)  code=DEADLINE     retryable=True
     ├── ExecutionError     (RuntimeError)  code=EXECUTION    retryable=True
+    │   └── KernelFault                    code=KERNEL       retryable=False
     └── IntegrityError     (RuntimeError)  code=INTEGRITY    retryable=False
 
 ``retryable`` defaults are per-class but overridable per-raise (e.g. an
@@ -128,6 +129,18 @@ class ExecutionError(QueryError, RuntimeError):
 
     code = "EXECUTION"
     default_retryable = True
+
+
+class KernelFault(ExecutionError):
+    """A hand-written CUDA kernel did not build, load or launch, or the card
+    faulted while a query ran (``kernels.cuda_build.KernelError`` and the
+    device fence's error, chained). Terminal: the runner neither retries
+    nor demotes on it, because the rungs below answer from the plain
+    versions, which no query falls back to when a kernel fails. Context:
+    ``rung``, ``strategy``."""
+
+    code = "KERNEL"
+    default_retryable = False
 
 
 class IntegrityError(QueryError, RuntimeError):

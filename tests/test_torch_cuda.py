@@ -2,10 +2,11 @@
 and packed hops, their block-skipping variants, the packed pair's per-CTA
 aggregation on hot destinations, bitunpack, both fused-region kernels with
 the per-CTA table in their hops and without, the batched forms of all of
-them: the SpMM kernels and the fused regions' SpMM form, and the bitmap AND
-and popcount) against their plain PyTorch versions, and the
-engine on the card (single queries and execute_batch) against the engine on
-the CPU and the numpy oracle. They import no JAX (the
+them: the SpMM kernels and the fused regions' SpMM form, the bitmap AND
+and popcount, and CRC-32C) against their plain PyTorch versions, and the
+engine on the card (single queries and execute_batch, the degradation
+ladder's rungs, manifests, snapshots and the scrubber's heal) against the
+engine on the CPU and the numpy oracle. They import no JAX (the
 GPU machine need not have it) and skip where ``torch.cuda.is_available()`` is
 false: a CUDA kernel has no CPU mode. On a card:
 
@@ -29,6 +30,7 @@ from repro_torch.data import synth_graph as SG  # noqa: E402
 from repro_torch.kernels import active  # noqa: E402
 from repro_torch.kernels import bitmap_ops as bmkernel  # noqa: E402
 from repro_torch.kernels import bitunpack as bkernel  # noqa: E402
+from repro_torch.kernels import crc32c as ckernel  # noqa: E402
 from repro_torch.kernels import fragment_spmv as kernel  # noqa: E402
 from repro_torch.kernels import fragment_spmv_fused as fkernel  # noqa: E402
 from repro_torch.kernels import fragment_spmv_packed as pkernel  # noqa: E402
@@ -1915,3 +1917,91 @@ def test_profile_on_the_card(cuda, strategy, name, q, params):
                        strategy=strategy).prepare(q)
     assert ([h.meta["touched_edges"] for h in prof.hops]
             == [h["touched_edges"] for h in observed_hop_fractions(cpu.phys, params)])
+
+
+# ---------------------------------------------------------------------------
+# CRC-32C and the durability layer on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n", [0, 1, 3, 4, 7, 8, 9, 15, 16, 17, 511, 512, 513, 4095, 4096,
+                               4097, 2**20 + 3, 5_000_011])
+def test_crc32c_kernel_matches_plain(cuda, n):
+    """The kernel against its plain version (which equals the reference's
+    values, tests/test_torch_snapshot.py) at every offset mod 16 of the
+    stream and from a previous value."""
+    rng = np.random.default_rng(n)
+    raw = torch.tensor(rng.integers(0, 256, n + 16, dtype=np.uint8), device=cuda)
+    for off in (0, 1, 5, 15):
+        data = raw[off:off + n]
+        for value in (0, int(rng.integers(0, 2**32))):
+            before = ckernel.LAUNCHES
+            got = ckernel.crc32c(data, value)
+            torch.cuda.synchronize()
+            assert ckernel.LAUNCHES == before + (n > 0)
+            assert int(got) == int(ref.crc32c_ref(data, value)) == \
+                int(ref.crc32c_ref(data.cpu(), value)), (n, off, value)
+
+
+def test_crc32c_kernel_check_value_and_chain(cuda):
+    data = torch.tensor(list(b"123456789"), dtype=torch.uint8, device=cuda)
+    assert int(ops.crc32c(data)) == 0xE3069283
+    words = torch.tensor(np.random.default_rng(0).integers(-2**31, 2**31, 300_001),
+                         dtype=torch.int32, device=cuda)
+    whole = int(ops.crc32c(words))
+    head = int(ops.crc32c(words[:1000]))
+    assert int(ops.crc32c(words[1000:], head)) == whole
+    with pytest.raises(ValueError):
+        ckernel.crc32c(words[::2])  # not contiguous
+
+
+@pytest.mark.parametrize("enc", ["packed", "auto"])
+def test_durability_on_the_card(cuda, enc, tmp_path):
+    """Manifests on the card equal the CPU's; a snapshot of the card's DB
+    restores on the CPU and back; a flipped word on the card is detected and
+    healed by the scrubber, and a plan prepared after the heal gives the
+    original answer."""
+    from repro_torch.robust import Scrubber
+    from repro_torch.storage import attach_manifest, build_manifest, restore_db, snapshot_db
+
+    schema = _schema("SD")
+    gpu_db = GQFastDatabase(schema, account_space=False, device=cuda, device_encodings=enc)
+    cpu_db = GQFastDatabase(schema, account_space=False, device="cpu", device_encodings=enc)
+    assert build_manifest(gpu_db.device) == build_manifest(cpu_db.device)
+    snapshot_db(gpu_db, str(tmp_path))
+    cpu2 = restore_db(str(tmp_path), device="cpu")
+    gpu2 = restore_db(str(tmp_path), device=cuda)
+    q, params = SG.QUERY_SD, {"d0": 5}
+    want = GQFastEngine(cpu_db).query(q, **params)
+    np.testing.assert_array_equal(GQFastEngine(cpu2).query(q, **params), want)
+    eng = GQFastEngine(gpu2)
+    np.testing.assert_array_equal(eng.query(q, **params), want)
+    attach_manifest(gpu2.device)
+    col = gpu2.device.indexes[("DT", "Term")].dst_col
+    bad = col.words.clone()
+    bad[bad.shape[0] // 2] ^= 1 << 20
+    col.words = bad
+    stats = Scrubber(gpu2, snapshot_dir=str(tmp_path)).scrub_full()
+    assert stats["healed"] == 1 and stats["failed"] == 0
+    eng.invalidate_prepared()
+    np.testing.assert_array_equal(eng.query(q, **params), want)
+
+
+@pytest.mark.parametrize("name,q,params", [c for c in CASES if c[0] in ("SD", "AS", "AD")],
+                         ids=["SD", "AS", "AD"])
+def test_ladder_rungs_on_the_card(cuda, name, q, params):
+    from repro_torch.robust import LADDER, run_with_policy
+    from repro_torch.robust.runner import rung_fn
+
+    schema = _schema(name)
+    pq = GQFastEngine(GQFastDatabase(schema, account_space=False, device=cuda)).prepare(q)
+    want = GQFastEngine(GQFastDatabase(schema, account_space=False, device="cpu")
+                        ).query(q, **params)
+    oc = run_with_policy(pq, params)
+    assert oc.status == "ok" and oc.rung == "active"
+    args = [params[n] for n in pq.param_names]
+    for rung in LADDER:
+        got = rung_fn(pq, rung)(*args).cpu().numpy()
+        if name in ("SD", "AD"):
+            np.testing.assert_array_equal(got, want, err_msg=rung)
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4, err_msg=rung)

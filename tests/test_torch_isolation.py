@@ -158,3 +158,36 @@ def test_port_strategies_and_profile_load_neither_jax_nor_repro():
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "LOADED []" in proc.stdout
+
+
+def test_port_robustness_and_durability_load_neither_jax_nor_repro(tmp_path):
+    """The ladder, a fault plan, a manifest, a snapshot and its restore, and
+    a scrub run without JAX or the JAX package."""
+    code = textwrap.dedent(f"""
+        import sys
+        from repro_torch.core.engine import GQFastDatabase, GQFastEngine
+        from repro_torch.data import synth_graph as SG
+        from repro_torch.robust import LADDER, RobustPolicy, Scrubber, faults, run_with_policy
+        from repro_torch.storage import attach_manifest, restore_db, snapshot_db
+        schema = SG.make_pubmed(n_docs=200, n_terms=20, n_authors=50, seed=1)
+        db = GQFastDatabase(schema, account_space=False, device="cpu")
+        pq = GQFastEngine(db).prepare(SG.QUERY_SD)
+        plan = faults.FaultPlan().add(faults.FaultSpec(site="ops.", mode="raise"))
+        with faults.active(plan):
+            oc = run_with_policy(pq, {{"d0": 3}})
+        assert oc.ok and oc.rung == "xla", oc.to_dict()
+        snapshot_db(db, {str(tmp_path)!r})
+        db2 = restore_db({str(tmp_path)!r}, device="cpu")
+        attach_manifest(db2.device)
+        assert Scrubber(db2, snapshot_dir={str(tmp_path)!r}).scrub_full()["failed"] == 0
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+        print("LOADED", bad)
+        assert not bad, bad
+    """)
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")}, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LOADED []" in proc.stdout
