@@ -144,8 +144,23 @@ Phases (any failure exits non-zero; nothing is caught while the run goes on):
          the nine on the restored DBs against the defaults; one bit of a
          destination in I_DT.Term flipped in place on the card changes
          SD's answer until the scrubber heals the column, and SD after
-         ``invalidate_prepared`` equals the original; the directory removed
-         at the end (crc32c must launch here).
+         ``invalidate_prepared`` equals the original (crc32c must launch
+         here); the snapshots kept for o;
+      o. serving, in process on the main thread: ``--workload lm`` refused
+         (the not-ported error); the CI's three lanes (obs, chaos,
+         corrupt-and-heal) through ``repro_torch.launch.serve.main`` at
+         their own arguments with ``--device cuda`` and the workflow's
+         assertions; then SERVE_REQUESTS requests in micro-batches of
+         SERVE_BATCH from a fast start of n's PubMed snapshot with a reload
+         every SERVE_RELOAD_AT batches (the first publishing generation 2,
+         so the swap loads a new one), the scrub gate and ticks, a profile
+         and the metrics: every request answered ``ok``, none unserved, a
+         reload at least and no failure, the packed SpMM pair, the list and
+         CRC-32C launched, every answer held to its batch through the plain
+         versions with float64 sums; queries/s micro-batched and
+         sequential, p50/p99 a shape, the result copy a batch and the idle
+         share of the batches replayed under the profiler, each beside the
+         card; the directory removed at the end.
     Each result is compared with the same lowered plan run through the plain
     versions on the card with float64 sums (each comparison's gate ratio
     logged and kept), the defaults with skipping off and with the dense
@@ -204,9 +219,11 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from pathlib import Path
@@ -3897,105 +3914,398 @@ def drive_ladder(engines, SG, qs, defaults, rows8, draws, sizes, gates) -> tuple
     return rec, counts
 
 
-def drive_durability(dbs_by_graph, SG, c0, defaults, gates) -> tuple[dict, dict]:
+def drive_durability(dbs_by_graph, SG, c0, defaults, gates, tmp: str) -> tuple[dict, dict]:
     """Path n, at the PubMed cell (and the SemMedDB graph for CS): each DB
-    snapshotted to a temporary directory and restored on the card with every
-    CRC verified, the restored manifest equal to a fresh one of the original;
+    snapshotted to ``tmp``/<graph> and restored on the card with every CRC
+    verified, the restored manifest equal to a fresh one of the original;
     the nine queries on the restored DBs against the defaults'; a packed word
     of I_DT.Term flipped in place on the card, which changes SD's answer
     until the scrubber detects and heals the column and
     ``invalidate_prepared`` lets a new prepare read the healed tensor; a
-    clean ``scrub_full`` timed; the directory removed at the end. Returns
-    (the record, the launch counts)."""
-    import shutil
-    import tempfile
-
+    clean ``scrub_full`` timed. The snapshots stay for path o (the caller
+    removes ``tmp``). Returns (the record, the launch counts)."""
     from repro_torch.core.engine import GQFastEngine
     from repro_torch.obs.metrics import MetricsRegistry
     from repro_torch.robust import Scrubber
     from repro_torch.storage import build_manifest, restore_db, snapshot_db
 
-    tmp = tempfile.mkdtemp(prefix="gqfast_snapshot_")
     rec, ratios = {}, {}
-    try:
-        reset_counts()
-        restored = {}
-        for graph, db in dbs_by_graph.items():
-            d = f"{tmp}/{graph}"
-            sync()
-            t0 = time.perf_counter()
-            gen_path = snapshot_db(db, d)
-            sync()
-            t_write = time.perf_counter() - t0
-            size = sum(f.stat().st_size for f in Path(gen_path).rglob("*") if f.is_file())
-            t0 = time.perf_counter()
-            db2 = restore_db(d, device=db.device.device)
-            sync()
-            t_restore = time.perf_counter() - t0
-            if db2.device.integrity != build_manifest(db.device):
-                raise AssertionError(f"path n {graph}: restored manifest != the original's")
-            restored[graph] = (db2, d)
-            rec[graph] = {"write_s": t_write, "restore_s": t_restore, "bytes": size}
-            log(f"  path n {graph}: snapshot {size} bytes written in {t_write:.2f} s,"
-                f" restored on the card with every CRC verified in {t_restore:.2f} s")
-        engines = {n: GQFastEngine(restored["semmed" if n == "CS" else "pubmed"][0])
-                   for n, _, _ in cases(SG, c0, True)}
-        for name, q, params in cases(SG, c0, True):
-            compare_gated(engines[name].query(q, **params), defaults[name], name,
-                          f"n {name} restored vs the defaults", ratios)
-        log("  path n: the nine on the restored DBs equal the defaults' (exact for the counts)")
-        db2, d = restored["pubmed"]
-        eng = engines["SD"]
-        sd = cases(SG, c0)[0]
-        pq = eng.prepare(sd[1])
-        want = pq(**sd[2])
-        reg = MetricsRegistry()
-        healed = []
-        scrubber = Scrubber(db2, snapshot_dir=d, registry=reg, on_heal=healed.append)
-        # the lowest bit of one destination in the middle of the fragment of
-        # d0's busiest term, which SD's second hop reads: a document id moves
-        # by one, in place, where the prepared plan reads it
-        col = db2.device.index("DT", "Term").dst_col
-        host = db2.host_indexes[("DT", "Term")]
-        terms = db2.host_indexes[("DT", "Doc")].fragment(sd[2]["d0"], "Term")
-        t = int(max(terms, key=lambda x: int(host.indptr[x + 1] - host.indptr[x])))
-        e = int(host.indptr[t] + (host.indptr[t + 1] - host.indptr[t]) // 2)
-        word, bit = divmod(e * col.width, 32)
-        col.words[word] ^= (1 << bit) - (1 << 32 if bit == 31 else 0)
-        flipped = pq(**sd[2])
-        if np.array_equal(flipped, want):
-            raise AssertionError("path n: the flipped word did not change SD's answer")
+    reset_counts()
+    restored = {}
+    for graph, db in dbs_by_graph.items():
+        d = f"{tmp}/{graph}"
         sync()
         t0 = time.perf_counter()
-        stats = scrubber.scrub_full()
-        t_heal = (time.perf_counter() - t0) * 1e3
-        if stats["healed"] != 1 or stats["failed"] or healed != ["I_DT.Term/__dst__"]:
-            raise AssertionError(f"path n: scrub after the flip {stats}, healed {healed}")
-        eng.invalidate_prepared()
-        compare(eng.prepare(sd[1])(**sd[2]), want, True, "n SD after the heal")
+        gen_path = snapshot_db(db, d)
+        sync()
+        t_write = time.perf_counter() - t0
+        size = sum(f.stat().st_size for f in Path(gen_path).rglob("*") if f.is_file())
         t0 = time.perf_counter()
-        clean = scrubber.scrub_full()
-        t_clean = (time.perf_counter() - t0) * 1e3
-        if clean["healed"] or clean["failed"]:
-            raise AssertionError(f"path n: a clean scrub found {clean}")
-        rec["scrub"] = {"heal_pass_ms": t_heal, "clean_pass_ms": t_clean,
-                        "columns": len(scrubber._columns()), "stats": stats,
-                        "counters": reg.counters_with_prefix("robust.integrity.")}
-        log(f"  path n: bit {bit} of word {word} of I_DT.Term (term {t}'s edge {e}) flipped on"
-            f" the card changed SD's answer; the"
-            f" scrubber detected and healed it ({stats}, a pass of"
-            f" {len(scrubber._columns())} columns {t_heal:.1f} ms), SD after"
-            f" invalidate_prepared equals the original; a clean scrub_full {t_clean:.1f} ms")
-        counts = read_counts()
-        if counts["crc32c"] < 1:
-            raise AssertionError(f"path n: crc32c never launched ({counts})")
-        log(f"  path n: launches {({k: v for k, v in counts.items() if v})}")
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    if Path(tmp).exists():
-        raise AssertionError(f"path n: {tmp} was not removed")
+        db2 = restore_db(d, device=db.device.device)
+        sync()
+        t_restore = time.perf_counter() - t0
+        if db2.device.integrity != build_manifest(db.device):
+            raise AssertionError(f"path n {graph}: restored manifest != the original's")
+        restored[graph] = (db2, d)
+        rec[graph] = {"write_s": t_write, "restore_s": t_restore, "bytes": size}
+        log(f"  path n {graph}: snapshot {size} bytes written in {t_write:.2f} s,"
+            f" restored on the card with every CRC verified in {t_restore:.2f} s")
+    engines = {n: GQFastEngine(restored["semmed" if n == "CS" else "pubmed"][0])
+               for n, _, _ in cases(SG, c0, True)}
+    for name, q, params in cases(SG, c0, True):
+        compare_gated(engines[name].query(q, **params), defaults[name], name,
+                      f"n {name} restored vs the defaults", ratios)
+    log("  path n: the nine on the restored DBs equal the defaults' (exact for the counts)")
+    db2, d = restored["pubmed"]
+    eng = engines["SD"]
+    sd = cases(SG, c0)[0]
+    pq = eng.prepare(sd[1])
+    want = pq(**sd[2])
+    reg = MetricsRegistry()
+    healed = []
+    scrubber = Scrubber(db2, snapshot_dir=d, registry=reg, on_heal=healed.append)
+    # the lowest bit of one destination in the middle of the fragment of
+    # d0's busiest term, which SD's second hop reads: a document id moves
+    # by one, in place, where the prepared plan reads it
+    col = db2.device.index("DT", "Term").dst_col
+    host = db2.host_indexes[("DT", "Term")]
+    terms = db2.host_indexes[("DT", "Doc")].fragment(sd[2]["d0"], "Term")
+    t = int(max(terms, key=lambda x: int(host.indptr[x + 1] - host.indptr[x])))
+    e = int(host.indptr[t] + (host.indptr[t + 1] - host.indptr[t]) // 2)
+    word, bit = divmod(e * col.width, 32)
+    col.words[word] ^= (1 << bit) - (1 << 32 if bit == 31 else 0)
+    flipped = pq(**sd[2])
+    if np.array_equal(flipped, want):
+        raise AssertionError("path n: the flipped word did not change SD's answer")
+    sync()
+    t0 = time.perf_counter()
+    stats = scrubber.scrub_full()
+    t_heal = (time.perf_counter() - t0) * 1e3
+    if stats["healed"] != 1 or stats["failed"] or healed != ["I_DT.Term/__dst__"]:
+        raise AssertionError(f"path n: scrub after the flip {stats}, healed {healed}")
+    eng.invalidate_prepared()
+    compare(eng.prepare(sd[1])(**sd[2]), want, True, "n SD after the heal")
+    t0 = time.perf_counter()
+    clean = scrubber.scrub_full()
+    t_clean = (time.perf_counter() - t0) * 1e3
+    if clean["healed"] or clean["failed"]:
+        raise AssertionError(f"path n: a clean scrub found {clean}")
+    rec["scrub"] = {"heal_pass_ms": t_heal, "clean_pass_ms": t_clean,
+                    "columns": len(scrubber._columns()), "stats": stats,
+                    "counters": reg.counters_with_prefix("robust.integrity.")}
+    log(f"  path n: bit {bit} of word {word} of I_DT.Term (term {t}'s edge {e}) flipped on"
+        f" the card changed SD's answer; the"
+        f" scrubber detected and healed it ({stats}, a pass of"
+        f" {len(scrubber._columns())} columns {t_heal:.1f} ms), SD after"
+        f" invalidate_prepared equals the original; a clean scrub_full {t_clean:.1f} ms")
+    counts = read_counts()
+    if counts["crc32c"] < 1:
+        raise AssertionError(f"path n: crc32c never launched ({counts})")
+    log(f"  path n: launches {({k: v for k, v in counts.items() if v})}")
     log_gates("path n restored vs the defaults", ratios, gates)
     return rec, counts
+
+
+#: Path o's full-scale serve (the server's own flags, ``--device cuda`` beside
+#: them): 256 requests in micro-batches of 32 from a fast start, a hot swap
+#: every 4 batches, the scrub gate and ticks, one profile and the metrics.
+SERVE_REQUESTS = 256
+SERVE_BATCH = 32
+SERVE_RELOAD_AT = 4
+
+
+def ci_lanes(art: str, device) -> list[tuple[str, list[list[str]]]]:
+    """The three CI lanes (``.github/workflows/ci.yml``: obs, chaos,
+    corrupt-and-heal), each its server invocations with the workflow's
+    arguments under ``art`` (its ``artifacts/``) and ``--device``."""
+    base = ["--device", device.type, "--workload", "analytics"]
+    return [
+        ("obs", [base + ["--requests", "48", "--docs", "4000", "--batch", "8",
+                         "--metrics-json", f"{art}/obs/serve_metrics.json",
+                         "--profile-json", f"{art}/obs/query_profile.json"]]),
+        ("chaos", [base + ["--requests", "64", "--docs", "4000", "--batch", "8",
+                           "--chaos", "--chaos-seed", "3", "--deadline-ms", "2000",
+                           "--queue-bound", "56",
+                           "--metrics-json", f"{art}/obs/chaos_metrics.json"]]),
+        ("heal", [base + ["--requests", "8", "--docs", "2000", "--batch", "8",
+                          "--snapshot-dir", f"{art}/snapshots",
+                          "--metrics-json", f"{art}/obs/heal_publish_metrics.json"],
+                  base + ["--requests", "48", "--docs", "2000", "--batch", "8",
+                          "--snapshot-dir", f"{art}/snapshots", "--reload-at", "2",
+                          "--scrub", "--verify-responses",
+                          "--chaos", "--chaos-seed", "3", "--chaos-corrupt",
+                          "--deadline-ms", "4000",
+                          "--metrics-json", f"{art}/obs/heal_metrics.json"]]),
+    ]
+
+
+def ci_assert(lane: str, art: str) -> dict:
+    """The workflow's assertions on a lane's artifacts, word for word (its
+    relative ``artifacts/`` paths under ``art``). Returns the counters."""
+    if lane == "obs":
+        m = json.load(open(f"{art}/obs/serve_metrics.json"))
+        lat = m["histograms"]["serve.request_latency_ms"]
+        assert lat["count"] == 48, lat["count"]
+        assert "p50" in lat and "p99" in lat, sorted(lat)
+        assert lat["p50"] <= lat["p99"], (lat["p50"], lat["p99"])
+        assert m["gauges"]["serve.batch_occupancy"] > 0
+        p = json.load(open(f"{art}/obs/query_profile.json"))
+        assert p["ops"] and p["hops"] and p["total_wall_ms"] > 0
+        log("  obs smoke ok: p50=%.1fms p99=%.1fms occupancy=%.1f"
+            % (lat["p50"], lat["p99"], m["gauges"]["serve.batch_occupancy"]))
+        return m["counters"]
+    if lane == "chaos":
+        m = json.load(open(f"{art}/obs/chaos_metrics.json"))
+        c = m["counters"]
+        # every request completed (served, typed-error, or shed) — no crash
+        answered = (c.get("serve.requests_ok", 0)
+                    + c.get("serve.requests_degraded", 0)
+                    + c.get("serve.requests_error", 0)
+                    + c.get("serve.requests_shed", 0))
+        assert answered == 64, (answered, c)
+        assert c.get("serve.requests_degraded", 0) > 0, c
+        errs = {k: v for k, v in c.items() if k.startswith("robust.errors.")}
+        assert errs and sum(errs.values()) > 0, c
+        log(f"  chaos smoke ok: {({k: c[k] for k in sorted(c) if k.startswith(('serve.requests_', 'robust.'))})}")
+        return c
+    m = json.load(open(f"{art}/obs/heal_metrics.json"))
+    c = m["counters"]
+    # zero corrupted responses: every oracle-replayed answer matched
+    assert c.get("serve.responses_corrupt", 0) == 0, c
+    assert c.get("serve.responses_verified", 0) > 0, c
+    # the scrubber detected injected corruption and healed from snapshot
+    assert c.get("robust.integrity.scrub_repairs", 0) >= 1, c
+    # hot swap exercised: at least one succeeded, and the corrupted
+    # generation load was rejected and rolled back (old gen kept serving)
+    assert c.get("serve.generation_reloads", 0) >= 1, c
+    assert c.get("serve.reload_failures", 0) >= 1, c
+    assert c.get("serve.fast_starts", 0) == 1, c
+    # no request was dropped by a swap or heal
+    answered = (c.get("serve.requests_ok", 0)
+                + c.get("serve.requests_degraded", 0)
+                + c.get("serve.requests_error", 0)
+                + c.get("serve.requests_shed", 0))
+    assert answered == 48, (answered, c)
+    log(f"  corrupt-and-heal ok: {({k: c[k] for k in sorted(c) if k.startswith(('serve.', 'robust.integrity.'))})}")
+    return c
+
+
+def replay_batches(eng, run) -> dict:
+    """The full-scale serve's batches again, each padded as served, through
+    ``run_batch_with_policy`` on ``eng``: the result copy's wall a batch
+    (the bucket's [B, n] float32 to the host after a synchronise), the
+    batches' wall through the runner, and under torch.profiler the device
+    busy ms, the device-to-host copy's ms and the idle share over them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import serve
+    from repro_torch.obs.metrics import MetricsRegistry
+    from repro_torch.robust import RobustPolicy, run_batch_with_policy
+
+    prepared = {k: eng.prepare(q) for k, q in serve.QUERIES.items()}
+
+    policy = RobustPolicy(registry=MetricsRegistry())
+    batches = [(kind, padded_params(run, ids)) for kind, ids, _ in run.batches]
+    copies = {}
+    for kind, arrays in batches:
+        pq = prepared[kind]
+        dev = pq.batched_fn(*[arrays[n] for n in pq.param_names])
+        sync()
+        t0 = time.perf_counter()
+        dev.cpu().numpy()
+        copies.setdefault(kind, []).append((time.perf_counter() - t0) * 1e3)
+        del dev
+    sync()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for kind, arrays in batches:
+            run_batch_with_policy(prepared[kind], arrays, policy=policy)
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = copy = 0.0
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:
+            busy += ev.self_device_time_total / 1e3
+            if "Memcpy" in ev.key and "DtoH" in ev.key:
+                copy += ev.self_device_time_total / 1e3
+    n = len(batches)
+    return {
+        "copy_ms_a_batch": {k: statistics.median(v) for k, v in copies.items()},
+        "copy_bytes_a_batch": {k: 4 * run.bucket * prepared[k].phys.out_dom for k in copies},
+        "batches": n, "replay_wall_ms": wall, "device_busy_ms": busy or None,
+        "device_copy_ms": copy or None,
+        "idle_share": max(0.0, 1.0 - busy / wall) if busy else None,
+    }
+
+
+def padded_params(run, ids: list) -> dict:
+    """A served batch's parameter arrays, padded to the bucket as the server
+    pads it (the last binding repeated)."""
+    ids = ids + [ids[-1]] * (run.bucket - len(ids))
+    return {k: np.asarray([run.stream[i][2][k] for i in ids]) for k in run.stream[ids[0]][2]}
+
+
+def drive_serving(db, pub_dir: str, tmp: str, gates: dict, card: str,
+                  device) -> tuple[dict, dict]:
+    """Path o, the analytics server in process on the card, on the main
+    thread: ``--workload lm`` refused first; the three CI lanes at their own
+    arguments with the workflow's assertions; then the full-scale serve from
+    a fast start on path n's PubMed snapshot (``pub_dir``), the first reload
+    publishing generation 2 there so that the swap loads a new generation
+    while the scrubber ticks and the serving thread launches. Every answered
+    request is held against its batch run through the plain versions with
+    float64 sums; the served queries/s, p50/p99 a shape, the result copy a
+    batch and the idle share (a replay of the batches under the profiler)
+    are logged beside the card. Returns (the record, the launch counts)."""
+    from repro_torch.core import executor as X
+    from repro_torch.core.engine import GQFastEngine
+    from repro_torch.launch import serve
+    from repro_torch.storage import snapshot_db
+
+    rec = {}
+    # (c) the lm workload needs the model zoo
+    try:
+        serve.main(["--workload", "lm"])
+    except SystemExit as e:
+        if "item 15" not in str(e.code):
+            raise AssertionError(f"path o: --workload lm ended with {e.code!r}")
+        rec["lm"] = str(e.code)
+    else:
+        raise AssertionError("path o: --workload lm did not refuse")
+    log(f"  path o: --workload lm refused: {rec['lm']}")
+
+    # (a) the CI lanes
+    reset_counts()
+    art = f"{tmp}/artifacts"
+    rec["lanes"] = {}
+    for lane, invocations in ci_lanes(art, device):
+        t0 = time.perf_counter()
+        for argv in invocations:
+            serve.main(argv)
+        c = ci_assert(lane, art)
+        rec["lanes"][lane] = {"seconds": time.perf_counter() - t0, "counters": c}
+    lane_counts = read_counts()
+    for k in ("fragment_spmm_packed", "crc32c"):
+        if lane_counts[k] < 1:
+            raise AssertionError(f"path o lanes: {k} never launched ({lane_counts})")
+    log(f"  path o lanes: launches {({k: v for k, v in lane_counts.items() if v})}")
+
+    # (b) the full-scale serve from path n's snapshot
+    real_load = serve.load_generation
+    reloads = []  # per reload on the reloader thread: publish and load seconds
+
+    def publish_then_load(*a, **kw):
+        t0 = time.perf_counter()
+        if not reloads:  # the first reload: an operator publishes generation 2
+            snapshot_db(db, pub_dir)
+        t1 = time.perf_counter()
+        out = real_load(*a, **kw)
+        reloads.append({"publish_s": t1 - t0, "load_s": time.perf_counter() - t1})
+        return out
+
+    argv = ["--device", device.type, "--workload", "analytics",
+            "--requests", str(SERVE_REQUESTS), "--batch", str(SERVE_BATCH),
+            "--snapshot-dir", pub_dir, "--reload-at", str(SERVE_RELOAD_AT), "--scrub",
+            "--profile-json", f"{tmp}/serve_profile.json",
+            "--metrics-json", f"{tmp}/serve_metrics.json"]
+    reset_counts()
+    serve.load_generation = publish_then_load
+    t0 = time.perf_counter()
+    try:
+        run = serve.main(argv)
+    finally:
+        serve.load_generation = real_load
+    t_serve = time.perf_counter() - t0
+    counts = read_counts()
+    snap = run.registry.snapshot()
+    c, g, h = snap["counters"], snap["gauges"], snap["histograms"]
+    if c.get("serve.fast_starts") != 1 or c.get("serve.restore_failures"):
+        raise AssertionError(f"path o: not a fast start ({c})")
+    if c.get("serve.generation_reloads", 0) < 1 or c.get("serve.reload_failures", 0):
+        raise AssertionError(f"path o: reloads {c}")
+    if g.get("serve.serving_generation") != 2:
+        raise AssertionError(f"path o: serving generation {g.get('serve.serving_generation')},"
+                             " expected the published 2")
+    written = json.load(open(f"{tmp}/serve_metrics.json"))
+    if written["counters"] != c or not json.load(open(f"{tmp}/serve_profile.json"))["hops"]:
+        raise AssertionError("path o: the metrics or the profile written differ from the run's")
+    if c.get("serve.requests_unserved", 0) or c.get("serve.requests_ok") != SERVE_REQUESTS:
+        raise AssertionError(f"path o: not every request answered ok ({c})")
+    bad = [i for i, r in enumerate(run.results) if isinstance(r, dict) or r.status != "ok"]
+    if bad:
+        raise AssertionError(f"path o: requests {bad[:8]} not ok")
+    if run.scrub_gate is None or run.scrub_gate["failed"] or c.get(
+            "robust.integrity.scrub_failures", 0):
+        raise AssertionError(f"path o: scrub gate {run.scrub_gate}, counters {c}")
+    for k in ("fragment_spmm_packed", "fragment_spmm_packed_active", "block_list", "crc32c"):
+        if counts[k] < 1:
+            raise AssertionError(f"path o: {k} never launched ({counts})")
+
+    # every answered request against its batch through the plain versions
+    pub_eng = GQFastEngine(db)
+    t0 = time.perf_counter()
+    prepared = {k: pub_eng.prepare(q) for k, q in serve.QUERIES.items()}
+    t_prepare = time.perf_counter() - t0
+    plain = {}
+    ratios, worst = {}, 0.0
+    t0 = time.perf_counter()
+    for kind, ids, _ in run.batches:
+        if kind not in plain:
+            pq = prepared[kind]
+            plain[kind] = (pq.param_names, X.compile_frontier_batched(
+                db.device, pq.phys, block_skipping=pq.block_skipping, use_kernel=False,
+                fusion=pq.fusion))
+        names, fn = plain[kind]
+        arrays = padded_params(run, ids)
+        with float64_sums():
+            want = fn(*[arrays[n] for n in names])[:len(ids)].cpu().numpy()
+        for row, i in enumerate(ids):
+            worst = max(worst, compare_gated(run.results[i].value, want[row], kind,
+                                             f"o {kind} request {i} vs plain batched", ratios))
+    t_plain = time.perf_counter() - t0
+    log_gates("path o served vs plain batched", ratios, gates)
+
+    t0 = time.perf_counter()
+    replay = replay_batches(pub_eng, run)
+    t_replay = time.perf_counter() - t0
+    per_shape = {k[len("serve.request_latency_ms."):]: {"p50": v["p50"], "p99": v["p99"],
+                                                        "count": v["count"]}
+                 for k, v in h.items() if k.startswith("serve.request_latency_ms.")}
+    lat = h["serve.request_latency_ms"]
+    rec["full_scale"] = {
+        "argv": argv, "seconds": t_serve, "counters": c, "gauges": g,
+        "latency_ms": {"p50": lat["p50"], "p99": lat["p99"], "count": lat["count"]},
+        "latency_ms_by_shape": per_shape, "batches": [(k, len(i), gen) for k, i, gen in run.batches],
+        "scrub_gate": run.scrub_gate, "max_abs_err_vs_plain": worst, "replay": replay,
+        "reloads": reloads, "prepare_five_s": t_prepare, "plain_check_s": t_plain,
+        "replay_s": t_replay,
+        "launches": {k: v for k, v in counts.items() if v},
+    }
+    log(f"  [{card}] path o: {SERVE_REQUESTS} requests from a fast start of generation 1,"
+        f" {len(run.batches)} batches of <= {SERVE_BATCH} (bucket {run.bucket}), generations"
+        f" served {sorted({gen for _, _, gen in run.batches})}, reloads"
+        f" {c.get('serve.generation_reloads', 0):g}, failures {c.get('serve.reload_failures', 0):g},"
+        f" scrub gate {run.scrub_gate}, {t_serve:.1f} s in all; on the reloader thread "
+        + ", ".join(f"publish {r['publish_s']:.2f} s + load {r['load_s']:.2f} s" for r in reloads)
+        + f"; the five shapes prepared in {t_prepare:.2f} s, the plain check {t_plain:.1f} s,"
+        f" the replay {t_replay:.1f} s")
+    log(f"  [{card}] path o: micro-batched {g['serve.queries_per_sec']:.2f} queries/s,"
+        f" sequential {g.get('serve.sequential_queries_per_sec', 0):.2f} queries/s;"
+        f" latency p50 {lat['p50']:.2f} ms, p99 {lat['p99']:.2f} ms")
+    for kind, v in per_shape.items():
+        log(f"  [{card}] path o: {kind:4s} p50 {v['p50']:.2f} ms, p99 {v['p99']:.2f} ms"
+            f" ({v['count']} batches)")
+    for kind, ms in replay["copy_ms_a_batch"].items():
+        log(f"  [{card}] path o: result copy {kind:4s} {ms:.2f} ms a batch for"
+            f" {replay['copy_bytes_a_batch'][kind]} B")
+    idle = "not measured" if replay["idle_share"] is None else f"{replay['idle_share']:.3f}"
+    log(f"  [{card}] path o: the {replay['batches']} batches replayed under the profiler:"
+        f" wall {replay['replay_wall_ms']:.1f} ms, device busy {replay['device_busy_ms']} ms"
+        f" (device-to-host copies {replay['device_copy_ms']} ms), idle share {idle}")
+    log(f"  [{card}] path o: launches {rec['full_scale']['launches']}; every answer equals its"
+        f" batch through the plain versions with float64 sums (max abs err {worst:.3g})")
+    total = {k: lane_counts[k] + counts[k] for k in counts}
+    return rec, total
 
 
 def time_manifest(engines, SG, c0) -> dict:
@@ -4409,9 +4719,19 @@ def run(device) -> None:
                                   gates)
     paths["m_ladder"] = {"counts": counts}
     phase("[4n] durability: snapshot, restore, scrub and heal at the PubMed cell", t_start)
-    durability, counts = drive_durability({"pubmed": db, "semmed": dbs}, SG, c0,
-                                          fused_res["auto"], gates)
-    paths["n_durability"] = {"counts": counts}
+    tmp = tempfile.mkdtemp(prefix="gqfast_snapshot_")
+    try:
+        durability, counts = drive_durability({"pubmed": db, "semmed": dbs}, SG, c0,
+                                              fused_res["auto"], gates, tmp)
+        paths["n_durability"] = {"counts": counts}
+        phase("[4o] serving: the analytics server's CI lanes and the PubMed cell from a"
+              " snapshot", t_start)
+        serving, counts = drive_serving(db, f"{tmp}/pubmed", tmp, gates, card, device)
+        paths["o_serving"] = {"counts": counts}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if Path(tmp).exists():
+        raise AssertionError(f"paths n and o: {tmp} was not removed")
 
     # phase 5: times
     phase("[5] times", t_start)
@@ -4544,6 +4864,7 @@ def run(device) -> None:
                     "launch_records": brecords, "times": btimes},
         "robust": {"crc_checks": crc_checks, "ladder": ladder, "durability": durability,
                    "manifest_walls": manifest_walls},
+        "serving": serving,
         "kernels": entries,
         "total_seconds": time.perf_counter() - t_start,
     }

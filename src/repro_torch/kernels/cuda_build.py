@@ -190,11 +190,15 @@ def stream_scratch(name: str, numel: int, dtype: torch.dtype, dev: torch.device,
                    stream: int) -> torch.Tensor:
     """The scratch ``name`` of ``stream``, the current stream of ``dev``: made
     zero (one ``torch.zeros``) at its first use, and kept zero from then on by
-    the kernels that take it."""
+    the kernels that take it. Threads that launch on one stream share its
+    buffer: two that both miss it store theirs by ``dict.setdefault`` (atomic
+    under the interpreter lock), so both launch with the one stored, and
+    their launches run in the stream's order."""
     key = (name, dev.index, stream)
-    if key not in _STREAM_SCRATCH:
-        _STREAM_SCRATCH[key] = torch.zeros(numel, dtype=dtype, device=dev)
-    return _STREAM_SCRATCH[key]
+    buf = _STREAM_SCRATCH.get(key)
+    if buf is None:
+        buf = _STREAM_SCRATCH.setdefault(key, torch.zeros(numel, dtype=dtype, device=dev))
+    return buf
 
 
 def raise_on(err: int, kernel: str) -> None:

@@ -29,6 +29,8 @@ chaos tests address faults by these names):
     scrub.verify            scrubber encoded-bytes re-read (corrupt emulates
                             at-rest device corruption for one verification)
     runner.execute          one ladder-rung execution attempt
+    serve.request           one micro-batch of the serve loop, before it
+                            runs (``launch/serve.py``)
 
 The ``ops.*`` sites fire whenever the caller asked for the kernel
 (``use_kernel=True``), before the dispatch decides where it runs, so a plan

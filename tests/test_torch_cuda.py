@@ -5,8 +5,9 @@ the per-CTA table in their hops and without, the batched forms of all of
 them: the SpMM kernels and the fused regions' SpMM form, the bitmap AND
 and popcount, and CRC-32C) against their plain PyTorch versions, and the
 engine on the card (single queries and execute_batch, the degradation
-ladder's rungs, manifests, snapshots and the scrubber's heal) against the
-engine on the CPU and the numpy oracle. They import no JAX (the
+ladder's rungs, manifests, snapshots and the scrubber's heal, the analytics
+server's obs lane and a reload while the scrubber ticks) against the engine
+on the CPU, the numpy oracle and the same requests served alone. They import no JAX (the
 GPU machine need not have it) and skip where ``torch.cuda.is_available()`` is
 false: a CUDA kernel has no CPU mode. On a card:
 
@@ -2005,3 +2006,77 @@ def test_ladder_rungs_on_the_card(cuda, name, q, params):
         if name in ("SD", "AD"):
             np.testing.assert_array_equal(got, want, err_msg=rung)
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4, err_msg=rung)
+
+
+def _served_alone(run, eng):
+    """Each batch of a serve run again through ``execute_batch`` of ``eng``
+    on the main thread with no other thread launching, padded as served:
+    {request id: row}."""
+    from repro_torch.launch import serve
+
+    out = {}
+    for kind, ids, _ in run.batches:
+        rows = ids + [ids[-1]] * (run.bucket - len(ids))
+        arrays = {k: np.asarray([run.stream[i][2][k] for i in rows])
+                  for k in run.stream[ids[0]][2]}
+        got = eng.prepare(serve.QUERIES[kind]).execute_batch(**arrays)
+        out.update({i: (kind, got[r]) for r, i in enumerate(ids)})
+    return out
+
+
+def _assert_served_as_alone(run, eng):
+    alone = _served_alone(run, eng)
+    assert sorted(alone) == list(range(len(run.stream)))
+    for i, (kind, want) in alone.items():
+        got = run.results[i].value
+        if kind in ("SD", "AD"):
+            np.testing.assert_array_equal(got, want, err_msg=f"{kind} request {i}")
+        np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4, err_msg=f"{kind} request {i}")
+
+
+def test_serve_obs_lane_on_the_card(cuda, tmp_path):
+    """The CI's obs lane through the server on the card, with the workflow's
+    assertions; every answer equals its batch served alone."""
+    import json
+
+    from repro_torch.launch import serve
+
+    art = tmp_path / "artifacts"
+    run = serve.main(["--device", "cuda", "--workload", "analytics",
+                      "--requests", "48", "--docs", "4000", "--batch", "8",
+                      "--metrics-json", str(art / "obs/serve_metrics.json"),
+                      "--profile-json", str(art / "obs/query_profile.json")])
+    m = json.load(open(art / "obs/serve_metrics.json"))
+    lat = m["histograms"]["serve.request_latency_ms"]
+    assert lat["count"] == 48, lat["count"]
+    assert "p50" in lat and "p99" in lat, sorted(lat)
+    assert lat["p50"] <= lat["p99"], (lat["p50"], lat["p99"])
+    assert m["gauges"]["serve.batch_occupancy"] > 0
+    p = json.load(open(art / "obs/query_profile.json"))
+    assert p["ops"] and p["hops"] and p["total_wall_ms"] > 0
+    schema = SG.make_pubmed(n_docs=4000, n_terms=1_200, n_authors=800, seed=5)
+    _assert_served_as_alone(run, GQFastEngine(GQFastDatabase(schema, account_space=False,
+                                                             device=cuda)))
+
+
+def test_serve_reload_while_the_scrubber_ticks_on_the_card(cuda, tmp_path):
+    """A reload after every batch (the reloader thread restoring with the
+    CRC kernel and warming) while the scrubber ticks every millisecond on its
+    own thread and the serving thread launches, all on the default stream:
+    every answer equals the same requests served alone."""
+    import threading
+
+    from repro_torch.launch import serve
+    from repro_torch.storage import restore_db
+
+    d = str(tmp_path / "snapshots")
+    run = serve.main(["--device", "cuda", "--requests", "64", "--docs", "4000",
+                      "--batch", "8", "--snapshot-dir", d, "--reload-at", "1",
+                      "--scrub", "--scrub-interval-ms", "1"])
+    c = run.registry.snapshot()["counters"]
+    assert c["serve.generation_reloads"] >= 1 and "serve.reload_failures" not in c
+    assert c["serve.requests_ok"] == 64
+    assert c.get("robust.integrity.scrub_failures", 0) == 0
+    assert c["robust.integrity.cols_verified"] > 0
+    assert all(t.name not in ("reloader", "scrubber") for t in threading.enumerate())
+    _assert_served_as_alone(run, GQFastEngine(restore_db(d, device=cuda)))

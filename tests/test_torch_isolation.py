@@ -39,7 +39,10 @@ def test_port_query_loads_neither_jax_nor_repro():
 
 
 def test_port_sources_import_neither_jax_nor_repro():
-    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    examples = sorted((ROOT / "examples").glob("torch_*.py"))
+    assert len(examples) == 2, examples
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"] \
+        + examples
     assert len(files) > 10
     offenders = [
         f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
@@ -180,6 +183,30 @@ def test_port_robustness_and_durability_load_neither_jax_nor_repro(tmp_path):
         db2 = restore_db({str(tmp_path)!r}, device="cpu")
         attach_manifest(db2.device)
         assert Scrubber(db2, snapshot_dir={str(tmp_path)!r}).scrub_full()["failed"] == 0
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+        print("LOADED", bad)
+        assert not bad, bad
+    """)
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")}, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LOADED []" in proc.stdout
+
+
+def test_port_serve_loop_loads_neither_jax_nor_repro(tmp_path):
+    """The port's serve loop (a snapshot published, a reload, the scrubber,
+    the oracle replay) runs without JAX or the JAX package."""
+    code = textwrap.dedent(f"""
+        import sys
+        from repro_torch.launch import serve
+        run = serve.main(["--device", "cpu", "--requests", "12", "--docs", "300",
+                          "--batch", "4", "--snapshot-dir", {str(tmp_path)!r},
+                          "--reload-at", "1", "--scrub", "--verify-responses"])
+        c = run.registry.snapshot()["counters"]
+        assert c["serve.requests_ok"] == 12 and c["serve.generation_reloads"] >= 1, c
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "repro"))
         print("LOADED", bad)
