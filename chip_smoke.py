@@ -24,8 +24,8 @@ Phases (any failure exits non-zero; nothing is caught while the run goes on):
     E ∈ {0, 1, 4097}, at the main path's hop shapes and on synthetic hot
     indexes (one destination, more a block than the table holds, Zipf); the
     list kernel's lists equal to the plain lists, integer for integer, on
-    every index of the main path at supports from one seed to 100%, single
-    and B = 8; the storage round trip (every packed or
+    every index of the main path at LIST_SUPPORTS (one seed, 10%, 100%;
+    five supports before path p came), single and B = 8; the storage round trip (every packed or
     dict column decoded by ``bitunpack`` equal to the host values);
     ``bitunpack`` at widths 1–32; the packed hop for every op × measure mode ×
     packed/dense dst at E ∈ {0, 1, 4097} and at I_DT.Term / I_DA.Doc (the
@@ -56,10 +56,11 @@ Phases (any failure exits non-zero; nothing is caught while the run goes on):
     mode), scan and active over the union list, at I_DT.Term / I_DA.Doc at
     B = 8 and on the hot destinations above at B = 8 and 13; every row (B ≤
     8; at the path shapes in the form the hot share chooses) against the
-    SpMV kernels; the fused regions' SpMM form on the small regions and the
-    main path's regions at B = 8, per edge and with the table, against the
-    plain region and the unfused SpMM kernels (each hop in the form its hot
-    share chooses).
+    SpMV kernels; the fused regions' SpMM form on the small regions (every
+    op) and the main path's regions at B = 8 (sum and max: PATH_REGION_OPS;
+    min and bool too before path p came), per edge and with the table,
+    against the plain region and the unfused SpMM kernels (each hop in the
+    form its hot share chooses).
  4. The main paths, each driven through ``GQFastEngine.query`` /
     ``query_topk`` with every launch counter set to 0 just before and read
     just after:
@@ -93,13 +94,16 @@ Phases (any failure exits non-zero; nothing is caught while the run goes on):
          dense SpMM (skipping off and auto) and the packed scan SpMM
          (skipping off) paths, equal to the defaults. Every row of the
          defaults and of the dense paths equals its single call (gated, the
-         gate ratios kept), B = 8 equals the plain versions run batched with
+         gate ratios kept; at B = 64 the rows WIDE_BATCH_ROWS, all 64 before
+         path p came), B = 8 equals the plain versions run batched with
          float64 sums, the float queries at B = 8 hold to them within
          FLOAT64_LIMIT, and all nine at the quickstart scale match
          ``run_sql`` row by row;
-      i. the same batches under ``fusion="on"`` (the fused regions' SpMM
+      i. h's B = 8 batches under ``fusion="on"`` (the fused regions' SpMM
          form, fused2 launching with the table), equal to h, to their single
-         calls and to the plain versions with float64 sums, all gated;
+         calls and to the plain versions with float64 sums, all gated (cut
+         from h's four sizes to B = 8 when path p came: the other sizes'
+         fused SpMM is held to its plain version in 3h and the card tests);
       j. the intersection a user asks for (AD's merge intersection, paper
          §6.1): the document sets of terms 3 and 9 as bitmaps built on the
          card from I_DT.Term (32 documents a word), their AND and its
@@ -145,7 +149,7 @@ Phases (any failure exits non-zero; nothing is caught while the run goes on):
          destination in I_DT.Term flipped in place on the card changes
          SD's answer until the scrubber heals the column, and SD after
          ``invalidate_prepared`` equals the original (crc32c must launch
-         here); the snapshots kept for o;
+         here); the snapshots kept for o and p;
       o. serving, in process on the main thread: ``--workload lm`` refused
          (the not-ported error); the CI's three lanes (obs, chaos,
          corrupt-and-heal) through ``repro_torch.launch.serve.main`` at
@@ -160,14 +164,37 @@ Phases (any failure exits non-zero; nothing is caught while the run goes on):
          versions with float64 sums; queries/s micro-batched and
          sequential, p50/p99 a shape, the result copy a batch and the idle
          share of the batches replayed under the profiler, each beside the
-         card; the directory removed at the end.
+         card;
+      p. the distributed strategy (``GQFastEngine(db, mesh=...)``, one
+         process a rank over ``torch.distributed``, each a child of this
+         script: ``chip_smoke.py --path-p-child CONFIG``): (i) a world of 1
+         on NCCL, (ii) a world of 4 on the one card over gloo
+         (``cpu:gloo,cuda:gloo``: NCCL puts no two ranks on one device),
+         then in (ii) a 2×2 ``("data", "model")`` mesh with both axes
+         sharded for one batched query. Each rank restores n's snapshots
+         with every CRC verified, cuts its shards (bitunpack launches),
+         prepares the nine and runs them single, through ``execute_batch``
+         at B = 8 and ``profile()`` of SD and AS (prefix-delta), counting
+         its launches: ``fragment_spmv`` once a HopOp whose shard has edges,
+         ``fragment_spmm`` once such a hop a batch, no packed, fused or
+         list kernel. Every rank's answers equal rank 0's bit for bit; rank
+         0 holds each answer to the single-card defaults (exact for the
+         counts, gated) and the float sums to the plain float64 sums within
+         FLOAT64_LIMIT; every batch row equals its single call; each
+         query's admission estimate at B = 1 and 8 is at least the
+         allocator's peak on the rank; in (ii) a fault on rank 1 only ends
+         the query on every rank with the same typed error within the
+         group's timeout. Logged beside the card: the median wall a query
+         under (i), (ii) and the single-card defaults, each hop's all_reduce
+         alone over the wall (the all_reduce's share), each rank's device
+         bytes and path p's seconds; the directory removed after p.
     Each result is compared with the same lowered plan run through the plain
     versions on the card with float64 sums (each comparison's gate ratio
     logged and kept), the defaults with skipping off and with the dense
     paths (exact for SD/AD/RECENT/CS), the fused paths with fusion off, SD
     with the numpy oracle ``run_sql`` at full scale, and all nine with
-    ``run_sql`` at the quickstart scale under dense/off, the defaults and
-    fusion on. Every path's float sums (FSD, AS, FAD, AS-recent) are also
+    ``run_sql`` at the quickstart scale under the defaults and fusion on
+    (under dense/off too before path p came). Every path's float sums (FSD, AS, FAD, AS-recent) are also
     held to the same plan through the plain versions with float64 sums,
     within FLOAT64_LIMIT.
  5. Times: per query the median wall time of 20 runs (the defaults, fusion
@@ -219,6 +246,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -241,6 +269,9 @@ QUERY_REPS = 20
 KERNEL_REPS = 20
 PROFILE_REPS = 5
 SUPPORTS = ("one_seed", 0.01, 0.1, 0.5, 1.0)
+#: The list kernel's supports in phase 3 (three of SUPPORTS since path p
+#: came: the list's cost on the host is its frontiers').
+LIST_SUPPORTS = ("one_seed", 0.1, 1.0)
 
 # NVIDIA H100 SXM data sheet: HBM3 bandwidth and non-tensor fp32 rate
 HBM_BYTES_PER_S = 3.35e12
@@ -316,6 +347,11 @@ def phase(title: str, t_start: float) -> None:
     log(f"{title} (at {time.perf_counter() - t_start:.1f} s)")
 
 
+def mark(what: str, t_start: float) -> None:
+    """A step of a phase done: where the phase's seconds go."""
+    log(f"    · {what} done (at {time.perf_counter() - t_start:.1f} s)")
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -334,7 +370,8 @@ def card_state() -> str:
 def sync() -> None:
     import torch
 
-    torch.cuda.synchronize()
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
 
 
 def kmod(name: str):
@@ -821,7 +858,7 @@ def check_block_lists(dbs, device) -> tuple[float, list[dict]]:
     for label, d in dbs:
         for (table, key), di in d.device.indexes.items():
             n_src, nb = di.indptr.shape[0] - 1, int(di.block_src_min.shape[0])
-            for i, support in enumerate(SUPPORTS):
+            for i, support in enumerate(LIST_SUPPORTS):
                 op = OPS[i % len(OPS)]
                 for B in (1, 8):
                     ws = [sparse_frontier(frontier(n_src, op, gen, device), di.degrees, support,
@@ -842,8 +879,8 @@ def check_block_lists(dbs, device) -> tuple[float, list[dict]]:
                                  "B": B, "op": op, "n_active": int(na[0]), "n_blocks": nb})
                     n += 1
             log(f"  block_list {label} I_{table}.{key} ({nb} blocks): lists equal the plain"
-                f" lists at supports {list(SUPPORTS)}, B 1 and 8 (n_active "
-                + ", ".join(str(r["n_active"]) for r in rows[-2 * len(SUPPORTS):]) + ")")
+                f" lists at supports {list(LIST_SUPPORTS)}, B 1 and 8 (n_active "
+                + ", ".join(str(r["n_active"]) for r in rows[-2 * len(LIST_SUPPORTS):]) + ")")
     log(f"  block_list: {n} lists equal the plain lists, integer for integer")
     return 0.0, rows
 
@@ -2717,6 +2754,12 @@ def check_spmm_hot(device) -> tuple[dict, int]:
     return worst, n
 
 
+#: The ops phase 3h holds the main path's fused regions to in their SpMM
+#: form at B = 8 (all four before path p came; the small regions run every
+#: op, and min's and bool's combines are max's code with another identity).
+PATH_REGION_OPS = ("sum", "max")
+
+
 def check_spmm_fused(specs, device) -> tuple[dict, int]:
     """Phase 3h (fused): the fused regions' SpMM form, per edge and with the
     table, against the plain batched region and the unfused composition
@@ -2727,7 +2770,7 @@ def check_spmm_fused(specs, device) -> tuple[dict, int]:
     path's regions (SD, AS-recent, SD-recent) at B = 8 over sparse rows and
     the device-built lists in every form (:func:`region_forms`), against the
     plain region and the unfused SpMM kernels in the same form
-    (:func:`form_checks`)."""
+    (:func:`form_checks`), for the ops of PATH_REGION_OPS."""
     import torch
 
     from repro_torch.kernels import fragment_spmv_fused as fk
@@ -2773,7 +2816,7 @@ def check_spmm_fused(specs, device) -> tuple[dict, int]:
         E1 = int(h1.src_ids.shape[0])
         E2 = int(h2.src_ids.shape[0]) if h2 is not None else 0
         k = "fragment_spmm_fused2" if h2 is not None else "fragment_spmm_fused1"
-        for op in OPS:
+        for op in PATH_REGION_OPS:
             W = frontier_rows(spec["n_src"], 8, op, gen, device, degrees=spec["degrees"])
             lists = K._fused_block_lists(W, op, h1, h2, E1, E2, "on")
             exact = op != "sum"
@@ -2788,7 +2831,7 @@ def check_spmm_fused(specs, device) -> tuple[dict, int]:
             del W
         na = [int(lists[1][0])] + ([int(lists[3][0])] if h2 is not None else [])
         log(f"  {k} {spec['name']} at B = 8: lists {na}; equal to the plain region and the"
-            f" unfused SpMM kernels for every op and form {region_forms(spec)}")
+            f" unfused SpMM kernels for {list(PATH_REGION_OPS)} in every form {region_forms(spec)}")
     sync()
     log(f"  batched fused kernels: {n} regions equal the plain region and the unfused SpMM"
         f" kernels")
@@ -2875,23 +2918,30 @@ def drive_batched(label, engines, SG, c0, draws, block_skipping, fusion, hop_ker
     return results, counts, records
 
 
+#: The rows of a batch wider than 8 held to their single calls (every row
+#: before path p came: a B = 64 batch cost 576 single calls).
+WIDE_BATCH_ROWS = (0, 21, 42, 63)
+
+
 def check_batched_rows(label, results, engines, SG, c0, block_skipping, fusion, gates,
                        sizes=None) -> float:
-    """Each row of each batch against the single call ``pq(**row)`` of the
-    same prepared query (exact for counts and memberships), the float
-    queries' largest gate ratios kept in ``gates``."""
+    """Each row of each batch of up to 8 rows, and WIDE_BATCH_ROWS of a
+    wider one, against the single call ``pq(**row)`` of the same prepared
+    query (exact for counts and memberships), the float queries' largest
+    gate ratios kept in ``gates``."""
     worst, ratios = 0.0, {}
     for (name, B), (params, out) in results.items():
         if sizes is not None and B not in sizes:
             continue
         pq = engines[name].prepare(dict((n, q) for n, q, _ in cases(SG, c0, True))[name],
                                    block_skipping=block_skipping, fusion=fusion)
-        for i in range(B):
+        for i in (range(B) if B <= 8 else WIDE_BATCH_ROWS):
             single = pq(**{k: int(v[i]) for k, v in params.items()})
             worst = max(worst, compare_gated(out[i], single, name,
                                              f"{label} {name} B={B} row {i} vs single call",
                                              ratios))
-    log(f"  path {label}: every row equals its single call (max abs err {worst:.3g})")
+    log(f"  path {label}: every row (at B = 64 rows {list(WIDE_BATCH_ROWS)}) equals its single"
+        f" call (max abs err {worst:.3g})")
     log_gates(f"path {label} rows vs single calls", ratios, gates)
     return worst
 
@@ -4308,6 +4358,376 @@ def drive_serving(db, pub_dir: str, tmp: str, gates: dict, card: str,
     return rec, total
 
 
+#: Path p, the distributed strategy on one card: (world, backend, label).
+#: NCCL puts no two ranks on one device, so a world of 4 on the card runs
+#: gloo, all-reducing CUDA tensors through the host.
+P_WORLDS = ((1, "nccl", "i"), (4, "cpu:gloo,cuda:gloo", "ii"))
+#: The process group's timeout in path p's ranks, and each world's limit.
+P_GROUP_TIMEOUT_S = 60
+P_WORLD_TIMEOUT_S = 300
+#: Timed runs a query (after one to warm it), and the batch path p drives.
+P_REPS = 5
+P_BATCH = 8
+P_PROFILED = ("SD", "AS")
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def digest(a) -> str:
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def hop_keys(phys) -> list[tuple]:
+    """``(table, src_key, dom_dst)`` of every hop one execution of ``phys``
+    runs (mask sub-programs included; AVG twice): each is one all_reduce of
+    ``dom_dst`` values, and one hop launch where the rank's shard of the
+    index has edges."""
+    from repro_torch.core.lower import iter_flat_ops
+
+    out = []
+    for op in iter_flat_ops(phys):
+        if type(op).__name__ == "HopOp":
+            out.append((op.table, op.src_key, int(op.dom_dst)))
+        for p in getattr(op, "programs", ()):
+            out += hop_keys(p)
+    return out * 2 if phys.agg == "avg" else out
+
+
+def allreduce_ms(sizes, group, device, reps: int = P_REPS) -> dict:
+    """Median wall ms of one all_reduce (SUM, float32, on ``device``) of each
+    size plus the walk's flags, after one to warm it."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core.executor import AGREED_KINDS
+
+    out = {}
+    for n in sorted(set(sizes)):
+        buf = torch.zeros(n + len(AGREED_KINDS), device=device)
+        ts = []
+        for i in range(reps + 1):
+            sync()
+            t0 = time.perf_counter()
+            dist.all_reduce(buf, group=group)
+            sync()
+            ts.append(time.perf_counter() - t0)
+        out[n] = statistics.median(ts[1:]) * 1e3
+    return out
+
+
+def p_launches(label: str, what: str, counts: dict, kernel: str, want: int) -> None:
+    """Path p's launch gate: ``kernel`` launched ``want`` times and no other
+    hop, fused or list kernel at all (CRC-32C and bitunpack may decode)."""
+    others = {k: v for k, v in counts.items()
+              if v and k not in (kernel, "crc32c", "bitunpack")}
+    if counts[kernel] != want or others:
+        raise AssertionError(f"path p {label} {what}: {kernel} launched {counts[kernel]},"
+                             f" expected {want} (the hops run); others {others}")
+
+
+def distributed_rank(cfg: dict) -> dict:
+    """One rank of path p: restore n's snapshots on the card with every CRC
+    verified, cut this rank's shards (bitunpack launches), prepare the nine
+    under a mesh and run them single, at B = P_BATCH (every row against its
+    single call) and through ``profile()`` (SD, AS), each run's launches
+    counted; rank 0 holds every answer to the single-card defaults (exact
+    for the counts, gated) and the float sums to the plain float64 sums
+    within FLOAT64_LIMIT; then the walls, each hop's all_reduce alone, the
+    admission estimate against the allocator's peak, and in a world of more
+    than one a 2×2 mesh's batch and a fault on rank 1 only. Returns the
+    rank's record (results as digests)."""
+    import torch
+
+    from repro_torch.core import executor as X
+    from repro_torch.core.engine import GQFastEngine
+    from repro_torch.data import synth_graph as SG
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.robust import estimate_query_bytes, faults
+    from repro_torch.robust.errors import ExecutionError
+    from repro_torch.storage import device_space_report, restore_db
+
+    rank, world, label = cfg["rank"], cfg["world"], cfg["label"]
+    device = torch.device(cfg["device"])
+    cuda = device.type == "cuda"
+    inputs = np.load(cfg["inputs"])
+    qs = cases(SG, cfg["c0"], True)
+    draws = {name: {k: inputs[f"draw/{name}/{k}"] for k in params} for name, _, params in qs}
+    rec = {"rank": rank, "world": world, "gates": {}, "counts": {}, "digests": {}}
+    totals = {k: 0 for k in KERNELS}
+
+    def counted(what):
+        c = read_counts()
+        rec["counts"][what] = c
+        for k, v in c.items():
+            totals[k] += v
+        reset_counts()
+        return c
+
+    reset_counts()
+    t0 = time.perf_counter()
+    dbs = {g: restore_db(cfg["dirs"][g], device=device) for g in ("pubmed", "semmed")}
+    sync()
+    rec["restore_s"] = time.perf_counter() - t0
+    counted("restore")
+    mesh = make_mesh((world,), ("data",), device_type=device.type)
+    engines = {g: GQFastEngine(db, mesh=mesh) for g, db in dbs.items()}
+    t0 = time.perf_counter()
+    sdbs = {g: e.sharded_db() for g, e in engines.items()}
+    sync()
+    rec["shard_s"] = time.perf_counter() - t0
+    if counted("shard")["bitunpack"] < 1:
+        raise AssertionError(f"path p {label}: bitunpack never launched at shard time")
+    rec["device_bytes"] = {
+        "shards": sum(X.shard_bytes(s) for s in sdbs.values()),
+        "full_dbs": sum(device_space_report(db.device)["total_bytes"] for db in dbs.values()),
+        "allocated": torch.cuda.memory_allocated() if cuda else None,
+        "peak": torch.cuda.max_memory_allocated() if cuda else None}
+    on = {name: engines["semmed" if name == "CS" else "pubmed"] for name, _, _ in qs}
+    prepared = {name: on[name].prepare(q) for name, q, _ in qs}
+    if {pq.strategy for pq in prepared.values()} != {"distributed"}:
+        raise AssertionError(f"path p {label}: a query did not run distributed")
+    keys = {name: hop_keys(pq.phys) for name, pq in prepared.items()}
+    # a hop launches where this rank's shard of its index has edges
+    hops = {name: sum(sdbs["semmed" if name == "CS" else "pubmed"].index(t, k).src_ids.numel() > 0
+                      for t, k, _ in ks) for name, ks in keys.items()}
+
+    # the nine, single
+    single = {name: prepared[name](**params) for name, _, params in qs}
+    p_launches(label, "the nine", counted("single"), "fragment_spmv", sum(hops.values()))
+    # the nine at B = P_BATCH: one fragment_spmm a hop a batch
+    batched = {}
+    for name, _, _ in qs:
+        batched[name] = prepared[name].execute_batch(**draws[name])
+        p_launches(label, f"{name} B={P_BATCH}", counted(f"batch {name}"), "fragment_spmm",
+                   hops[name])
+    rows = {name: [prepared[name](**{k: int(v[b]) for k, v in draws[name].items()})
+                   for b in range(P_BATCH)] for name, _, _ in qs}
+    counted("rows")
+    for name, _, _ in qs:
+        rec["digests"][f"single/{name}"] = digest(single[name])
+        rec["digests"][f"batch/{name}"] = digest(batched[name])
+        for b, row in enumerate(rows[name]):
+            compare_gated(batched[name][b], row, name, f"p {label} {name} row {b} vs its single"
+                          f" call", rec["gates"].setdefault("rows_vs_single", {}))
+    if rank == 0:
+        for name, _, _ in qs:
+            compare_gated(single[name], inputs[f"defaults/{name}"], name,
+                          f"p {label} {name} vs the single-card defaults",
+                          rec["gates"].setdefault("vs_defaults", {}))
+        truth = {name: inputs[f"truth/{name}"] for name, _, _ in float_queries(SG, cfg["c0"])}
+        rec["float64_rel"] = hold_f64(f"p {label}", single, truth, "single")
+    # profile() of SD and AS: every rank profiles together (prefix-delta)
+    rec["profiles"] = {}
+    for name in P_PROFILED:
+        params = dict(qs[[n for n, _, _ in qs].index(name)][2])
+        prof = prepared[name].profile(reps=3, **params)
+        if prof.timing_method != "prefix-delta" or any(o.wall_ms is None for o in prof.ops):
+            raise AssertionError(f"path p {label} profile {name}: {prof.timing_method}")
+        compare_gated(prof.result, single[name], name, f"p {label} {name} profile vs __call__",
+                      rec["gates"].setdefault("profile", {}))
+        rec["profiles"][name] = {"total_wall_ms": prof.total_wall_ms,
+                                 "ops": {o.name: o.wall_ms for o in prof.ops}}
+    counted("profile")
+    # walls, and each hop's all_reduce alone
+    walls, reduce_ms = {}, {}
+    group = sdbs["pubmed"].spec.group
+    for name, _, params in qs:
+        ts = []
+        for i in range(P_REPS + 1):
+            t0 = time.perf_counter()
+            prepared[name](**params)
+            ts.append(time.perf_counter() - t0)
+        walls[name] = statistics.median(ts[1:]) * 1e3
+    one = allreduce_ms([n for ks in keys.values() for _, _, n in ks], group, device)
+    for name in walls:
+        reduce_ms[name] = sum(one[n] for _, _, n in keys[name])
+    rec["walls_ms"], rec["allreduce_ms"] = walls, reduce_ms
+    rec["allreduce_share"] = {n: reduce_ms[n] / walls[n] for n in walls}
+    counted("timing")
+    # the admission estimate at B = 1 and P_BATCH against the allocator's peak
+    rec["admission"] = {}
+    for name, _, params in (qs if cuda else ()):
+        pq = prepared[name]
+        for B, run_ in ((1, lambda: pq(**params)),
+                        (P_BATCH, lambda: pq.execute_batch(**draws[name]))):
+            sync()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            run_()
+            sync()
+            peak = torch.cuda.max_memory_allocated() - base
+            est = estimate_query_bytes(pq, B)["working_bytes"]
+            rec["admission"][f"{name} B={B}"] = est / max(peak, 1)
+            if est < peak:
+                raise AssertionError(f"path p {label} {name} B={B}: estimate {est} below the"
+                                     f" allocator's peak {peak}")
+    counted("admission")
+    if world > 1:
+        # a 2×2 mesh, both axes sharded: one batched query
+        mesh22 = make_mesh((2, 2), ("data", "model"), device_type=device.type)
+        e22 = GQFastEngine(dbs["pubmed"], mesh=mesh22, shard_axes=("data", "model"))
+        pq = e22.prepare(SG.QUERY_AS)
+        out22 = pq.execute_batch(**draws["AS"])
+        p_launches(label, "2x2 AS", counted("2x2"), "fragment_spmm", hops["AS"])
+        compare_gated(out22, batched["AS"], "AS", f"p {label} 2x2 AS vs the 1-D mesh",
+                      rec["gates"].setdefault("2x2", {}))
+        rec["digests"]["2x2/AS"] = digest(out22)
+        # a fault on rank 1 only: every rank raises, within the group timeout
+        name, _, params = qs[0]
+        spec = faults.FaultSpec("ops.fragment_spmv", max_fires=1)
+        t0 = time.perf_counter()
+        with faults.active(faults.FaultPlan(0, [spec] if rank == 1 else [])):
+            try:
+                prepared[name](**params)
+                rec["fault"] = "answered"
+            except ExecutionError as e:
+                rec["fault"] = f"{type(e).__name__}:{e.code}"
+        rec["fault_s"] = time.perf_counter() - t0
+        compare(prepared[name](**params), single[name], True, f"p {label} {name} after the fault")
+        counted("fault")
+    rec["launches"] = totals
+    return rec
+
+
+def distributed_child(cfg: dict) -> int:
+    """``chip_smoke.py --path-p-child CONFIG``: one rank of path p, its
+    record written to ``cfg["out"]``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    if cfg["device"] == "cuda":
+        torch.cuda.set_device(0)
+    # the world's ranks share the host's cores
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // cfg["world"]))
+    dist.init_process_group(cfg["backend"], init_method=f"tcp://localhost:{cfg['port']}",
+                            rank=cfg["rank"], world_size=cfg["world"],
+                            timeout=datetime.timedelta(seconds=P_GROUP_TIMEOUT_S))
+    try:
+        rec = distributed_rank(cfg)
+    finally:
+        dist.destroy_process_group()
+    Path(cfg["out"]).write_text(json.dumps(rec))
+    return 0
+
+
+def run_world(world: int, backend: str, label: str, cfg: dict, tmp: str) -> list[dict]:
+    """Start ``world`` ranks of path p on the card, wait for all (killing
+    every rank when one fails or the world outlives P_WORLD_TIMEOUT_S),
+    relay their logs and return their records."""
+    port = free_port()
+    procs, outs = [], []
+    for r in range(world):
+        out = f"{tmp}/p_{label}_rank{r}.json"
+        c = {**cfg, "rank": r, "world": world, "backend": backend, "label": label,
+             "port": port, "out": out}
+        procs.append(subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--path-p-child", json.dumps(c)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        outs.append(out)
+    deadline = time.perf_counter() + P_WORLD_TIMEOUT_S
+    texts = []
+    try:
+        for p in procs:
+            texts.append(p.communicate(timeout=max(deadline - time.perf_counter(), 1))[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, text) in enumerate(zip(procs, texts)):
+        if r == 0 or p.returncode != 0:
+            for line in text.splitlines()[-60 if p.returncode else -40:]:
+                log(f"    [{label} rank {r}] {line}")
+        if p.returncode != 0:
+            raise AssertionError(f"path p {label}: rank {r} exited with {p.returncode}")
+    return [json.loads(Path(o).read_text()) for o in outs]
+
+
+def drive_distributed(engines, SG, c0, defaults, truth, draws, dirs: dict, tmp: str,
+                      gates: dict, card: str, device) -> tuple[dict, dict]:
+    """Path p: the distributed strategy, (i) a world of 1 on NCCL and (ii) a
+    world of 4 on the one card over gloo, each rank a process of its own
+    (:func:`distributed_rank`) restoring path n's snapshots; every rank's
+    answers equal rank 0's bit for bit, the launches counted in each rank;
+    the walls beside the single-card defaults' (timed here), the
+    all_reduce's share of a query's wall and each rank's device bytes,
+    logged beside the card. Returns (the record, the launch counts summed
+    over every rank)."""
+    t_path = time.perf_counter()
+    qs = cases(SG, c0, True)
+    arrays = {f"defaults/{n}": defaults[n] for n, _, _ in qs}
+    arrays.update({f"truth/{n}": v for n, v in truth.items()})
+    arrays.update({f"draw/{n}/{k}": v for n, _, _ in qs for k, v in draws[n][P_BATCH].items()})
+    np.savez(f"{tmp}/p_inputs.npz", **arrays)
+    single_card = {}
+    for name, q, params in qs:
+        ts = []
+        for i in range(P_REPS + 1):
+            t0 = time.perf_counter()
+            engines[name].query(q, **params)
+            ts.append(time.perf_counter() - t0)
+        single_card[name] = statistics.median(ts[1:]) * 1e3
+    cfg = {"inputs": f"{tmp}/p_inputs.npz", "c0": c0, "dirs": dirs, "device": device.type}
+    rec = {"single_card_walls_ms": single_card, "worlds": {}}
+    counts = {k: 0 for k in KERNELS}
+    for world, backend, label in P_WORLDS:
+        t0 = time.perf_counter()
+        ranks = run_world(world, backend, label, cfg, tmp)
+        seconds = time.perf_counter() - t0
+        for r in ranks[1:]:
+            if r["digests"] != ranks[0]["digests"]:
+                bad = [k for k in r["digests"] if r["digests"][k] != ranks[0]["digests"][k]]
+                raise AssertionError(f"path p {label}: rank {r['rank']} differs from rank 0"
+                                     f" in {bad}")
+        if world > 1 and {r["fault"] for r in ranks} != {"ExecutionError:EXECUTION"}:
+            raise AssertionError(f"path p {label}: a fault on rank 1 ended the ranks with"
+                                 f" {[r['fault'] for r in ranks]}")
+        for r in ranks:
+            for k, v in r["launches"].items():
+                counts[k] += v
+        r0 = ranks[0]
+        for what, ratios in r0["gates"].items():
+            log_gates(f"path p {label} {what}", ratios, gates)
+        rec["worlds"][label] = {"backend": backend, "world": world, "seconds": seconds,
+                                "ranks": ranks}
+        log(f"  [{card}] path p {label} ({backend}, a world of {world}): {seconds:.1f} s;"
+            f" every rank's answers equal rank 0's bit for bit; restore"
+            f" {r0['restore_s']:.2f} s, shard {r0['shard_s']:.2f} s")
+        log(f"  [{card}] path p {label}: median wall ms a query (distributed / single-card"
+            " defaults): " + ", ".join(f"{n} {r0['walls_ms'][n]:.3f} / {single_card[n]:.3f}"
+                                       for n in single_card))
+        log(f"  [{card}] path p {label}: the all_reduce's share of a query's wall: "
+            + ", ".join(f"{n} {v:.3f}" for n, v in r0["allreduce_share"].items()))
+        log(f"  [{card}] path p {label}: device bytes a rank (shards / full DBs / allocated /"
+            " peak): " + "; ".join(
+                f"rank {r['rank']} {r['device_bytes']['shards']} / {r['device_bytes']['full_dbs']}"
+                f" / {r['device_bytes']['allocated']} / {r['device_bytes']['peak']}"
+                for r in ranks))
+        adm = r0["admission"].values()
+        log(f"  path p {label}: launches over every rank"
+            f" {({k: v for k, v in counts.items() if v})} (so far); the admission estimate"
+            f" over the allocator's peak at B = 1 and {P_BATCH} "
+            + (f"{min(adm):.3f}–{max(adm):.3f}" if adm else "not measured")
+            + (f"; the fault on rank 1 ended every rank in"
+               f" {max(r['fault_s'] for r in ranks):.2f} s" if world > 1 else ""))
+    rec["seconds"] = time.perf_counter() - t_path
+    log(f"  [{card}] path p: {rec['seconds']:.1f} s")
+    for k in ("fragment_spmv", "fragment_spmm", "bitunpack"):
+        if counts[k] < 1:
+            raise AssertionError(f"path p: {k} never launched ({counts})")
+    return rec, counts
+
+
 def time_manifest(engines, SG, c0) -> dict:
     """Median wall ms of SD and AS with an integrity manifest attached (every
     materialize() verified) against without, MANIFEST_REPS runs in turns, on
@@ -4367,6 +4787,8 @@ def main() -> int:
               " checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    if sys.argv[1:2] == ["--path-p-child"]:
+        return distributed_child(json.loads(sys.argv[2]))
     warnings.filterwarnings("ignore", message="Sparse CSR tensor support is in beta")
     run(torch.device("cuda"))
     return 0
@@ -4481,17 +4903,23 @@ def run(device) -> None:
     phase("[3] kernels against their plain versions on the card", t_start)
     worst = {k: 0.0 for k in KERNELS}
     dense_worst, dense_checks = check_dense_kernel(db_dense, device)
+    mark("the dense pair", t_start)
     round_trip = storage_round_trip([("pubmed", db), ("semmed", dbs), ("pubmed dict", dict_db)])
     worst["bitunpack"] = check_bitunpack(device)
+    mark("the storage round trip and bitunpack", t_start)
     worst["fragment_spmv_packed"], packed_checks = check_packed_kernel(
         packed_cases(db, dict_db, device), device)
+    mark("the packed hop", t_start)
     act_worst, active_checks = check_active_kernels(db, db_dense, device)
+    mark("the active kernels", t_start)
     worst.update(act_worst)
     for k, v in dense_worst.items():
         worst[k] = max(worst[k], v)
     worst["block_list"], list_checks = check_block_lists([("pubmed", db), ("semmed", dbs)],
                                                          device)
+    mark("the list kernel", t_start)
     hot = check_hot_packed(device)
+    mark("the packed pair on hot destinations", t_start)
     for k in PACKED_HOPS:
         worst[k] = max(worst[k], hot)
     worst.update(check_bitmap(device))
@@ -4500,7 +4928,9 @@ def run(device) -> None:
           t_start)
     crc_checks = check_crc(db, device)
     worst["crc32c"] = 0.0  # every value equal
+    mark("crc32c", t_start)
     fused_small, n_small = check_fused_small(device)
+    mark("the small fused regions", t_start)
     specs = region_specs(db, SG, device)
     from repro_torch.core.fuse import REACH_DENSITY_MAX
 
@@ -4513,8 +4943,11 @@ def run(device) -> None:
         worst[k] = max(fused_small[k], fused_big[k])
     phase("[3h] the batched kernels (SpMM and the fused regions' SpMM form)", t_start)
     spmm_small, n_spmm_small = check_spmm_small(device)
+    mark("the small SpMM cases", t_start)
     spmm_path, spmm_path_checks = check_spmm_path(db, db_dense, device)
+    mark("the SpMM kernels at the path's shapes", t_start)
     spmm_hot, n_spmm_hot = check_spmm_hot(device)
+    mark("the SpMM kernels on hot destinations", t_start)
     for k in spmm_small:
         worst[k] = max(spmm_small[k], spmm_path[k], spmm_hot[k])
     spmm_fused, n_spmm_fused = check_spmm_fused(specs, device)
@@ -4530,6 +4963,7 @@ def run(device) -> None:
     paths, plans = {}, {}
     res_a, *rest, _ = drive_path("a: dense, skipping off, fusion off", engines["dense"], SG, c0,
                                  "off", "off", ["fragment_spmv"], topk=False)
+    mark("path a", t_start)
     paths["a_dense_off"] = dict(zip(("counts", "hop_ops", "skip"), rest))
     res_b, *rest, _ = drive_path("b: auto storage, auto skipping, fusion off", engines["auto"],
                                  SG, c0, "auto", "off", PACKED_HOPS, topk=False, nine=True)
@@ -4543,6 +4977,7 @@ def run(device) -> None:
     res_d, *rest, _ = drive_path("d: dense storage, auto skipping, fusion off", engines["dense"],
                                  SG, c0, "auto", "off", ["fragment_spmv", "fragment_spmv_active"],
                                  topk=False)
+    mark("paths b, c and d", t_start)
     paths["d_dense_auto"] = dict(zip(("counts", "hop_ops", "skip"), rest))
     # e: a composite measure over a packed column decodes through bitunpack
     fre = db.device.index("DT", "Term").measure_cols["Fre"]
@@ -4576,6 +5011,7 @@ def run(device) -> None:
         for h in rest[2]:
             if "fused" in h["query"]:
                 log(f"    {h['query']:22s}: {h['n_active']}/{h['n_blocks']} blocks listed")
+        mark(f"path {key[0]}", t_start)
     gates = {}  # the gate ratios of the gated float comparisons
     errs = {"dense": check_results("a", res_a, engines["dense"], SG, c0, "off", "off",
                                    gates=gates),
@@ -4590,6 +5026,7 @@ def run(device) -> None:
             "dense_auto": check_results("d", res_d, engines["dense"], SG, c0, "auto", "off",
                                         gates=gates)}
     # every path's float sums against the plain versions' float64 sums
+    mark("paths a-g against the plain versions", t_start)
     truth = truth_single(engines["auto"], SG, c0)
     float64_rel = {
         lbl: hold_f64(lbl, res, {k: v for k, v in truth.items() if k in res}, "single")
@@ -4624,8 +5061,11 @@ def run(device) -> None:
         compare(res["SD"], want.astype(np.float32), True, f"{lbl} SD vs run_sql (full scale)")
     log(f"  SD matches run_sql at full scale on both storages and fused"
         f" ({time.perf_counter() - t0:.1f} s oracle)")
-    for enc, fusion in (("dense", "off"), ("auto", "auto"), ("auto", "on")):
+    # the defaults and fusion on (dense/off too before path p came: the dense
+    # path equals the defaults at full scale, exactly for the counts)
+    for enc, fusion in (("auto", "auto"), ("auto", "on")):
         check_quickstart(SG, run_sql, GQFastDatabase, GQFastEngine, device, enc, fusion)
+    mark("the quickstart scale against run_sql", t_start)
 
     # phase 4h/4i: batched serving through execute_batch / query_topk_batch
     phase("[4h] batched serving: execute_batch over the nine queries", t_start)
@@ -4636,6 +5076,7 @@ def run(device) -> None:
         "4h: the defaults", engines["auto"], SG, c0, draws, "auto", "auto", SPMM_HOPS,
         BATCHES + (8,), must=("fragment_spmm_fused1",), topk=8)
     paths["h_batched_defaults"] = {"counts": counts}
+    mark("4h the defaults", t_start)
     dense_res = {}
     for key, label, enc, bs, kernels_ in (
         ("h_batched_dense_off", "4h: dense storage, skipping off, fusion off", "dense", "off",
@@ -4652,12 +5093,14 @@ def run(device) -> None:
         for name, _, _ in cases(SG, c0, True):
             compare(res[(name, 8)][1], res_h[(name, 8)][1], name in EXACT_QUERIES,
                     f"{label} {name} B=8 vs the defaults")
+    mark("4h the dense and skipping-off paths", t_start)
     batched["rows_vs_single_defaults"] = check_batched_rows(
         "4h", res_h, engines["auto"], SG, c0, "auto", "auto", gates)
     for key, enc, bs in (("h_batched_dense_off", "dense", "off"),
                          ("h_batched_dense_auto", "dense", "auto")):
         batched[f"rows_vs_single_{key}"] = check_batched_rows(
             "4h " + key[2:], dense_res[key], engines[enc], SG, c0, bs, "off", gates)
+    mark("4h rows against single calls", t_start)
     truth8 = truth_batched(engines["auto"], SG, c0, res_h)
     float64_rel["h_B8"] = hold_f64("4h B=8", res_h, truth8, "batched",
                                    key=lambda name: (name, 8))
@@ -4668,18 +5111,20 @@ def run(device) -> None:
     phase("[4i] batched serving under fusion on", t_start)
     res_i, counts, brecords["i_fusion_on"] = drive_batched(
         "4i: fusion on", engines["auto"], SG, c0, draws, "auto", "on", SPMM_HOPS,
-        BATCHES + (8,), must=("fragment_spmm_fused2",), must_table=("fragment_spmm_fused2",))
+        (8,), must=("fragment_spmm_fused2",), must_table=("fragment_spmm_fused2",))
     paths["i_batched_fusion_on"] = {"counts": counts}
+    mark("4i the batches", t_start)
     ratios = {}
     for key, (params, out) in res_i.items():
         compare_gated(out, res_h[key][1], key[0], f"4i {key} vs 4h", ratios)
     log_gates("path 4i vs 4h", ratios, gates)
     batched["rows_vs_single_fusion_on"] = check_batched_rows(
-        "4i", res_i, engines["auto"], SG, c0, "auto", "on", gates, sizes=(5,))
+        "4i", res_i, engines["auto"], SG, c0, "auto", "on", gates)
     float64_rel["i_B8"] = hold_f64("4i B=8", res_i, truth8, "batched",
                                    key=lambda name: (name, 8))
     batched["plain_fusion_on"] = check_batched_plain("4i", res_i, engines["auto"], SG, c0,
                                                      "auto", "on", gates)
+    mark("4i against 4h, single calls and the plain versions", t_start)
     for fusion in ("auto", "on"):
         batched[f"quickstart_{fusion}"] = check_batched_quickstart(
             SG, run_sql, GQFastDatabase, GQFastEngine, device, fusion)
@@ -4728,10 +5173,16 @@ def run(device) -> None:
               " snapshot", t_start)
         serving, counts = drive_serving(db, f"{tmp}/pubmed", tmp, gates, card, device)
         paths["o_serving"] = {"counts": counts}
+        phase("[4p] the distributed strategy: a world of 1 on NCCL, a world of 4 over gloo on"
+              " the one card", t_start)
+        distributed, counts = drive_distributed(
+            engines["auto"], SG, c0, fused_res["auto"], truth, draws,
+            {g: f"{tmp}/{g}" for g in ("pubmed", "semmed")}, tmp, gates, card, device)
+        paths["p_distributed"] = {"counts": counts}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     if Path(tmp).exists():
-        raise AssertionError(f"paths n and o: {tmp} was not removed")
+        raise AssertionError(f"paths n, o and p: {tmp} was not removed")
 
     # phase 5: times
     phase("[5] times", t_start)
@@ -4751,12 +5202,16 @@ def run(device) -> None:
         " cost): " + ", ".join(f"{n} {v:.3f}x" for n, v in over_skip.items()))
     missed = [n for n, v in over.items() if v > AUTO_OVER_SCAN]
     log(f"  fault 2: {'closed in this run' if not missed else f'open for {missed}'}")
+    mark("5 the query walls", t_start)
     manifest_walls = time_manifest(engines, SG, c0)
+    mark("5 the manifest walls", t_start)
     split = {"defaults": breakdown("defaults", engines["auto"], SG, c0, "auto", "auto", True),
              "dense": breakdown("dense", engines["dense"], SG, c0, "off", "off", nine=True),
              "fusion_on": breakdown("on", engines["auto"], SG, c0, "auto", "on", True),
              "fusion_off": breakdown("off", engines["auto"], SG, c0, "auto", "off", True)}
+    mark("5 the device breakdowns", t_start)
     ktimes = time_kernels(db, db_dense, device)
+    mark("5 the kernels", t_start)
     for shape in ("I_DA.Doc", "I_DT.Term"):
         t = {k: next(r["ms"] for r in ktimes[k] if r["shape"] == shape)
              for k in ("fragment_spmv", *PACKED_HOPS)}
@@ -4766,10 +5221,14 @@ def run(device) -> None:
     hot_err = hot_author_error(db, db_dense, device)
     ktimes.update(time_bitmap(masks, device))
     ktimes["crc32c"] = time_crc(db, device)
+    mark("5 the hot author, the bitmaps and crc32c", t_start)
     fused_rows, budget_rows, budget = time_fused(specs, device)
     ktimes.update(fused_rows)
+    mark("5 the fused kernels", t_start)
     skipping, skip_fraction, ktimes["block_list"] = time_skipping(db, db_dense, device)
+    mark("5 skipping", t_start)
     threshold_rows, min_blocks = time_list_threshold(db, device)
+    mark("5 the list threshold", t_start)
     host = time_wrappers(dbs, dbs_dense, masks, device)
     phase("[5k] the strategies' crossover", t_start)
     crossover_rows, crossover = time_crossover(engines["auto"]["SD"], strat["fragment_loop"]["SD"],
@@ -4782,7 +5241,9 @@ def run(device) -> None:
     phase("[5h] batched serving: execute_batch against B single calls, and the batched"
           " kernels", t_start)
     btimes = time_batched(engines["auto"], SG, c0, draws)
+    mark("5h the batched walls", t_start)
     ktimes.update(time_spmm_kernels(db, db_dense, device))
+    mark("5h the SpMM kernels", t_start)
     ktimes.update(time_spmm_fused(specs, device))
     state = card_state()
     log(f"  card state after timing (clocks.sm, power.draw, power.limit, temp): {state}")
@@ -4864,7 +5325,7 @@ def run(device) -> None:
                     "launch_records": brecords, "times": btimes},
         "robust": {"crc_checks": crc_checks, "ladder": ladder, "durability": durability,
                    "manifest_walls": manifest_walls},
-        "serving": serving,
+        "serving": serving, "distributed": distributed,
         "kernels": entries,
         "total_seconds": time.perf_counter() - t_start,
     }

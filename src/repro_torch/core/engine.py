@@ -16,9 +16,10 @@ the whole batch. ``GQFastEngine(strategy=...)`` runs the frontier, the
 fragment-at-a-time walk (``"fragment_loop"``) or picks between them per plan
 (``"auto"``, from the selectivity estimate or a profile's observed
 fractions); ``PreparedQuery.profile()`` and ``explain(analyze=True)`` time
-every op and hold the estimate against what a run touched. A mesh, which the
-reference has and this port does not run yet, raises
-:class:`ValidationError` naming the ROADMAP item that brings it.
+every op and hold the estimate against what a run touched. Under a mesh
+(``GQFastEngine(db, mesh=make_mesh(...))``, one process a rank over
+``torch.distributed``) every query runs the ``distributed`` strategy: edges
+sharded across the ranks, one all_reduce a hop.
 """
 from __future__ import annotations
 
@@ -169,6 +170,12 @@ class PreparedQuery:
     plan_sig: str | None = None  # unfused op signature (the calibration key)
     calibration: Any = None  # the engine's CalibrationStore (shared)
     device_db: Any = None  # the device DB, for the profile's memory report
+    # the distributed strategy's mesh, shard axes and this rank's shard
+    # (shared by the engine's prepares), for the prefix-delta profile and
+    # the runner's agreed decisions
+    mesh: Any = None
+    shard_axes: tuple = ("data",)
+    sharded_db: Any = None
 
     def validate_params(self, params: dict) -> None:
         """Typed parameter-binding validation: every declared parameter bound,
@@ -333,13 +340,24 @@ class CalibrationStore:
 
 
 class GQFastEngine:
+    """The query processor. ``mesh`` (a ``torch.distributed`` DeviceMesh,
+    :mod:`repro_torch.launch.mesh`) runs every query edge-sharded over the
+    mesh's ``shard_axes``: each rank builds the engine and runs the same
+    queries with the same arguments, in the same order."""
+
     def __init__(self, db: GQFastDatabase, strategy: str = "frontier",
-                 mesh=None, max_prepared: int = 64):
+                 mesh=None, shard_axes: tuple[str, ...] = ("data",),
+                 max_prepared: int = 64):
         X.require_supported("strategy", strategy, STRATEGY_MODES)
-        if mesh is not None:
-            raise X.not_ported("mesh", "13 (distributed strategy)")
         self.db = db
         self.strategy = strategy
+        self.mesh = mesh
+        self.shard_axes = tuple(shard_axes)
+        # this rank's shard: the group made once here (collective), the
+        # edges sharded at the first prepare and shared by every prepare
+        self._shard_spec = (X.shard_spec(mesh, self.shard_axes, db.device.device)
+                            if mesh is not None else None)
+        self._sharded = None
         # fixed-size LRU: each entry pins a lowered plan bound to device
         # tensors, so the prepare cache must not grow without bound
         self._cache: PreparedCache = PreparedCache(max_prepared)
@@ -350,9 +368,18 @@ class GQFastEngine:
         """Drop every cached prepared query. Required after the device tensors
         under the prepared plans change — a scrubber heal or a snapshot
         generation swap — because a lowered plan holds the tensors it was
-        bound to; the next prepare reads the new ones. Returns the number of
-        entries dropped."""
+        bound to; the next prepare reads the new ones (and a mesh's shards
+        are cut again). Returns the number of entries dropped."""
+        self._sharded = None
         return self._cache.clear()
+
+    def sharded_db(self):
+        """This rank's shard of the device DB under the engine's mesh, cut
+        at the first call and shared by every prepare."""
+        if self._sharded is None:
+            self._sharded = X.shard_edges(self.db.device, self.mesh, self.shard_axes,
+                                          spec=self._shard_spec)
+        return self._sharded
 
     def prepare(self, sql: str, block_skipping: str = "auto",
                 fusion: str = "auto") -> PreparedQuery:
@@ -365,7 +392,7 @@ class GQFastEngine:
         pipelined regions run in one launch each: 'on' every eligible region,
         'auto' those whose reach matrix is sparse and whose intermediate fits
         the scratch budget, 'off' none. Frontier strategy only: a
-        fragment_loop plan runs unfused. Under ``strategy="auto"`` the
+        fragment_loop plan, and every plan under a mesh, runs unfused. Under ``strategy="auto"`` the
         strategy is picked here, once (:meth:`_pick_strategy`)."""
         X.require_supported("block_skipping", block_skipping, X.BLOCK_SKIPPING_MODES)
         X.require_supported("fusion", fusion, X.FUSION_MODES)
@@ -390,11 +417,19 @@ class GQFastEngine:
             # the UNFUSED signature keys the calibration store, so a fused
             # and an unfused prepare of the same shape share observations
             plan_sig = " -> ".join(phys.op_signature())
-            strategy = self.strategy
+            strategy = "distributed" if self.mesh is not None else self.strategy
             if strategy == "auto":
                 strategy = self._pick_strategy(plan, plan_sig)
+            sdb = None
             with T.span("compile") as csp:
-                if strategy == "frontier":
+                if strategy == "distributed":  # unfused, no skipping: sharded hops
+                    sdb = self.sharded_db()
+                    fn = X.compile_frontier_distributed(
+                        self.db.device, phys, self.mesh, self.shard_axes, sharded_db=sdb)
+                    bfn = X.compile_frontier_distributed(
+                        self.db.device, phys, self.mesh, self.shard_axes, batched=True,
+                        sharded_db=sdb) if phys.param_names else None
+                elif strategy == "frontier":
                     if fusion != "off":
                         with T.span("fuse"):
                             phys = fuse_plan(phys, fusion)
@@ -417,7 +452,8 @@ class GQFastEngine:
                 strategy=strategy, block_skipping=block_skipping,
                 fusion=fusion, hop_estimates=self._hop_fractions(plan),
                 batched_fn=bfn, plan_sig=plan_sig, calibration=self.calibration,
-                device_db=self.db.device,
+                device_db=self.db.device, mesh=self.mesh, shard_axes=self.shard_axes,
+                sharded_db=sdb,
             )
         self._cache.put(key, pq)
         return pq

@@ -25,7 +25,11 @@ and its decode-fused and fused-region forms) that reads the edges once for
 all B parameter bindings. The ``fragment_loop`` strategy
 (:func:`compile_fragment_loop`) is the paper's fragment-at-a-time walk,
 vectorised over the paths it holds: each hop expands every path over its
-source's fragment and reads only the reached fragments' edges.
+source's fragment and reads only the reached fragments' edges. The
+``distributed`` strategy (:func:`compile_frontier_distributed`) runs one
+process a rank over ``torch.distributed``: edges sharded across the ranks of
+a mesh, frontiers replicated, each hop this rank's hop kernel over its shard
+and one all_reduce.
 
 Aggregation semantics are pluggable: the walker is parameterized by a
 :class:`repro_torch.core.semiring.Semiring`, so SUM/COUNT, MIN/MAX, EXISTS and
@@ -46,9 +50,10 @@ import torch
 from ..kernels import ops as K
 from ..kernels import params as KP
 from ..kernels.active import active_flags, block_ranges
+from ..kernels.cuda_build import KernelError
 from ..obs import trace as T
-from ..robust.errors import ExecutionError, ValidationError
-from ..robust.runner import check_deadline
+from ..robust.errors import DeadlineExceeded, ExecutionError, ResourceError, ValidationError
+from ..robust.runner import check_deadline, current_deadline, deadline_scope
 from ..storage import (
     DenseColumn,
     DeviceColumn,
@@ -1236,6 +1241,370 @@ def compile_fragment_loop_batched(
         )
         return out.to(torch.float32).reshape(B, phys.out_dom)
 
+    return run
+
+
+# ---------------------------------------------------------------------------
+# Distributed (edge-sharded, one all_reduce a hop)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ShardSpec:
+    """This rank's place in the shard axes of a mesh: the process group over
+    those axes, the shard index ``shard`` (the rank's coordinate on the
+    axes, row-major: the reference's shard order) and the shard count."""
+
+    group: Any
+    shard: int
+    nshards: int
+    device_type: str
+
+    def bounds(self, E: int) -> tuple[int, int]:
+        """Rows ``[r·S, min((r+1)·S, E))`` of an E-edge index, ``S =
+        ceil(E / n)``: the reference's shard boundaries."""
+        S = -(-E // self.nshards)
+        return min(self.shard * S, E), min((self.shard + 1) * S, E)
+
+
+def shard_spec(mesh, axes: tuple[str, ...], device=None) -> ShardSpec:
+    """Validate ``mesh`` (a ``torch.distributed`` DeviceMesh whose device
+    type is ``device``'s) and ``axes`` (names of its dimensions), and find
+    this rank's shard. Collective: with more than one axis every rank makes
+    the groups of the axes' sub-meshes (``dist.new_group``), in the same
+    order."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if not isinstance(mesh, DeviceMesh):
+        raise ValidationError(
+            f"mesh must be a torch.distributed DeviceMesh (repro_torch.launch.mesh."
+            f"make_mesh), got {type(mesh).__name__}", mesh=type(mesh).__name__,
+        )
+    if device is not None and torch.device(device).type != mesh.device_type:
+        raise ValidationError(
+            f"a {mesh.device_type!r} mesh cannot run a database on {str(device)!r}",
+            mesh=mesh.device_type, device=str(device),
+        )
+    names = tuple(mesh.mesh_dim_names or ())
+    axes = tuple(axes)
+    if not axes or any(a not in names for a in axes) or len(set(axes)) != len(axes):
+        raise ValidationError(f"shard axes {axes} must name distinct dimensions of the"
+                              f" mesh {names}", axes=axes, mesh_axes=names)
+    coord = mesh.get_coordinate()
+    if coord is None:
+        raise ValidationError("this rank is not in the mesh", rank=dist.get_rank())
+    dims = [names.index(a) for a in axes]
+    sizes = [mesh.size(d) for d in dims]
+    shard = int(np.ravel_multi_index([coord[d] for d in dims], sizes))
+    if len(axes) == 1:
+        group = mesh.get_group(axes[0])
+    else:  # the shard axes last: each row of the rest is one group
+        rest = [d for d in range(mesh.ndim) if d not in dims]
+        rows = mesh.mesh.permute(*rest, *dims).reshape(-1, int(np.prod(sizes)))
+        me = dist.get_rank()
+        group = None
+        for row in rows.tolist():
+            g = dist.new_group(row)
+            if me in row:
+                group = g
+    return ShardSpec(group, shard, int(np.prod(sizes)), mesh.device_type)
+
+
+@dataclass
+class ShardedDB(DeviceDB):
+    """One rank's shard of a :class:`DeviceDB`: every index's edge rows
+    ``spec.bounds(E)``, dense, with their own hot share; indptr, degrees
+    and entity attributes are the full DB's tensors (replicated)."""
+
+    spec: ShardSpec | None = None
+
+
+def _decoded_rows(col: DeviceColumn, lo: int, hi: int) -> torch.Tensor:
+    """Rows ``lo:hi`` of a column, decoded (a packed column through
+    ``ops.bitunpack``, once) and copied, so that no decoded copy of the
+    whole column stays pinned where none was before."""
+    memo = getattr(col, "_dense", None)
+    rows = col.materialize()[lo:hi].clone()
+    if hasattr(col, "_dense"):
+        col._dense = memo
+    return rows
+
+
+def shard_edges(db: DeviceDB, mesh, axes: tuple[str, ...] = ("data",),
+                spec: ShardSpec | None = None) -> ShardedDB:
+    """This rank's shard of every index (rows ``spec.bounds(E)``, shard r of
+    the reference's ``shard_edges`` without its padding): a shard is simply
+    shorter, so no ``__valid__`` column. Packed columns decode once here.
+    Each shard's hop gets the hot share of the shard's own destinations,
+    which chooses its per-CTA table (``ops.uses_table``)."""
+    spec = spec if spec is not None else shard_spec(mesh, axes, db.device)
+    out: dict[tuple[str, str], DeviceIndex] = {}
+    for key, di in db.indexes.items():
+        lo, hi = spec.bounds(int(di.src_ids.shape[0]))
+        dst = _decoded_rows(di.dst_col, lo, hi)
+        top = int(torch.bincount(dst.to(torch.int64)).max()) if dst.numel() else 0
+        out[key] = DeviceIndex(
+            indptr=di.indptr, src_ids=di.src_ids[lo:hi].clone(), dst_col=DenseColumn(dst),
+            degrees=di.degrees,
+            measure_cols={m: DenseColumn(_decoded_rows(c, lo, hi))
+                          for m, c in di.measure_cols.items()},
+            hot_share=top / dst.numel() if dst.numel() else 0.0,
+        )
+    return ShardedDB(db.schema, out, db.entity_attrs, db.host_indexes, spec=spec)
+
+
+def shard_bytes(sdb: ShardedDB) -> int:
+    """Device bytes this rank's shard holds beyond the full DB: its edge
+    rows (the replicated tensors are the full DB's own)."""
+    return sum(t.numel() * t.element_size()
+               for di in sdb.indexes.values()
+               for t in (di.src_ids, di.dst_ids, *di.measures.values()))
+
+
+#: The error kinds a distributed walk agrees on, in the order one wins when
+#: ranks fail differently.
+AGREED_KINDS = ("KERNEL", "DEADLINE", "RESOURCE", "EXECUTION")
+
+
+def _kind_of(e: BaseException) -> str:
+    if isinstance(e, KernelError):
+        return "KERNEL"
+    if isinstance(e, DeadlineExceeded):
+        return "DEADLINE"
+    if isinstance(e, ResourceError):
+        return "RESOURCE"
+    return "EXECUTION"
+
+
+def _agreed_error(kind: str, own: BaseException | None) -> Exception:
+    """The error every rank raises for ``kind``: the same class and code on
+    every rank (the failing rank's own error is its cause)."""
+    where = "on this rank" if own is not None else "on another rank of the group"
+    msg = f"distributed walk ended: {kind} {where}" + (f": {own}" if own is not None else "")
+    if kind == "KERNEL":
+        return KernelError(msg)
+    if kind == "DEADLINE":
+        return DeadlineExceeded(msg, where="distributed hop")
+    if kind == "RESOURCE":
+        return ResourceError(msg)
+    return ExecutionError(msg, strategy="distributed")
+
+
+class _CollectiveWalk:
+    """One distributed run's agreement: a rank never leaves a walk the others
+    are still in. A hop that fails on this rank (a fault site, a kernel, the
+    query's deadline, read before each hop) marks the rank failed; from then
+    on it skips its own work and contributes the ⊕-identity, so every rank
+    makes the same collectives. Each hop's all_reduce carries one flag a
+    kind (:data:`AGREED_KINDS`) after the frontier; :meth:`finish` reads
+    the flags once, at the end, and every rank raises the same error."""
+
+    def __init__(self, spec: ShardSpec, device, frontier_dtype, deadline, failed=None):
+        self.spec = spec
+        self.device = device
+        self.dtype = frontier_dtype
+        self.deadline = deadline
+        self.error = failed
+        self.seen = None  # OR of the reduced flags (a device tensor)
+
+    def _flags(self, sr: Semiring) -> torch.Tensor:
+        """This rank's flags, set where ⊕ keeps them set: 1 under sum, max
+        and bool, −1 under min."""
+        f = torch.zeros(len(AGREED_KINDS), dtype=torch.float32, device=self.device)
+        if self.error is not None:
+            f[AGREED_KINDS.index(_kind_of(self.error))] = -1.0 if sr.name == "min" else 1.0
+        return f
+
+    def _reduce(self, buf: torch.Tensor, sr: Semiring) -> None:
+        try:
+            sr.preduce(buf, self.spec.group)
+        except RuntimeError as e:
+            if buf.dtype == torch.float32:
+                raise
+            import torch.distributed as dist
+
+            backend = dist.get_backend(self.spec.group)
+            raise ValidationError(
+                f"backend {backend!r} cannot all-reduce {buf.dtype}: {e}",
+                backend=backend, frontier_dtype=str(buf.dtype),
+            ) from e
+        hit = buf[-len(AGREED_KINDS):] != 0
+        self.seen = hit if self.seen is None else self.seen | hit
+
+    def hop(self, local, shape: tuple, sr: Semiring) -> torch.Tensor:
+        """This rank's part of a hop (``local()``, or the identity once the
+        rank failed), ⊕-reduced over the group with the flags."""
+        part = None
+        if self.error is None:
+            try:
+                if self.deadline is not None:
+                    self.deadline.check("distributed hop")
+                part = local()
+            except Exception as e:  # noqa: BLE001 — agreed on at finish()
+                self.error = e
+        if part is None:
+            part = torch.full(shape, sr.zero, dtype=torch.float32, device=self.device)
+        buf = torch.cat([part.reshape(-1).to(self.dtype), self._flags(sr).to(self.dtype)])
+        self._reduce(buf, sr)
+        return buf[:-len(AGREED_KINDS)].reshape(shape).to(torch.float32)
+
+    def finish(self) -> None:
+        """Read the agreed flags (a walk with no hop agrees here) and raise
+        the winning kind's error on every rank."""
+        if self.seen is None:
+            from .semiring import SUM_PRODUCT
+
+            self._reduce(self._flags(SUM_PRODUCT), SUM_PRODUCT)
+        hits = self.seen.tolist()
+        if not any(hits):
+            return
+        kind = AGREED_KINDS[hits.index(True)]
+        own = self.error if self.error is not None and _kind_of(self.error) == kind else None
+        raise _agreed_error(kind, own) from self.error
+
+
+def agree(sdb: ShardedDB, flag: bool) -> bool:
+    """Whether ``flag`` holds on any rank of the shard group: one small
+    all_reduce, for a decision that must be the same on every rank (a
+    deadline read on each rank's clock)."""
+    import torch.distributed as dist
+
+    t = torch.tensor([1.0 if flag else 0.0], device=sdb.device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=sdb.spec.group)
+    return bool(t.item() > 0)
+
+
+class _ShardRouting:
+    """The distributed interpreters' column routing and hop: edge columns by
+    ``c.key`` from this rank's shard, entity attributes from the replicated
+    tables; a hop runs the port's hop kernel over the shard and ⊕-reduces
+    its part (:class:`_CollectiveWalk`). Block skipping and fusion are off
+    (a fused region replays its members)."""
+
+    def col(self, c):
+        if c.key[0] == "edge":
+            _, table, key, attr = c.key
+            return self.sdb.index(table, key).measure_cols[attr].materialize()
+        _, entity, attr = c.key
+        return self.sdb.entity_attrs[(entity, attr)]
+
+    attr_col = col
+
+    def _dense_measure(self, op: HopOp):
+        """The hop's measure over the shard's edges: ``[E_shard]``, or ``[B,
+        E_shard]`` when it depends on the row; None for a measure-free hop."""
+        if op.measure is None or not self.use_measures:
+            return None
+        mv = eval_lexpr(op.measure, self.params, self.scalars, self.col)
+        mv = torch.as_tensor(mv, dtype=torch.float32, device=self.device)
+        E = self.sdb.index(op.table, op.src_key).src_ids.shape[0]
+        if mv.dim() >= 2:
+            return mv.expand(self.batch, E).contiguous()
+        return mv.expand(E).contiguous()
+
+    def _hop_body(self, w, op: HopOp):
+        di = self.sdb.index(op.table, op.src_key)
+        entry = K.fragment_spmm if w.dim() == 2 else K.fragment_spmv
+
+        def local():
+            return entry(w, di.src_ids, di.dst_ids, self._dense_measure(op),
+                         n_dst=op.dom_dst, op=self.sr.name, use_kernel=self.use_kernel,
+                         hot_share=di.hot_share)
+
+        return self.walk.hop(local, tuple(w.shape[:-1]) + (op.dom_dst,), self.sr)
+
+
+class _DistributedInterp(_ShardRouting, _FrontierInterp):
+    """Frontier semantics over this rank's shard, one ⊕-collective a hop
+    (``ops.fragment_spmv`` over the shard, then ``Semiring.preduce``)."""
+
+    def __init__(self, params, sr, use_measures=True, *, sdb: ShardedDB,
+                 walk: _CollectiveWalk, use_kernel: bool = True, device="cuda"):
+        super().__init__(params, sr, use_measures, use_kernel=use_kernel, device=device,
+                         block_skipping="off", fusion="off")
+        self.sdb, self.walk = sdb, walk
+
+    def spawn(self) -> "_DistributedInterp":
+        return _DistributedInterp(self.params, BOOL_OR_AND, sdb=self.sdb, walk=self.walk,
+                                  use_kernel=self.use_kernel, device=self.device)
+
+
+class _DistributedBatchedInterp(_ShardRouting, _BatchedFrontierInterp):
+    """The batched form: ``[B, dom]`` frontiers, each hop one
+    ``ops.fragment_spmm`` over the shard and one all_reduce of ``[B,
+    n_dst]``."""
+
+    def __init__(self, params, sr, use_measures=True, *, batch: int, host_params,
+                 sdb: ShardedDB, walk: _CollectiveWalk, use_kernel: bool = True,
+                 device="cuda"):
+        super().__init__(params, sr, use_measures, batch=batch, host_params=host_params,
+                         use_kernel=use_kernel, device=device, block_skipping="off",
+                         fusion="off")
+        self.sdb, self.walk = sdb, walk
+
+    def spawn(self) -> "_DistributedBatchedInterp":
+        return _DistributedBatchedInterp(
+            self.params, BOOL_OR_AND, batch=self.batch, host_params=self.host_params,
+            sdb=self.sdb, walk=self.walk, use_kernel=self.use_kernel, device=self.device)
+
+
+#: The frontier dtypes a distributed hop can all-reduce in.
+FRONTIER_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def compile_frontier_distributed(
+    db: DeviceDB, plan: ChainPlan | PhysicalPlan, mesh, axes: tuple[str, ...] = ("data",),
+    batched: bool = False, frontier_dtype=torch.float32,
+    sharded_db: ShardedDB | None = None, prefix: int | None = None,
+    use_kernel: bool = True,
+) -> Callable[..., torch.Tensor]:
+    """The paper's parallel design on ``torch.distributed``: every rank runs
+    ``run(*args)`` with the same arguments; frontiers are replicated, edges
+    sharded (``shard_edges``, or ``sharded_db`` shared by the engine's
+    prepares), and each hop computes this rank's part over its shard and
+    ⊕-reduces it with one all_reduce (SUM, MIN or MAX). ``batched`` takes
+    one ``[B]`` array a parameter, as :func:`compile_frontier_batched`, and
+    hops with ``ops.fragment_spmm``. ``frontier_dtype=torch.bfloat16``
+    halves every all_reduce (a backend that cannot reduce it raises
+    :class:`ValidationError`). ``prefix=k`` runs only the plan's first k ops
+    and returns the raw state (no finalize): the profile's prefix-delta
+    entry. The query's deadline is read before each hop, and a hop that
+    fails on one rank ends the run on every rank with the same error
+    (:class:`_CollectiveWalk`); ``run(*args, failed=e)`` enters the walk
+    already failed with ``e``, so a rank that failed before it still takes
+    part."""
+    require_supported("frontier_dtype", frontier_dtype, FRONTIER_DTYPES)
+    phys = ensure_lowered(db, plan)
+    names = list(phys.param_names)
+    if batched and not names:
+        raise ValidationError("batched execution needs at least one query parameter")
+    sdb = sharded_db if sharded_db is not None else shard_edges(db, mesh, axes)
+    device = db.device
+
+    def run(*args, failed: BaseException | None = None):
+        walk = _CollectiveWalk(sdb.spec, device, frontier_dtype, current_deadline(), failed)
+        kw = dict(sdb=sdb, walk=walk, use_kernel=use_kernel, device=device)
+        if batched:
+            host = {n: np.asarray(a) for n, a in zip(names, args)}
+            B = host[names[0]].shape[0]
+            params = {n: _param_column(a, device) for n, a in host.items()}
+            mk = lambda sr, um: _DistributedBatchedInterp(  # noqa: E731
+                params, sr, um, batch=B, host_params=host, **kw)
+        else:
+            params = {n: _host_scalar(a) for n, a in zip(names, args)}
+            mk = lambda sr, um: _DistributedInterp(params, sr, um, **kw)  # noqa: E731
+        # the walk's own reads of the deadline are this rank's clock alone:
+        # the walk reads it before each hop and agrees instead
+        with deadline_scope(None):
+            if prefix is not None:
+                out = walk_ir(phys, mk(semiring_for(phys.agg), True), stop=prefix)
+            else:
+                out = execute_ir(phys, mk)
+        walk.finish()
+        return out
+
+    run.sharded_db = sdb
     return run
 
 

@@ -59,6 +59,17 @@ class Semiring:
         )
         return self.scatter(out, seg_ids, vals)
 
+    def preduce(self, x, group):
+        """Cross-shard ⊕ in place over ``group`` (the distributed strategy's
+        one collective a hop): an ``all_reduce`` with SUM, MIN, or MAX for
+        max and bool. Returns ``x``."""
+        import torch.distributed as dist
+
+        op = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN}.get(
+            self.name, dist.ReduceOp.MAX)
+        dist.all_reduce(x, op=op, group=group)
+        return x
+
     # -- ⊗ ------------------------------------------------------------------
     def extend(self, w, factor):
         """w ⊗ factor with the 0̄ guard (0̄ absorbs: no path stays no path)."""

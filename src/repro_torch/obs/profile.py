@@ -17,7 +17,10 @@ fractions.
     so that the self walls sum to ``total_wall_ms`` (``timing_method:
     "eager-span-scaled"``; the raw walls stay in each op's meta): the
     recorded run's syncs make its absolute times too large, its shares
-    stand. An op with no span is marked ``fused``.
+    stand. An op with no span is marked ``fused``. Under the distributed
+    strategy each k-op prefix runs through the same sharded entry and op k
+    is charged t(k) − t(k−1) (``timing_method: "prefix-delta"``): every rank
+    profiles together, because each prefix makes the hops' collectives.
   * **hops** — the engine's estimates (``_hop_fractions``) against the
     fractions observed by a support propagation over the plan on the
     database's device (structural reachability: the quantity the estimate
@@ -109,7 +112,7 @@ class QueryProfile:
     hops: list[HopProfile]
     memory: dict | None = None
     spans: dict | None = None  # raw span tree of the recorded run
-    timing_method: str = "eager-span"  # | "eager-span-scaled"
+    timing_method: str = "eager-span"  # | "eager-span-scaled" | "prefix-delta"
 
     def to_dict(self) -> dict:
         return {
@@ -369,6 +372,42 @@ def _rescale_eager_ops(ops: list[OpProfile], total_ms: float) -> list[OpProfile]
     return ops
 
 
+def _op_records_prefix(pq, args: list, reps: int = 2):
+    """distributed: run each k-op prefix through the same sharded entry and
+    charge op k the fenced time delta t(k) − t(k−1) (median of ``reps``
+    runs after one to warm it). Every rank runs the same prefixes, in the
+    same order."""
+    from ..core import executor as X
+
+    phys = pq.phys
+    labels = phys.op_signature()
+    cum: list[float] = []
+    for k in range(1, len(phys.ops) + 1):
+        fn = X.compile_frontier_distributed(
+            pq.device_db, phys, pq.mesh, pq.shard_axes,
+            sharded_db=pq.sharded_db, prefix=k,
+        )
+        fn(*args)
+        T.sync()
+        ts = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn(*args)
+            T.sync()
+            ts.append(time.perf_counter() - t0)
+        cum.append(float(np.median(ts)) * 1e3)
+    recs = []
+    prev = 0.0
+    for i, t in enumerate(cum):
+        dt = max(t - prev, 0.0)
+        recs.append(OpProfile(
+            index=i, name=labels[i], wall_ms=dt, kernel_ms=dt,
+            meta={"method": "prefix-delta", "cumulative_ms": round(t, 4)},
+        ))
+        prev = t
+    return recs, None
+
+
 # ---------------------------------------------------------------------------
 # Entry point
 # ---------------------------------------------------------------------------
@@ -417,10 +456,14 @@ def profile_prepared(pq, params: dict, reps: int = 3) -> QueryProfile:
     if pq.calibration is not None and pq.plan_sig:
         pq.calibration.record(pq.plan_sig, [h.observed_active_fraction for h in hops])
 
-    ops, spans = _op_records_eager(pq, args)
-    ops = _rescale_eager_ops(ops, total_ms)
-    method = ("eager-span-scaled" if any("eager_wall_ms" in o.meta for o in ops)
-              else "eager-span")
+    if pq.strategy == "distributed":
+        ops, spans = _op_records_prefix(pq, args)
+        method = "prefix-delta"
+    else:
+        ops, spans = _op_records_eager(pq, args)
+        ops = _rescale_eager_ops(ops, total_ms)
+        method = ("eager-span-scaled" if any("eager_wall_ms" in o.meta for o in ops)
+                  else "eager-span")
 
     # the observed fractions onto the matching op records: a HopOp takes one
     # HopProfile, a FusedHopOp one a member hop (its span shows the first's)
@@ -441,6 +484,10 @@ def profile_prepared(pq, params: dict, reps: int = 3) -> QueryProfile:
                     ops[i].meta.setdefault(k, h.meta[k])
 
     memory = device_space_report(pq.device_db) if pq.device_db is not None else None
+    if memory is not None and pq.sharded_db is not None:
+        from ..core.executor import shard_bytes
+
+        memory["shard_bytes"] = shard_bytes(pq.sharded_db)
     return QueryProfile(
         sql=pq.sql, strategy=pq.strategy, block_skipping=pq.block_skipping,
         agg=phys.agg, params=dict(params), total_wall_ms=total_ms,

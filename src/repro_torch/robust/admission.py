@@ -26,7 +26,12 @@ what the port allocates on the card:
     sub-walks, a batched hop's row-chunk scratch, a block list;
   * **the walk's chunk** — a plan that the ``fragment_loop`` strategy walks
     path by path holds up to ``params.FRAGMENT_LOOP_MAX_PATHS`` paths a
-    chunk, at :data:`FRAGMENT_LOOP_PATH_BYTES` each (×batch).
+    chunk, at :data:`FRAGMENT_LOOP_PATH_BYTES` each (×batch);
+  * **the shard and the all-reduce** — under a mesh a rank holds its shard
+    of every index beside the full DB (resident: ``ceil(E / n)`` rows of
+    every edge column, dense, the same on every rank so that admission
+    decides alike on each), and a hop's all-reduce buffer, ``[B, n_dst]``
+    and its flags, beside the hop's own output (working).
 
 ``reference_working_bytes`` keeps the reference's own working term, for
 comparison with it.
@@ -262,11 +267,32 @@ def _loop_chunk_bytes(prepared, batch: int) -> int:
     return KP.FRAGMENT_LOOP_MAX_PATHS * FRAGMENT_LOOP_PATH_BYTES * batch
 
 
+def _distributed_bytes(prepared, batch: int) -> tuple[int, int]:
+    """The distributed strategy's ``(shard, all-reduce)`` terms for this
+    rank, or ``(0, 0)``: the shard as every rank's largest (``ceil(E / n)``
+    rows of each edge column, 4 bytes a value), and beside the largest
+    hop's output its part and its all-reduce buffer with the flags (a
+    bfloat16 buffer casts back to a new output: two frontiers at most)."""
+    from ..core.executor import AGREED_KINDS
+    from ..core.lower import HopOp, iter_flat_ops
+
+    sdb = getattr(prepared, "sharded_db", None)
+    if sdb is None:
+        return 0, 0
+    n = sdb.spec.nshards
+    shard = sum(-(-int(di.src_ids.shape[0]) // n) * CELL_BYTES * (2 + len(di.measure_cols))
+                for di in prepared.device_db.indexes.values())
+    widest = max((op.dom_dst for op in iter_flat_ops(prepared.phys) if isinstance(op, HopOp)),
+                 default=0)
+    return shard, (2 * widest * batch + len(AGREED_KINDS)) * CELL_BYTES
+
+
 def estimate_query_bytes(prepared, batch: int = 1) -> dict[str, int]:
     """Predicted device footprint of executing ``prepared`` at batch B:
     ``resident`` (column store) + ``working`` (the larger of the reference's
-    frontier pair and the port's live walk, the edge streams, and a walked
-    plan's chunk of paths); ``reference_working_bytes`` is the reference's
+    frontier pair and the port's live walk, the edge streams, a walked
+    plan's chunk of paths, and under a mesh the all-reduce buffer; the
+    shard sits in ``resident``); ``reference_working_bytes`` is the reference's
     working term alone. Pure host arithmetic — never allocates on device."""
     from ..storage import device_space_report
 
@@ -278,8 +304,10 @@ def estimate_query_bytes(prepared, batch: int = 1) -> dict[str, int]:
     if prepared.phys is not None:
         pair, edges = _plan_terms(prepared.phys, batch, prepared.hop_estimates)
         reference = pair + edges
+        shard, reduce_buf = _distributed_bytes(prepared, batch)
+        resident += shard
         working = (max(pair, _walk_live_bytes(prepared.phys, batch)) + edges
-                   + _loop_chunk_bytes(prepared, batch))
+                   + _loop_chunk_bytes(prepared, batch) + reduce_buf)
     return {
         "resident_bytes": resident,
         "working_bytes": working,

@@ -49,6 +49,16 @@ escape:
     demotes on the failures the fault sites inject, on ``ResourceError``
     and on deadlines.
 
+Under a mesh (the ``distributed`` strategy, one process a rank) ``active``
+is the sharded walk, whose collectives every rank must make together; the
+rungs below it run each rank's single-device frontier over its full device
+DB and make none. So every decision that leaves or repeats the ``active``
+rung is the same on every rank: the walk agrees on its errors (a fault, a
+kernel, the deadline before each hop; ``executor._CollectiveWalk``), a
+``runner.execute`` fault on one rank enters the walk as a failed rank, and
+the deadline's reads after the fence and before a retry are agreed with one
+small all_reduce (``executor.agree``).
+
 Every execution attempt passes the ``runner.execute`` fault-injection site,
 so chaos tests can fail/delay attempts without touching kernel internals.
 Outcomes are returned, never raised: :class:`QueryOutcome` carries the value,
@@ -280,11 +290,18 @@ def _attempt(prepared, rung: str, args, deadline: Deadline | None,
     :class:`KernelFault` for a kernel that failed or a device fault."""
     import torch
 
-    faults.fire("runner.execute", rung=rung, query=prepared.sql.strip()[:80])
+    collective = _collective(prepared, rung)
+    failed = None
+    try:
+        faults.fire("runner.execute", rung=rung, query=prepared.sql.strip()[:80])
+    except Exception as e:  # noqa: BLE001 — a failed rank still takes part
+        if collective is None:
+            raise
+        failed = e
     try:
         with deadline_scope(deadline):
             fn = rung_fn(prepared, rung, batched=batched)
-            out = fn(*args)
+            out = fn(*args) if failed is None else fn(*args, failed=failed)
             if out.device.type == "cuda":
                 try:
                     torch.cuda.synchronize(out.device)
@@ -297,9 +314,35 @@ def _attempt(prepared, rung: str, args, deadline: Deadline | None,
         raise fault from e
     except Exception as e:  # noqa: BLE001 — normalize foreign exceptions
         raise wrap_execution_error(e, rung=rung, strategy=prepared.strategy)
-    if deadline is not None:
+    if collective is not None:
+        if _expired(collective, deadline):  # the same answer on every rank
+            if deadline is not None:
+                deadline.check("device fence")
+            raise DeadlineExceeded("deadline exceeded on another rank",
+                                   where="device fence")
+    elif deadline is not None:
         deadline.check("device fence")
     return out.cpu().numpy()
+
+
+def _collective(prepared, rung: str):
+    """The shard of a distributed query on its ``active`` rung (whose
+    decisions every rank must share), else None."""
+    return prepared.sharded_db if rung == "active" and prepared.strategy == "distributed" \
+        else None
+
+
+def _expired(collective, deadline: Deadline | None, margin_ms: float = 0.0) -> bool:
+    """Whether ``deadline`` has at most ``margin_ms`` left on this rank's
+    clock (never, without one); on a collective rung whether it has on any
+    rank — read on every rank, deadline or not, so that each makes the same
+    all_reduce."""
+    mine = deadline is not None and deadline.remaining_ms() <= margin_ms
+    if collective is None:
+        return mine
+    from ..core.executor import agree
+
+    return agree(collective, mine)
 
 
 def _run_ladder(prepared, args, policy: RobustPolicy,
@@ -330,8 +373,8 @@ def _run_ladder(prepared, args, policy: RobustPolicy,
                     reg.counter("robust.deadline_exceeded").inc()
                 # a spent deadline is terminal: no rung can answer in time;
                 # a kernel fault is too: the rungs below are no fallback
-                if isinstance(e, KernelFault) or (
-                        deadline is not None and deadline.expired()):
+                collective = _collective(prepared, rung)
+                if isinstance(e, KernelFault) or _expired(collective, deadline):
                     return QueryOutcome(
                         "error", None, rung, attempts, tuple(demotions),
                         error=last_err,
@@ -341,7 +384,7 @@ def _run_ladder(prepared, args, policy: RobustPolicy,
                     retries += 1
                     reg.counter("robust.retries").inc()
                     wait = policy.retry.backoff_ms(retries, policy._rng)
-                    if deadline is None or deadline.remaining_ms() > wait:
+                    if not _expired(collective, deadline, wait):
                         time.sleep(wait / 1e3)
                         continue
                 break  # exhausted retries (or no time to back off): demote

@@ -6,8 +6,9 @@ them: the SpMM kernels and the fused regions' SpMM form, the bitmap AND
 and popcount, and CRC-32C) against their plain PyTorch versions, and the
 engine on the card (single queries and execute_batch, the degradation
 ladder's rungs, manifests, snapshots and the scrubber's heal, the analytics
-server's obs lane and a reload while the scrubber ticks) against the engine
-on the CPU, the numpy oracle and the same requests served alone. They import no JAX (the
+server's obs lane and a reload while the scrubber ticks, the distributed
+strategy under a 1-rank NCCL mesh) against the engine on the CPU, the plain
+versions, the numpy oracle and the same requests served alone. They import no JAX (the
 GPU machine need not have it) and skip where ``torch.cuda.is_available()`` is
 false: a CUDA kernel has no CPU mode. On a card:
 
@@ -2080,3 +2081,112 @@ def test_serve_reload_while_the_scrubber_ticks_on_the_card(cuda, tmp_path):
     assert c["robust.integrity.cols_verified"] > 0
     assert all(t.name not in ("reloader", "scrubber") for t in threading.enumerate())
     _assert_served_as_alone(run, GQFastEngine(restore_db(d, device=cuda)))
+
+
+# ---------------------------------------------------------------------------
+# The distributed strategy on the card: a world of 1 over NCCL, in process
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh():
+    """A 1-rank NCCL mesh in this process (``launch.mesh`` makes the world of
+    one), torn down after the module's tests."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    made = not dist.is_initialized()
+    mesh = make_mesh((1,), ("data",))
+    yield mesh
+    if made:
+        dist.destroy_process_group()
+
+
+def _hops(phys) -> int:
+    """HopOps one execution of ``phys`` runs, mask sub-programs included."""
+    from repro_torch.core.lower import SeedOp, iter_flat_ops
+
+    return sum(1 if isinstance(op, HopOp) else
+               sum(_hops(p) for p in op.programs) if isinstance(op, SeedOp) else 0
+               for op in iter_flat_ops(phys))
+
+
+@pytest.mark.parametrize("name,q,params", CASES, ids=[c[0] for c in CASES])
+def test_distributed_world_of_one_on_the_card(cuda, nccl_mesh, name, q, params):
+    """Under a 1-rank NCCL mesh every hop is one ``fragment_spmv`` launch
+    over the shard (``fragment_spmm`` a hop for a batch), and each result
+    equals the same sharded plan through the plain versions
+    (``use_kernel=False``; counts exact, sums within the gate), the CPU
+    engine and the oracle; the batch's rows equal
+    their single calls; packed columns decode through bitunpack at shard
+    time."""
+    from repro_torch.core import executor as X
+    from repro_torch.kernels import fragment_spmm as mkernel
+
+    schema = _schema(name)
+    eng = GQFastEngine(GQFastDatabase(schema, account_space=False, device=cuda),
+                       mesh=nccl_mesh)
+    unpacks = bkernel.LAUNCHES
+    pq = eng.prepare(q)
+    assert pq.strategy == "distributed" and bkernel.LAUNCHES > unpacks
+    before, single0 = _hop_launches(), kernel.LAUNCHES
+    got = pq(**params)
+    hops = _hops(pq.phys)
+    assert kernel.LAUNCHES - single0 == hops and _hop_launches() - before == hops
+    plain = X.compile_frontier_distributed(eng.db.device, pq.phys, nccl_mesh,
+                                           sharded_db=eng.sharded_db(), use_kernel=False)
+    before = _hop_launches()
+    want = plain(*[params[n] for n in pq.param_names]).cpu().numpy()
+    assert _hop_launches() == before  # the plain versions launch nothing
+    cpu = GQFastEngine(GQFastDatabase(schema, account_space=False, device="cpu")
+                       ).query(q, **params)
+    for other in (want, cpu):
+        if name in ("SD", "AD", "RECENT", "CS"):
+            np.testing.assert_array_equal(got, other)
+        np.testing.assert_allclose(got, other, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got, run_sql(schema, q, params), rtol=1e-4, atol=1e-4)
+    key = next(iter(params))
+    rows = {k: [v, v, v] for k, v in params.items()}
+    rows[key] = [params[key], params[key] + 1, params[key] + 2]
+    before = mkernel.LAUNCHES
+    got_b = pq.execute_batch(**rows)
+    assert mkernel.LAUNCHES - before == hops
+    for b in range(3):
+        one = pq(**{k: v[b] for k, v in rows.items()})
+        np.testing.assert_allclose(got_b[b], one, rtol=1e-4, atol=1e-4)
+
+
+def test_distributed_profile_and_ladder_on_the_card(cuda, nccl_mesh):
+    """profile() of SD under the NCCL mesh times every op by prefix-delta
+    and returns ``__call__``'s answer; through the ladder it answers ``ok``
+    on the sharded rung, and with every hop kernel failing it ends with
+    KERNEL there, no plain rung built."""
+    from repro_torch.kernels.cuda_build import KernelError
+    from repro_torch.robust import run_with_policy
+
+    name, q, params = CASES[0]
+    eng = GQFastEngine(GQFastDatabase(_schema(name), account_space=False, device=cuda),
+                       mesh=nccl_mesh)
+    pq = eng.prepare(q)
+    prof = pq.profile(reps=2, **params)
+    assert prof.timing_method == "prefix-delta"
+    assert all(o.wall_ms is not None for o in prof.ops)
+    np.testing.assert_array_equal(prof.result, pq(**params))
+    oc = run_with_policy(pq, params)
+    assert oc.status == "ok" and oc.rung == "active"
+    np.testing.assert_array_equal(oc.value, prof.result)
+
+    def fails(*a, **k):
+        raise KernelError("fragment_spmv: launch failed")
+
+    real = kernel.fragment_spmv
+    kernel.fragment_spmv = fails
+    try:
+        oc = run_with_policy(pq, params)
+    finally:
+        kernel.fragment_spmv = real
+    assert oc.status == "error" and oc.error.code == "KERNEL" and oc.rung == "active"
+    assert [k for k in pq.__dict__.get("_rung_fns", {}) if k[0] != "active"] == []

@@ -183,7 +183,9 @@ PORTED = ("device_encodings=auto", "device_encodings=packed", "block_skipping=on
 ])
 def test_unported_options_raise(pubmed, call):
     """Every option of the reference either runs (its slice has landed) or
-    raises ValidationError naming the ROADMAP item that brings it."""
+    raises ValidationError naming the ROADMAP item that brings it; a mesh
+    runs (``tests/test_torch_distributed.py``), and one that is not a
+    DeviceMesh raises ValidationError."""
     schema, port, _ = pubmed
     pq = port.prepare(SG.QUERY_SD)
     calls = {
@@ -207,6 +209,9 @@ def test_unported_options_raise(pubmed, call):
         assert calls[call]() is not None
         return
     err = pytest.raises(ValidationError, calls[call]).value
+    if call == "mesh":  # ported: a mesh that is not a DeviceMesh is refused
+        assert "DeviceMesh" in str(err)
+        return
     assert "ROADMAP Queue 1 item" in str(err)
 
 

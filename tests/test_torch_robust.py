@@ -56,6 +56,7 @@ from repro_torch.robust import (  # noqa: E402
 from repro_torch.robust import admission, faults  # noqa: E402
 from repro_torch.robust import runner as R  # noqa: E402
 from repro_torch.robust.runner import rung_fn  # noqa: E402
+from torch_fixtures import LiveBytes as _LiveBytes  # noqa: E402
 from torch_fixtures import lists_at_every_size  # noqa: E402,F401 (autouse)
 
 GRAPH = dict(n_docs=60, n_terms=40, n_authors=30, seed=0)
@@ -220,49 +221,6 @@ def test_estimate_equals_the_reference_for_frontier_plans(engine, jengine, name,
     assert mine["total_bytes"] == int(theirs["total_bytes"])
     assert got["resident_bytes"] == mine["total_bytes"] + mine["materialized_bytes"]
     assert int(want["resident_bytes"]) == theirs["total_bytes"] + theirs["materialized_bytes"]
-
-
-class _LiveBytes(torch.utils._python_dispatch.TorchDispatchMode):
-    """The peak of the bytes that tensors made inside the mode hold: a
-    storage counts from the op that made it until the last tensor on it
-    dies (storages of the inputs, such as the column store, never count)."""
-
-    def __init__(self):
-        super().__init__()
-        self.storages: dict[int, list[int]] = {}
-        self.now = self.peak = 0
-
-    def _drop(self, key):
-        held = self.storages.get(key)
-        if held is not None:
-            held[1] -= 1
-            if held[1] == 0:
-                self.now -= held[0]
-                del self.storages[key]
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        import weakref
-
-        from torch.utils._pytree import tree_flatten
-
-        out = func(*args, **(kwargs or {}))
-        ins = {t.untyped_storage().data_ptr() for t in tree_flatten((args, kwargs))[0]
-               if isinstance(t, torch.Tensor)}
-        for t in tree_flatten(out)[0]:
-            if not isinstance(t, torch.Tensor):
-                continue
-            st = t.untyped_storage()
-            key = st.data_ptr()
-            if key in self.storages:
-                self.storages[key][1] += 1
-            elif key in ins:
-                continue
-            else:
-                self.storages[key] = [st.nbytes(), 1]
-                self.now += st.nbytes()
-                self.peak = max(self.peak, self.now)
-            weakref.finalize(t, self._drop, key)
-        return out
 
 
 BOUND_CASES = CASES + [
