@@ -54,7 +54,8 @@ Phases (any failure exits non-zero; nothing is caught while the run goes on):
     and without, at E ∈ {0, 1, 4097} × B ∈ {1, 3, 8, 13, 64} for every op
     and measure (none, shared, per-row [B, E]; packed/dense dst × every
     mode), scan and active over the union list, at I_DT.Term / I_DA.Doc at
-    B = 8 and on the hot destinations above at B = 8 and 13; every row (B ≤
+    B = 8 (sum and max: PATH_SPMM_OPS; every op before path q came) and on
+    the hot destinations above at B = 8 and 13; every row (B ≤
     8; at the path shapes in the form the hot share chooses) against the
     SpMV kernels; the fused regions' SpMM form on the small regions (every
     op) and the main path's regions at B = 8 (sum and max: PATH_REGION_OPS;
@@ -150,8 +151,7 @@ Phases (any failure exits non-zero; nothing is caught while the run goes on):
          SD's answer until the scrubber heals the column, and SD after
          ``invalidate_prepared`` equals the original (crc32c must launch
          here); the snapshots kept for o and p;
-      o. serving, in process on the main thread: ``--workload lm`` refused
-         (the not-ported error); the CI's three lanes (obs, chaos,
+      o. serving, in process on the main thread: the CI's three lanes (obs, chaos,
          corrupt-and-heal) through ``repro_torch.launch.serve.main`` at
          their own arguments with ``--device cuda`` and the workflow's
          assertions; then SERVE_REQUESTS requests in micro-batches of
@@ -188,13 +188,48 @@ Phases (any failure exits non-zero; nothing is caught while the run goes on):
          under (i), (ii) and the single-card defaults, each hop's all_reduce
          alone over the wall (the all_reduce's share), each rank's device
          bytes and path p's seconds; the directory removed after p.
+      q. the transformer family (``repro_torch.models``, ``optim``,
+         ``train``, ``ckpt.manager``, ``configs``; no GQ-Fast kernel runs on
+         it, every count of KERNELS read 0 after it), after phase 5 on the
+         quiet card, its 12 GB freed before the record is written: (q1)
+         Qwen2.5-3B at full width (36 layers, d_model 2048, 16/2 heads, d_ff
+         11,008, vocab 151,936, tied, QKV bias; f32 params from a seeded
+         generator on the card, bf16 compute) serves the reference server's
+         shape, a prefill of 4×32 tokens into a 128-slot cache and 60 greedy
+         decode steps: the decode logits at positions 32-35 (and the
+         prefill's at 31) within LM_BF16_TOL of ``forward`` over the same 36
+         tokens, every logit finite; ms a step, tokens/s, the prefill's ms
+         and the peak allocated bytes beside the bound. (q2) Qwen2.5-3B and
+         OLMoE-1B-7B at full width cut to 2 layers under f32 compute against
+         the same weights on the CPU: Qwen's logits and loss (LM_F32_TOL)
+         and every gradient leaf (LM_GRAD_TOL) at 2×64 tokens; OLMoE's
+         routing (topi, keep) at 2×512 tokens equal integer for integer, each
+         layer's router on the CPU fed the card's input to it. (q3) the train
+         step (autograd, then AdamW lr 1e-3) of Qwen2.5-3B at full width cut
+         to 2 layers, 8 steps of ``lm_batch(step, 2, 512)``: step ms,
+         tokens/s and peak bytes beside 6·N·tokens at 989 TFLOP/s, the loss
+         falling. Started before phase 3 and run beside its checks, which
+         time nothing (``LMBackground``): q3's gates in a child process under
+         ``torch.use_deterministic_algorithms(True)`` and
+         ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` (``chip_smoke.py
+         --path-q3-child``), ``train()`` with checkpoints for the same 8
+         steps: the loss falls; a run preempted at step 4 and resumed equals
+         the uninterrupted one bit for bit (params and losses); int8 moments
+         end within 5% of float32; and (q4) as subprocesses on the card, three
+         chains at once, ``python -m repro_torch.launch.serve --workload lm
+         --requests 20``, ``python -m repro_torch.launch.train --arch
+         llama3-8b --steps 12`` then ``--steps 16 --resume``, the same for
+         olmoe-1b-7b, their lines checked; and every LM arch's
+         ``smoke(device="cuda")`` finite with (2, vocab) logits.
+         ``chip_smoke.py --path-q`` runs path q alone (no kernel built; the
+         background part after the rest).
     Each result is compared with the same lowered plan run through the plain
     versions on the card with float64 sums (each comparison's gate ratio
     logged and kept), the defaults with skipping off and with the dense
     paths (exact for SD/AD/RECENT/CS), the fused paths with fusion off, SD
     with the numpy oracle ``run_sql`` at full scale, and all nine with
-    ``run_sql`` at the quickstart scale under the defaults and fusion on
-    (under dense/off too before path p came). Every path's float sums (FSD, AS, FAD, AS-recent) are also
+    ``run_sql`` at the quickstart scale under the defaults (fusion on too
+    before path q came, dense/off before path p came). Every path's float sums (FSD, AS, FAD, AS-recent) are also
     held to the same plan through the plain versions with float64 sums,
     within FLOAT64_LIMIT.
  5. Times: per query the median wall time of 20 runs (the defaults, fusion
@@ -1250,9 +1285,9 @@ def check_fused_regions(specs, device) -> dict:
     device-built lists, in every form (:func:`region_forms`: the table where
     the hop's hot share asks for it, per edge, the table in every hop),
     against the plain region and the unfused scan composition in the same
-    form (:func:`form_checks`): SD's region at supports from one seed to
-    100% (between them in the main path's form alone), AS-recent's over a
-    dense frontier, SD-recent's at one seed and 100%."""
+    form (:func:`form_checks`): SD's region at LIST_SUPPORTS (the five of
+    SUPPORTS before path q came; 0.1 in the main path's form alone),
+    AS-recent's over a dense frontier, SD-recent's at one seed and 100%."""
     import torch
 
     from repro_torch.kernels import ops as K
@@ -1261,7 +1296,7 @@ def check_fused_regions(specs, device) -> dict:
     gen = torch.Generator(device=device).manual_seed(14)
     worst = {"fragment_spmv_fused1": 0.0, "fragment_spmv_fused2": 0.0}
     rows = []
-    for spec, supports in zip(specs, (SUPPORTS, (1.0,), ("one_seed", 1.0))):
+    for spec, supports in zip(specs, (LIST_SUPPORTS, (1.0,), ("one_seed", 1.0))):
         h1, h2 = spec["hop1"], spec["hop2"]
         E1 = int(h1.src_ids.shape[0])
         E2 = int(h2.src_ids.shape[0]) if h2 is not None else 0
@@ -2635,9 +2670,10 @@ def check_spmm_small(device) -> tuple[dict, int]:
 
 def check_spmm_path(db, db_dense, device) -> tuple[dict, list[dict]]:
     """Phase 3h (path shapes): the four SpMM kernels at I_DT.Term (Fre) and
-    I_DA.Doc at B = 8 over sparse rows and their union list, with the per-CTA
-    table and without, against the plain version; each row of the form the
-    index's hot share chooses against the SpMV kernel."""
+    I_DA.Doc at B = 8 over sparse rows and their union list, for the ops of
+    PATH_SPMM_OPS, with the per-CTA table and without, against the plain
+    version; each row of the form the index's hot share chooses against the
+    SpMV kernel."""
     import torch
 
     from repro_torch.kernels import fragment_spmm as sk
@@ -2663,7 +2699,8 @@ def check_spmm_path(db, db_dense, device) -> tuple[dict, list[dict]]:
                   m_width=pm.width if pm is not None else 0)
         mw = pm.words if pm is not None else None
         chosen = uses_table(pi)
-        for op, table in ((op, table) for op in OPS for table in (chosen, not chosen)):
+        for op, table in ((op, table) for op in PATH_SPMM_OPS
+                          for table in (chosen, not chosen)):
             W = frontier_rows(n_src, B, op, gen, device, degrees=di.degrees)
             bi, na = union_list(W, op, di.block_src_min, di.block_src_max, E, device)
             exact = op != "sum"
@@ -2695,7 +2732,7 @@ def check_spmm_path(db, db_dense, device) -> tuple[dict, list[dict]]:
             del W, want
         log(f"  SpMM kernels at {name} (B = 8, union list {rows[-1]['n_active']}/"
             f"{rows[-1]['n_blocks']} blocks for the last op): all four in both forms equal"
-            f" the plain version, every op, and every row of the form the hot share chooses"
+            f" the plain version, ops {list(PATH_SPMM_OPS)}, and every row of the form the hot share chooses"
             f" ({'table' if chosen else 'per edge'}) the SpMV kernels")
     sync()
     return worst, rows
@@ -2758,6 +2795,9 @@ def check_spmm_hot(device) -> tuple[dict, int]:
 #: form at B = 8 (all four before path p came; the small regions run every
 #: op, and min's and bool's combines are max's code with another identity).
 PATH_REGION_OPS = ("sum", "max")
+#: The ops of the SpMM kernels at the main path's shapes in phase 3h (every op
+#: before path q came: min and bool stay checked at the small and hot shapes).
+PATH_SPMM_OPS = ("sum", "max")
 
 
 def check_spmm_fused(specs, device) -> tuple[dict, int]:
@@ -4198,7 +4238,7 @@ def padded_params(run, ids: list) -> dict:
 def drive_serving(db, pub_dir: str, tmp: str, gates: dict, card: str,
                   device) -> tuple[dict, dict]:
     """Path o, the analytics server in process on the card, on the main
-    thread: ``--workload lm`` refused first; the three CI lanes at their own
+    thread: the three CI lanes at their own
     arguments with the workflow's assertions; then the full-scale serve from
     a fast start on path n's PubMed snapshot (``pub_dir``), the first reload
     publishing generation 2 there so that the swap loads a new generation
@@ -4213,17 +4253,6 @@ def drive_serving(db, pub_dir: str, tmp: str, gates: dict, card: str,
     from repro_torch.storage import snapshot_db
 
     rec = {}
-    # (c) the lm workload needs the model zoo
-    try:
-        serve.main(["--workload", "lm"])
-    except SystemExit as e:
-        if "item 15" not in str(e.code):
-            raise AssertionError(f"path o: --workload lm ended with {e.code!r}")
-        rec["lm"] = str(e.code)
-    else:
-        raise AssertionError("path o: --workload lm did not refuse")
-    log(f"  path o: --workload lm refused: {rec['lm']}")
-
     # (a) the CI lanes
     reset_counts()
     art = f"{tmp}/artifacts"
@@ -4773,6 +4802,463 @@ def time_manifest(engines, SG, c0) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Path q: the transformer family (no kernel of KERNELS runs on it)
+# ---------------------------------------------------------------------------
+
+#: q1: the reference LM server's shape (``launch/serve.py --workload lm``)
+LM_PROMPT = (4, 32)
+LM_CACHE = 128
+LM_DECODE_STEPS = 60
+#: q1's check of the decode logits at positions 32-35 against ``forward``
+#: over the same 36 tokens, as a share of the largest logit: bf16 compute
+#: keeps 8 bits, and 36 layers round it at other points in the two paths'
+#: other GEMM shapes
+LM_BF16_TOL = 5e-2
+#: q2, float32 compute, card against CPU: the logits and the loss within
+#: LM_F32_TOL of the largest value; each gradient leaf within LM_GRAD_TOL of
+#: its largest value (sums of up to 11,008 products in another order, and the
+#: backward's second level of them)
+LM_F32_TOL = 1e-4
+LM_GRAD_TOL = 1e-3
+LM_Q2_TOKENS = (2, 64)
+OLMOE_Q2_TOKENS = (2, 512)
+#: q3: full-width Qwen2.5-3B cut to LM_TRAIN_LAYERS layers (depth only)
+LM_TRAIN_LAYERS = 2
+LM_TRAIN_STEPS = 8
+LM_TRAIN_BATCH = (2, 512)
+LM_PREEMPT_AT = 4
+#: q3's int8-moment run converges like the float32 one
+#: (tests/test_checkpoint_train.py's 5%)
+LM_INT8_REL = 0.05
+Q3_TIMEOUT_S = 600
+Q4_TIMEOUT_S = 300
+BF16_FLOP_PER_S = 989e12
+
+
+def rel_err(got, want) -> float:
+    """max|got − want| / max|want| (float32 on the CPU)."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def gib(n: int) -> str:
+    return f"{n / 2**30:.2f} GiB"
+
+
+def drive_lm_serve(card: str, device) -> dict:
+    """q1: Qwen2.5-3B at full width (f32 params, bf16 compute) from a seeded
+    generator on the card; the reference server's prefill of 4×32 tokens
+    into a 128-slot cache and 60 greedy decode steps; the decode logits at
+    positions 32-35 against ``forward`` over the same 36 tokens."""
+    import torch
+
+    from repro_torch.configs.lm_archs import QWEN25_3B
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import count_params
+
+    cfg = QWEN25_3B.full
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(device).manual_seed(0))
+    sync()
+    t_init = time.perf_counter() - t0
+    n = count_params(params)
+    toks = torch.randint(0, cfg.vocab, LM_PROMPT, device=device,
+                         generator=torch.Generator(device).manual_seed(1))
+    prefill_ms = []
+    for _ in range(2):  # the first call beside a warm one
+        sync()
+        t0 = time.perf_counter()
+        logits, cache, pos = T.prefill(params, toks, cfg, LM_CACHE)
+        sync()
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+    first = logits.clone()
+    cur = torch.argmax(logits, -1)
+    out, kept = [cur], []
+    finite = torch.isfinite(logits).all()
+    t0 = time.perf_counter()
+    for i in range(LM_DECODE_STEPS):
+        logits, cache = T.decode_step(params, cache, cur, pos + i, cfg)
+        finite &= torch.isfinite(logits).all()
+        if i < 4:
+            kept.append(logits.clone())
+        cur = torch.argmax(logits, -1)
+        out.append(cur)
+    sync()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if not bool(finite):
+        raise AssertionError("path q1: a logit is not finite")
+    full = torch.cat([toks, torch.stack(out[:4], 1).to(toks.dtype)], 1)
+    with torch.no_grad():
+        fl, _ = T.forward(params, full, cfg)
+    errs = [rel_err(first, fl[:, pos - 1])] + [rel_err(k, fl[:, pos + i])
+                                               for i, k in enumerate(kept)]
+    agree = float(sum((torch.argmax(k, -1) == torch.argmax(fl[:, pos + i], -1)).float().mean()
+                      for i, k in enumerate(kept)) / len(kept))
+    if max(errs) > LM_BF16_TOL:
+        raise AssertionError(f"path q1: prefill/decode logits against forward {errs} over"
+                             f" {LM_BF16_TOL}")
+    kv = cache["k"]
+    mean_len = pos + (LM_DECODE_STEPS + 1) / 2
+    kv_bytes = 2 * cfg.n_layers * kv.shape[1] * mean_len * kv.shape[3] * kv.shape[4] \
+        * kv.element_size()
+    bound = (4 * n + kv_bytes) / HBM_BYTES_PER_S * 1e3
+    cast_bound = (8 * n + kv_bytes) / HBM_BYTES_PER_S * 1e3
+    ms = dt / LM_DECODE_STEPS * 1e3
+    rec = {"params": n, "param_count_formula": cfg.param_count(), "init_s": t_init,
+           "prefill_ms": prefill_ms, "decode_ms_a_step": ms,
+           "tokens_per_s": LM_PROMPT[0] * LM_DECODE_STEPS / dt,
+           "bound_ms": bound, "bound_with_cast_ms": cast_bound,
+           "peak_allocated_bytes": peak, "rel_err_vs_forward": errs,
+           "greedy_agreement": agree, "tolerance": LM_BF16_TOL,
+           "tokens": torch.stack(out).cpu().numpy()[:, 0].tolist()}
+    log(f"  [{card}] q1 Qwen2.5-3B full width ({n} params, {gib(4 * n)} f32, init"
+        f" {t_init:.2f} s): prefill 4×32 {prefill_ms[0]:.1f} ms first, {prefill_ms[1]:.1f} ms"
+        f" warm; decode {ms:.3f} ms a step ({rec['tokens_per_s']:.1f} tokens/s, batch 4) against"
+        f" a bound of {bound:.3f} ms (f32 weights read once; {cast_bound:.3f} ms with the bf16"
+        f" cast written and read); peak allocated {peak} B ({gib(peak)})")
+    log(f"  q1: prefill and decode logits at positions 31-35 against forward: "
+        + ", ".join(f"{e:.4g}" for e in errs) + f" of the largest logit (tolerance"
+        f" {LM_BF16_TOL}); greedy picks equal {agree:.3f}; all logits finite")
+    return rec
+
+
+def drive_lm_card_vs_cpu(card: str, device) -> dict:
+    """q2: full-width Qwen2.5-3B and OLMoE-1B-7B, each cut to 2 layers,
+    under float32 compute, on the card against the same weights on the CPU:
+    Qwen's logits, loss and every gradient leaf; OLMoE's routing (topi,
+    keep), each layer's router on the CPU fed the card's input to it."""
+    import torch
+
+    from repro_torch.configs.lm_archs import OLMOE_1B_7B, QWEN25_3B
+    from repro_torch.data.lm_data import lm_batch
+    from repro_torch.models import transformer as T
+    from repro_torch.train.loop import value_and_grad
+    from repro_torch.tree import tree_leaves_with_path, tree_map
+
+    rec = {}
+    cfg = dataclasses.replace(QWEN25_3B.full, n_layers=2, compute_dtype=torch.float32)
+    card_p = T.init_params(cfg, torch.Generator(device).manual_seed(2))
+    cpu_p = tree_map(lambda t: t.cpu(), card_p)
+    batch = lm_batch(0, *LM_Q2_TOKENS, cfg.vocab, seed=0, device="cpu")
+    cbatch = {k: v.to(device) for k, v in batch.items()}
+    t0 = time.perf_counter()
+    (lg, _), gg = value_and_grad(lambda p, b: T.loss_fn(p, b, cfg), card_p, cbatch)
+    sync()
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (lc, _), gc = value_and_grad(lambda p, b: T.loss_fn(p, b, cfg), cpu_p, batch)
+    t_cpu = time.perf_counter() - t0
+    with torch.no_grad():
+        logit_err = rel_err(T.forward(card_p, cbatch["tokens"], cfg)[0],
+                            T.forward(cpu_p, batch["tokens"], cfg)[0])
+    loss_err = abs(float(lg) - float(lc)) / abs(float(lc))
+    grad_errs = {k: rel_err(g, c) for (k, g), (_, c) in
+                 zip(tree_leaves_with_path(gg), tree_leaves_with_path(gc))}
+    worst = max(grad_errs.items(), key=lambda kv: kv[1])
+    if logit_err > LM_F32_TOL or loss_err > LM_F32_TOL or worst[1] > LM_GRAD_TOL:
+        raise AssertionError(f"path q2: Qwen2.5-3B card against CPU: logits {logit_err},"
+                             f" loss {loss_err}, worst gradient {worst}")
+    rec["qwen"] = {"logits_rel": logit_err, "loss_rel": loss_err, "grad_rel": grad_errs,
+                   "card_s": t_card, "cpu_s": t_cpu, "loss": float(lg)}
+    log(f"  [{card}] q2 Qwen2.5-3B full width, 2 layers, f32 compute, {LM_Q2_TOKENS}"
+        f" tokens: logits {logit_err:.3g}, loss {loss_err:.3g} (tolerance {LM_F32_TOL}),"
+        f" {len(grad_errs)} gradient leaves worst {worst[0]} {worst[1]:.3g} (tolerance"
+        f" {LM_GRAD_TOL}); value and gradients {t_card:.2f} s on the card, {t_cpu:.2f} s"
+        " on the CPU")
+    del card_p, cpu_p, gg, gc
+
+    cfg = dataclasses.replace(OLMOE_1B_7B.full, n_layers=2, compute_dtype=torch.float32)
+    params = T.init_params(cfg, torch.Generator(device).manual_seed(3))
+    toks = lm_batch(0, *OLMOE_Q2_TOKENS, cfg.vocab, seed=1, device=device)["tokens"]
+    routing = []
+    with torch.no_grad():
+        logits, aux = T.forward(params, toks, cfg, routing=routing)
+    if len(routing) != cfg.n_layers or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"path q2: OLMoE forward: {len(routing)} routed layers, finite"
+                             f" {bool(torch.isfinite(logits).all())}")
+    layers = []
+    for i, r in enumerate(routing):
+        want = T.moe_route({"router": params["layers"]["router"][i].cpu()}, r["x"].cpu(), cfg)
+        topi_eq = torch.equal(r["topi"].cpu(), want["topi"])
+        keep_eq = torch.equal(r["keep"].cpu(), want["keep"])
+        layers.append({"topi_equal": topi_eq, "keep_equal": keep_eq, "C": want["C"],
+                       "dropped": int((~want["keep"]).sum()),
+                       "entries": int(want["keep"].numel())})
+        if not (topi_eq and keep_eq):
+            diff = int((r["topi"].cpu() != want["topi"]).sum())
+            raise AssertionError(f"path q2: OLMoE layer {i} routing differs from the CPU's"
+                                 f" ({diff} topi entries, keep equal {keep_eq})")
+    rec["olmoe"] = {"layers": layers, "aux": float(aux)}
+    log(f"  [{card}] q2 OLMoE-1B-7B full width, 2 layers, f32 compute, {OLMOE_Q2_TOKENS}"
+        f" tokens: every layer's routing (topi, keep) equal to the CPU's, integer for"
+        f" integer; capacity {layers[0]['C']}, dropped entries a layer"
+        f" {[lay['dropped'] for lay in layers]} of {layers[0]['entries']}; aux {float(aux):.4f}")
+    del params, routing
+    return rec
+
+
+def lm_train_child(cfg: dict) -> int:
+    """``chip_smoke.py --path-q3-child CONFIG``: q3 in a process whose CUDA
+    starts under ``torch.use_deterministic_algorithms(True)`` (the parent
+    sets ``CUBLAS_WORKSPACE_CONFIG``); its record written to ``cfg["out"]``."""
+    import torch
+
+    torch.use_deterministic_algorithms(True)
+    from repro_torch.configs.lm_archs import QWEN25_3B
+    from repro_torch.data.lm_data import lm_batch
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import count_params
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.loop import TrainLoopConfig, train
+    from repro_torch.tree import tree_leaves
+
+    t_child = time.perf_counter()
+    device = torch.device(cfg["device"])
+    model = dataclasses.replace(QWEN25_3B.full, n_layers=LM_TRAIN_LAYERS)
+    params = T.init_params(model, torch.Generator(device).manual_seed(4))
+    n = count_params(params)
+
+    def data(step):
+        return lm_batch(step, *LM_TRAIN_BATCH, model.vocab, seed=0, device=device)
+
+    def lf(p, b):
+        return T.loss_fn(p, b, model)
+
+    def run(label, opt, **kw):
+        loop = TrainLoopConfig(total_steps=LM_TRAIN_STEPS, ckpt_every=100,
+                               ckpt_dir=os.path.join(cfg["tmp"], label))
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        p, res = train(params, lf, data, loop, opt, **kw)
+        sync()
+        wall = time.perf_counter() - t0
+        return p, res, {"wall_s": wall, "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+                        "steps_s": sum(h["step_time"] for h in res.history),
+                        "losses": [h["loss"] for h in res.history]}
+
+    rec = {"params": n, "layers": model.n_layers}
+    pA, rA, rec["uninterrupted"] = run("a", AdamWConfig(lr=1e-3), resume=False)
+    _, r1, rec["preempted"] = run("b", AdamWConfig(lr=1e-3), resume=False,
+                                  preempt_at=LM_PREEMPT_AT)
+    pB, r2, rec["resumed"] = run("b", AdamWConfig(lr=1e-3), resume=True)
+    rec["preempted"]["step"], rec["resumed"]["resumed_from"] = r1.step, r2.resumed_from
+    diffs = [float((a.float() - b.float()).abs().max()) for a, b in
+             zip(tree_leaves(pA), tree_leaves(pB))]
+    rec["resume_equal"] = all(torch.equal(a, b) for a, b in zip(tree_leaves(pA), tree_leaves(pB)))
+    rec["resume_max_abs_diff"] = max(diffs)
+    del pA, pB
+    _, rC, rec["int8"] = run("c", AdamWConfig(lr=1e-3, quantize_moments=True), resume=False)
+    rec["child_s"] = time.perf_counter() - t_child
+    Path(cfg["out"]).write_text(json.dumps(rec))
+    return 0
+
+
+def time_lm_train(card: str, device) -> dict:
+    """q3's times, on the quiet card in this process: the train step
+    (``train.loop.make_train_step``: autograd, then AdamW lr 1e-3) of
+    Qwen2.5-3B at full width cut to LM_TRAIN_LAYERS layers, LM_TRAIN_STEPS
+    steps of ``lm_batch`` at LM_TRAIN_BATCH; the median step after the first
+    beside 6·N·tokens at 989 TFLOP/s bf16, the peak allocated bytes. The
+    loss falls (q3's gates proper run in the child, ``LMBackground``)."""
+    import torch
+
+    from repro_torch.configs.lm_archs import QWEN25_3B
+    from repro_torch.data.lm_data import lm_batch
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import count_params
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.train.loop import make_train_step
+
+    model = dataclasses.replace(QWEN25_3B.full, n_layers=LM_TRAIN_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    params = T.init_params(model, torch.Generator(device).manual_seed(4))
+    n = count_params(params)
+    opt = AdamWConfig(lr=1e-3)
+    state = adamw_init(params, opt)
+    step = make_train_step(lambda p, b: T.loss_fn(p, b, model), opt)
+    times, losses = [], []
+    for s in range(LM_TRAIN_STEPS):
+        batch = lm_batch(s, *LM_TRAIN_BATCH, model.vocab, seed=0, device=device)
+        sync()
+        t0 = time.perf_counter()
+        params, state, metrics = step(params, state, batch)
+        losses.append(float(metrics["loss"]))  # waits for the device
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"path q3: the loss did not fall: {losses}")
+    tokens = LM_TRAIN_BATCH[0] * LM_TRAIN_BATCH[1]
+    rec = {"params": n, "layers": model.n_layers, "losses": losses,
+           "step_ms": statistics.median(times[1:]) * 1e3, "step_ms_first": times[0] * 1e3,
+           "bound_ms": 6 * n * tokens / BF16_FLOP_PER_S * 1e3, "peak_allocated_bytes": peak}
+    rec["tokens_per_s"] = tokens / (rec["step_ms"] / 1e3)
+    log(f"  [{card}] q3 Qwen2.5-3B full width cut to {model.n_layers} layers ({n} params),"
+        f" {LM_TRAIN_BATCH} tokens a step, AdamW lr 1e-3: loss {losses[0]:.4f} →"
+        f" {losses[-1]:.4f} in {LM_TRAIN_STEPS} steps; step {rec['step_ms']:.2f} ms median"
+        f" (first {rec['step_ms_first']:.1f}), {rec['tokens_per_s']:.0f} tokens/s, against a"
+        f" bound of {rec['bound_ms']:.3f} ms (6·N·tokens at 989 TFLOP/s bf16); peak allocated"
+        f" {peak} B ({gib(peak)})")
+    return rec
+
+
+class LMBackground:
+    """Path q's work that needs no quiet card, started before phase 3 and run
+    beside its checks (which time nothing): q3's gates in a child process
+    whose CUDA starts under deterministic algorithms (:func:`lm_train_child`)
+    and q4's entry points as subprocesses on the card, three chains at once.
+    :meth:`finish` waits for them and holds them to their gates; :meth:`stop`
+    ends whatever still runs and removes the checkpoints (registered with
+    atexit, so a failed run leaves no process behind)."""
+
+    def __init__(self, device):
+        import atexit
+        from concurrent.futures import ThreadPoolExecutor
+
+        self.tmp = tempfile.mkdtemp(prefix="lm_path_q_")
+        self.procs, self.stopped = [], False
+        self.q3_out = os.path.join(self.tmp, "q3.json")
+        self.q3_log = open(os.path.join(self.tmp, "q3.log"), "w")
+        atexit.register(self.stop)
+        self.q3 = self._popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--path-q3-child",
+             json.dumps({"tmp": self.tmp, "out": self.q3_out, "device": device.type})],
+            env={**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"},
+            stdout=self.q3_log, stderr=subprocess.STDOUT)
+        on = [] if device.type == "cuda" else ["--device", device.type]  # the default: cuda
+        chains = [(["repro_torch.launch.serve", "--workload", "lm", "--requests", "20", *on],)]
+        for aid in ("llama3-8b", "olmoe-1b-7b"):
+            base = ["repro_torch.launch.train", "--arch", aid, "--ckpt-dir",
+                    f"{self.tmp}/q4", *on]
+            chains.append((base + ["--steps", "12"], base + ["--steps", "16", "--resume"]))
+        self.pool = ThreadPoolExecutor(len(chains))
+        self.chains = [self.pool.submit(self._chain, c) for c in chains]
+
+    def _popen(self, argv, **kw):
+        p = subprocess.Popen(argv, cwd=ROOT, **kw)
+        self.procs.append(p)
+        return p
+
+    def _chain(self, argvs) -> list:
+        env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+        outs = []
+        for argv in argvs:
+            if self.stopped:
+                break
+            t0 = time.perf_counter()
+            p = self._popen([sys.executable, "-m", *argv], env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+            out, err = p.communicate(timeout=Q4_TIMEOUT_S)
+            outs.append((" ".join(argv), p.returncode, out, err, time.perf_counter() - t0))
+        return outs
+
+    def stop(self) -> None:
+        self.stopped = True
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        self.pool.shutdown(wait=True)
+        self.q3_log.close()
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+    def finish(self, card: str) -> tuple[dict, dict]:
+        """(q3's record, q4's record), each held to its gates."""
+        self.q3.wait(timeout=Q3_TIMEOUT_S)
+        if self.q3.returncode != 0:
+            self.q3_log.flush()
+            for line in Path(self.q3_log.name).read_text().splitlines()[-60:]:
+                log(f"    [q3] {line}")
+            raise AssertionError(f"path q3: the child exited with {self.q3.returncode}")
+        q3 = json.loads(Path(self.q3_out).read_text())
+        q4 = {"runs": []}
+        for what, rc, out, err, secs in (r for c in self.chains for r in c.result()):
+            q4["runs"].append({"argv": what, "rc": rc, "stdout": out, "seconds": secs})
+            if rc != 0:
+                raise AssertionError(f"path q4: {what} exited with {rc}: {err[-2000:]}")
+            log(f"  q4 {what} ({secs:.1f} s): " + " | ".join(out.strip().splitlines()))
+        q4["chains_s"] = [sum(r[4] for r in c.result()) for c in self.chains]
+        self.stop()
+        check_lm_train(card, q3)
+        lines = [r["stdout"] for r in q4["runs"]]
+        if not lines[0].startswith("[serve/lm] 20 decode steps × batch 4: "):
+            raise AssertionError(f"path q4: serve printed {lines[0]!r}")
+        for first, again in ((lines[1], lines[2]), (lines[3], lines[4])):
+            if ": 12 steps, loss" not in first or "4 steps" not in again \
+                    or "(resumed from 12)" not in again:
+                raise AssertionError(f"path q4: train printed {first!r}, then {again!r}")
+        return q3, q4
+
+
+def check_lm_train(card: str, rec: dict) -> None:
+    """q3's gates on the child's record: the loss falls; the run preempted at
+    LM_PREEMPT_AT and resumed equals the uninterrupted one bit for bit; int8
+    moments end within LM_INT8_REL of float32."""
+    A, B, P, C = (rec[k] for k in ("uninterrupted", "resumed", "preempted", "int8"))
+    if not A["losses"][-1] < A["losses"][0]:
+        raise AssertionError(f"path q3: the loss did not fall: {A['losses']}")
+    if P["step"] != LM_PREEMPT_AT or B["resumed_from"] != LM_PREEMPT_AT:
+        raise AssertionError(f"path q3: preempted at {P['step']}, resumed from"
+                             f" {B['resumed_from']}")
+    if not rec["resume_equal"] or P["losses"] + B["losses"] != A["losses"]:
+        raise AssertionError(f"path q3: the resumed run differs from the uninterrupted one"
+                             f" (max |Δ| {rec['resume_max_abs_diff']}; losses {A['losses']}"
+                             f" against {P['losses'] + B['losses']})")
+    rec["int8_rel"] = abs(C["losses"][-1] - A["losses"][-1]) / A["losses"][-1]
+    if rec["int8_rel"] >= LM_INT8_REL:
+        raise AssertionError(f"path q3: int8 moments end at {C['losses'][-1]} against"
+                             f" {A['losses'][-1]} ({rec['int8_rel']:.4f})")
+    log(f"  [{card}] q3 train() with checkpoints (the child, deterministic CUDA): loss"
+        f" {A['losses'][0]:.4f} → {A['losses'][-1]:.4f}; preempted at step {P['step']} and"
+        f" resumed: equal to the uninterrupted run bit for bit (params and losses); int8"
+        f" moments end at {C['losses'][-1]:.4f} ({rec['int8_rel']:.4f} from float32); walls"
+        f" (s, steps / whole run with its checkpoints, beside phase 3): uninterrupted"
+        f" {A['steps_s']:.2f} / {A['wall_s']:.2f}, preempted {P['steps_s']:.2f} /"
+        f" {P['wall_s']:.2f}, resumed {B['steps_s']:.2f} / {B['wall_s']:.2f}, int8"
+        f" {C['steps_s']:.2f} / {C['wall_s']:.2f}")
+
+
+def drive_lm(card: str, device, background: LMBackground | None = None) -> tuple[dict, dict]:
+    """Path q: the transformer family. q1, q2 and q3's times here, on the
+    quiet card; q3's gates and q4's entry points from ``background`` (started
+    before phase 3; started here, after the rest, when None); every LM arch's
+    ``smoke``. Returns (the record, the launch counts of KERNELS over the
+    in-process part)."""
+    import torch
+
+    from repro_torch.configs.registry import ARCHS
+
+    t_path = time.perf_counter()
+    reset_counts()
+    rec = {"q1_serve": drive_lm_serve(card, device)}
+    torch.cuda.empty_cache()
+    rec["q2_card_vs_cpu"] = drive_lm_card_vs_cpu(card, device)
+    torch.cuda.empty_cache()
+    rec["q3_train_times"] = time_lm_train(card, device)
+    torch.cuda.empty_cache()
+    smoke = {}
+    for aid, arch in ARCHS.items():
+        if arch.kind != "lm":
+            continue
+        smoke[aid] = arch.smoke(device=device.type)
+        if not smoke[aid]["finite"] or smoke[aid]["logits_shape"] != (2, arch.smoke_cfg.vocab):
+            raise AssertionError(f"path q4: {aid} smoke {smoke[aid]}")
+    log(f"  q4: every LM arch's smoke(device={device.type!r}) finite with (2, vocab) logits: "
+        + ", ".join(f"{a} loss {o['loss']:.3f}" for a, o in smoke.items()))
+    counts = read_counts()
+    rec["q3_train"], rec["q4_entry_points"] = (background or LMBackground(device)).finish(card)
+    rec["q4_entry_points"]["smoke"] = smoke
+    rec["seconds"] = time.perf_counter() - t_path
+    log(f"  [{card}] path q: {rec['seconds']:.1f} s here; beside phase 3 q3's child"
+        f" {rec['q3_train']['child_s']:.1f} s and q4's chains"
+        f" {', '.join(f'{t:.1f}' for t in rec['q4_entry_points']['chains_s'])} s; launches of"
+        f" the GQ-Fast kernels {({k: v for k, v in counts.items() if v}) or 'none'} (the"
+        " transformer family reaches none)")
+    return rec, counts
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -4789,6 +5275,16 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     if sys.argv[1:2] == ["--path-p-child"]:
         return distributed_child(json.loads(sys.argv[2]))
+    if sys.argv[1:2] == ["--path-q3-child"]:
+        return lm_train_child(json.loads(sys.argv[2]))
+    if sys.argv[1:2] == ["--path-q"]:  # path q alone, no kernel built
+        card = card_line()
+        rec, _ = drive_lm(card, torch.device("cuda"))  # q3's gates and q4 after the rest
+        out_dir = ROOT / "chiprun_out"
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "chip_smoke_path_q.json").write_text(json.dumps(rec, indent=2))
+        print(card, flush=True)
+        return 0
     warnings.filterwarnings("ignore", message="Sparse CSR tensor support is in beta")
     run(torch.device("cuda"))
     return 0
@@ -4898,6 +5394,9 @@ def run(device) -> None:
         f" {sizes['author'][loop_a0]:.0f} (fragment_loop's AS seed)")
     space["fragment_loop_walk"] = walk_bytes(db, GQFastEngine(db, strategy="fragment_loop"),
                                              SG, loop_a0)
+
+    # path q's gates that need no quiet card run beside phase 3's checks
+    lm_background = LMBackground(device)
 
     # phase 3: kernels against their plain versions
     phase("[3] kernels against their plain versions on the card", t_start)
@@ -5061,10 +5560,9 @@ def run(device) -> None:
         compare(res["SD"], want.astype(np.float32), True, f"{lbl} SD vs run_sql (full scale)")
     log(f"  SD matches run_sql at full scale on both storages and fused"
         f" ({time.perf_counter() - t0:.1f} s oracle)")
-    # the defaults and fusion on (dense/off too before path p came: the dense
-    # path equals the defaults at full scale, exactly for the counts)
-    for enc, fusion in (("auto", "auto"), ("auto", "on")):
-        check_quickstart(SG, run_sql, GQFastDatabase, GQFastEngine, device, enc, fusion)
+    # the defaults (fusion on too before path q came, dense/off before path p
+    # came: both equal the defaults at full scale, exactly for the counts)
+    check_quickstart(SG, run_sql, GQFastDatabase, GQFastEngine, device, "auto", "auto")
     mark("the quickstart scale against run_sql", t_start)
 
     # phase 4h/4i: batched serving through execute_batch / query_topk_batch
@@ -5255,6 +5753,12 @@ def run(device) -> None:
     log(f"  FRAGMENT_LOOP_CROSSOVER in use: {FRAGMENT_LOOP_CROSSOVER}; measured here:"
         f" {crossover:.6g}")
 
+    # path q: the transformer family (after the times: its 12 GB come and go)
+    phase("[4q] the transformer family: Qwen2.5-3B served and trained at full width, the"
+          " card against the CPU, the entry points", t_start)
+    lm, counts = drive_lm(card, device, lm_background)
+    paths["q_lm"] = {"counts": counts}
+
     launches = {k: sum(p["counts"][k] for p in paths.values()) for k in KERNELS}
     table_launches = {k: sum(t[k] for t in TABLE_BY_PATH.values())
                       for k in next(iter(TABLE_BY_PATH.values()))}
@@ -5325,7 +5829,7 @@ def run(device) -> None:
                     "launch_records": brecords, "times": btimes},
         "robust": {"crc_checks": crc_checks, "ladder": ladder, "durability": durability,
                    "manifest_walls": manifest_walls},
-        "serving": serving, "distributed": distributed,
+        "serving": serving, "distributed": distributed, "lm": lm,
         "kernels": entries,
         "total_seconds": time.perf_counter() - t_start,
     }

@@ -1,4 +1,5 @@
-"""Carry a database's device state across from the JAX package.
+"""Carry a database's device state, or a model's weights, across from the
+JAX package.
 
 The counterpart of loading weights: :func:`device_db_from_numpy` takes the
 arrays of a reference ``DeviceDB``, as numpy, and builds the port's
@@ -24,17 +25,22 @@ where a column is a decoded array (dense) or a dict naming its kind:
 ``{"kind": "packed", "words": uint32[n], "width": w, "count": E}`` or
 ``{"kind": "dict", "words": uint32[n], "width": w, "count": E,
 "dictionary": float[u]}``.
+
+:func:`params_from_numpy` does the same for a parameter or optimizer tree
+(the reference's pytree with its leaves as numpy arrays).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from .ckpt.manager import from_numpy
 from .core.executor import DeviceDB, make_device_index, to_device
 from .core.schema import Schema
 from .robust.errors import ValidationError
 from .storage import DenseColumn, DeviceColumn, DictPackedColumn, PackedColumn
 from .storage.policy import words_tensor
+from .tree import tree_map
 
 
 def column_from_numpy(spec, dtype: torch.dtype, device, where: str) -> DeviceColumn:
@@ -93,3 +99,13 @@ def device_db_from_numpy(schema: Schema, arrays: dict, device="cuda",
         for k, v in arrays["entity_attrs"].items()
     }
     return DeviceDB(schema, indexes, attrs, host_indexes or {})
+
+
+def params_from_numpy(tree, device="cuda"):
+    """The reference's parameter or optimizer tree (dicts, tuples and lists
+    of numpy arrays: ``jax.tree.map(np.asarray, params)``) as the port's
+    tensors on ``device``, each in its array's dtype; bfloat16 leaves (numpy
+    has no bfloat16: ml_dtypes' arrays, or ``|V2`` as a checkpoint loads
+    them) become ``torch.bfloat16``."""
+
+    return tree_map(lambda a: from_numpy(a, None, device), tree)

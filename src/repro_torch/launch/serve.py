@@ -1,8 +1,14 @@
 """Serving launcher of the PyTorch port: the GQ-Fast analytics micro-batching
-server.
+server, and the LM decode loop.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --workload analytics
   PYTHONPATH=src python -m repro_torch.launch.serve --workload analytics --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --workload lm --requests 60
+
+The lm workload (:func:`run_lm`) is the reference's: Qwen2.5-3B's smoke
+config, a prompt of 4×32 tokens prefilled into a 128-slot KV cache, then
+``--requests`` greedy decode steps (default 60), with the reference's
+printed lines.
 
 The analytics workload is the paper's target deployment as a serving loop:
 many concurrent dashboard queries that differ only in parameter bindings. The
@@ -67,7 +73,6 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from ..core import executor as X
 from ..core.engine import GQFastDatabase, GQFastEngine, batch_bucket, resolve_device
 from ..core.reference import run_sql
 from ..data import synth_graph as SG
@@ -649,6 +654,46 @@ def run_analytics(args) -> ServeRun:
     return ServeRun(reg, stream, results, bucket, batches, gate)
 
 
+@dataclass
+class LMServeRun:
+    """What :func:`run_lm` served: the greedy tokens ([steps + 1, 4], the
+    prefill's pick first) and the decode loop's wall."""
+    tokens: np.ndarray
+    ms_per_step: float
+    tokens_per_s: float
+
+
+def run_lm(args) -> LMServeRun:
+    """The reference's LM decode loop on ``args.device``: Qwen2.5-3B's smoke
+    config, weights from seed 0, a 4×32 prompt from seed 1, a 128-slot
+    cache, ``args.requests`` greedy decode steps."""
+    import torch
+
+    from ..configs.registry import get_arch
+    from ..models.transformer import decode_step, init_params, prefill
+
+    device = resolve_device(args.device)
+    cfg = get_arch("qwen2.5-3b").smoke_cfg
+    params = init_params(cfg, torch.Generator(device).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab, (4, 32), device=device,
+                         generator=torch.Generator(device).manual_seed(1))
+    logits, cache, pos = prefill(params, toks, cfg, 128)
+    cur = torch.argmax(logits, -1)
+    t0 = time.perf_counter()
+    out = [cur]
+    for i in range(args.requests):
+        logits, cache = decode_step(params, cache, cur, pos + i, cfg)
+        cur = torch.argmax(logits, -1)
+        out.append(cur)
+    tokens = torch.stack(out).cpu().numpy()  # waits for the device
+    dt = time.perf_counter() - t0
+    run = LMServeRun(tokens, dt / max(args.requests, 1) * 1e3, 4 * args.requests / dt)
+    print(f"[serve/lm] {args.requests} decode steps × batch 4: "
+          f"{run.ms_per_step:.1f} ms/step, {run.tokens_per_s:.1f} tok/s")
+    print("sample tokens:", tokens[:10, 0].tolist())
+    return run
+
+
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.serve")
     ap.add_argument("--workload", choices=["analytics", "lm"], default="analytics")
@@ -657,7 +702,8 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                          "(default cuda; without a card the server refuses "
                          "to start unless --device cpu is given)")
     ap.add_argument("--requests", type=int, default=None,
-                    help="request count (default: 256 analytics)")
+                    help="request count (default: 256 analytics; lm: 60 "
+                         "decode steps)")
     ap.add_argument("--batch", type=int, default=32,
                     help="analytics: max requests per micro-batch "
                          "(padded to the engine's bucket size)")
@@ -705,23 +751,21 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                     help="analytics: replay every answered request on the "
                          "numpy oracle; count serve.responses_corrupt")
     args = ap.parse_args(argv)
-    if args.workload == "analytics" and args.requests is None:
-        args.requests = 256
+    if args.requests is None:
+        args.requests = 256 if args.workload == "analytics" else 60
     return args
 
 
-def main(argv: list[str] | None = None) -> ServeRun:
-    """The command line: parse ``argv`` and serve. A workload the port does
-    not run yet (``lm``: the model zoo) or a device that is not there ends
-    the program with the typed error's message and a nonzero status."""
+def main(argv: list[str] | None = None) -> ServeRun | LMServeRun:
+    """The command line: parse ``argv`` and serve. A device that is not
+    there ends the program with the typed error's message and a nonzero
+    status."""
     args = parse_args(argv)
     try:
-        if args.workload == "lm":
-            raise X.not_ported("serve --workload lm", "15 (the off-paper model zoo)")
         resolve_device(args.device)
     except ValidationError as e:
         raise SystemExit(f"serve: {e}") from e
-    return run_analytics(args)
+    return run_lm(args) if args.workload == "lm" else run_analytics(args)
 
 
 if __name__ == "__main__":

@@ -1,0 +1,435 @@
+"""Decoder-only LM family: dense (CodeQwen/Qwen2.5/Llama-3) and MoE
+(Arctic-style dense+MoE parallel residual, OLMoE top-k) in one config space,
+on PyTorch.
+
+The JAX package's model (``repro.models.transformer``), function for
+function, over the same parameter tree:
+
+  * stacked ``[L, ...]`` layer weights, so weights and checkpoints carry
+    across key for key; the layers run in a Python loop (the reference's
+    ``lax.scan``), each under ``torch.utils.checkpoint`` where ``cfg.remat``
+    is set;
+  * chunked online-softmax attention (float32 running max, sum and
+    accumulator) over KV chunks, GQA without repeating the KV heads;
+  * scatter-based MoE dispatch: slot positions from a cumsum over the
+    token→expert one-hot, dropped tokens written to an overflow slot that is
+    cut off;
+  * parameters in ``cfg.param_dtype`` (float32), cast to
+    ``cfg.compute_dtype`` (bfloat16) at every use, as the reference does.
+
+The backward pass is autograd's. The einsums are plain products: this path
+reaches no hand-written kernel (the reference's reaches no Pallas kernel).
+Serving updates the KV cache in place: ``prefill`` and ``decode_step`` return
+the cache they wrote.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from dataclasses import dataclass
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from .common import apply_rope, cross_entropy_loss, dense_init, rms_norm
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    dense_residual: bool = False  # Arctic: dense FFN in parallel with MoE
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+
+
+@dataclass(frozen=True)
+class TransformerConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    d_head: int = 128
+    qkv_bias: bool = False
+    moe: MoEConfig | None = None
+    rope_theta: float = 500000.0
+    norm_eps: float = 1e-5
+    param_dtype: torch.dtype = torch.float32
+    compute_dtype: torch.dtype = torch.bfloat16
+    remat: bool = True
+    attn_q_chunk: int = 2048
+    attn_kv_chunk: int = 2048
+    tie_embeddings: bool = False
+    seq_shard: bool = False  # the reference's sequence-parallel hint; no effect on one device
+
+    def pad_heads(self, tp: int) -> "TransformerConfig":
+        """Pad q-head count up to a multiple of tp (padded heads have
+        zero-init output rows in the reference's production layout)."""
+        h = -(-self.n_heads // tp) * tp
+        return dataclasses.replace(self, n_heads=h) if h != self.n_heads else self
+
+    @property
+    def n_rep(self) -> int:
+        return self.n_heads // self.n_kv_heads if self.n_heads % self.n_kv_heads == 0 else 0
+
+    def _count(self, experts: int) -> int:
+        d, f, L, V = self.d_model, self.d_ff, self.n_layers, self.vocab
+        attn = d * self.d_head * (self.n_heads * 2 + self.n_kv_heads * 2)
+        ffn = 3 * d * f if self.moe is None or self.moe.dense_residual else 0
+        if self.moe is not None:
+            ffn += experts * 3 * d * self.moe.d_ff_expert + d * self.moe.n_experts
+        emb = V * d * (1 if self.tie_embeddings else 2)
+        return L * (attn + ffn + 2 * d) + emb + d
+
+    def param_count(self) -> int:
+        return self._count(self.moe.n_experts if self.moe else 0)
+
+    def active_param_count(self) -> int:
+        """Per-token active params (MoE: top_k experts only)."""
+        return self._count(self.moe.top_k if self.moe else 0)
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+
+
+def init_params(cfg: TransformerConfig, gen: torch.Generator) -> dict:
+    """The reference's tree, drawn from ``gen`` on ``gen``'s device (each
+    weight from the generator in turn, not from the reference's key split:
+    the values differ, the shapes, dtypes and scales do not)."""
+    L, d, hd = cfg.n_layers, cfg.d_model, cfg.d_head
+    H, Hkv, f = cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
+    pt, dev = cfg.param_dtype, gen.device
+
+    def di(shape, in_axis=-2):
+        return dense_init(gen, shape, in_axis, pt)
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=pt, device=dev)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=pt, device=dev)
+
+    layer = {
+        "ln1": ones(L, d),
+        "ln2": ones(L, d),
+        "wq": di((L, d, H, hd), -3),
+        "wk": di((L, d, Hkv, hd), -3),
+        "wv": di((L, d, Hkv, hd), -3),
+        "wo": di((L, H, hd, d), -2),
+    }
+    if cfg.qkv_bias:
+        layer["bq"] = zeros(L, H, hd)
+        layer["bk"] = zeros(L, Hkv, hd)
+        layer["bv"] = zeros(L, Hkv, hd)
+    if cfg.moe is None or cfg.moe.dense_residual:
+        layer["w_gate"] = di((L, d, f))
+        layer["w_up"] = di((L, d, f))
+        layer["w_down"] = di((L, f, d))
+    if cfg.moe is not None:
+        m = cfg.moe
+        layer["router"] = di((L, d, m.n_experts))
+        layer["e_gate"] = di((L, m.n_experts, d, m.d_ff_expert))
+        layer["e_up"] = di((L, m.n_experts, d, m.d_ff_expert))
+        layer["e_down"] = di((L, m.n_experts, m.d_ff_expert, d))
+    params = {
+        "embed": di((cfg.vocab, d), -1),
+        "layers": layer,
+        "ln_f": ones(d),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = di((d, cfg.vocab))
+    return params
+
+
+def _layer_params(params: dict, i: int) -> dict:
+    return {k: v[i] for k, v in params["layers"].items()}
+
+
+def _head(params: dict, cfg: TransformerConfig) -> torch.Tensor:
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+# ---------------------------------------------------------------------------
+# Attention
+# ---------------------------------------------------------------------------
+
+
+def _gqa_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """q [B,Sq,H,hd] × k [B,Sk,Hkv,hd] → [B,Hkv,G,Sq,Sk] without repeating K."""
+    B, Sq, H, hd = q.shape
+    Hkv = k.shape[2]
+    qg = q.reshape(B, Sq, Hkv, H // Hkv, hd)
+    # the reference divides by sqrt(hd) rounded to q's dtype
+    scale = float(torch.tensor(math.sqrt(hd), dtype=torch.float32).to(q.dtype))
+    return torch.einsum("bsKgh,btKh->bKgst", qg, k) / scale
+
+
+def chunked_attention(
+    q: torch.Tensor,  # [B,Sq,H,hd]
+    k: torch.Tensor,  # [B,Sk,Hkv,hd]
+    v: torch.Tensor,
+    causal: bool,
+    q_offset: int = 0,  # absolute position of q[0] (decode/prefill)
+    kv_valid: int | None = None,  # number of valid kv positions
+    kv_chunk: int = 2048,
+) -> torch.Tensor:
+    """Online-softmax attention over KV chunks: memory O(Sq · kv_chunk)
+    instead of O(Sq · Sk)."""
+    B, Sq, H, hd = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    kv_chunk = min(kv_chunk, Sk)
+    n_chunks = -(-Sk // kv_chunk)
+    pad = n_chunks * kv_chunk - Sk
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    dev = q.device
+    q_pos = q_offset + torch.arange(Sq, device=dev)
+
+    m = torch.full((B, Hkv, G, Sq), -math.inf, dtype=torch.float32, device=dev)
+    l_ = torch.zeros((B, Hkv, G, Sq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, Hkv, G, Sq, hd), dtype=torch.float32, device=dev)
+    for ci in range(n_chunks):
+        kch = k[:, ci * kv_chunk:(ci + 1) * kv_chunk]
+        vch = v[:, ci * kv_chunk:(ci + 1) * kv_chunk]
+        s = _gqa_scores(q, kch).float()  # [B,Hkv,G,Sq,C]
+        kv_pos = ci * kv_chunk + torch.arange(kv_chunk, device=dev)
+        mask = (kv_pos < Sk)[None, :]  # chunk padding
+        if causal:
+            mask = mask & (q_pos[:, None] >= kv_pos[None, :])
+        if kv_valid is not None:
+            mask = mask & (kv_pos < kv_valid)[None, :]
+        s = s.masked_fill(~mask, -1e30)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l_ = l_ * alpha + p.sum(-1)
+        pv = torch.einsum("bKgsc,bcKh->bKgsh", p.to(q.dtype), vch).float()
+        acc = acc * alpha[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp_min(l_, 1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MoE
+# ---------------------------------------------------------------------------
+
+
+def moe_route(lp: dict, x: torch.Tensor, cfg: TransformerConfig) -> dict:
+    """The router's choices for x [T, d]: float32 softmax, top-k
+    renormalised, the Switch auxiliary loss, and each (token, k) entry's
+    capacity slot (``C`` for a dropped entry)."""
+    m = cfg.moe
+    T, _ = x.shape
+    E, K = m.n_experts, m.top_k
+    logits = x.float() @ lp["router"].float()  # [T,E]
+    probs = torch.softmax(logits, dim=-1)
+    topw, topi = torch.topk(probs, K, dim=-1)  # [T,K]
+    topw = topw / torch.clamp_min(topw.sum(-1, keepdim=True), 1e-9)
+
+    flat_e = topi.reshape(-1)  # [T*K]
+    onehot = F.one_hot(flat_e, E).to(torch.int32)  # [T*K,E]
+    # Switch-style load-balance auxiliary loss
+    ce = onehot.sum(0).float() / (T * K)
+    aux = m.router_aux_weight * E * torch.sum(probs.mean(0) * ce)
+
+    C = max(8, int(-(-T * K * m.capacity_factor // E)))  # capacity per expert
+    pos = torch.cumsum(onehot, dim=0) - onehot  # positions before this entry
+    pos_flat = torch.gather(pos, 1, flat_e[:, None])[:, 0]  # [T*K]
+    keep = pos_flat < C
+    slot = torch.where(keep, pos_flat, C)  # dropped entries → overflow slot C
+    return {"topw": topw, "topi": topi, "keep": keep, "slot": slot, "C": C, "aux": aux}
+
+
+def moe_ffn(lp: dict, x: torch.Tensor, cfg: TransformerConfig,
+            routing: list | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: [T, d] flattened tokens → (y [T, d], aux_loss scalar). A
+    ``routing`` list gets ``{"x", "topi", "keep"}`` of this call appended."""
+    m = cfg.moe
+    T, d = x.shape
+    E, K = m.n_experts, m.top_k
+    r = moe_route(lp, x, cfg)
+    if routing is not None:
+        routing.append({"x": x.detach(), "topi": r["topi"], "keep": r["keep"]})
+    C, flat_e, slot = r["C"], r["topi"].reshape(-1), r["slot"]
+
+    xk = torch.repeat_interleave(x, K, dim=0)  # per-(t,k) tokens
+    # many dropped entries land on slot C: which one wins does not matter,
+    # the slot is cut off below
+    buf = torch.zeros((E, C + 1, d), dtype=x.dtype, device=x.device)
+    buf = buf.index_put((flat_e, slot), xk)[:, :C]  # [E,C,d]
+
+    g = torch.einsum("ecd,edf->ecf", buf, lp["e_gate"].to(x.dtype))
+    u = torch.einsum("ecd,edf->ecf", buf, lp["e_up"].to(x.dtype))
+    h = F.silu(g) * u
+    y_e = torch.einsum("ecf,efd->ecd", h, lp["e_down"].to(x.dtype))
+    y_e = torch.cat([y_e, torch.zeros((E, 1, d), dtype=x.dtype, device=x.device)], 1)
+
+    gathered = y_e[flat_e, slot]  # [T*K, d]; the overflow slot reads 0
+    wts = (r["topw"].reshape(-1) * r["keep"]).to(x.dtype)
+    y = (gathered * wts[:, None]).reshape(T, K, d).sum(1)
+    return y, r["aux"]
+
+
+# ---------------------------------------------------------------------------
+# Blocks / forward
+# ---------------------------------------------------------------------------
+
+
+def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [B,S,d] · w [d, ...] → [B,S, ...] (the reference's bsd,dhk->bshk)."""
+    return (x @ w.reshape(w.shape[0], -1)).reshape(*x.shape[:-1], *w.shape[1:])
+
+
+def _attn(lp, x, cfg: TransformerConfig, positions, kv_cache=None, kv_valid=None):
+    """Attention block. ``kv_cache`` = (ck, cv, pos0): this layer's cache
+    [B,Smax,Hkv,hd] ×2, written in place at pos0."""
+    B, S, d = x.shape
+    cd = cfg.compute_dtype
+    xn = rms_norm(x, lp["ln1"], cfg.norm_eps).to(cd)
+    q = _proj(xn, lp["wq"].to(cd))
+    k = _proj(xn, lp["wk"].to(cd))
+    v = _proj(xn, lp["wv"].to(cd))
+    if cfg.qkv_bias:
+        q = q + lp["bq"].to(cd)
+        k = k + lp["bk"].to(cd)
+        v = v + lp["bv"].to(cd)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+
+    if kv_cache is not None:
+        ck, cv, pos0 = kv_cache
+        ck[:, pos0:pos0 + S] = k
+        cv[:, pos0:pos0 + S] = v
+        attn_out = chunked_attention(
+            q, ck, cv, causal=True, q_offset=pos0,
+            kv_valid=kv_valid, kv_chunk=cfg.attn_kv_chunk,
+        )
+        new_cache = (ck, cv)
+    else:
+        attn_out = chunked_attention(q, k, v, causal=True, kv_chunk=cfg.attn_kv_chunk)
+        new_cache = (k, v)
+    wo = lp["wo"].to(cd)
+    out = attn_out.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
+    return out, new_cache
+
+
+def _ffn(lp, x, cfg: TransformerConfig, routing: list | None = None):
+    cd = cfg.compute_dtype
+    xn = rms_norm(x, lp["ln2"], cfg.norm_eps).to(cd)
+    B, S, d = xn.shape
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    y = torch.zeros_like(xn)
+    if cfg.moe is None or cfg.moe.dense_residual:
+        g = xn @ lp["w_gate"].to(cd)
+        u = xn @ lp["w_up"].to(cd)
+        y = y + (F.silu(g) * u) @ lp["w_down"].to(cd)
+    if cfg.moe is not None:
+        ym, aux = moe_ffn(lp, xn.reshape(B * S, d), cfg, routing)
+        y = y + ym.reshape(B, S, d)
+    return y, aux
+
+
+def _layer(cfg: TransformerConfig, x, lp, positions, kv_cache=None, kv_valid=None,
+           routing: list | None = None):
+    a, cache = _attn(lp, x, cfg, positions, kv_cache, kv_valid)
+    x = x + a.to(x.dtype)
+    f, aux = _ffn(lp, x, cfg, routing)
+    x = x + f.to(x.dtype)
+    return x, cache, aux
+
+
+def _embed(params: dict, tokens: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
+    return params["embed"][tokens.long()].to(cfg.compute_dtype)
+
+
+def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
+            routing: list | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Training/prefill forward (no cache); returns (logits, moe_aux). A
+    ``routing`` list gets each MoE layer's router choices (``moe_ffn``; with
+    remat the backward's recomputation appends them again)."""
+    B, S = tokens.shape
+    cd = cfg.compute_dtype
+    x = _embed(params, tokens, cfg)
+    positions = torch.arange(S, device=x.device)[None, :]
+
+    def body(x, lp):
+        out, _, aux = _layer(cfg, x, lp, positions, routing=routing)
+        return out, aux
+
+    auxs = []
+    for i in range(cfg.n_layers):
+        lp = _layer_params(params, i)
+        if cfg.remat and torch.is_grad_enabled():
+            x, aux = checkpoint(body, x, lp, use_reentrant=False)
+        else:
+            x, aux = body(x, lp)
+        auxs.append(aux)
+    x = rms_norm(x, params["ln_f"], cfg.norm_eps).to(cd)
+    logits = x @ _head(params, cfg).to(cd)
+    return logits, torch.stack(auxs).sum()
+
+
+def loss_fn(params, batch, cfg: TransformerConfig):
+    logits, aux = forward(params, batch["tokens"], cfg)
+    loss = cross_entropy_loss(logits[:, :-1], batch["labels"][:, 1:])
+    return loss + aux, {"loss": loss, "moe_aux": aux}
+
+
+# ---------------------------------------------------------------------------
+# Serving
+# ---------------------------------------------------------------------------
+
+
+def init_kv_cache(cfg: TransformerConfig, batch: int, max_seq: int, device="cuda") -> dict:
+    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.d_head)
+    return {
+        "k": torch.zeros(shape, dtype=cfg.compute_dtype, device=device),
+        "v": torch.zeros(shape, dtype=cfg.compute_dtype, device=device),
+    }
+
+
+@torch.no_grad()
+def prefill(params, tokens, cfg: TransformerConfig, max_seq: int):
+    """Run the prompt; returns (last-position logits, filled cache, length)."""
+    B, S = tokens.shape
+    cd = cfg.compute_dtype
+    x = _embed(params, tokens, cfg)
+    positions = torch.arange(S, device=x.device)[None, :]
+    cache = init_kv_cache(cfg, B, max_seq, x.device)
+    for i in range(cfg.n_layers):
+        x, (k, v), _ = _layer(cfg, x, _layer_params(params, i), positions)
+        cache["k"][i, :, :S] = k
+        cache["v"][i, :, :S] = v
+    x = rms_norm(x, params["ln_f"], cfg.norm_eps).to(cd)
+    logits = x[:, -1] @ _head(params, cfg).to(cd)
+    return logits, cache, S
+
+
+@torch.no_grad()
+def decode_step(params, cache: dict, tokens: torch.Tensor, pos, cfg: TransformerConfig):
+    """One decode step: tokens [B] at absolute position ``pos`` (an int);
+    attends over cache[:pos+1]. Returns (logits [B,V], the cache, written in
+    place at ``pos``)."""
+    pos = int(pos)
+    B = tokens.shape[0]
+    cd = cfg.compute_dtype
+    x = _embed(params, tokens, cfg)[:, None, :]
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    for i in range(cfg.n_layers):
+        kv = (cache["k"][i], cache["v"][i], pos)
+        x, _, _ = _layer(cfg, x, _layer_params(params, i), positions,
+                         kv_cache=kv, kv_valid=pos + 1)
+    x = rms_norm(x, params["ln_f"], cfg.norm_eps).to(cd)
+    logits = x[:, 0] @ _head(params, cfg).to(cd)
+    return logits, cache
+

@@ -1,0 +1,135 @@
+"""The architecture configs and the training launcher of the PyTorch port,
+on the CPU, against the JAX package's: the registry's ids, every LM arch's
+full and smoke ``TransformerConfig`` field for field (dtypes mapped by
+name), shapes and skip reasons, ``gqfast-pubmed``'s smoke, the errors that
+name ROADMAP items 15b and 15c, and ``python -m repro_torch.launch.train``
+run and resumed as a subprocess.
+"""
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.configs import registry as jregistry  # noqa: E402
+from repro.configs.lm_family import LM_SHAPES as J_LM_SHAPES  # noqa: E402
+from repro_torch.configs import registry  # noqa: E402
+from repro_torch.configs.gqfast_arch import FULL, GQFAST  # noqa: E402
+from repro_torch.configs.lm_family import LM_SHAPES  # noqa: E402
+from repro_torch.robust.errors import ValidationError  # noqa: E402
+
+from torch_fixtures import port_config, two_threads  # noqa: E402,F401 (autouse)
+
+ROOT = Path(__file__).resolve().parents[1]
+LM_IDS = [a for a, arch in jregistry.ARCHS.items() if arch.kind == "lm"]
+
+
+def test_registry_ids_equal_the_reference():
+    assert set(registry.ARCHS) | set(registry.NOT_PORTED) == set(jregistry.ARCHS)
+    assert not set(registry.ARCHS) & set(registry.NOT_PORTED)
+    assert sorted(LM_IDS) == sorted(a for a, x in registry.ARCHS.items() if x.kind == "lm")
+    for aid, arch in registry.ARCHS.items():
+        ref = jregistry.get_arch(aid)
+        assert (arch.arch_id, arch.kind, arch.shape_ids) == (ref.arch_id, ref.kind, ref.shape_ids)
+    with pytest.raises(KeyError):
+        registry.get_arch("no-such-arch")
+
+
+@pytest.mark.parametrize("aid", LM_IDS)
+def test_lm_configs_equal_the_reference(aid):
+    arch, ref = registry.get_arch(aid), jregistry.get_arch(aid)
+    assert arch.full == port_config(ref.full)
+    assert arch.smoke_cfg == port_config(ref.smoke_cfg)
+    assert arch.full.param_count() == ref.full.param_count()
+    ro = ref.opt
+    assert (arch.opt.lr, arch.opt.b1, arch.opt.b2, arch.opt.weight_decay) == \
+        (ro.lr, ro.b1, ro.b2, ro.weight_decay)
+    assert arch.opt.moment_dtype == getattr(torch, np.dtype(ro.moment_dtype).name)
+    for sid in arch.shape_ids:
+        assert arch.skip_reason(sid) == ref.skip_reason(sid)
+    assert arch.skip_reason("long_500k") and arch.skip_reason("train_4k") is None
+    assert LM_SHAPES == J_LM_SHAPES
+
+
+@pytest.mark.parametrize("aid", LM_IDS)
+def test_lm_smoke_on_the_cpu(aid):
+    out = registry.get_arch(aid).smoke(device="cpu")
+    vocab = registry.get_arch(aid).smoke_cfg.vocab
+    assert out["finite"] and out["logits_shape"] == (2, vocab)
+    assert out["loss"] > 0 and out["grad_norm"] > 0
+
+
+def test_gqfast_smoke_matches_the_oracle():
+    from repro.configs.gqfast_arch import FULL as J_FULL
+    from repro.configs.gqfast_arch import GQFAST_SHAPES as J_SHAPES
+    from repro_torch.configs.gqfast_arch import GQFAST_SHAPES
+
+    out = GQFAST.smoke(device="cpu")
+    assert out["match"] and out["finite"] and out["nnz"] > 0
+    assert FULL == J_FULL and GQFAST_SHAPES == J_SHAPES
+
+
+@pytest.mark.parametrize("aid", ["mace", "egnn", "equiformer-v2", "schnet", "din"])
+def test_gnn_and_recsys_archs_name_item_15b(aid):
+    with pytest.raises(ValidationError, match="item 15b"):
+        registry.get_arch(aid)
+
+
+def test_make_cell_names_item_15c():
+    for aid in ("qwen2.5-3b", "gqfast-pubmed"):
+        with pytest.raises(ValidationError, match="item 15c"):
+            registry.get_arch(aid).make_cell("train_4k", mesh=None)
+
+
+def _port_train(*args, check=True):
+    return subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", *args], cwd=ROOT,
+        capture_output=True, text=True, check=check, timeout=300,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src"), "OMP_NUM_THREADS": "2"},
+    )
+
+
+def test_launch_train_runs_and_resumes(tmp_path):
+    first = _port_train("--arch", "llama3-8b", "--steps", "6", "--device", "cpu",
+                        "--ckpt-dir", str(tmp_path))
+    assert "[train] llama3-8b: 6 steps, loss" in first.stdout, first.stdout + first.stderr
+    assert sorted(os.listdir(tmp_path / "llama3-8b")) == ["step_0000000006"]
+    again = _port_train("--arch", "llama3-8b", "--steps", "12", "--device", "cpu",
+                        "--ckpt-dir", str(tmp_path), "--resume")
+    assert "6 steps" in again.stdout and "(resumed from 6)" in again.stdout, again.stdout
+    assert "step_0000000012" in os.listdir(tmp_path / "llama3-8b")
+
+
+def test_launch_train_refusals(tmp_path):
+    from repro_torch.launch import train as launch_train
+
+    assert launch_train.parse_args(["--arch", "llama3-8b"]).device == "cuda"
+    for argv, want in ((["--arch", "schnet", "--device", "cpu"], "item 15b"),
+                       (["--arch", "gqfast-pubmed", "--device", "cpu"], "serving workload")):
+        with pytest.raises(SystemExit) as e:
+            launch_train.main(argv + ["--ckpt-dir", str(tmp_path)])
+        assert want in str(e.value.code)
+    if torch.cuda.is_available():
+        return
+    proc = _port_train("--arch", "llama3-8b", "--steps", "1", "--ckpt-dir", str(tmp_path),
+                       check=False)
+    assert proc.returncode != 0 and "device='cpu'" in proc.stderr
+
+
+def test_smoke_configs_cut_only_what_the_reference_cuts():
+    """The smoke config keeps the full config's kind of model (bias, tying,
+    MoE with a dense residual or not, param dtype) at the reference's cut."""
+    for aid in LM_IDS:
+        arch = registry.get_arch(aid)
+        full, smoke = arch.full, arch.smoke_cfg
+        kept = ("qkv_bias", "tie_embeddings", "param_dtype", "compute_dtype", "rope_theta")
+        assert all(getattr(full, f) == getattr(smoke, f) for f in kept)
+        assert (full.moe is None) == (smoke.moe is None)
+        if full.moe is not None:
+            assert smoke.moe == dataclasses.replace(
+                full.moe, n_experts=8, top_k=min(full.moe.top_k, 2), d_ff_expert=64)

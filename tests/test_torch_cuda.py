@@ -2190,3 +2190,84 @@ def test_distributed_profile_and_ladder_on_the_card(cuda, nccl_mesh):
         kernel.fragment_spmv = real
     assert oc.status == "error" and oc.error.code == "KERNEL" and oc.rung == "active"
     assert [k for k in pq.__dict__.get("_rung_fns", {}) if k[0] != "active"] == []
+
+
+# ---------------------------------------------------------------------------
+# The transformer family on the card against the same model on the CPU
+# ---------------------------------------------------------------------------
+
+LM_F32_TOL = 1e-4  # max|card − CPU| / max|CPU|, float32 compute
+
+
+def _lm_cfg(moe: bool):
+    import dataclasses
+
+    from repro_torch.configs.registry import get_arch
+
+    cfg = get_arch("olmoe-1b-7b" if moe else "qwen2.5-3b").smoke_cfg
+    return dataclasses.replace(cfg, compute_dtype=torch.float32, remat=True)
+
+
+def _rel_err(got, want) -> float:
+    got, want = got.detach().cpu().float(), want.detach().float()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("moe", [False, True], ids=["qwen2.5-3b", "olmoe-1b-7b"])
+def test_lm_on_the_card_matches_cpu(cuda, moe):
+    """Smoke-width Qwen2.5-3B and OLMoE under float32 compute: logits, loss
+    and the gradient of every leaf on the card within LM_F32_TOL of the CPU's
+    on the same weights; the MoE routing (topi, keep) equal, integer for
+    integer, each layer's router fed the same input on both."""
+    from repro_torch.data.lm_data import lm_batch
+    from repro_torch.models import transformer as T
+    from repro_torch.train.loop import value_and_grad
+    from repro_torch.tree import tree_leaves_with_path, tree_map
+
+    cfg = _lm_cfg(moe)
+    cpu = T.init_params(cfg, torch.Generator().manual_seed(0))
+    card = tree_map(lambda t: t.to(cuda), cpu)
+    batch = lm_batch(0, 2, 64, cfg.vocab, seed=3, device="cpu")
+    cbatch = {k: v.to(cuda) for k, v in batch.items()}
+    routing = []
+    (lc, _), gc = value_and_grad(lambda p, b: T.loss_fn(p, b, cfg), cpu, batch)
+    (lg, _), gg = value_and_grad(lambda p, b: T.loss_fn(p, b, cfg), card, cbatch)
+    assert _rel_err(lg, lc) <= LM_F32_TOL
+    for (k, a), (_, b) in zip(tree_leaves_with_path(gc), tree_leaves_with_path(gg)):
+        assert b.device.type == "cuda" and _rel_err(b, a) <= LM_F32_TOL, k
+    with torch.no_grad():
+        logits_c, _ = T.forward(cpu, batch["tokens"], cfg)
+        logits_g, _ = T.forward(card, cbatch["tokens"], cfg, routing=routing)
+    assert _rel_err(logits_g, logits_c) <= LM_F32_TOL
+    if not moe:
+        return
+    assert len(routing) == cfg.n_layers
+    for i, r in enumerate(routing):
+        lp = {k: v[i] for k, v in cpu["layers"].items()}
+        want = T.moe_route(lp, r["x"].cpu(), cfg)
+        assert torch.equal(r["topi"].cpu(), want["topi"]), i
+        assert torch.equal(r["keep"].cpu(), want["keep"]), i
+
+
+def test_lm_decode_matches_forward_on_the_card(cuda):
+    """Smoke-width Qwen2.5-3B at its bf16 compute: prefill and three decode
+    steps on the card equal the card's forward over the same tokens within
+    bf16's tolerance (3e-2 of the largest logit)."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import transformer as T
+
+    cfg = get_arch("qwen2.5-3b").smoke_cfg
+    params = T.init_params(cfg, torch.Generator(cuda).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab, (4, 32), device=cuda,
+                         generator=torch.Generator(cuda).manual_seed(1))
+    logits, cache, pos = T.prefill(params, toks, cfg, 128)
+    seq, steps = [torch.argmax(logits, -1)], []
+    for i in range(3):
+        logits, cache = T.decode_step(params, cache, seq[-1], pos + i, cfg)
+        steps.append(logits)
+        seq.append(torch.argmax(logits, -1))
+    full = torch.cat([toks, torch.stack(seq[:3], 1).int()], 1)
+    with torch.no_grad():
+        fl, _ = T.forward(params, full, cfg)
+    for i, got in enumerate(steps):
+        assert torch.isfinite(got).all() and _rel_err(got, fl[:, 32 + i].cpu()) <= 3e-2, i

@@ -40,7 +40,7 @@ def test_port_query_loads_neither_jax_nor_repro():
 
 def test_port_sources_import_neither_jax_nor_repro():
     examples = sorted((ROOT / "examples").glob("torch_*.py"))
-    assert len(examples) == 2, examples
+    assert len(examples) == 3, examples
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"] \
         + examples
     assert len(files) > 10
@@ -207,6 +207,43 @@ def test_port_serve_loop_loads_neither_jax_nor_repro(tmp_path):
                           "--reload-at", "1", "--scrub", "--verify-responses"])
         c = run.registry.snapshot()["counters"]
         assert c["serve.requests_ok"] == 12 and c["serve.generation_reloads"] >= 1, c
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+        print("LOADED", bad)
+        assert not bad, bad
+    """)
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")}, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LOADED []" in proc.stdout
+
+
+def test_port_lm_family_loads_neither_jax_nor_repro(tmp_path):
+    """The transformer family (models, optim, train, ckpt.manager, configs
+    and the launchers' lm paths) runs without JAX or the JAX package."""
+    code = textwrap.dedent(f"""
+        import sys
+        import torch
+        from repro_torch.ckpt.manager import CheckpointManager
+        from repro_torch.configs.registry import get_arch
+        from repro_torch.launch import serve, train as launch_train
+        from repro_torch.models import transformer as T
+        from repro_torch.optim.adamw import AdamWConfig
+        from repro_torch.train.loop import TrainLoopConfig, train
+        from repro_torch.data.lm_data import lm_batch
+        assert get_arch("olmoe-1b-7b").smoke(device="cpu")["finite"]
+        cfg = get_arch("qwen2.5-3b").smoke_cfg
+        p = T.init_params(cfg, torch.Generator().manual_seed(0))
+        _, res = train(p, lambda q, b: T.loss_fn(q, b, cfg),
+                       lambda s: lm_batch(s, 2, 16, cfg.vocab, device="cpu"),
+                       TrainLoopConfig(total_steps=2, ckpt_dir={str(tmp_path / "a")!r}),
+                       AdamWConfig(quantize_moments=True))
+        assert CheckpointManager({str(tmp_path / "a")!r}).latest_step() == 2
+        launch_train.main(["--arch", "arctic-480b", "--steps", "2", "--device", "cpu",
+                           "--ckpt-dir", {str(tmp_path / "b")!r}])
+        serve.main(["--workload", "lm", "--device", "cpu", "--requests", "2"])
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "repro"))
         print("LOADED", bad)

@@ -379,12 +379,42 @@ def test_batches_cover_the_stream_once():
     assert all(r.status == "ok" and r.value is not None for r in run.results)
 
 
-def test_workload_lm_is_not_ported():
+def test_workload_lm_serves(capsys, monkeypatch):
+    """--workload lm is the reference's decode loop: the same two lines (the
+    reference's run beside it), the greedy tokens of the port's own
+    prefill and decode steps; on the card unless --device cpu is given."""
+    import re
+
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models.transformer import decode_step, init_params, prefill
+
+    run = serve.main(["--workload", "lm", "--device", "cpu", "--requests", "4"])
+    got = capsys.readouterr().out.splitlines()
+    monkeypatch.setattr(sys, "argv", ["serve", "--workload", "lm", "--requests", "4"])
+    jserve.main()
+    want = capsys.readouterr().out.splitlines()
+    line = r"\[serve/lm\] 4 decode steps × batch 4: \d+\.\d ms/step, \d+\.\d tok/s"
+    for out in (got, want):
+        assert len(out) == 2 and re.fullmatch(line, out[0]), out
+        assert re.fullmatch(r"sample tokens: \[\d+(, \d+){4}\]", out[1]), out
+    assert got[1] == f"sample tokens: {run.tokens[:10, 0].tolist()}"
+    cfg = get_arch("qwen2.5-3b").smoke_cfg
+    params = init_params(cfg, torch.Generator("cpu").manual_seed(0))
+    toks = torch.randint(0, cfg.vocab, (4, 32), generator=torch.Generator("cpu").manual_seed(1))
+    logits, cache, _ = prefill(params, toks, cfg, 128)
+    cur = torch.argmax(logits, -1)
+    for i in range(5):
+        assert np.array_equal(run.tokens[i], cur.numpy()), i
+        logits, cache = decode_step(params, cache, cur, 32 + i, cfg)
+        cur = torch.argmax(logits, -1)
+    assert serve.parse_args(["--workload", "lm"]).requests == 60
+    if torch.cuda.is_available():
+        return
     with pytest.raises(SystemExit) as e:
-        serve.main(["--workload", "lm"])
-    assert "serve --workload lm" in str(e.value.code) and "item 15" in str(e.value.code)
-    proc = _port_serve("--workload", "lm", check=False)
-    assert proc.returncode != 0 and "item 15" in proc.stderr
+        serve.main(["--workload", "lm", "--requests", "4"])
+    assert "torch.cuda.is_available() is False" in str(e.value.code)
+    proc = _port_serve("--workload", "lm", "--requests", "4", check=False)
+    assert proc.returncode != 0 and "device='cpu'" in proc.stderr
 
 
 def test_device_defaults_to_cuda():

@@ -55,3 +55,34 @@ class LiveBytes(torch.utils._python_dispatch.TorchDispatchMode):
                 self.peak = max(self.peak, self.now)
             weakref.finalize(t, self._drop, key)
         return out
+
+
+def port_config(jcfg):
+    """The port's TransformerConfig for the JAX package's ``jcfg``, field for
+    field (dtypes mapped by name; the MoE config likewise)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.models import transformer as PT
+
+    kw = {}
+    for f in dataclasses.fields(jcfg):
+        v = getattr(jcfg, f.name)
+        if f.name in ("param_dtype", "compute_dtype"):
+            v = getattr(torch, np.dtype(v).name)
+        elif f.name == "moe" and v is not None:
+            v = PT.MoEConfig(**dataclasses.asdict(v))
+        kw[f.name] = v
+    return PT.TransformerConfig(**kw)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def two_threads():
+    """Two intra-op threads for the module (the transformer family's tests):
+    their small ops run faster on two than on every core, and the suite's
+    workers share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
