@@ -137,8 +137,10 @@ Phases (any failure exits non-zero; nothing is caught while the run goes on):
          fused site poisoned lands AS under fusion on on unfused; with
          every kernel's build failing SD and AD end with a KERNEL error on
          active, not on a plain rung; AS from a0 = 7 (1.3e12 paths) on the fragment_loop rung under
-         LADDER_DEADLINE_MS returns DEADLINE within it plus one chunk's
-         time (a walk of ~2^24 paths); an AdmissionController budget
+         LADDER_DEADLINE_MS returns DEADLINE within it plus the longest
+         stretch between two of the walk's deadline reads and the tail from
+         the raise to the return, both read in the same run (one chunk's
+         walk of ~2^24 paths timed alone beside them); an AdmissionController budget
          between SD's B = 1 and B = 64 estimates demotes B = 64 to serial
          calls equal to ``execute_batch``'s rows; each query's estimated
          working bytes at B = 1 and 8 at least the allocator's measured
@@ -223,6 +225,34 @@ Phases (any failure exits non-zero; nothing is caught while the run goes on):
          ``smoke(device="cuda")`` finite with (2, vocab) logits.
          ``chip_smoke.py --path-q`` runs path q alone (no kernel built; the
          background part after the rest).
+      r. the GNN family and DIN (``repro_torch.models.gnn``, ``models.din``,
+         ``models.embedding``, ``data.graphs``, ``data.recsys``; no GQ-Fast
+         kernel runs on it, every count of KERNELS read 0 after it), after q
+         on the quiet card: (r1) DIN at the reference's full config (embed
+         18, seq 100, attention 80-40, MLP 200-80; 10M / 1M / 100k table rows
+         from a seeded generator on the card) under DIN_SHAPES' traffic:
+         serve_p99 (B = 512) and serve_bulk (B = 262,144) ms a batch,
+         examples/s and peak bytes, retrieval_cand (1,000,448 candidates in
+         chunks of ``din.RETRIEVAL_CHUNK``) ms and candidates/s with 4,096
+         scores against ``din_forward``, train_batch (B = 65,536) 8 AdamW
+         steps over 3 batches, each beside max(bytes / 3.35 TB/s, 2 or 6 ·
+         active params · B / 67 TFLOP/s); masked history moves no logit; the
+         card against the CPU at B = 512 (logits and loss DIN_OUT_TOL, every
+         gradient leaf DIN_GRAD_TOL). (r2) MACE, EGNN, EquiformerV2 and SchNet
+         at their full configs on ``make_molecule_batch(128, 30, 64)``:
+         energies finite, rotation and translation invariance, the card
+         against the CPU (EquiformerV2 at EQV2_CPU_LAYERS layers there), 3
+         train steps with ms and peak bytes beside a bound from the step's
+         GEMM operations. (r3) MACE at full width on minibatch_lg:
+         ``NeighborSampler`` (fanouts 15-10, 1,024 seeds) over a random CSR
+         graph of Reddit's nodes and features (edges cut 10×), 4 train steps.
+         (r4) beside phase 3 (``RBackground``): ``launch.train --arch A
+         --steps 12`` then ``--steps 16 --resume`` for the five archs, both
+         examples at their default scale, and a child under deterministic
+         CUDA (``chip_smoke.py --path-r4-child``): DIN and MACE (smoke
+         configs) preempted at step 4 and resumed equal to the uninterrupted
+         run bit for bit, every new arch's ``smoke(device="cuda")`` finite.
+         ``chip_smoke.py --path-r`` runs path r alone (no kernel built).
     Each result is compared with the same lowered plan run through the plain
     versions on the card with float64 sums (each comparison's gate ratio
     logged and kept), the defaults with skipping off and with the dense
@@ -3698,8 +3728,8 @@ def time_crossover(eng_f, eng_l, SG, sizes) -> tuple[list[dict], float]:
 #: each at these byte offsets off a 16-byte boundary
 CRC_SIZES = (0, 1, 3, 4, 7, 8, 9, 4095, 4096, 4097, 2**20 + 3)
 CRC_OFFSETS = (0, 1, 2, 3, 5, 15)
-#: 4m: the AS deadline on the fragment_loop rung, and the paths of the walk
-#: whose time stands for one chunk's (params.FRAGMENT_LOOP_MAX_PATHS)
+#: 4m: the AS deadline on the fragment_loop rung, and the walks (of
+#: params.FRAGMENT_LOOP_MAX_PATHS paths) timed alone beside its gate
 LADDER_DEADLINE_MS = 2000.0
 CHUNK_WALKS = 3
 #: 5: walls with a manifest attached against without, in turns
@@ -3816,6 +3846,60 @@ def chunk_ms(pq, sizes) -> float:
     return max(ts)
 
 
+def deadline_reads(call) -> tuple:
+    """``call()``'s outcome with every deadline read the executor made inside
+    it (``executor.check_deadline``, the walk's reads at each op and before
+    each ``fragment_loop`` chunk): ``(host clock, where, raised)`` a read,
+    and the host clock when ``call`` returned."""
+    from repro_torch.core import executor as EX
+    from repro_torch.robust.errors import DeadlineExceeded
+
+    reads, real = [], EX.check_deadline
+
+    def recording(where: str = "op") -> None:
+        try:
+            real(where)
+        except DeadlineExceeded:
+            reads.append((time.perf_counter(), where, True))
+            raise
+        reads.append((time.perf_counter(), where, False))
+
+    EX.check_deadline = recording
+    try:
+        oc = call()
+        return oc, reads, time.perf_counter()
+    finally:
+        EX.check_deadline = real
+
+
+def deadline_overshoot(oc, reads: list, t_return: float, deadline_ms: float) -> dict:
+    """Path m's deadline gate. The code guarantees that a walk past its
+    deadline stops at its next deadline read: the overshoot is at most the
+    longest stretch between two reads (one chunk, with the hops' work the
+    reads bracket) plus the tail from the raising read to
+    ``run_with_policy``'s return (the raise unwinding the walk and the
+    ladder's bookkeeping: the error skips the fence). Both are read in this
+    run, on the host's clock, around the same call."""
+    if not reads or not reads[-1][2] or any(r[2] for r in reads[:-1]):
+        raise AssertionError(f"path m: the walk's deadline reads {[r[1:] for r in reads[-3:]]}:"
+                             " expected the last, and only it, to raise")
+    gaps = np.diff([r[0] for r in reads]) * 1e3
+    chunk = float(gaps.max()) if gaps.size else 0.0
+    last = float(gaps[-1]) if gaps.size else 0.0
+    tail = (t_return - reads[-1][0]) * 1e3
+    over = oc.elapsed_ms - deadline_ms
+    if gaps.size == 0 or over > chunk + tail:
+        raise AssertionError(f"path m: DEADLINE after {oc.elapsed_ms:.1f} ms: {over:.2f} ms past"
+                             f" {deadline_ms}, beyond the longest stretch between two reads"
+                             f" ({chunk:.2f} ms over {len(reads)} reads) + the tail {tail:.3f} ms")
+    log(f"  path m: AS a0=7 on the fragment_loop rung under {deadline_ms:.0f} ms: DEADLINE at"
+        f" {oc.error.context.get('where')} after {oc.elapsed_ms:.1f} ms, {over:.2f} ms past it:"
+        f" the last stretch between reads {last:.2f} ms (the longest of {len(reads)} reads"
+        f" {chunk:.2f}), the raise to the return {tail:.3f} ms; bound {chunk + tail:.2f} ms")
+    return {"reads": len(reads), "overshoot_ms": over, "longest_stretch_ms": chunk,
+            "last_stretch_ms": last, "tail_ms": tail}
+
+
 def drive_ladder(engines, SG, qs, defaults, rows8, draws, sizes, gates) -> tuple[dict, dict]:
     """Path m: the degradation ladder on the card. With no fault plan every
     one of ``qs`` comes back ``ok`` on ``active`` through
@@ -3825,7 +3909,9 @@ def drive_ladder(engines, SG, qs, defaults, rows8, draws, sizes, gates) -> tuple
     fused site poisoned lands AS under fusion on on ``unfused``; with every
     kernel's ``build`` failing, SD and AD end with a KERNEL error on
     ``active``; AS from a0 = 7 (1.3e12 paths) on the ``fragment_loop`` rung under
-    LADDER_DEADLINE_MS returns DEADLINE within it plus one chunk's time; an
+    LADDER_DEADLINE_MS returns DEADLINE within it plus the longest stretch
+    between two of the walk's deadline reads and the tail from the raise to
+    the return, both read in the same run (``deadline_overshoot``); an
     AdmissionController budget between SD's B = 1 and B = 64 estimates
     demotes B = 64 to serial calls equal to ``execute_batch``'s rows; each
     query's estimate at B = 1 and 8 at least the allocator's measured peak.
@@ -3945,17 +4031,13 @@ def drive_ladder(engines, SG, qs, defaults, rows8, draws, sizes, gates) -> tuple
     one_chunk = chunk_ms(pq_as, sizes)
     term = RobustPolicy(ladder=("fragment_loop",), retry=RetryPolicy(max_attempts=1),
                         registry=MetricsRegistry())
-    oc = run_with_policy(pq_as, as_p, deadline_ms=LADDER_DEADLINE_MS, policy=term)
+    oc, reads, t_return = deadline_reads(
+        lambda: run_with_policy(pq_as, as_p, deadline_ms=LADDER_DEADLINE_MS, policy=term))
     if oc.status != "error" or oc.error.code != "DEADLINE":
         raise AssertionError(f"path m: AS a0=7 on fragment_loop: {oc.to_dict()}")
-    if oc.elapsed_ms > LADDER_DEADLINE_MS + one_chunk:
-        raise AssertionError(f"path m: DEADLINE after {oc.elapsed_ms:.1f} ms, past"
-                             f" {LADDER_DEADLINE_MS} + one chunk {one_chunk:.1f} ms")
     rec["deadline"] = {**oc.to_dict(), "deadline_ms": LADDER_DEADLINE_MS,
-                       "chunk_ms": one_chunk}
-    log(f"  path m: AS a0=7 on the fragment_loop rung under {LADDER_DEADLINE_MS:.0f} ms:"
-        f" DEADLINE at {oc.error.context.get('where')} after {oc.elapsed_ms:.1f} ms (one"
-        f" chunk {one_chunk:.1f} ms)")
+                       "chunk_ms_alone": one_chunk,
+                       **deadline_overshoot(oc, reads, t_return, LADDER_DEADLINE_MS)}
     # admission: B = 64 over budget, B = 1 within it
     sd = prepared["SD"]
     est1 = estimate_query_bytes(sd, 1)["total_bytes"]
@@ -5103,37 +5185,31 @@ def time_lm_train(card: str, device) -> dict:
     return rec
 
 
-class LMBackground:
-    """Path q's work that needs no quiet card, started before phase 3 and run
-    beside its checks (which time nothing): q3's gates in a child process
-    whose CUDA starts under deterministic algorithms (:func:`lm_train_child`)
-    and q4's entry points as subprocesses on the card, three chains at once.
-    :meth:`finish` waits for them and holds them to their gates; :meth:`stop`
-    ends whatever still runs and removes the checkpoints (registered with
-    atexit, so a failed run leaves no process behind)."""
+class Background:
+    """Work started before phase 3 and run beside its checks (which time
+    nothing): one child of this script and chains of entry points, each a
+    ``python`` subprocess on the card, the chains in a thread pool.
+    :meth:`stop` ends whatever still runs and removes the temporary
+    directory (registered with atexit, so a failed run leaves no process
+    behind)."""
 
-    def __init__(self, device):
+    def __init__(self, prefix: str, flag: str, cfg: dict, chains: list, workers: int,
+                 env: dict | None = None):
         import atexit
         from concurrent.futures import ThreadPoolExecutor
 
-        self.tmp = tempfile.mkdtemp(prefix="lm_path_q_")
+        self.tmp = tempfile.mkdtemp(prefix=prefix)
         self.procs, self.stopped = [], False
-        self.q3_out = os.path.join(self.tmp, "q3.json")
-        self.q3_log = open(os.path.join(self.tmp, "q3.log"), "w")
+        self.child_out = os.path.join(self.tmp, "child.json")
+        self.child_log = open(os.path.join(self.tmp, "child.log"), "w")
         atexit.register(self.stop)
-        self.q3 = self._popen(
-            [sys.executable, str(ROOT / "chip_smoke.py"), "--path-q3-child",
-             json.dumps({"tmp": self.tmp, "out": self.q3_out, "device": device.type})],
-            env={**os.environ, "CUBLAS_WORKSPACE_CONFIG": ":4096:8"},
-            stdout=self.q3_log, stderr=subprocess.STDOUT)
-        on = [] if device.type == "cuda" else ["--device", device.type]  # the default: cuda
-        chains = [(["repro_torch.launch.serve", "--workload", "lm", "--requests", "20", *on],)]
-        for aid in ("llama3-8b", "olmoe-1b-7b"):
-            base = ["repro_torch.launch.train", "--arch", aid, "--ckpt-dir",
-                    f"{self.tmp}/q4", *on]
-            chains.append((base + ["--steps", "12"], base + ["--steps", "16", "--resume"]))
-        self.pool = ThreadPoolExecutor(len(chains))
-        self.chains = [self.pool.submit(self._chain, c) for c in chains]
+        self.child = self._popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), flag,
+             json.dumps({**cfg, "tmp": self.tmp, "out": self.child_out})],
+            env={**os.environ, **(env or {})}, stdout=self.child_log, stderr=subprocess.STDOUT)
+        self.pool = ThreadPoolExecutor(workers)
+        self.chains = [self.pool.submit(self._chain, [[a.format(tmp=self.tmp) for a in argv]
+                                                      for argv in c]) for c in chains]
 
     def _popen(self, argv, **kw):
         p = subprocess.Popen(argv, cwd=ROOT, **kw)
@@ -5147,7 +5223,7 @@ class LMBackground:
             if self.stopped:
                 break
             t0 = time.perf_counter()
-            p = self._popen([sys.executable, "-m", *argv], env=env, stdout=subprocess.PIPE,
+            p = self._popen([sys.executable, *argv], env=env, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True)
             out, err = p.communicate(timeout=Q4_TIMEOUT_S)
             outs.append((" ".join(argv), p.returncode, out, err, time.perf_counter() - t0))
@@ -5160,34 +5236,78 @@ class LMBackground:
                 p.kill()
                 p.wait()
         self.pool.shutdown(wait=True)
-        self.q3_log.close()
+        self.child_log.close()
         shutil.rmtree(self.tmp, ignore_errors=True)
+
+    def finish(self, label: str, timeout: float) -> tuple[dict, dict]:
+        """(the child's record, the chains' record); raises, naming
+        ``label``, when the child or an entry point exits with an error."""
+        self.child.wait(timeout=timeout)
+        if self.child.returncode != 0:
+            self.child_log.flush()
+            for line in Path(self.child_log.name).read_text().splitlines()[-60:]:
+                log(f"    [{label} child] {line}")
+            raise AssertionError(f"path {label}: the child exited with {self.child.returncode}")
+        child = json.loads(Path(self.child_out).read_text())
+        runs = {"runs": []}
+        for what, rc, out, err, secs in (r for c in self.chains for r in c.result()):
+            runs["runs"].append({"argv": what, "rc": rc, "stdout": out, "seconds": secs})
+            if rc != 0:
+                raise AssertionError(f"path {label}: {what} exited with {rc}: {err[-2000:]}")
+            log(f"  {label} {what} ({secs:.1f} s): " + " | ".join(out.strip().splitlines()[-3:]))
+        runs["chains_s"] = [sum(r[4] for r in c.result()) for c in self.chains]
+        self.stop()
+        return child, runs
+
+
+def device_flag(device) -> list[str]:
+    """The entry points' ``--device`` argument for ``device`` (none for the
+    default, cuda)."""
+    return [] if device.type == "cuda" else ["--device", device.type]
+
+
+def train_chains(archs, ckpt: str, device, first: int, then: int) -> list:
+    """A chain an arch: ``launch.train --steps first``, then ``--steps then
+    --resume`` from its checkpoint."""
+    chains = []
+    for aid in archs:
+        base = ["-m", "repro_torch.launch.train", "--arch", aid, "--ckpt-dir", ckpt,
+                *device_flag(device)]
+        chains.append([base + ["--steps", str(first)],
+                       base + ["--steps", str(then), "--resume"]])
+    return chains
+
+
+def check_train_lines(label: str, lines: list[str], first: int, then: int) -> None:
+    """Each chain's two lines: ``first`` steps, then ``then - first`` steps
+    resumed from ``first``."""
+    for a, b in zip(lines[::2], lines[1::2]):
+        if f": {first} steps, loss" not in a or f"{then - first} steps" not in b \
+                or f"(resumed from {first})" not in b:
+            raise AssertionError(f"path {label}: train printed {a!r}, then {b!r}")
+
+
+class LMBackground(Background):
+    """Path q's work that needs no quiet card: q3's gates in a child process
+    whose CUDA starts under deterministic algorithms (:func:`lm_train_child`)
+    and q4's entry points as subprocesses on the card, three chains at once.
+    :meth:`finish` waits for them and holds them to their gates."""
+
+    def __init__(self, device):
+        chains = [[["-m", "repro_torch.launch.serve", "--workload", "lm", "--requests", "20",
+                    *device_flag(device)]]]
+        chains += train_chains(("llama3-8b", "olmoe-1b-7b"), "{tmp}/q4", device, 12, 16)
+        super().__init__("lm_path_q_", "--path-q3-child", {"device": device.type}, chains,
+                         len(chains), env={"CUBLAS_WORKSPACE_CONFIG": ":4096:8"})
 
     def finish(self, card: str) -> tuple[dict, dict]:
         """(q3's record, q4's record), each held to its gates."""
-        self.q3.wait(timeout=Q3_TIMEOUT_S)
-        if self.q3.returncode != 0:
-            self.q3_log.flush()
-            for line in Path(self.q3_log.name).read_text().splitlines()[-60:]:
-                log(f"    [q3] {line}")
-            raise AssertionError(f"path q3: the child exited with {self.q3.returncode}")
-        q3 = json.loads(Path(self.q3_out).read_text())
-        q4 = {"runs": []}
-        for what, rc, out, err, secs in (r for c in self.chains for r in c.result()):
-            q4["runs"].append({"argv": what, "rc": rc, "stdout": out, "seconds": secs})
-            if rc != 0:
-                raise AssertionError(f"path q4: {what} exited with {rc}: {err[-2000:]}")
-            log(f"  q4 {what} ({secs:.1f} s): " + " | ".join(out.strip().splitlines()))
-        q4["chains_s"] = [sum(r[4] for r in c.result()) for c in self.chains]
-        self.stop()
+        q3, q4 = super().finish("q", Q3_TIMEOUT_S)
         check_lm_train(card, q3)
         lines = [r["stdout"] for r in q4["runs"]]
         if not lines[0].startswith("[serve/lm] 20 decode steps × batch 4: "):
             raise AssertionError(f"path q4: serve printed {lines[0]!r}")
-        for first, again in ((lines[1], lines[2]), (lines[3], lines[4])):
-            if ": 12 steps, loss" not in first or "4 steps" not in again \
-                    or "(resumed from 12)" not in again:
-                raise AssertionError(f"path q4: train printed {first!r}, then {again!r}")
+        check_train_lines("q4", lines[1:], 12, 16)
         return q3, q4
 
 
@@ -5259,6 +5379,541 @@ def drive_lm(card: str, device, background: LMBackground | None = None) -> tuple
 
 
 # ---------------------------------------------------------------------------
+# Path r: the GNN family and DIN (no kernel of KERNELS runs on it)
+# ---------------------------------------------------------------------------
+
+#: r1: DIN at the reference's full config, the traffic of DIN_SHAPES
+DIN_SERVE_REPS = 20
+DIN_BULK_REPS = 3
+DIN_RETRIEVAL_REPS = 2
+DIN_RETRIEVAL_CHECKED = 4096
+DIN_TRAIN_STEPS = 8
+DIN_TRAIN_BATCHES = 3
+#: tests/test_recsys.py:32's property: a retrieval score equals din_forward's
+#: on that candidate, relative to the largest score
+DIN_RETRIEVAL_TOL = 1e-4
+#: r1's card against the CPU on the same weights: logits and loss within
+#: DIN_OUT_TOL of the largest value, every gradient leaf within DIN_GRAD_TOL
+DIN_CPU_BATCH = 512
+DIN_OUT_TOL = 1e-5
+DIN_GRAD_TOL = 1e-4
+#: r2: the molecule shape (GNN_SHAPES["molecule"]: 3,840 nodes, 8,192 edges)
+GNN_MOLECULE = (128, 30, 64)
+#: tests/test_models_gnn.py:100 (rotation, relative to the largest energy) and
+#: :111 (translation, numpy's allclose)
+GNN_ROT_TOL = 2e-2
+GNN_TRANS_RTOL, GNN_TRANS_ATOL = 1e-3, 1e-4
+#: r2's card against the CPU: energies within GNN_OUT_TOL of the largest,
+#: each gradient leaf within GNN_GRAD_TOL of its largest value
+GNN_OUT_TOL = 1e-4
+GNN_GRAD_TOL = 1e-3
+GNN_STEPS = 3
+#: EquiformerV2's depth on the CPU side of r2's comparison (the card runs
+#: the same 2 layers for it; its other checks run all 12)
+EQV2_CPU_LAYERS = 2
+#: r3: Reddit's nodes, feature width and classes (minibatch_lg); its
+#: 114,615,892 edges cut 10× for the host build in the smoke's limit (the
+#: sampled batch's shape does not depend on the cut)
+REDDIT = dict(n_nodes=232_965, n_edges=11_461_589, d_feat=602, n_classes=41)
+MINIBATCH_FANOUTS = [15, 10]
+MINIBATCH_NODES = 1024
+MACE_LG_STEPS = 4
+#: r4: the entry points beside phase 3, and the child's preempted runs
+R_ARCHS = ("mace", "egnn", "equiformer-v2", "schnet", "din")
+R_WORKERS = 3
+R_CHILD_STEPS = 8
+R_PREEMPT_AT = 4
+R_CHILD_TIMEOUT_S = 600
+
+
+def din_row_bytes(cfg) -> int:
+    """The bytes one example reads: T + 2 embedding rows (history, candidate,
+    user), their int32 ids and the float32 history mask."""
+    return (cfg.seq_len + 2) * (cfg.embed_dim * 4 + 4) + cfg.seq_len * 4
+
+
+def leaf_errors(got: dict, want: dict) -> dict:
+    """Each leaf's max|got − want| over its largest |want|; a leaf that is 0
+    in ``want`` (a table no id of the batch reads) must be 0 in ``got``."""
+    out = {}
+    for k, w in want.items():
+        scale = float(w.abs().max())
+        g = got[k].detach().float().cpu()
+        out[k] = rel_err(g, w) if scale else float(g.abs().max())
+    return out
+
+
+def drive_din(card: str, device) -> dict:
+    """r1: DIN at the reference's full config (embed 18, seq 100, attention
+    80-40, MLP 200-80; 11.1M table rows from a seeded generator on the card)
+    under DIN_SHAPES' traffic: serve_p99 and serve_bulk (ms a batch,
+    examples/s, peak bytes beside the bound), retrieval_cand (ms,
+    candidates/s; DIN_RETRIEVAL_CHECKED scores against ``din_forward``),
+    train_batch (DIN_TRAIN_STEPS AdamW steps over DIN_TRAIN_BATCHES batches;
+    the loss on the first batch falls); masked history invariance; the card
+    against the CPU on the same weights."""
+    import torch
+
+    from repro_torch.configs.din_arch import DIN, DIN_SHAPES
+    from repro_torch.data.recsys import make_din_batch
+    from repro_torch.models import din as D
+    from repro_torch.models.common import count_params
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train.loop import make_train_step, value_and_grad
+    from repro_torch.tree import tree_leaves_with_path, tree_map
+
+    cfg = DIN.full
+    T = cfg.seq_len
+    kw = dict(seq_len=T, n_items=cfg.n_items, n_users=cfg.n_users)
+    act = cfg.active_param_count()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = D.din_init(cfg, torch.Generator(device).manual_seed(0))
+    sync()
+    rec = {"params": count_params(params), "param_count_formula": cfg.param_count(),
+           "active_params": act, "init_s": time.perf_counter() - t0}
+    w_bytes = 4 * (count_params(params["attn"]) + count_params(params["mlp"]))
+
+    def peak_of(fn, reps: int) -> tuple[float, object, int, int]:
+        """(ms a call by CUDA events, a call's result, the peak allocated
+        bytes over those calls, the live bytes before them)."""
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_device_ms(fn, reps)
+        out = fn()
+        return ms, out, torch.cuda.max_memory_allocated(), base
+
+    for shape, reps in (("serve_p99", DIN_SERVE_REPS), ("serve_bulk", DIN_BULK_REPS)):
+        B = DIN_SHAPES[shape]["batch"]
+        b = make_din_batch(B, **kw, seed=1, device=device)
+        with torch.no_grad():
+            ms, out, peak, base = peak_of(lambda: D.din_forward(params, b, cfg), reps)
+        if out.shape != (B,) or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"path r1 {shape}: logits {tuple(out.shape)}, finite"
+                                 f" {bool(torch.isfinite(out).all())}")
+        bound, by = bound_ms(B * (din_row_bytes(cfg) + 4) + w_bytes, 2 * act * B)
+        rec[shape] = {"batch": B, "ms": ms, "examples_per_s": B / ms * 1e3, "bound_ms": bound,
+                      "bound_by": by, "peak_allocated_bytes": peak,
+                      "peak_over_live_bytes": peak - base}
+        log(f"  [{card}] r1 DIN {shape} B = {B}: {ms:.3f} ms a batch"
+            f" ({rec[shape]['examples_per_s']:.0f} examples/s) against a bound of {bound:.4f} ms"
+            f" ({by}); peak allocated {peak} B ({gib(peak)}), {gib(peak - base)} over the"
+            " live bytes")
+        del b, out
+    b512 = make_din_batch(DIN_CPU_BATCH, **kw, seed=1, device=device)
+
+    N = DIN_SHAPES["retrieval_cand"]["candidates"]
+    rb = make_din_batch(1, **kw, n_candidates=N, seed=2, device=device)
+    with torch.no_grad():
+        ms, scores, peak, base = peak_of(lambda: D.din_retrieval_scores(params, rb, cfg),
+                                         DIN_RETRIEVAL_REPS)
+        k = DIN_RETRIEVAL_CHECKED
+        idx = torch.from_numpy(np.random.default_rng(0).choice(N, k, replace=False)).to(device)
+        fwd = D.din_forward(params, {"user": rb["user"].repeat(k),
+                                     "hist_items": rb["hist_items"].repeat(k, 1),
+                                     "hist_mask": rb["hist_mask"].repeat(k, 1),
+                                     "cand_item": rb["cand_items"][idx]}, cfg)
+    err = float((scores[idx] - fwd).abs().max() / scores.abs().max())
+    if scores.shape != (N,) or not bool(torch.isfinite(scores).all()) \
+            or err > DIN_RETRIEVAL_TOL:
+        raise AssertionError(f"path r1 retrieval: {tuple(scores.shape)} scores, finite"
+                             f" {bool(torch.isfinite(scores).all())}, against din_forward {err}")
+    row = cfg.embed_dim * 4
+    bound, by = bound_ms(N * (row + 8) + din_row_bytes(cfg) + w_bytes, 2 * act * N)
+    rec["retrieval_cand"] = {"candidates": N, "chunk": D.RETRIEVAL_CHUNK, "ms": ms,
+                             "candidates_per_s": N / ms * 1e3, "bound_ms": bound,
+                             "bound_by": by, "peak_allocated_bytes": peak,
+                             "peak_over_live_bytes": peak - base, "rel_err_vs_forward": err,
+                             "checked": k}
+    log(f"  [{card}] r1 DIN retrieval_cand, {N} candidates in chunks of {D.RETRIEVAL_CHUNK}:"
+        f" {ms:.2f} ms ({N / ms * 1e3:.4g} candidates/s) against a bound of {bound:.3f} ms ({by});"
+        f" peak allocated {peak} B, {gib(peak - base)} over the live bytes; {k} scores against"
+        f" din_forward {err:.3g} of the largest (tolerance {DIN_RETRIEVAL_TOL})")
+    del rb, scores, fwd
+
+    B = DIN_SHAPES["train_batch"]["batch"]
+    batches = [make_din_batch(B, **kw, seed=10 + s, device=device)
+               for s in range(DIN_TRAIN_BATCHES)]
+    step = make_train_step(lambda p, bb: D.din_loss(p, bb, cfg), DIN.opt)
+    p, state = params, adamw_init(params, DIN.opt)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for s in range(DIN_TRAIN_STEPS):
+        sync()
+        t0 = time.perf_counter()
+        p, state, m = step(p, state, batches[s % DIN_TRAIN_BATCHES])
+        losses.append(float(m["loss"]))  # waits for the device
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    firsts = losses[::DIN_TRAIN_BATCHES]  # the first batch at each visit
+    if not all(np.isfinite(losses)) or not firsts[-1] < firsts[0]:
+        raise AssertionError(f"path r1 train: the loss on the first batch did not fall: {losses}")
+    n = rec["params"]
+    # the step reads the batch's rows, writes their gradients, and AdamW reads
+    # p, g, m, v and writes p, m, v over every leaf
+    bound, by = bound_ms(B * (din_row_bytes(cfg) + 8 + (T + 2) * row) + 7 * 4 * n,
+                         6 * act * B)
+    rec["train_batch"] = {"batch": B, "losses": losses, "step_ms": statistics.median(times[1:])
+                          * 1e3, "step_ms_first": times[0] * 1e3, "bound_ms": bound,
+                          "bound_by": by, "peak_allocated_bytes": peak,
+                          "peak_over_live_bytes": peak - base}
+    rec["train_batch"]["examples_per_s"] = B / rec["train_batch"]["step_ms"] * 1e3
+    log(f"  [{card}] r1 DIN train_batch B = {B}, AdamW lr 1e-3, {DIN_TRAIN_STEPS} steps over"
+        f" {DIN_TRAIN_BATCHES} batches: step {rec['train_batch']['step_ms']:.2f} ms median (first"
+        f" {times[0] * 1e3:.1f}; {rec['train_batch']['examples_per_s']:.0f} examples/s) against a"
+        f" bound of {bound:.3f} ms ({by}: 6·active·B, the rows and AdamW's passes over"
+        f" {n} params); the first batch's loss {' → '.join(f'{x:.5f}' for x in firsts)};"
+        f" peak allocated {peak} B ({gib(peak)})")
+    del batches, p, state
+
+    # masked history positions do not move a logit (tests/test_recsys.py:48)
+    hist = b512["hist_items"].clone()
+    masked = b512["hist_mask"] == 0
+    hist[masked] = torch.randint(0, cfg.n_items, (int(masked.sum()),), device=device,
+                                 generator=torch.Generator(device).manual_seed(3),
+                                 dtype=hist.dtype)
+    with torch.no_grad():
+        s1 = D.din_forward(params, b512, cfg)
+        s2 = D.din_forward(params, dict(b512, hist_items=hist), cfg)
+    if not torch.allclose(s1, s2, rtol=1e-4, atol=1e-5):
+        raise AssertionError(f"path r1: masked history moved a logit by"
+                             f" {float((s1 - s2).abs().max())}")
+
+    # the card against the CPU on the same weights
+    cpu_p = tree_map(lambda t: t.cpu(), params)
+    cb = {kk: v.cpu() for kk, v in b512.items()}
+    with torch.no_grad():
+        logit_err = rel_err(D.din_forward(params, b512, cfg), D.din_forward(cpu_p, cb, cfg))
+    t0 = time.perf_counter()
+    (lg, _), gg = value_and_grad(lambda q, bb: D.din_loss(q, bb, cfg), params, b512)
+    sync()
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (lc, _), gc = value_and_grad(lambda q, bb: D.din_loss(q, bb, cfg), cpu_p, cb)
+    t_cpu = time.perf_counter() - t0
+    loss_err = abs(float(lg) - float(lc)) / abs(float(lc))
+    grads = leaf_errors(dict(tree_leaves_with_path(gg)), dict(tree_leaves_with_path(gc)))
+    worst = max(grads.items(), key=lambda kv: kv[1])
+    if logit_err > DIN_OUT_TOL or loss_err > DIN_OUT_TOL or worst[1] > DIN_GRAD_TOL:
+        raise AssertionError(f"path r1: DIN card against CPU: logits {logit_err}, loss"
+                             f" {loss_err}, worst gradient {worst}")
+    rec["card_vs_cpu"] = {"batch": DIN_CPU_BATCH, "logits_rel": logit_err, "loss_rel": loss_err,
+                          "grad_rel": grads, "card_s": t_card, "cpu_s": t_cpu}
+    log(f"  [{card}] r1 DIN card against CPU, B = {DIN_CPU_BATCH}: logits {logit_err:.3g}, loss"
+        f" {loss_err:.3g} (tolerance {DIN_OUT_TOL}), {len(grads)} gradient leaves worst"
+        f" {worst[0]} {worst[1]:.3g} (tolerance {DIN_GRAD_TOL}); masked history moves no logit")
+    return rec
+
+
+def step_flops(fn) -> int:
+    """The GEMM operations of one train step: 3× the forward's (its backward
+    multiplies by the transposes of both operands), the forward's counted by
+    ``FlopCounterMode`` under ``no_grad``."""
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with torch.no_grad(), FlopCounterMode(display=False) as fc:
+        fn()
+    return 3 * fc.get_total_flops()
+
+
+def gnn_train_steps(label: str, cfg, params, batches: list, n_graphs: int, opt, card: str,
+                    device) -> dict:
+    """``len(batches)`` train steps (autograd, then AdamW): ms a step, peak
+    bytes, losses finite; the bound from the step's GEMM operations and its
+    bytes (the batch once, AdamW's passes over every leaf)."""
+    import torch
+
+    from repro_torch.models.common import count_params
+    from repro_torch.models.gnn.models import gnn_apply, gnn_loss
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train.loop import make_train_step
+
+    n = count_params(params)
+    flops = step_flops(lambda: gnn_apply(params, batches[0], cfg, n_graphs))
+    nbytes = sum(int(v.numel() * v.element_size()) for v in batches[0].values()) + 7 * 4 * n
+    step = make_train_step(lambda p, b: gnn_loss(p, b, cfg, n_graphs), opt)
+    state = adamw_init(params, opt)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for b in batches:
+        sync()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, b)
+        losses.append(float(m["loss"]))
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"path {label}: a loss is not finite: {losses}")
+    bound, by = bound_ms(nbytes, flops)
+    rec = {"params": n, "losses": losses, "step_ms": statistics.median(times[1:]) * 1e3,
+           "step_ms_first": times[0] * 1e3, "step_flops": flops, "bound_ms": bound,
+           "bound_by": by, "peak_allocated_bytes": peak, "peak_over_live_bytes": peak - base}
+    log(f"  [{card}] {label} {cfg.name} ({n} params): a train step {rec['step_ms']:.2f} ms"
+        f" median of {len(times) - 1} (first {times[0] * 1e3:.1f}) against a bound of"
+        f" {bound:.4f} ms ({by}: {flops:.4g} GEMM operations); peak allocated {peak} B"
+        f" ({gib(peak)}), {gib(peak - base)} over the live bytes; losses "
+        + ", ".join(f"{x:.4g}" for x in losses))
+    return rec
+
+
+def rand_rotation(seed: int) -> np.ndarray:
+    """A proper rotation from a seeded QR (tests/test_models_gnn.py's)."""
+    rng = np.random.default_rng(seed)
+    Q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+    if np.linalg.det(Q) < 0:
+        Q[:, 0] *= -1
+    return Q.astype(np.float32)
+
+
+def drive_gnn_molecule(card: str, device) -> dict:
+    """r2: MACE, EGNN, EquiformerV2 and SchNet at their full configs on the
+    molecule shape: energies finite, rotation and translation invariance,
+    the card against the CPU on the same weights (EquiformerV2 at
+    EQV2_CPU_LAYERS layers on both), GNN_STEPS train steps."""
+    import torch
+
+    from repro_torch.configs.gnn_family import EGNN, EQUIFORMER_V2, GNN_SHAPES, MACE, SCHNET
+    from repro_torch.data.graphs import make_molecule_batch
+    from repro_torch.models.gnn.models import gnn_apply, gnn_init, gnn_loss
+    from repro_torch.train.loop import value_and_grad
+    from repro_torch.tree import tree_leaves_with_path, tree_map
+
+    sh = GNN_SHAPES["molecule"]
+    mol = make_molecule_batch(*GNN_MOLECULE, device="cpu")
+    cb, b = mol.as_inputs(), mol.to(device).as_inputs()
+    G = sh["graphs"]
+    if (b["pos"].shape[0], b["edge_src"].shape[0], mol.n_graphs) != (sh["n"], sh["e"], G):
+        raise AssertionError(f"path r2: the molecule batch {b['pos'].shape}, {b['edge_src'].shape}")
+    R = torch.from_numpy(rand_rotation(7)).to(device)
+    shift = torch.tensor([1.5, -2.0, 0.7], device=device)
+    rec = {}
+    for seed, arch in enumerate((MACE, EGNN, EQUIFORMER_V2, SCHNET)):
+        cfg = arch.cfg_for("molecule")
+        params = gnn_init(cfg, torch.Generator(device).manual_seed(10 + seed))
+        with torch.no_grad():
+            e = gnn_apply(params, b, cfg, G)
+            e_rot = gnn_apply(params, dict(b, pos=b["pos"] @ R.T), cfg, G)
+            e_tr = gnn_apply(params, dict(b, pos=b["pos"] + shift), cfg, G)
+        if e.shape != (G,) or not bool(torch.isfinite(e).all()):
+            raise AssertionError(f"path r2 {arch.arch_id}: energies {tuple(e.shape)}, finite"
+                                 f" {bool(torch.isfinite(e).all())}")
+        rot = float((e - e_rot).abs().max()) / (float(e.abs().max()) + 1e-9)
+        tr_ok = bool(((e - e_tr).abs() <= GNN_TRANS_ATOL + GNN_TRANS_RTOL * e_tr.abs()).all())
+        if rot >= GNN_ROT_TOL or not tr_ok:
+            raise AssertionError(f"path r2 {arch.arch_id}: rotation {rot} (tolerance"
+                                 f" {GNN_ROT_TOL}), translation within rtol/atol {tr_ok}")
+        # the card against the CPU on the same weights
+        ccfg, cp = cfg, params
+        if arch is EQUIFORMER_V2:
+            ccfg = dataclasses.replace(cfg, n_layers=EQV2_CPU_LAYERS)
+            cp = {"backbone": {**params["backbone"],
+                               "blocks": params["backbone"]["blocks"][:EQV2_CPU_LAYERS]},
+                  "head": params["head"]}
+        cpu_p = tree_map(lambda t: t.cpu(), cp)
+        with torch.no_grad():
+            out_err = rel_err(gnn_apply(cp, b, ccfg, G), gnn_apply(cpu_p, cb, ccfg, G))
+        t0 = time.perf_counter()
+        (lg, _), gg = value_and_grad(lambda p, x: gnn_loss(p, x, ccfg, G), cp, b)
+        (lc, _), gc = value_and_grad(lambda p, x: gnn_loss(p, x, ccfg, G), cpu_p, cb)
+        t_cmp = time.perf_counter() - t0
+        loss_err = abs(float(lg) - float(lc)) / abs(float(lc))
+        want = dict(tree_leaves_with_path(gc))
+        # EquiformerV2's attention output bias: a gradient of 0 in exact
+        # arithmetic (the per-destination softmax cancels a head's shift)
+        zero = [k for k in want if k.endswith("/attn/[1]/b")]
+        grads = leaf_errors(dict(tree_leaves_with_path(gg)),
+                            {k: v for k, v in want.items() if k not in zero})
+        scale = max(float(v.abs().max()) for v in want.values())
+        zero_rel = max([float(dict(tree_leaves_with_path(gg))[k].abs().max()) / scale
+                        for k in zero] or [0.0])
+        worst = max(grads.items(), key=lambda kv: kv[1])
+        if out_err > GNN_OUT_TOL or loss_err > GNN_OUT_TOL or worst[1] > GNN_GRAD_TOL \
+                or zero_rel > GNN_OUT_TOL:
+            raise AssertionError(f"path r2 {arch.arch_id}: card against CPU: energies {out_err},"
+                                 f" loss {loss_err}, worst gradient {worst}, the attention"
+                                 f" bias {zero_rel}")
+        r = {"layers_vs_cpu": ccfg.n_layers, "energies_rel": out_err, "loss_rel": loss_err,
+             "grad_rel": grads, "zero_grad_rel": zero_rel, "compare_s": t_cmp,
+             "rotation_rel": rot}
+        del cp, cpu_p, gg, gc
+        log(f"  [{card}] r2 {arch.arch_id} ({cfg.name}): energies finite; rotation {rot:.3g}"
+            f" (tolerance {GNN_ROT_TOL}), translation within rtol {GNN_TRANS_RTOL} atol"
+            f" {GNN_TRANS_ATOL}; card against CPU at {ccfg.n_layers} layers: energies"
+            f" {out_err:.3g}, loss {loss_err:.3g} (tolerance {GNN_OUT_TOL}), {len(grads)}"
+            f" gradient leaves worst {worst[0]} {worst[1]:.3g} (tolerance {GNN_GRAD_TOL})"
+            f" ({t_cmp:.1f} s)")
+        r.update(gnn_train_steps("r2", cfg, params, [b] * GNN_STEPS, G, arch.opt, card, device))
+        rec[arch.arch_id] = r
+        del params
+        torch.cuda.empty_cache()
+    return rec
+
+
+def drive_mace_minibatch(card: str, device) -> dict:
+    """r3: MACE at full width on minibatch_lg: a Reddit-sized random CSR
+    graph (REDDIT, edges cut), NeighborSampler batches of MINIBATCH_NODES
+    seeds at fanouts 15-10, MACE_LG_STEPS train steps."""
+    import torch
+
+    from repro_torch.configs.gnn_family import GNN_SHAPES, MACE
+    from repro_torch.data.graphs import CSRGraph, NeighborSampler
+    from repro_torch.models.gnn.models import gnn_init
+
+    t0 = time.perf_counter()
+    g = CSRGraph.random(REDDIT["n_nodes"], REDDIT["n_edges"], REDDIT["d_feat"],
+                        REDDIT["n_classes"], seed=0)
+    t_graph = time.perf_counter() - t0
+    sampler = NeighborSampler(g, MINIBATCH_FANOUTS, MINIBATCH_NODES, seed=0, device=device)
+    t0 = time.perf_counter()
+    batches = [sampler.sample().as_inputs() for _ in range(MACE_LG_STEPS)]
+    t_sample = (time.perf_counter() - t0) / MACE_LG_STEPS
+    del g
+    sh = GNN_SHAPES["minibatch_lg"]
+    for bb in batches:
+        if bb["edge_src"].shape[0] != sh["e"] or bb["pos"].shape[0] > sh["n"]:
+            raise AssertionError(f"path r3: a batch of {bb['pos'].shape[0]} nodes and"
+                                 f" {bb['edge_src'].shape[0]} edges against {sh}")
+    cfg = MACE.cfg_for("minibatch_lg")
+    params = gnn_init(cfg, torch.Generator(device).manual_seed(20))
+    nodes = [int(bb["pos"].shape[0]) for bb in batches]
+    log(f"  r3: a random CSR graph of {REDDIT['n_nodes']} nodes, {REDDIT['n_edges']} edges and"
+        f" {REDDIT['d_feat']} features in {t_graph:.1f} s on the host; batches of {nodes} nodes"
+        f" and {sh['e']} edges ({t_sample:.2f} s a batch)")
+    rec = {"graph_s": t_graph, "sample_s": t_sample, "nodes": nodes, "edges": sh["e"]}
+    rec.update(gnn_train_steps("r3", cfg, params, batches, 1, MACE.opt, card, device))
+    return rec
+
+
+def r_train_child(cfg: dict) -> int:
+    """``chip_smoke.py --path-r4-child CONFIG``: under deterministic CUDA
+    (the parent sets ``CUBLAS_WORKSPACE_CONFIG``), DIN's and MACE's smoke
+    configs through ``train()``: R_CHILD_STEPS steps uninterrupted, then
+    preempted at R_PREEMPT_AT and resumed; and every new arch's
+    ``smoke(device=...)``. The record goes to ``cfg["out"]``."""
+    import torch
+
+    torch.use_deterministic_algorithms(True)
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.graphs import make_molecule_batch
+    from repro_torch.data.recsys import make_din_batch
+    from repro_torch.models.din import din_init, din_loss
+    from repro_torch.models.gnn.models import gnn_init, gnn_loss
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train.loop import TrainLoopConfig, train
+    from repro_torch.tree import tree_leaves
+
+    t_child = time.perf_counter()
+    device = torch.device(cfg["device"])
+    rec = {"smoke": {aid: get_arch(aid).smoke(device=device.type) for aid in R_ARCHS}}
+    for aid in ("din", "mace"):
+        mc = get_arch(aid).smoke_cfg
+        gen = torch.Generator(device).manual_seed(0)
+        if aid == "mace":
+            p0, lf = gnn_init(mc, gen), (lambda p, b, mc=mc: gnn_loss(p, b, mc, 8))
+            batches = [make_molecule_batch(8, 10, 24, seed=s, device=device).as_inputs()
+                       for s in range(4)]
+
+            def data(s, batches=batches):
+                return batches[s % 4]
+        else:
+            p0, lf = din_init(mc, gen), (lambda p, b, mc=mc: din_loss(p, b, mc))
+
+            def data(s, mc=mc):
+                return make_din_batch(64, seq_len=mc.seq_len, n_items=mc.n_items,
+                                      n_users=mc.n_users, seed=s % 8, device=device)
+
+        def run(label, **kw):
+            loop = TrainLoopConfig(total_steps=R_CHILD_STEPS, ckpt_every=100,
+                                   ckpt_dir=os.path.join(cfg["tmp"], f"{aid}_{label}"))
+            return train(p0, lf, data, loop, AdamWConfig(lr=1e-3), **kw)
+
+        pA, rA = run("a", resume=False)
+        _, r1 = run("b", resume=False, preempt_at=R_PREEMPT_AT)
+        pB, r2 = run("b", resume=True)
+        rec[aid] = {"losses": [h["loss"] for h in rA.history],
+                    "preempted": [h["loss"] for h in r1.history],
+                    "resumed": [h["loss"] for h in r2.history],
+                    "preempted_at": r1.step, "resumed_from": r2.resumed_from,
+                    "params_equal": all(torch.equal(a, b) for a, b in
+                                        zip(tree_leaves(pA), tree_leaves(pB)))}
+    rec["child_s"] = time.perf_counter() - t_child
+    Path(cfg["out"]).write_text(json.dumps(rec))
+    return 0
+
+
+class RBackground(Background):
+    """Path r's entry points beside phase 3 (r4): ``launch.train --arch A
+    --steps 12``, then ``--steps 16 --resume``, for each of R_ARCHS, and both
+    examples at their default scale, R_WORKERS chains at a time; the child
+    :func:`r_train_child` under deterministic CUDA."""
+
+    def __init__(self, device):
+        chains = train_chains(R_ARCHS, "{tmp}/r4", device, 12, 16)
+        chains.append([[str(ROOT / "examples" / e), *device_flag(device),
+                        "--ckpt-dir", "{tmp}/" + e]
+                       for e in ("torch_gnn_molecules.py", "torch_recsys_din.py")])
+        super().__init__("gnn_din_path_r_", "--path-r4-child", {"device": device.type}, chains,
+                         R_WORKERS, env={"CUBLAS_WORKSPACE_CONFIG": ":4096:8"})
+
+    def finish(self, card: str) -> tuple[dict, dict]:
+        """(the child's record, the entry points' record), each held to its
+        gates."""
+        child, runs = super().finish("r4", R_CHILD_TIMEOUT_S)
+        lines = [r["stdout"].strip() for r in runs["runs"]]
+        check_train_lines("r4", [ln for ln in lines if ln.startswith("[train]")], 12, 16)
+        gnn_out, din_out = lines[-2].splitlines(), lines[-1].splitlines()
+        if not gnn_out[-1].startswith("final ") or \
+                not din_out[-1].startswith("retrieval: scored 100k candidates in "):
+            raise AssertionError(f"path r4: the examples ended {gnn_out[-1]!r}, {din_out[-1]!r}")
+        bad = {a: o for a, o in child["smoke"].items() if not o["finite"]}
+        if bad:
+            raise AssertionError(f"path r4: smoke not finite: {bad}")
+        for aid in ("din", "mace"):
+            r = child[aid]
+            if r["preempted_at"] != R_PREEMPT_AT or r["resumed_from"] != R_PREEMPT_AT \
+                    or not r["params_equal"] or r["preempted"] + r["resumed"] != r["losses"]:
+                raise AssertionError(f"path r4: {aid} preempted at {r['preempted_at']} and"
+                                     f" resumed differs from the uninterrupted run: {r}")
+        log(f"  [{card}] r4 the child (deterministic CUDA, {child['child_s']:.1f} s): DIN and"
+            f" MACE preempted at step {R_PREEMPT_AT} and resumed equal the uninterrupted"
+            " runs bit for bit (params and losses); every new arch's smoke finite: "
+            + ", ".join(f"{a} loss {o['loss']:.3f}" for a, o in child["smoke"].items()))
+        return child, runs
+
+
+def drive_gnn_din(card: str, device, background: RBackground | None = None) -> tuple[dict, dict]:
+    """Path r: the GNN family and DIN. r1, r2 and r3 here, on the quiet
+    card; r4's entry points and child from ``background`` (started before
+    phase 3; started here, after the rest, when None). Returns (the record,
+    the launch counts of KERNELS over the in-process part), which must all
+    be 0: path r reaches no GQ-Fast kernel."""
+    import torch
+
+    t_path = time.perf_counter()
+    reset_counts()
+    rec = {"r1_din": drive_din(card, device)}
+    torch.cuda.empty_cache()
+    rec["r2_molecule"] = drive_gnn_molecule(card, device)
+    torch.cuda.empty_cache()
+    rec["r3_minibatch_lg"] = drive_mace_minibatch(card, device)
+    torch.cuda.empty_cache()
+    counts = read_counts()
+    rec["seconds_in_process"] = time.perf_counter() - t_path
+    rec["r4_child"], rec["r4_entry_points"] = (background or RBackground(device)).finish(card)
+    rec["seconds"] = time.perf_counter() - t_path
+    if any(counts.values()):
+        raise AssertionError(f"path r launched GQ-Fast kernels: {counts}")
+    log(f"  [{card}] path r: {rec['seconds_in_process']:.1f} s in process; beside phase 3 the"
+        f" child {rec['r4_child']['child_s']:.1f} s and the chains"
+        f" {', '.join(f'{t:.1f}' for t in rec['r4_entry_points']['chains_s'])} s; launches of"
+        " the GQ-Fast kernels: none (the GNN family and DIN reach none)")
+    return rec, counts
+
+
+# ---------------------------------------------------------------------------
 
 
 def main() -> int:
@@ -5277,12 +5932,22 @@ def main() -> int:
         return distributed_child(json.loads(sys.argv[2]))
     if sys.argv[1:2] == ["--path-q3-child"]:
         return lm_train_child(json.loads(sys.argv[2]))
+    if sys.argv[1:2] == ["--path-r4-child"]:
+        return r_train_child(json.loads(sys.argv[2]))
     if sys.argv[1:2] == ["--path-q"]:  # path q alone, no kernel built
         card = card_line()
         rec, _ = drive_lm(card, torch.device("cuda"))  # q3's gates and q4 after the rest
         out_dir = ROOT / "chiprun_out"
         out_dir.mkdir(exist_ok=True)
         (out_dir / "chip_smoke_path_q.json").write_text(json.dumps(rec, indent=2))
+        print(card, flush=True)
+        return 0
+    if sys.argv[1:2] == ["--path-r"]:  # path r alone, no kernel built
+        card = card_line()
+        rec, _ = drive_gnn_din(card, torch.device("cuda"))  # r4 after the rest
+        out_dir = ROOT / "chiprun_out"
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "chip_smoke_path_r.json").write_text(json.dumps(rec, indent=2))
         print(card, flush=True)
         return 0
     warnings.filterwarnings("ignore", message="Sparse CSR tensor support is in beta")
@@ -5395,8 +6060,9 @@ def run(device) -> None:
     space["fragment_loop_walk"] = walk_bytes(db, GQFastEngine(db, strategy="fragment_loop"),
                                              SG, loop_a0)
 
-    # path q's gates that need no quiet card run beside phase 3's checks
+    # paths q's and r's work that needs no quiet card runs beside phase 3's checks
     lm_background = LMBackground(device)
+    r_background = RBackground(device)
 
     # phase 3: kernels against their plain versions
     phase("[3] kernels against their plain versions on the card", t_start)
@@ -5758,6 +6424,14 @@ def run(device) -> None:
           " card against the CPU, the entry points", t_start)
     lm, counts = drive_lm(card, device, lm_background)
     paths["q_lm"] = {"counts": counts}
+    torch.cuda.empty_cache()
+    # path r: the GNN family and DIN (after q, on the quiet card)
+    phase("[4r] the GNN family and DIN: DIN at full width served, retrieving and trained,"
+          " the four GNNs at full width on molecules, MACE on minibatch_lg, the entry points",
+          t_start)
+    gnn_din, counts = drive_gnn_din(card, device, r_background)
+    paths["r_gnn_din"] = {"counts": counts}
+    torch.cuda.empty_cache()
 
     launches = {k: sum(p["counts"][k] for p in paths.values()) for k in KERNELS}
     table_launches = {k: sum(t[k] for t in TABLE_BY_PATH.values())
@@ -5829,7 +6503,7 @@ def run(device) -> None:
                     "launch_records": brecords, "times": btimes},
         "robust": {"crc_checks": crc_checks, "ladder": ladder, "durability": durability,
                    "manifest_walls": manifest_walls},
-        "serving": serving, "distributed": distributed, "lm": lm,
+        "serving": serving, "distributed": distributed, "lm": lm, "gnn_din": gnn_din,
         "kernels": entries,
         "total_seconds": time.perf_counter() - t_start,
     }

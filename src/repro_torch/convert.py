@@ -27,7 +27,9 @@ where a column is a decoded array (dense) or a dict naming its kind:
 "dictionary": float[u]}``.
 
 :func:`params_from_numpy` does the same for a parameter or optimizer tree
-(the reference's pytree with its leaves as numpy arrays).
+(the reference's pytree with its leaves as numpy arrays: the transformer's
+stacked layers, the GNNs' lists of dicts inside dicts, DIN's tables and
+MLPs), and :func:`graph_batch_from_numpy` for a reference ``GraphBatch``.
 """
 from __future__ import annotations
 
@@ -109,3 +111,14 @@ def params_from_numpy(tree, device="cuda"):
     them) become ``torch.bfloat16``."""
 
     return tree_map(lambda a: from_numpy(a, None, device), tree)
+
+
+def graph_batch_from_numpy(fields: dict, device="cuda"):
+    """The port's :class:`~repro_torch.models.gnn.common.GraphBatch` from a
+    reference ``GraphBatch``'s fields (``{name: numpy array, int or None}``),
+    each array as a tensor of its dtype on ``device``."""
+    from .models.gnn.common import GraphBatch
+
+    return GraphBatch(**{k: from_numpy(np.asarray(v), None, device)
+                         if v is not None and not isinstance(v, int) else v
+                         for k, v in fields.items()})

@@ -4,14 +4,15 @@ config through the fault-tolerant loop.
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b --steps 50
   PYTHONPATH=src python -m repro_torch.launch.train --arch llama3-8b --steps 50 --device cpu
 
-The JAX package's launcher (``repro.launch.train``) for the LM archs, with
-the same data (``lm_batch(step, 8, 64, vocab, seed=0)``), optimizer
-(AdamW, lr 1e-3) and checkpoint cadence (every ``max(10, steps // 4)``
-steps, and a final one) into ``<ckpt-dir>/<arch>``; ``--resume`` continues
-from the latest checkpoint there. ``--device`` is the port's own (default
-``cuda``: without a card the launcher refuses to start unless ``--device
-cpu`` is given). The GNN and recsys archs come with ROADMAP Queue 1 item
-15b, the dry run on a production mesh with 15c.
+The JAX package's launcher (``repro.launch.train``) with the same data
+(LM: ``lm_batch(step, 8, 64, vocab, seed=0)``; GNN: four
+``make_molecule_batch(8, 10, 24, seed=s)`` batches in turn; DIN:
+``make_din_batch(64, seed=step % 8)``), loss, optimizer (AdamW, lr 1e-3)
+and checkpoint cadence (every ``max(10, steps // 4)`` steps, and a final
+one) into ``<ckpt-dir>/<arch>``; ``--resume`` continues from the latest
+checkpoint there. ``--device`` is the port's own (default ``cuda``: without
+a card the launcher refuses to start unless ``--device cpu`` is given). The
+dry run on a production mesh comes with ROADMAP Queue 1 item 15c.
 """
 from __future__ import annotations
 
@@ -48,13 +49,11 @@ def main(argv: list[str] | None = None):
         arch = get_arch(args.arch)
     except ValidationError as e:
         raise SystemExit(f"train: {e}") from e
-    if arch.kind != "lm":
+    if arch.kind not in ("lm", "gnn", "recsys"):
         raise SystemExit(f"{args.arch} is a serving workload; use repro_torch.launch.serve")
 
     import torch
 
-    from ..data.lm_data import lm_batch
-    from ..models.transformer import init_params, loss_fn
     from ..optim.adamw import AdamWConfig
     from ..train.loop import TrainLoopConfig, train
 
@@ -63,12 +62,35 @@ def main(argv: list[str] | None = None):
         ckpt_dir=os.path.join(args.ckpt_dir, args.arch),
     )
     cfg = arch.smoke_cfg
-    params = init_params(cfg, torch.Generator(device).manual_seed(0))
-    _, res = train(
-        params, lambda p, b: loss_fn(p, b, cfg),
-        lambda s: lm_batch(s, 8, 64, cfg.vocab, seed=0, device=device),
-        loop_cfg, AdamWConfig(lr=1e-3), resume=args.resume,
-    )
+    gen = torch.Generator(device).manual_seed(0)
+    if arch.kind == "lm":
+        from ..data.lm_data import lm_batch
+        from ..models.transformer import init_params, loss_fn
+
+        params, lf = init_params(cfg, gen), (lambda p, b: loss_fn(p, b, cfg))
+
+        def data(s):
+            return lm_batch(s, 8, 64, cfg.vocab, seed=0, device=device)
+    elif arch.kind == "gnn":
+        from ..data.graphs import make_molecule_batch
+        from ..models.gnn.models import gnn_init, gnn_loss
+
+        params, lf = gnn_init(cfg, gen), (lambda p, b: gnn_loss(p, b, cfg, 8))
+        batches = [make_molecule_batch(8, 10, 24, seed=s, device=device).as_inputs()
+                   for s in range(4)]
+
+        def data(s):
+            return batches[s % 4]
+    else:
+        from ..data.recsys import make_din_batch
+        from ..models.din import din_init, din_loss
+
+        params, lf = din_init(cfg, gen), (lambda p, b: din_loss(p, b, cfg))
+
+        def data(s):
+            return make_din_batch(64, seq_len=cfg.seq_len, n_items=cfg.n_items,
+                                  n_users=cfg.n_users, seed=s % 8, device=device)
+    _, res = train(params, lf, data, loop_cfg, AdamWConfig(lr=1e-3), resume=args.resume)
     h = res.history
     resumed = f" (resumed from {res.resumed_from})" if res.resumed_from else ""
     if not h:

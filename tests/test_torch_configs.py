@@ -1,9 +1,10 @@
 """The architecture configs and the training launcher of the PyTorch port,
-on the CPU, against the JAX package's: the registry's ids, every LM arch's
-full and smoke ``TransformerConfig`` field for field (dtypes mapped by
-name), shapes and skip reasons, ``gqfast-pubmed``'s smoke, the errors that
-name ROADMAP items 15b and 15c, and ``python -m repro_torch.launch.train``
-run and resumed as a subprocess.
+on the CPU, against the JAX package's: the registry's ids and cells, every
+LM arch's full and smoke ``TransformerConfig`` field for field (dtypes mapped
+by name), the GNN and DIN archs' configs, shapes and optimizers, shapes and
+skip reasons, every arch's smoke, ``make_cell``'s error that names ROADMAP
+item 15c, and ``python -m repro_torch.launch.train`` run and resumed as a
+subprocess.
 """
 import dataclasses
 import os
@@ -17,8 +18,12 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro.configs import registry as jregistry  # noqa: E402
+from repro.configs.din_arch import DIN_SHAPES as J_DIN_SHAPES  # noqa: E402
+from repro.configs.gnn_family import GNN_SHAPES as J_GNN_SHAPES  # noqa: E402
 from repro.configs.lm_family import LM_SHAPES as J_LM_SHAPES  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
+from repro_torch.configs.din_arch import DIN_SHAPES  # noqa: E402
+from repro_torch.configs.gnn_family import GNN_SHAPES  # noqa: E402
 from repro_torch.configs.gqfast_arch import FULL, GQFAST  # noqa: E402
 from repro_torch.configs.lm_family import LM_SHAPES  # noqa: E402
 from repro_torch.robust.errors import ValidationError  # noqa: E402
@@ -27,11 +32,13 @@ from torch_fixtures import port_config, two_threads  # noqa: E402,F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 LM_IDS = [a for a, arch in jregistry.ARCHS.items() if arch.kind == "lm"]
+GNN_DIN_IDS = [a for a, arch in jregistry.ARCHS.items() if arch.kind in ("gnn", "recsys")]
 
 
 def test_registry_ids_equal_the_reference():
-    assert set(registry.ARCHS) | set(registry.NOT_PORTED) == set(jregistry.ARCHS)
-    assert not set(registry.ARCHS) & set(registry.NOT_PORTED)
+    assert list(registry.ARCHS) == list(jregistry.ARCHS)
+    assert registry.ASSIGNED == jregistry.ASSIGNED
+    assert registry.all_cells() == jregistry.all_cells()
     assert sorted(LM_IDS) == sorted(a for a, x in registry.ARCHS.items() if x.kind == "lm")
     for aid, arch in registry.ARCHS.items():
         ref = jregistry.get_arch(aid)
@@ -74,14 +81,45 @@ def test_gqfast_smoke_matches_the_oracle():
     assert FULL == J_FULL and GQFAST_SHAPES == J_SHAPES
 
 
-@pytest.mark.parametrize("aid", ["mace", "egnn", "equiformer-v2", "schnet", "din"])
+@pytest.mark.parametrize("aid", GNN_DIN_IDS)
 def test_gnn_and_recsys_archs_name_item_15b(aid):
-    with pytest.raises(ValidationError, match="item 15b"):
-        registry.get_arch(aid)
+    """Item 15b (the GNN family and DIN) is ported: ``get_arch`` returns each
+    of its archs, whose ``make_cell`` names item 15c, and whose configs,
+    shapes and optimizer are the reference's."""
+    arch, ref = registry.get_arch(aid), jregistry.get_arch(aid)
+    assert (arch.arch_id, arch.kind, arch.shape_ids) == (ref.arch_id, ref.kind, ref.shape_ids)
+    with pytest.raises(ValidationError, match="item 15c"):
+        arch.make_cell(arch.shape_ids[0], mesh=None)
+    if arch.kind == "gnn":
+        assert dataclasses.asdict(arch.base) == dataclasses.asdict(ref.base)
+        assert dataclasses.asdict(arch.smoke_cfg) == dataclasses.asdict(ref.smoke_cfg)
+        for sid in arch.shape_ids:
+            assert dataclasses.asdict(arch.cfg_for(sid)) == dataclasses.asdict(ref._cfg_for(sid))
+    else:
+        assert dataclasses.asdict(arch.full) == dataclasses.asdict(ref.full)
+        assert dataclasses.asdict(arch.smoke_cfg) == dataclasses.asdict(ref.smoke_cfg)
+        assert arch.full.param_count() == ref.full.param_count()
+        assert arch.full.active_param_count() == ref.full.active_param_count()
+    ro = ref.opt
+    assert (arch.opt.lr, arch.opt.b1, arch.opt.b2, arch.opt.weight_decay, arch.opt.clip_norm) \
+        == (ro.lr, ro.b1, ro.b2, ro.weight_decay, ro.clip_norm)
+    for sid in arch.shape_ids:
+        assert arch.skip_reason(sid) == ref.skip_reason(sid)
+    assert GNN_SHAPES == J_GNN_SHAPES and DIN_SHAPES == J_DIN_SHAPES
+
+
+@pytest.mark.parametrize("aid", GNN_DIN_IDS)
+def test_gnn_and_din_smoke_on_the_cpu(aid):
+    out = registry.get_arch(aid).smoke(device="cpu")
+    assert out["finite"] and out["loss"] > 0
+    if aid == "din":
+        assert out["scores_shape"] == (256,)
+    else:
+        assert out["grad_norm"] > 0
 
 
 def test_make_cell_names_item_15c():
-    for aid in ("qwen2.5-3b", "gqfast-pubmed"):
+    for aid in ("qwen2.5-3b", "gqfast-pubmed", "mace", "din"):
         with pytest.raises(ValidationError, match="item 15c"):
             registry.get_arch(aid).make_cell("train_4k", mesh=None)
 
@@ -109,11 +147,10 @@ def test_launch_train_refusals(tmp_path):
     from repro_torch.launch import train as launch_train
 
     assert launch_train.parse_args(["--arch", "llama3-8b"]).device == "cuda"
-    for argv, want in ((["--arch", "schnet", "--device", "cpu"], "item 15b"),
-                       (["--arch", "gqfast-pubmed", "--device", "cpu"], "serving workload")):
-        with pytest.raises(SystemExit) as e:
-            launch_train.main(argv + ["--ckpt-dir", str(tmp_path)])
-        assert want in str(e.value.code)
+    with pytest.raises(SystemExit) as e:
+        launch_train.main(["--arch", "gqfast-pubmed", "--device", "cpu",
+                           "--ckpt-dir", str(tmp_path)])
+    assert "serving workload" in str(e.value.code)
     if torch.cuda.is_available():
         return
     proc = _port_train("--arch", "llama3-8b", "--steps", "1", "--ckpt-dir", str(tmp_path),

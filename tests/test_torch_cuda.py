@@ -7,8 +7,9 @@ and popcount, and CRC-32C) against their plain PyTorch versions, and the
 engine on the card (single queries and execute_batch, the degradation
 ladder's rungs, manifests, snapshots and the scrubber's heal, the analytics
 server's obs lane and a reload while the scrubber ticks, the distributed
-strategy under a 1-rank NCCL mesh) against the engine on the CPU, the plain
-versions, the numpy oracle and the same requests served alone. They import no JAX (the
+strategy under a 1-rank NCCL mesh, the transformer family, the GNN family and
+DIN) against the engine or model on the CPU, the plain versions, the numpy
+oracle and the same requests served alone. They import no JAX (the
 GPU machine need not have it) and skip where ``torch.cuda.is_available()`` is
 false: a CUDA kernel has no CPU mode. On a card:
 
@@ -2271,3 +2272,85 @@ def test_lm_decode_matches_forward_on_the_card(cuda):
         fl, _ = T.forward(params, full, cfg)
     for i, got in enumerate(steps):
         assert torch.isfinite(got).all() and _rel_err(got, fl[:, 32 + i].cpu()) <= 3e-2, i
+
+
+# ---------------------------------------------------------------------------
+# The GNN family and DIN on the card against the same models on the CPU
+# ---------------------------------------------------------------------------
+
+GNN_TOL = 1e-4  # outputs and loss, max|card − CPU| / max|CPU|
+GNN_GRAD_TOL = 1e-3  # each gradient leaf, relative to its largest value
+
+
+@pytest.mark.parametrize("aid", ["mace", "egnn", "equiformer-v2", "schnet"])
+def test_gnn_on_the_card_matches_cpu(cuda, aid):
+    """Each arch's smoke config on a molecule batch: energies and loss on the
+    card within GNN_TOL of the CPU's on the same weights, every gradient leaf
+    within GNN_GRAD_TOL (EquiformerV2's attention output bias, whose gradient
+    is 0 in exact arithmetic, under GNN_TOL of the tree's largest)."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.graphs import make_molecule_batch
+    from repro_torch.models.gnn.models import gnn_apply, gnn_init, gnn_loss
+    from repro_torch.train.loop import value_and_grad
+    from repro_torch.tree import tree_leaves_with_path, tree_map
+
+    cfg = get_arch(aid).smoke_cfg
+    cpu = gnn_init(cfg, torch.Generator().manual_seed(0))
+    card = tree_map(lambda t: t.to(cuda), cpu)
+    mol = make_molecule_batch(8, 10, 24, seed=1, device="cpu")
+    b, cb = mol.as_inputs(), mol.to(cuda).as_inputs()
+    with torch.no_grad():
+        assert _rel_err(gnn_apply(card, cb, cfg, 8), gnn_apply(cpu, b, cfg, 8)) <= GNN_TOL
+    (lc, _), gc = value_and_grad(lambda p, x: gnn_loss(p, x, cfg, 8), cpu, b)
+    (lg, _), gg = value_and_grad(lambda p, x: gnn_loss(p, x, cfg, 8), card, cb)
+    assert _rel_err(lg, lc) <= GNN_TOL
+    scale = max(float(a.abs().max()) for _, a in tree_leaves_with_path(gc))
+    for (k, a), (_, g) in zip(tree_leaves_with_path(gc), tree_leaves_with_path(gg)):
+        assert g.device.type == "cuda", k
+        if k.endswith("/attn/[1]/b"):
+            assert float(g.abs().max()) <= GNN_TOL * scale, k
+        else:
+            assert _rel_err(g, a) <= GNN_GRAD_TOL, k
+
+
+def test_din_on_the_card_matches_cpu(cuda, monkeypatch):
+    """DIN's smoke config: logits, retrieval scores and loss on the card
+    within GNN_TOL of the CPU's on the same weights, every gradient leaf
+    within GNN_GRAD_TOL; the empty bags of ``embedding_bag`` on the card
+    hold the reference's values (0, 0, -inf)."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.recsys import make_din_batch
+    from repro_torch.models import din as D
+    from repro_torch.models.din import din_forward, din_init, din_loss, din_retrieval_scores
+    from repro_torch.models.embedding import embedding_bag
+    from repro_torch.train.loop import value_and_grad
+    from repro_torch.tree import tree_leaves_with_path, tree_map
+
+    cfg = get_arch("din").smoke_cfg
+    cpu = din_init(cfg, torch.Generator().manual_seed(0))
+    card = tree_map(lambda t: t.to(cuda), cpu)
+    kw = dict(seq_len=cfg.seq_len, n_items=cfg.n_items, n_users=cfg.n_users)
+    b = make_din_batch(64, **kw, seed=2, device="cpu")
+    cb = {k: v.to(cuda) for k, v in b.items()}
+    rb = make_din_batch(1, **kw, n_candidates=700, seed=3, device="cpu")
+    crb = {k: v.to(cuda) for k, v in rb.items()}
+    with torch.no_grad():
+        assert _rel_err(din_forward(card, cb, cfg), din_forward(cpu, b, cfg)) <= GNN_TOL
+        want = din_retrieval_scores(cpu, rb, cfg)
+        monkeypatch.setattr(D, "RETRIEVAL_CHUNK", 256)  # three chunks on the card
+        assert _rel_err(din_retrieval_scores(card, crb, cfg), want) <= GNN_TOL
+    (lc, _), gc = value_and_grad(lambda p, x: din_loss(p, x, cfg), cpu, b)
+    (lg, _), gg = value_and_grad(lambda p, x: din_loss(p, x, cfg), card, cb)
+    assert _rel_err(lg, lc) <= GNN_TOL
+    for (k, a), (_, g) in zip(tree_leaves_with_path(gc), tree_leaves_with_path(gg)):
+        if float(a.abs().max()) == 0:  # a table no id of the batch reads
+            assert float(g.abs().max()) == 0, k
+        else:
+            assert _rel_err(g, a) <= GNN_GRAD_TOL, k
+    table = torch.randn(20, 3, generator=torch.Generator().manual_seed(5))
+    ids = torch.tensor([1, 2, 3, 4], dtype=torch.int32)
+    bags = torch.tensor([0, 0, 2, 2], dtype=torch.int32)
+    for mode, empty in (("sum", 0.0), ("mean", 0.0), ("max", -float("inf"))):
+        want = embedding_bag(table, ids, bags, 3, mode=mode)
+        got = embedding_bag(table.to(cuda), ids.to(cuda), bags.to(cuda), 3, mode=mode).cpu()
+        assert (got[1] == empty).all() and torch.allclose(got, want, rtol=1e-5, atol=1e-6), mode

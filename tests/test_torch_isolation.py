@@ -40,7 +40,7 @@ def test_port_query_loads_neither_jax_nor_repro():
 
 def test_port_sources_import_neither_jax_nor_repro():
     examples = sorted((ROOT / "examples").glob("torch_*.py"))
-    assert len(examples) == 3, examples
+    assert len(examples) == 5, examples
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"] \
         + examples
     assert len(files) > 10
@@ -244,6 +244,38 @@ def test_port_lm_family_loads_neither_jax_nor_repro(tmp_path):
         launch_train.main(["--arch", "arctic-480b", "--steps", "2", "--device", "cpu",
                            "--ckpt-dir", {str(tmp_path / "b")!r}])
         serve.main(["--workload", "lm", "--device", "cpu", "--requests", "2"])
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+        print("LOADED", bad)
+        assert not bad, bad
+    """)
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")}, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LOADED []" in proc.stdout
+
+
+def test_port_gnn_and_din_load_neither_jax_nor_repro(tmp_path):
+    """The GNN family and DIN (models, the embedding substrate, the data
+    generators, configs, the launcher's gnn and recsys paths and both
+    examples' modules) run without JAX or the JAX package."""
+    code = textwrap.dedent(f"""
+        import sys
+        import torch
+        from repro_torch.configs.registry import get_arch
+        from repro_torch.data.graphs import CSRGraph, NeighborSampler, make_feature_graph
+        from repro_torch.launch import train as launch_train
+        from repro_torch.models.embedding import embedding_bag
+        for aid in ("mace", "egnn", "equiformer-v2", "schnet", "din"):
+            assert get_arch(aid).smoke(device="cpu")["finite"], aid
+        b = NeighborSampler(CSRGraph.random(500, 4000, 4), [3, 2], 8, device="cpu").sample()
+        assert b.edge_src.shape == (8 * 3 * 3,)
+        g = make_feature_graph(50, 200, 4, device="cpu")
+        assert embedding_bag(g.node_feat, g.edge_src, g.edge_dst, 50, mode="max").shape == (50, 4)
+        launch_train.main(["--arch", "schnet", "--steps", "2", "--device", "cpu",
+                           "--ckpt-dir", {str(tmp_path)!r}])
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "repro"))
         print("LOADED", bad)

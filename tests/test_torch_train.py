@@ -7,10 +7,13 @@ rounding tie, where the two packages' float32 divisions may land on either
 side; bf16 moments within two bf16 quanta, 2^-7, and the params that read
 them within 1e-4),
 ``cosine_warmup`` and ``lm_batch``, and checkpoints that cross between the
-packages key for key and byte for byte.
+packages key for key and byte for byte; then the GNN family and DIN through
+``launch.train --device cpu`` (trained and resumed) and the loop (a
+preempted run resumed bit for bit).
 """
 import json
 import os
+import re
 import shutil
 import zipfile
 
@@ -262,3 +265,68 @@ def test_checkpoints_cross_between_packages(tmp, kind):
     back, _ = JCheckpointManager(pdir).restore(jtree)
     for a, b in zip(jax.tree.leaves(jtree), jax.tree.leaves(back)):
         assert a.dtype == b.dtype and np.array_equal(np.asarray(a), np.asarray(b))
+
+
+# ---------------------------------------------------------------------------
+# the GNN family and DIN through the loop and the launcher
+# ---------------------------------------------------------------------------
+
+GNN_DIN_IDS = ["mace", "egnn", "equiformer-v2", "schnet", "din"]
+TRAIN_LINE = re.compile(r"^\[train\] (\S+): (\d+) steps, loss (\d+\.\d{4}) → (\d+\.\d{4})"
+                        r"( \(resumed from (\d+)\))?$")
+
+
+@pytest.mark.parametrize("aid", GNN_DIN_IDS)
+def test_launch_train_trains_and_resumes_gnn_and_din(aid, tmp, capsys):
+    """``launch.train --device cpu`` on each new arch: the reference
+    launcher's batches, loss and line; a resume continues from the last
+    checkpoint."""
+    from repro_torch.launch import train as launch_train
+
+    res = launch_train.main(["--arch", aid, "--steps", "3", "--device", "cpu",
+                             "--ckpt-dir", tmp])
+    line = capsys.readouterr().out.strip()
+    m = TRAIN_LINE.match(line)
+    assert m and m.group(1) == aid and m.group(2) == "3" and not m.group(5), line
+    assert res.step == 3 and all(np.isfinite(h["loss"]) for h in res.history)
+    assert sorted(os.listdir(os.path.join(tmp, aid))) == ["step_0000000003"]
+    again = launch_train.main(["--arch", aid, "--steps", "5", "--device", "cpu",
+                               "--ckpt-dir", tmp, "--resume"])
+    m = TRAIN_LINE.match(capsys.readouterr().out.strip())
+    assert m and m.group(2) == "2" and m.group(6) == "3"
+    assert again.resumed_from == 3 and again.step == 5
+
+
+@pytest.mark.parametrize("aid", ["mace", "din"])
+def test_gnn_and_din_preempt_resume_bit_identical(aid, tmp):
+    """The loop's resume on the new families: preempted at step 3 and resumed
+    equals the uninterrupted run bit for bit (params and losses)."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.data.graphs import make_molecule_batch
+    from repro_torch.data.recsys import make_din_batch
+    from repro_torch.models.din import din_init, din_loss
+    from repro_torch.models.gnn.models import gnn_init, gnn_loss
+
+    cfg = get_arch(aid).smoke_cfg
+    gen = torch.Generator().manual_seed(0)
+    if aid == "mace":
+        p0, lf = gnn_init(cfg, gen), (lambda p, b: gnn_loss(p, b, cfg, 8))
+        batches = [make_molecule_batch(8, 10, 24, seed=s, device="cpu").as_inputs()
+                   for s in range(4)]
+
+        def data(s):
+            return batches[s % 4]
+    else:
+        p0, lf = din_init(cfg, gen), (lambda p, b: din_loss(p, b, cfg))
+
+        def data(s):
+            return make_din_batch(64, seq_len=cfg.seq_len, n_items=cfg.n_items,
+                                  n_users=cfg.n_users, seed=s % 8, device="cpu")
+    lc = TrainLoopConfig(total_steps=6, ckpt_every=100, ckpt_dir=tmp)
+    pA, rA = train(p0, lf, data, lc, AdamWConfig(lr=1e-3), resume=False)
+    shutil.rmtree(tmp)
+    _, r1 = train(p0, lf, data, lc, AdamWConfig(lr=1e-3), resume=False, preempt_at=3)
+    pB, r2 = train(p0, lf, data, lc, AdamWConfig(lr=1e-3), resume=True)
+    assert r1.preempted and r2.resumed_from == 3
+    assert [h["loss"] for h in r1.history + r2.history] == [h["loss"] for h in rA.history]
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(pA), tree_leaves(pB)))
