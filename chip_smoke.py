@@ -253,6 +253,19 @@ Phases (any failure exits non-zero; nothing is caught while the run goes on):
          configs) preempted at step 4 and resumed equal to the uninterrupted
          run bit for bit, every new arch's ``smoke(device="cuda")`` finite.
          ``chip_smoke.py --path-r`` runs path r alone (no kernel built).
+      s. the dry run (``repro_torch.launch.dryrun``: meta DTensors over a fake
+         process group, no card and nothing allocated), one child process
+         started beside phase 3 (``DryRunBackground``, CUDA hidden from it):
+         DIN's serve_bulk, train_batch and retrieval_cand and MACE's
+         minibatch_lg on a 1×1 mesh, GQ-Fast's as_b8 and Llama-3-8B's
+         train_4k on the 16×16 pod mesh, every record ``ok``. After path r,
+         each 1×1 record's roofline bound (``roofline.analysis``: the H100's
+         989.4 TFLOP/s, 3.35 TB/s and 50 GB/s a link) is held at or under the
+         wall path r measured for the same cell (a bound above a measured
+         time means the count is wrong), measured over bound logged with the
+         record's flops beside path r's count; the two pod records' roofline
+         rows printed. ``chip_smoke.py --path-s`` runs paths r and s alone
+         (no kernel built).
     Each result is compared with the same lowered plan run through the plain
     versions on the card with float64 sums (each comparison's gate ratio
     logged and kept), the defaults with skipping off and with the dense
@@ -262,7 +275,7 @@ Phases (any failure exits non-zero; nothing is caught while the run goes on):
     before path q came, dense/off before path p came). Every path's float sums (FSD, AS, FAD, AS-recent) are also
     held to the same plan through the plain versions with float64 sums,
     within FLOAT64_LIMIT.
- 5. Times: per query the median wall time of 20 runs (the defaults, fusion
+ 5. Times: per query the median wall time of QUERY_REPS runs (the defaults, fusion
     on, fusion off and the dense path with skipping off, in turns; the
     defaults' wall over the dense path's) and the profiler's device
     breakdown (the list kernel's launches a run beside the hop kernels');
@@ -300,7 +313,7 @@ Phases (any failure exits non-zero; nothing is caught while the run goes on):
     them, and to the float64 sums within ``FLOAT64_LIMIT``). The strategies
     (5k): SD and FSD at documents and AS at authors picked at quantiles of
     the walk's paths, from one fragment to most of an index, the defaults
-    and ``fragment_loop`` in turns for three rounds of 20 calls each, which
+    and ``fragment_loop`` in turns for CROSSOVER_ROUNDS rounds of QUERY_REPS calls each, which
     sets ``FRAGMENT_LOOP_CROSSOVER``.
 
 Output: progress lines, then the card line, the ``{"kernels": [...]}`` line and
@@ -329,8 +342,8 @@ ROOT = Path(__file__).resolve().parent
 PUBMED = dict(n_docs=4_000_000, n_terms=27_000, n_authors=2_000_000, seed=0)
 SEMMED = dict(n_concepts=40_000, n_csemtypes=50_000, n_predications=80_000,
               n_sentences=300_000)
-QUICKSTART_PUBMED = dict(n_docs=20_000, n_terms=800, n_authors=5_000, seed=7)
-QUERY_REPS = 20
+QUICKSTART_PUBMED = dict(n_docs=10_000, n_terms=800, n_authors=2_500, seed=7)
+QUERY_REPS = 10
 KERNEL_REPS = 20
 PROFILE_REPS = 5
 SUPPORTS = ("one_seed", 0.01, 0.1, 0.5, 1.0)
@@ -501,8 +514,12 @@ def bound_ms(nbytes: int, flops: int) -> tuple[float, str]:
 def hop_bound(E: int, n_src: int, n_dst: int, dst_bytes: int, m_bytes: int,
               extra: int = 0) -> tuple[float, str]:
     """One hop: src (4 B an edge), the dst and measure streams as stored,
-    the frontier and the output once each; a multiply and a combine an edge."""
-    return bound_ms(4 * E + dst_bytes + m_bytes + 4 * n_src + 4 * n_dst + extra, 2 * E)
+    the frontier and the output once each; a multiply and a combine an edge
+    (``roofline.analysis.hop_work``, the count the dry run's GQ-Fast cells
+    use)."""
+    from repro_torch.roofline.analysis import hop_work
+
+    return bound_ms(*hop_work(E, n_src, n_dst, dst_bytes, m_bytes, extra))
 
 
 def uses_table(di) -> bool:
@@ -2345,7 +2362,7 @@ THRESHOLD_BLOCKS = (13, 42, 116, 256, 512, 1024, 2048, 2400, 2876, 4096, 5600, 7
 THRESHOLD_SUPPORTS = ("one_seed", 0.01, 0.1, 1.0)
 #: Rounds of the sweep, scan and list timed in turns in each: the list wins
 #: at a count only where it was faster in every round.
-THRESHOLD_ROUNDS = 3
+THRESHOLD_ROUNDS = 2
 
 
 def index_prefix(di, k: int) -> dict:
@@ -3393,7 +3410,7 @@ LOOP_AUTHOR_PATHS = 10_000_000
 CROSSOVER_DOC_QUANTILES = (0.0, 0.01, 0.05, 0.2, 0.5, 0.8, 0.95, 1.0)
 CROSSOVER_AUTHOR_QUANTILES = (0.0, 0.1, 0.5, 0.9, 0.99, 1.0)
 CROSSOVER_MAX_PATHS = 30_000_000
-CROSSOVER_ROUNDS = 3
+CROSSOVER_ROUNDS = 2
 #: path l: the queries profiled under the defaults and under fragment_loop
 PROFILED = ("SD", "AS", "AD")
 
@@ -3733,7 +3750,7 @@ CRC_OFFSETS = (0, 1, 2, 3, 5, 15)
 LADDER_DEADLINE_MS = 2000.0
 CHUNK_WALKS = 3
 #: 5: walls with a manifest attached against without, in turns
-MANIFEST_REPS = 50
+MANIFEST_REPS = 30
 MANIFEST_QUERIES = ("SD", "AS")
 
 
@@ -4179,9 +4196,9 @@ def drive_durability(dbs_by_graph, SG, c0, defaults, gates, tmp: str) -> tuple[d
 
 
 #: Path o's full-scale serve (the server's own flags, ``--device cuda`` beside
-#: them): 256 requests in micro-batches of 32 from a fast start, a hot swap
+#: them): 192 requests in micro-batches of 32 from a fast start, a hot swap
 #: every 4 batches, the scrub gate and ticks, one profile and the metrics.
-SERVE_REQUESTS = 256
+SERVE_REQUESTS = 192
 SERVE_BATCH = 32
 SERVE_RELOAD_AT = 4
 
@@ -4477,7 +4494,7 @@ P_WORLDS = ((1, "nccl", "i"), (4, "cpu:gloo,cuda:gloo", "ii"))
 P_GROUP_TIMEOUT_S = 60
 P_WORLD_TIMEOUT_S = 300
 #: Timed runs a query (after one to warm it), and the batch path p drives.
-P_REPS = 5
+P_REPS = 3
 P_BATCH = 8
 P_PROFILED = ("SD", "AS")
 
@@ -5418,6 +5435,11 @@ REDDIT = dict(n_nodes=232_965, n_edges=11_461_589, d_feat=602, n_classes=41)
 MINIBATCH_FANOUTS = [15, 10]
 MINIBATCH_NODES = 1024
 MACE_LG_STEPS = 4
+#: Path s: the dry run's cells (mesh, arch, shape) and the child's limit.
+S_CELLS = (("local_1x1", "din", "serve_bulk"), ("local_1x1", "din", "train_batch"),
+           ("local_1x1", "din", "retrieval_cand"), ("local_1x1", "mace", "minibatch_lg"),
+           ("pod_16x16", "gqfast-pubmed", "as_b8"), ("pod_16x16", "llama3-8b", "train_4k"))
+S_TIMEOUT_S = 900
 #: r4: the entry points beside phase 3, and the child's preempted runs
 R_ARCHS = ("mace", "egnn", "equiformer-v2", "schnet", "din")
 R_WORKERS = 3
@@ -5913,6 +5935,120 @@ def drive_gnn_din(card: str, device, background: RBackground | None = None) -> t
     return rec, counts
 
 
+class DryRunBackground:
+    """Path s's child: ``python -m repro_torch.launch.dryrun --cells`` over
+    S_CELLS, with CUDA hidden (the dry run computes nothing on a device),
+    beside phase 3. :meth:`finish` waits for it and returns its records."""
+
+    def __init__(self):
+        import atexit
+
+        self.tmp = tempfile.mkdtemp(prefix="dryrun_path_s_")
+        self.log_path = os.path.join(self.tmp, "child.log")
+        self.log = open(self.log_path, "w")
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--out", self.tmp, "--cells",
+             *(":".join(c) for c in S_CELLS)], cwd=ROOT, stdout=self.log,
+            stderr=subprocess.STDOUT,
+            env={**os.environ, "PYTHONPATH": str(ROOT / "src"), "CUDA_VISIBLE_DEVICES": ""})
+        atexit.register(self.stop)
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.log.close()
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+    def finish(self) -> tuple[list[dict], float]:
+        """(the records, the child's seconds); raises when the child fails or
+        a record is not ``ok``."""
+        from repro_torch.roofline.analysis import load_records
+
+        self.proc.wait(timeout=S_TIMEOUT_S)
+        secs = time.perf_counter() - self.t0
+        self.log.flush()
+        lines = Path(self.log_path).read_text().splitlines()
+        recs = load_records(self.tmp)
+        bad = [r for r in recs if r["status"] != "ok"]
+        if self.proc.returncode != 0 or bad or len(recs) != len(S_CELLS):
+            for line in lines[-40:]:
+                log(f"    [s child] {line}")
+            raise AssertionError(f"path s: the dry run exited with {self.proc.returncode},"
+                                 f" {len(recs)} records, not ok: "
+                                 + "; ".join(f"{r['arch']}/{r['shape']}: {r.get('error')}"
+                                             for r in bad))
+        self.stop()
+        return recs, secs
+
+
+def drive_dryrun(card: str, gnn_din: dict, background: DryRunBackground) -> dict:
+    """Path s: the dry run's records held to path r's walls. Each 1×1
+    record's roofline bound must not exceed the wall path r measured for the
+    same cell; measured over bound and the record's flops beside path r's
+    count are logged, and the pod records' roofline rows printed."""
+    from repro_torch.configs.din_arch import DIN, DIN_SHAPES
+    from repro_torch.roofline.analysis import (
+        HBM_BW,
+        LINK_BW,
+        PEAK_FLOPS,
+        roofline_from_record,
+    )
+
+    recs, secs = background.finish()
+    by = {(r["mesh"], r["arch"], r["shape"]): r for r in recs}
+    r1, r3 = gnn_din["r1_din"], gnn_din["r3_minibatch_lg"]
+    act = DIN.full.active_param_count()
+    # cell → (path r's wall in ms, path r's operation count, what it counts)
+    walls = {
+        ("din", "serve_bulk"): (r1["serve_bulk"]["ms"],
+                                2 * act * DIN_SHAPES["serve_bulk"]["batch"], "2·active·B"),
+        ("din", "train_batch"): (r1["train_batch"]["step_ms"],
+                                 6 * act * DIN_SHAPES["train_batch"]["batch"], "6·active·B"),
+        ("din", "retrieval_cand"): (r1["retrieval_cand"]["ms"],
+                                    2 * act * DIN_SHAPES["retrieval_cand"]["candidates"],
+                                    "2·active·N"),
+        ("mace", "minibatch_lg"): (r3["step_ms"], r3["step_flops"],
+                                   "3× the forward's GEMMs, FlopCounterMode"),
+    }
+    out = {"child_s": secs, "constants": {"peak_flops": PEAK_FLOPS, "hbm_bw": HBM_BW,
+                                          "link_bw": LINK_BW}, "cells": {}}
+    log(f"  [{card}] s the dry run's child: {len(recs)} records ok in {secs:.1f} s (beside"
+        " phase 3)")
+    for (aid, sid), (wall, count, what) in walls.items():
+        rec = by[("local_1x1", aid, sid)]
+        rl = roofline_from_record(rec)
+        bound_ms = rl.bound_s * 1e3
+        row = {"measured_ms": wall, "bound_ms": bound_ms, "dominant": rl.dominant,
+               "compute_ms": rl.compute_s * 1e3, "memory_ms": rl.memory_s * 1e3,
+               "flops": rec["flops"], "bytes_accessed": rec["bytes_accessed"],
+               "path_r_count": count, "traced_s": rec["lower_s"]}
+        out["cells"][f"local_1x1/{aid}/{sid}"] = row
+        log(f"  [{card}] s {aid} × {sid} (1×1): measured {wall:.3f} ms over the roofline bound"
+            f" {bound_ms:.4f} ms ({rl.dominant}) = {wall / bound_ms:.3f}; the record's flops"
+            f" {rec['flops']:.4g} beside path r's {count:.4g} ({what}), bytes"
+            f" {rec['bytes_accessed']:.4g}; traced in {rec['lower_s']:.1f} s")
+        if bound_ms > wall:
+            raise AssertionError(f"path s: {aid} × {sid}: the roofline bound {bound_ms} ms"
+                                 f" exceeds the measured {wall} ms: the count is wrong")
+    for (mesh, aid, sid), rec in by.items():
+        if mesh != "pod_16x16":
+            continue
+        rl = roofline_from_record(rec)
+        row = {"compute_s": rl.compute_s, "memory_s": rl.memory_s,
+               "collective_s": rl.collective_s, "dominant": rl.dominant, "bound_s": rl.bound_s,
+               "flops": rec["flops"], "bytes_accessed": rec["bytes_accessed"],
+               "collectives": rec["collectives"], "model_flops": rec["model_flops"],
+               "memory": rec["memory"], "notes": rec["notes"], "traced_s": rec["lower_s"]}
+        out["cells"][f"{mesh}/{aid}/{sid}"] = row
+        print(f"| {aid} | {sid} | {mesh} | {rl.compute_s:.4f} | {rl.memory_s:.4f} |"
+              f" {rl.collective_s:.4f} | **{rl.dominant}** | {rec['flops']:.4g} |"
+              f" {rec['bytes_accessed']:.4g} | {sum(rec['collectives'].values()):.4g} |"
+              f" {rec['notes']} |", flush=True)
+    return out
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -5948,6 +6084,16 @@ def main() -> int:
         out_dir = ROOT / "chiprun_out"
         out_dir.mkdir(exist_ok=True)
         (out_dir / "chip_smoke_path_r.json").write_text(json.dumps(rec, indent=2))
+        print(card, flush=True)
+        return 0
+    if sys.argv[1:2] == ["--path-s"]:  # paths r and s alone, no kernel built
+        card = card_line()
+        s_background = DryRunBackground()
+        rec, _ = drive_gnn_din(card, torch.device("cuda"))
+        rec = {"r_gnn_din": rec, "s_dryrun": drive_dryrun(card, rec, s_background)}
+        out_dir = ROOT / "chiprun_out"
+        out_dir.mkdir(exist_ok=True)
+        (out_dir / "chip_smoke_path_s.json").write_text(json.dumps(rec, indent=2))
         print(card, flush=True)
         return 0
     warnings.filterwarnings("ignore", message="Sparse CSR tensor support is in beta")
@@ -6063,6 +6209,7 @@ def run(device) -> None:
     # paths q's and r's work that needs no quiet card runs beside phase 3's checks
     lm_background = LMBackground(device)
     r_background = RBackground(device)
+    s_background = DryRunBackground()
 
     # phase 3: kernels against their plain versions
     phase("[3] kernels against their plain versions on the card", t_start)
@@ -6432,6 +6579,10 @@ def run(device) -> None:
     gnn_din, counts = drive_gnn_din(card, device, r_background)
     paths["r_gnn_din"] = {"counts": counts}
     torch.cuda.empty_cache()
+    # path s: the dry run's records (a child beside phase 3) against path r
+    phase("[4s] the dry run: DIN and MACE on a 1×1 mesh held to path r's walls, GQ-Fast and"
+          " Llama-3-8B on the 16×16 pod mesh", t_start)
+    dryrun = drive_dryrun(card, gnn_din, s_background)
 
     launches = {k: sum(p["counts"][k] for p in paths.values()) for k in KERNELS}
     table_launches = {k: sum(t[k] for t in TABLE_BY_PATH.values())
@@ -6504,6 +6655,7 @@ def run(device) -> None:
         "robust": {"crc_checks": crc_checks, "ladder": ladder, "durability": durability,
                    "manifest_walls": manifest_walls},
         "serving": serving, "distributed": distributed, "lm": lm, "gnn_din": gnn_din,
+        "dryrun": dryrun,
         "kernels": entries,
         "total_seconds": time.perf_counter() - t_start,
     }

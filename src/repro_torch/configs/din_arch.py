@@ -1,16 +1,19 @@
 """DIN recsys arch config × the four assigned serving/training shapes (the
-JAX package's ``repro.configs.din_arch``). ``smoke`` runs the reduced config
-through a train step and a retrieval on ``device``; ``make_cell`` (a dry-run
-cell on a production mesh) comes with ROADMAP Queue 1 item 15c."""
+JAX package's ``repro.configs.din_arch``). ``make_cell`` lays a shape out on
+a production mesh for the dry run (tables row-sharded over 'model', requests
+over (pod, data), candidates over (data, model)); ``smoke`` runs the reduced
+config through a train step and a retrieval on ``device``."""
 from __future__ import annotations
 
 import torch
 
-from ..models.din import DINConfig, din_init, din_loss, din_retrieval_scores
+from ..dist.sharding import distribute_tree, recsys_batch_shardings, recsys_state_shardings
+from ..models.common import MetaGenerator
+from ..models.din import DINConfig, din_forward, din_init, din_loss, din_retrieval_scores
 from ..optim.adamw import AdamWConfig, adamw_init, adamw_update
 from ..train.loop import value_and_grad
 from ..tree import tree_leaves
-from .base import ArchConfig
+from .base import ArchConfig, Cell
 
 
 def _pad512(n: int) -> int:
@@ -34,6 +37,59 @@ class DINArch(ArchConfig):
         self.full = DINConfig()  # embed_dim 18, seq 100, 80-40 attn, 200-80 mlp
         self.smoke_cfg = DINConfig(n_items=5000, n_users=500, n_cates=50, seq_len=16)
         self.opt = AdamWConfig(lr=1e-3, weight_decay=0.0)
+
+    def make_cell(self, shape_id: str, mesh, variant: str = "") -> Cell:
+        sh = DIN_SHAPES[shape_id]
+        cfg = self.full
+        B, T = sh["batch"], cfg.seq_len
+
+        def meta(shape, dtype=torch.int32):
+            return torch.empty(shape, dtype=dtype, device="meta")
+
+        params_abs = din_init(cfg, MetaGenerator())
+
+        def cell(fn, state_abs, batch_abs, kind, flops):
+            state_sh = recsys_state_shardings(state_abs, mesh)
+            batch_sh = recsys_batch_shardings(batch_abs, mesh)
+            return Cell(self.arch_id, shape_id, fn,
+                        (distribute_tree(state_abs, state_sh, mesh),
+                         distribute_tree(batch_abs, batch_sh, mesh)),
+                        (state_sh, batch_sh), kind, flops)
+
+        if sh["kind"] == "train":
+            batch_abs = {"user": meta((B,)), "hist_items": meta((B, T)),
+                         "hist_mask": meta((B, T), torch.float32), "cand_item": meta((B,)),
+                         "label": meta((B,))}
+
+            def fn(state, batch):
+                params, opt_state = state
+                (_, metrics), grads = value_and_grad(
+                    lambda p, b: din_loss(p, b, cfg), params, batch)
+                params, opt_state, om = adamw_update(grads, opt_state, params, self.opt)
+                return (params, opt_state), {**metrics, **om}
+
+            return cell(fn, (params_abs, adamw_init(params_abs, self.opt)), batch_abs,
+                        "train", 6.0 * cfg.active_param_count() * B)
+
+        if sh["kind"] == "serve":
+            batch_abs = {"user": meta((B,)), "hist_items": meta((B, T)),
+                         "hist_mask": meta((B, T), torch.float32), "cand_item": meta((B,))}
+
+            @torch.no_grad()
+            def fn(params, batch):
+                return din_forward(params, batch, cfg)
+
+            return cell(fn, params_abs, batch_abs, "serve", 2.0 * cfg.active_param_count() * B)
+
+        NC = sh["candidates"]
+        batch_abs = {"user": meta((1,)), "hist_items": meta((1, T)),
+                     "hist_mask": meta((1, T), torch.float32), "cand_items": meta((NC,))}
+
+        @torch.no_grad()
+        def fn(params, batch):
+            return din_retrieval_scores(params, batch, cfg)
+
+        return cell(fn, params_abs, batch_abs, "serve", 2.0 * cfg.active_param_count() * NC)
 
     def smoke(self, device="cuda") -> dict:
         from ..data.recsys import make_din_batch

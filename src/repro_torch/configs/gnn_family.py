@@ -2,20 +2,24 @@
 assigned graph shapes (the JAX package's ``repro.configs.gnn_family``, config
 for config). Edge counts are padded to multiples of 512 so the edge axis
 shards over (data×model); non-molecular shapes use synthesized positions and
-a node-classification head (DESIGN.md §5). ``smoke`` runs the reduced config
-through a train step on ``device``; ``make_cell`` (a dry-run cell on a
-production mesh) comes with ROADMAP Queue 1 item 15c."""
+a node-classification head (DESIGN.md §5). ``make_cell`` lays a shape out on
+a production mesh for the dry run (the state replicated, the batch by
+``dist.sharding.gnn_input_shardings``; the 'naive' variant turns the edge
+hints and remat off); ``smoke`` runs the reduced config through a train step
+on ``device``."""
 from __future__ import annotations
 
 import dataclasses
 
 import torch
 
+from ..dist.sharding import distribute_tree, gnn_input_shardings, replicated
+from ..models.common import MetaGenerator
 from ..models.gnn.models import GNNConfig, gnn_init, gnn_loss
 from ..optim.adamw import AdamWConfig, adamw_init, adamw_update
 from ..train.loop import value_and_grad
 from ..tree import tree_leaves
-from .base import ArchConfig
+from .base import ArchConfig, Cell
 
 
 def _pad512(n: int) -> int:
@@ -49,6 +53,58 @@ class GNNArch(ArchConfig):
         return dataclasses.replace(
             self.base, d_feat=sh["d_feat"], n_classes=sh["n_classes"]
         )
+
+    def make_cell(self, shape_id: str, mesh, variant: str = "") -> Cell:
+        sh = GNN_SHAPES[shape_id]
+        cfg = self.cfg_for(shape_id)
+        N, E, G = sh["n"], sh["e"], sh["graphs"]
+
+        def meta(shape, dtype=torch.float32):
+            return torch.empty(shape, dtype=dtype, device="meta")
+
+        i32 = torch.int32
+        batch_abs = {
+            "pos": meta((N, 3)),
+            "z": meta((N,), i32),
+            "edge_src": meta((E,), i32),
+            "edge_dst": meta((E,), i32),
+            "node_mask": meta((N,)),
+            "edge_mask": meta((E,)),
+        }
+        if sh["d_feat"]:
+            batch_abs["node_feat"] = meta((N, sh["d_feat"]))
+        if G:
+            batch_abs["graph_ids"] = meta((N,), i32)
+            batch_abs["labels"] = meta((G,))
+        else:
+            batch_abs["labels"] = meta((N,), i32)
+
+        params_abs = gnn_init(cfg, MetaGenerator())
+        state_abs = (params_abs, adamw_init(params_abs, self.opt))
+        n_graphs = G or 1
+
+        def fn(state, batch):
+            from ..models.gnn import common as gcommon, models as gmodels
+
+            gcommon.EDGE_HINTS = variant != "naive"
+            gmodels.REMAT = variant != "naive"
+            try:
+                params, opt_state = state
+                (_, metrics), grads = value_and_grad(
+                    lambda p, b: gnn_loss(p, b, cfg, n_graphs), params, batch)
+            finally:
+                gcommon.EDGE_HINTS = True
+                gmodels.REMAT = True
+            params, opt_state, om = adamw_update(grads, opt_state, params, self.opt)
+            return (params, opt_state), {**metrics, **om}
+
+        state_sh = replicated(state_abs, mesh)
+        batch_sh = gnn_input_shardings(batch_abs, mesh)
+        n_params = sum(x.numel() for x in tree_leaves(params_abs))
+        return Cell(self.arch_id, shape_id, fn,
+                    (distribute_tree(state_abs, state_sh, mesh),
+                     distribute_tree(batch_abs, batch_sh, mesh)),
+                    (state_sh, batch_sh), "train", 6.0 * n_params * N)
 
     def smoke(self, device="cuda") -> dict:
         from ..data.graphs import make_molecule_batch

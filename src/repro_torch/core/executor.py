@@ -91,16 +91,6 @@ BLOCK_SKIPPING_MODES = K.BLOCK_SKIPPING_MODES
 FUSION_MODES = K.FUSION_MODES
 
 
-def not_ported(what: str, item: str) -> ValidationError:
-    """The error for a setting or entry point this port does not run yet,
-    naming the ROADMAP Queue 1 item that brings it."""
-    return ValidationError(
-        f"{what} is not supported by the PyTorch port yet; it comes with "
-        f"ROADMAP Queue 1 item {item}",
-        unsupported=what,
-    )
-
-
 def require_supported(option: str, value, supported: tuple) -> None:
     """Raise unless ``value`` is one of ``supported``."""
     if value in supported:

@@ -104,3 +104,45 @@ def make_local_mesh(axes: tuple[str, ...] = ("data",), shape: tuple[int, ...] | 
         shape = (dist.get_world_size() if dist.is_initialized()
                  else int(os.environ.get("WORLD_SIZE", 1)),)
     return make_mesh(shape, axes, device_type)
+
+
+#: The dry run's meshes by name: the reference's production meshes and a
+#: 1×1 mesh whose cells run at the size one card serves.
+DRY_RUN_MESHES = {
+    "pod_16x16": ((16, 16), ("data", "model")),
+    "multipod_2x16x16": ((2, 16, 16), ("pod", "data", "model")),
+    "local_1x1": ((1, 1), ("data", "model")),
+}
+
+
+def make_dry_run_mesh(name: str):
+    """The mesh ``name`` of :data:`DRY_RUN_MESHES` over a fake process group:
+    this process is rank 0 of a world of the mesh's size whose collectives
+    move nothing (``torch.testing._internal.distributed.fake_pg``), so a
+    program over meta DTensors on the mesh runs each rank's share of the
+    work as shapes alone. A process holds one default group: end the mesh
+    with :func:`end_dry_run_mesh` before making another."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    shape, axes = DRY_RUN_MESHES[name]
+    n = 1
+    for s in shape:
+        n *= s
+    if dist.is_initialized():
+        raise RuntimeError("a process group already exists; a dry-run mesh needs its own"
+                           " (end_dry_run_mesh, or a new process)")
+    dist.init_process_group("fake", store=FakeStore(), world_size=n, rank=0)
+    # a "cuda" mesh, as the production cluster's: no card is touched (the
+    # group is fake and the tensors meta), and DTensor plans its reshards as
+    # NCCL runs them (on a "cpu" mesh an all_to_all becomes all_gather + chunk)
+    return init_device_mesh("cuda", shape, mesh_dim_names=axes)
+
+
+def end_dry_run_mesh() -> None:
+    """Destroy the fake default group of :func:`make_dry_run_mesh`."""
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()

@@ -12,7 +12,8 @@ and checkpoint cadence (every ``max(10, steps // 4)`` steps, and a final
 one) into ``<ckpt-dir>/<arch>``; ``--resume`` continues from the latest
 checkpoint there. ``--device`` is the port's own (default ``cuda``: without
 a card the launcher refuses to start unless ``--device cpu`` is given). The
-dry run on a production mesh comes with ROADMAP Queue 1 item 15c.
+dry run of a cell on a production mesh is ``python -m
+repro_torch.launch.dryrun``.
 """
 from __future__ import annotations
 

@@ -24,7 +24,8 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
-from .gnn.common import mlp_apply, mlp_init
+from .common import randn, shard_hint
+from .gnn.common import gather, mlp_apply, mlp_init
 
 #: Candidates scored at once by din_retrieval_scores: at seq 100 and embed 18
 #: a chunk's features, attention layers and their temporaries hold about
@@ -65,8 +66,7 @@ def din_init(cfg: DINConfig, gen: torch.Generator) -> dict:
     d = cfg.embed_dim
 
     def table(rows: int) -> torch.Tensor:
-        return torch.randn((rows, d), generator=gen, dtype=torch.float32,
-                           device=gen.device) * 0.01
+        return randn(gen, (rows, d)) * 0.01
 
     return {
         "item_emb": table(cfg.n_items),
@@ -79,7 +79,7 @@ def din_init(cfg: DINConfig, gen: torch.Generator) -> dict:
 
 def _lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """``table[ids]`` for ids of any shape (the reference's ``jnp.take``)."""
-    return torch.index_select(table, 0, ids.reshape(-1)).reshape(ids.shape + table.shape[1:])
+    return gather(table, ids.reshape(-1)).reshape(ids.shape + table.shape[1:])
 
 
 def _target_attention(p, hist: torch.Tensor, hist_mask: torch.Tensor,
@@ -101,6 +101,7 @@ def _head(p, user, interest, cand) -> torch.Tensor:
 def din_forward(p: dict, batch: dict, cfg: DINConfig) -> torch.Tensor:
     """batch: user [B], hist_items [B,T], hist_mask [B,T], cand_item [B] → logits [B]."""
     hist = _lookup(p["item_emb"], batch["hist_items"])  # [B,T,D]
+    hist = shard_hint(hist, ("pod", "data"), None, None)
     cand = _lookup(p["item_emb"], batch["cand_item"])  # [B,D]
     user = _lookup(p["user_emb"], batch["user"])
     interest = _target_attention(p, hist, batch["hist_mask"], cand)
@@ -109,20 +110,27 @@ def din_forward(p: dict, batch: dict, cfg: DINConfig) -> torch.Tensor:
 
 def din_retrieval_scores(p: dict, batch: dict, cfg: DINConfig) -> torch.Tensor:
     """One user/history against n_candidates items: the pooled interest must be
-    re-computed per candidate (DIN's point), batched over RETRIEVAL_CHUNK
-    candidates at a time → [N] scores."""
-    hist = _lookup(p["item_emb"], batch["hist_items"])  # [1,T,D]
-    user = _lookup(p["user_emb"], batch["user"])  # [1,D]
+    re-computed per candidate (DIN's point), batched → [N] scores. A rank
+    that holds more than RETRIEVAL_CHUNK candidates scores them a chunk at a
+    time (over a production mesh each rank's share fits in one pass, and a
+    DTensor's sharded dim is not sliced without gathering it)."""
+    # the history and the user are every rank's: the candidates' layout then
+    # decides the features' (torch 2.11 cannot flatten the [n, T] dims of
+    # features whose T dim a strategy sharded)
+    hist = shard_hint(_lookup(p["item_emb"], batch["hist_items"]), None, None, None)  # [1,T,D]
+    user = shard_hint(_lookup(p["user_emb"], batch["user"]), None, None)  # [1,D]
     cand_items = batch["cand_items"]
     T, D = hist.shape[1], hist.shape[2]
-    out, chunk = [], RETRIEVAL_CHUNK
-    for a in range(0, cand_items.shape[0], chunk):
-        cands = _lookup(p["item_emb"], cand_items[a: a + chunk])  # [n,D]
+    n_local = (cand_items.to_local() if hasattr(cand_items, "to_local") else cand_items).shape[0]
+    parts = (cand_items,) if n_local <= RETRIEVAL_CHUNK else cand_items.split(RETRIEVAL_CHUNK)
+    out = []
+    for ids in parts:
+        cands = _lookup(p["item_emb"], ids)  # [n,D]
         n = cands.shape[0]
         interest = _target_attention(p, hist.expand(n, T, D),
                                      batch["hist_mask"].expand(n, T), cands)
         out.append(_head(p, user.expand(n, D), interest, cands))
-    return torch.cat(out) if out else hist.new_zeros((0,))
+    return torch.cat(out) if len(out) > 1 else out[0]
 
 
 def din_loss(p: dict, batch: dict, cfg: DINConfig):

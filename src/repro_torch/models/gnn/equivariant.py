@@ -61,7 +61,8 @@ def real_sph_harm(l_max: int, vecs, eps: float = 1e-12, xp=torch):
                 cols.append(math.sqrt(2) * norm * P[(l, m)] * xp.cos(m * phi))
             else:
                 cols.append(math.sqrt(2) * norm * P[(l, am)] * xp.sin(am * phi))
-    return xp.stack(cols, axis=-1)
+    # a non-negative axis: torch 2.11 mislays a DTensor stacked at axis -1
+    return xp.stack(cols, axis=cols[0].ndim)
 
 
 def irreps_dim(l_max: int) -> int:
@@ -199,6 +200,21 @@ def wigner_d_real(l_max: int, rot: torch.Tensor) -> list[torch.Tensor]:
     return out
 
 
+def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.linalg.cross`` over the last dim. Over a mesh (DTensor
+    operands) it runs in ``local_map`` on ``a``'s layout, whose last dim
+    (3) no axis divides: torch 2.11 has no sharding strategy for
+    ``linalg_cross``."""
+    if hasattr(a, "placements"):  # a DTensor
+        from torch.distributed.tensor.experimental import local_map
+
+        pl = tuple(a.placements)
+        return local_map(lambda x, y: torch.linalg.cross(x, y, dim=-1), out_placements=(pl,),
+                         in_placements=(pl, pl), device_mesh=a.device_mesh,
+                         redistribute_inputs=True)(a, b)
+    return torch.linalg.cross(a, b, dim=-1)
+
+
 def rotation_to_edge_frame(vecs: torch.Tensor, eps: float = 1e-9) -> torch.Tensor:
     """Rotation matrices [E,3,3] mapping each edge direction to +z (the eSCN
     edge-aligned frame)."""
@@ -211,8 +227,8 @@ def rotation_to_edge_frame(vecs: torch.Tensor, eps: float = 1e-9) -> torch.Tenso
         torch.tensor([0.0, 0.0, 1.0], dtype=vecs.dtype, device=vecs.device),
         torch.tensor([1.0, 0.0, 0.0], dtype=vecs.dtype, device=vecs.device),
     )
-    xaxis = torch.linalg.cross(helper, z, dim=-1)
+    xaxis = _cross(helper, z)
     xaxis = xaxis / torch.sqrt(torch.sum(xaxis**2, -1, keepdim=True) + eps)
-    yaxis = torch.linalg.cross(z, xaxis, dim=-1)
+    yaxis = _cross(z, xaxis)
     # rows = new basis vectors → R @ n = e_z
-    return torch.stack([xaxis, yaxis, z], dim=-2)
+    return torch.stack([xaxis, yaxis, z], dim=z.dim() - 1)  # dim -2 (see real_sph_harm)

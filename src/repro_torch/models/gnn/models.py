@@ -40,6 +40,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..common import randn
 from .common import (
     aggregate,
     bessel_rbf,
@@ -94,7 +95,7 @@ class GNNConfig:
 
 
 def _normal(gen: torch.Generator, shape, scale: float = 1.0) -> torch.Tensor:
-    return torch.randn(shape, generator=gen, dtype=torch.float32, device=gen.device) * scale
+    return randn(gen, shape) * scale
 
 
 def _embed(p: dict, batch: dict, cfg: GNNConfig) -> torch.Tensor:
@@ -218,6 +219,32 @@ def mace_init(cfg: GNNConfig, gen: torch.Generator) -> dict:
     return p
 
 
+def _times(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """``x @ m`` for x [N, C, k]. Where x's channels are sharded (a DTensor
+    that ``node_hint`` laid out over 'model') the channels lead the product:
+    folding [N, C] with C sharded gives a strided shard, whose offsets
+    DTensor materializes row by row. Elsewhere the plain product, which
+    copies nothing: the transposed one costs path r's MACE step 6% on the
+    H100 (PERF.md §6)."""
+    if any(getattr(pl, "dim", None) == 1 for pl in getattr(x, "placements", ())):
+        return (x.transpose(0, 1) @ m).transpose(0, 1)
+    return x @ m
+
+
+def _stack(parts: list) -> torch.Tensor:
+    """Parts [E, C] side by side as [E, C·P], channel-major (the rows
+    :func:`_rows` lays out), so Σ_p parts[p] @ w[p] is one product. The
+    channels lead each row: over a mesh, folding [E, P, C] with C sharded
+    over 'model' makes a strided shard, whose reshard plans DTensor searches
+    for without end on the 3-D mesh."""
+    return torch.stack(parts, 2).reshape(parts[0].shape[0], -1)
+
+
+def _rows(w: torch.Tensor) -> torch.Tensor:
+    """w [P, C, C'] as the [C·P, C'] rows that match :func:`_stack`'s."""
+    return w.transpose(0, 1).reshape(-1, w.shape[-1])
+
+
 def _couple_all(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
                 paths: list[tuple[int, int, int]], sl: list[slice]) -> torch.Tensor:
     """Σ over ``paths`` of (x_{l1} ⊗ y_{l2})_{l3} · w[path] (per channel), the
@@ -231,7 +258,7 @@ def _couple_all(x: torch.Tensor, y: torch.Tensor, w: torch.Tensor,
             xa, yb = x[..., sl[l1]], y[..., sl[l2]]
             outer = (xa[..., :, None] * yb[..., None, :]).flatten(-2)
             pair = (l1, l2)
-        term = (outer @ cg_tensor(l1, l2, l3, x.dtype, x.device)) * w[pi][None, :, None]
+        term = _times(outer, cg_tensor(l1, l2, l3, x.dtype, x.device)) * w[pi][None, :, None]
         by_l3[l3] = term if l3 not in by_l3 else by_l3[l3] + term
     return torch.cat([by_l3[l] for l in range(len(sl))], -1)
 
@@ -275,7 +302,10 @@ def mace_apply(p: dict, batch: dict, cfg: GNNConfig) -> torch.Tensor:
             B = B + AA
             B = B + _couple_all(AA, A, blk["w_B3"], paths, sl)  # ν = 3: (A⊗A)_{l1} ⊗ A_{l2}
             # channel-mixing update + residual
-            return node_hint(h + torch.einsum("ncq,cd->ndq", B, blk["lin"]) / len(paths))
+            # the update takes the nodes' layout before the residual sum (over
+            # a mesh the channel contraction leaves a partial sum)
+            return node_hint(h + node_hint(torch.einsum("ncq,cd->ndq", B, blk["lin"])
+                                           / len(paths)))
         h = _ckpt(block)(h)
     return h[:, :, 0]  # scalar (invariant) channels
 
@@ -330,21 +360,20 @@ def equiformer_apply(p: dict, batch: dict, cfg: GNNConfig) -> torch.Tensor:
                  for l in range(lm + 1)]
             # SO(2) linear conv: mixes channels and l at fixed m; the sums over
             # the input degree lp run inside each product
-            s0 = torch.stack([x[lp][..., ml[lp]] for lp in range(lm + 1)], 1).reshape(E, -1)
-            S0 = s0 @ blk["w_m0"].reshape(-1, C)
+            S0 = _stack([x[lp][..., ml[lp]] for lp in range(lm + 1)]) @ _rows(blk["w_m0"])
             Sc, Ss = {}, {}
             for m in range(1, mm + 1):  # m > 0: complex-structured 2×2 mixing
-                xc = torch.stack([x[lp][..., ml[lp] + m] for lp in range(m, lm + 1)],
-                                 1).reshape(E, -1)  # cos part (m>0 real SH)
-                xs = torch.stack([x[lp][..., ml[lp] - m] for lp in range(m, lm + 1)],
-                                 1).reshape(E, -1)  # sin part
-                wre = blk["w_re"][m - 1, m:].reshape(-1, C)
-                wim = blk["w_im"][m - 1, m:].reshape(-1, C)
+                xc = _stack([x[lp][..., ml[lp] + m] for lp in range(m, lm + 1)])  # cos part
+                xs = _stack([x[lp][..., ml[lp] - m] for lp in range(m, lm + 1)])  # sin part
+                wre = _rows(blk["w_re"][m - 1, m:])
+                wim = _rows(blk["w_im"][m - 1, m:])
                 Sc[m] = xc @ wre - xs @ wim
                 Ss[m] = xs @ wre + xc @ wim
             rad = mlp_apply(blk["radial"], rbf) * env  # [E, C] radial gate
+            # stacked at dim -1 written non-negative (torch 2.11 mislays a
+            # DTensor stacked at a negative dim)
             out_l = [torch.stack([Ss[m] for m in range(ml[l], 0, -1)] + [S0]
-                                 + [Sc[m] for m in range(1, ml[l] + 1)], -1) * rad[..., None]
+                                 + [Sc[m] for m in range(1, ml[l] + 1)], S0.dim()) * rad[..., None]
                      for l in range(lm + 1)]  # the |m| <= ml[l] columns of degree l
             # attention weights from invariant (l=0) features
             inv_i = gather(h[:, :, 0], dst)

@@ -17,6 +17,13 @@ function, over the same parameter tree:
   * parameters in ``cfg.param_dtype`` (float32), cast to
     ``cfg.compute_dtype`` (bfloat16) at every use, as the reference does.
 
+Every major activation carries the reference's ``shard_hint`` (an identity
+on one device; over a production mesh, under ``use_mesh``, a DTensor
+redistribution), and ``seq_shard`` shards the residual stream's sequence dim
+over 'model' between layers (Megatron-style sequence parallelism). The
+attention's running max, sum and accumulator are made ``like`` q, so over a
+mesh they take q's layout and never a whole batch's on every rank.
+
 The backward pass is autograd's. The einsums are plain products: this path
 reaches no hand-written kernel (the reference's reaches no Pallas kernel).
 Serving updates the KV cache in place: ``prefill`` and ``decode_step`` return
@@ -25,6 +32,7 @@ the cache they wrote.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from dataclasses import dataclass
 
@@ -32,7 +40,19 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from .common import apply_rope, cross_entropy_loss, dense_init, rms_norm
+from .common import (
+    apply_rope,
+    cross_entropy_loss,
+    current_mesh,
+    dense_init,
+    pin,
+    rms_norm,
+    shard_hint,
+    sharded_zeros,
+    split_hint,
+)
+
+BATCH = ("pod", "data")  # logical batch sharding axes
 
 
 @dataclass(frozen=True)
@@ -65,7 +85,7 @@ class TransformerConfig:
     attn_q_chunk: int = 2048
     attn_kv_chunk: int = 2048
     tie_embeddings: bool = False
-    seq_shard: bool = False  # the reference's sequence-parallel hint; no effect on one device
+    seq_shard: bool = False  # residual stream's sequence dim over 'model' between layers
 
     def pad_heads(self, tp: int) -> "TransformerConfig":
         """Pad q-head count up to a multiple of tp (padded heads have
@@ -161,14 +181,12 @@ def _head(params: dict, cfg: TransformerConfig) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _gqa_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-    """q [B,Sq,H,hd] × k [B,Sk,Hkv,hd] → [B,Hkv,G,Sq,Sk] without repeating K."""
-    B, Sq, H, hd = q.shape
-    Hkv = k.shape[2]
-    qg = q.reshape(B, Sq, Hkv, H // Hkv, hd)
+def _gqa_scores(qf: torch.Tensor, k: torch.Tensor, hd: int) -> torch.Tensor:
+    """qf [B,Hkv,Sq·G,hd] × k [B,Sk,Hkv,hd] → [B,Hkv,Sq·G,Sk] without
+    repeating K."""
     # the reference divides by sqrt(hd) rounded to q's dtype
-    scale = float(torch.tensor(math.sqrt(hd), dtype=torch.float32).to(q.dtype))
-    return torch.einsum("bsKgh,btKh->bKgst", qg, k) / scale
+    scale = float(torch.tensor(math.sqrt(hd), dtype=torch.float32).to(qf.dtype))
+    return (qf @ k.permute(0, 2, 3, 1)) / scale
 
 
 def chunked_attention(
@@ -181,7 +199,10 @@ def chunked_attention(
     kv_chunk: int = 2048,
 ) -> torch.Tensor:
     """Online-softmax attention over KV chunks: memory O(Sq · kv_chunk)
-    instead of O(Sq · Sk)."""
+    instead of O(Sq · Sk). The state is [B,Hkv,Sq,G(,hd)]: the products
+    fold (Sq, G) with the positions outermost, so a q sharded over its
+    positions (a mesh's 'model' axis when the KV heads do not divide it)
+    folds without a reshard."""
     B, Sq, H, hd = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     G = H // Hkv
@@ -194,29 +215,33 @@ def chunked_attention(
     dev = q.device
     q_pos = q_offset + torch.arange(Sq, device=dev)
 
-    m = torch.full((B, Hkv, G, Sq), -math.inf, dtype=torch.float32, device=dev)
-    l_ = torch.zeros((B, Hkv, G, Sq), dtype=torch.float32, device=dev)
-    acc = torch.zeros((B, Hkv, G, Sq, hd), dtype=torch.float32, device=dev)
+    # the running state takes q's layout
+    q_t = q.reshape(B, Sq, Hkv, G, hd).permute(0, 2, 1, 3, 4)  # [B,Hkv,Sq,G,hd]
+    qf = q_t.reshape(B, Hkv, Sq * G, hd)
+    like = dict(dtype=torch.float32, memory_format=torch.contiguous_format)
+    m = torch.full_like(q_t[..., 0], -math.inf, **like)
+    l_ = torch.zeros_like(q_t[..., 0], **like)
+    acc = torch.zeros_like(q_t, **like)
     for ci in range(n_chunks):
         kch = k[:, ci * kv_chunk:(ci + 1) * kv_chunk]
         vch = v[:, ci * kv_chunk:(ci + 1) * kv_chunk]
-        s = _gqa_scores(q, kch).float()  # [B,Hkv,G,Sq,C]
+        s = _gqa_scores(qf, kch, hd).float().reshape(B, Hkv, Sq, G, -1)  # [B,Hkv,Sq,G,C]
         kv_pos = ci * kv_chunk + torch.arange(kv_chunk, device=dev)
         mask = (kv_pos < Sk)[None, :]  # chunk padding
         if causal:
             mask = mask & (q_pos[:, None] >= kv_pos[None, :])
         if kv_valid is not None:
             mask = mask & (kv_pos < kv_valid)[None, :]
-        s = s.masked_fill(~mask, -1e30)
+        s = s.masked_fill(~mask[:, None, :], -1e30)
         m_new = torch.maximum(m, s.amax(-1))
         p = torch.exp(s - m_new[..., None])
         alpha = torch.exp(m - m_new)
         l_ = l_ * alpha + p.sum(-1)
-        pv = torch.einsum("bKgsc,bcKh->bKgsh", p.to(q.dtype), vch).float()
-        acc = acc * alpha[..., None] + pv
+        pv = p.to(q.dtype).reshape(B, Hkv, Sq * G, -1) @ vch.permute(0, 2, 1, 3)
+        acc = acc * alpha[..., None] + pv.float().reshape(B, Hkv, Sq, G, hd)
         m = m_new
     out = acc / torch.clamp_min(l_, 1e-30)[..., None]
-    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype)
+    return out.permute(0, 2, 1, 3, 4).reshape(B, Sq, H, hd).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -262,19 +287,25 @@ def moe_ffn(lp: dict, x: torch.Tensor, cfg: TransformerConfig,
         routing.append({"x": x.detach(), "topi": r["topi"], "keep": r["keep"]})
     C, flat_e, slot = r["C"], r["topi"].reshape(-1), r["slot"]
 
-    xk = torch.repeat_interleave(x, K, dim=0)  # per-(t,k) tokens
+    xk = shard_hint(torch.repeat_interleave(x, K, dim=0), BATCH, None)  # per-(t,k) tokens
     # many dropped entries land on slot C: which one wins does not matter,
     # the slot is cut off below
-    buf = torch.zeros((E, C + 1, d), dtype=x.dtype, device=x.device)
-    buf = buf.index_put((flat_e, slot), xk)[:, :C]  # [E,C,d]
+    # the indices over 'data' alone: torch 2.11's index strategy takes no
+    # index sharded over two mesh dims (('pod', 'data') on the multi-pod mesh)
+    pick = (shard_hint(flat_e, "data"), shard_hint(slot, "data"))
+    buf = shard_hint(x.new_zeros((E, C + 1, d)), "model", None, None)
+    buf = shard_hint(buf.index_put(pick, xk)[:, :C], "model", None, None)  # [E,C,d]
 
+    # compute follows the weight sharding: E on 'model', ffn width on 'data' —
+    # gate/up are local; down contracts the sharded width
     g = torch.einsum("ecd,edf->ecf", buf, lp["e_gate"].to(x.dtype))
     u = torch.einsum("ecd,edf->ecf", buf, lp["e_up"].to(x.dtype))
-    h = F.silu(g) * u
+    h = shard_hint(F.silu(g) * u, "model", None, "data")
     y_e = torch.einsum("ecf,efd->ecd", h, lp["e_down"].to(x.dtype))
-    y_e = torch.cat([y_e, torch.zeros((E, 1, d), dtype=x.dtype, device=x.device)], 1)
+    y_e = shard_hint(y_e, "model", None, None)
+    y_e = torch.cat([y_e, y_e.new_zeros((E, 1, d))], 1)
 
-    gathered = y_e[flat_e, slot]  # [T*K, d]; the overflow slot reads 0
+    gathered = shard_hint(y_e[pick], BATCH, None)  # [T*K, d]; the overflow slot reads 0
     wts = (r["topw"].reshape(-1) * r["keep"]).to(x.dtype)
     y = (gathered * wts[:, None]).reshape(T, K, d).sum(1)
     return y, r["aux"]
@@ -285,9 +316,10 @@ def moe_ffn(lp: dict, x: torch.Tensor, cfg: TransformerConfig,
 # ---------------------------------------------------------------------------
 
 
-def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x [B,S,d] · w [d, ...] → [B,S, ...] (the reference's bsd,dhk->bshk)."""
-    return (x @ w.reshape(w.shape[0], -1)).reshape(*x.shape[:-1], *w.shape[1:])
+def _proj(x: torch.Tensor, w: torch.Tensor, spec: tuple) -> torch.Tensor:
+    """x [B,S,d] · w [d,H,hd] → [B,S,H,hd] (the reference's bsd,dhk->bshk),
+    laid out as ``spec``."""
+    return split_hint(x @ pin(w.reshape(w.shape[0], -1)), tuple(w.shape[1:]), *spec)
 
 
 def _attn(lp, x, cfg: TransformerConfig, positions, kv_cache=None, kv_valid=None):
@@ -295,48 +327,83 @@ def _attn(lp, x, cfg: TransformerConfig, positions, kv_cache=None, kv_valid=None
     [B,Smax,Hkv,hd] ×2, written in place at pos0."""
     B, S, d = x.shape
     cd = cfg.compute_dtype
-    xn = rms_norm(x, lp["ln1"], cfg.norm_eps).to(cd)
-    q = _proj(xn, lp["wq"].to(cd))
-    k = _proj(xn, lp["wk"].to(cd))
-    v = _proj(xn, lp["wv"].to(cd))
+    # q's positions over 'model' (the reference hints its heads): each
+    # product folds (batch, KV heads) into one dim, and folding two sharded
+    # dims makes a strided shard whose reshard plans DTensor searches for,
+    # which does not end on the 3-D mesh; positions fold with G unsharded
+    q_spec = (BATCH, "model", None, None)
+    kv_spec = (BATCH, None, None, None)
+    # the sequence-parallel stream is gathered at the block's entry (the
+    # norm ran on its shard)
+    xn = shard_hint(rms_norm(x, lp["ln1"], cfg.norm_eps).to(cd), BATCH, None, None)
+    q = _proj(xn, lp["wq"].to(cd), q_spec)
+    k = _proj(xn, lp["wk"].to(cd), kv_spec)
+    v = _proj(xn, lp["wv"].to(cd), kv_spec)
     if cfg.qkv_bias:
         q = q + lp["bq"].to(cd)
         k = k + lp["bk"].to(cd)
         v = v + lp["bv"].to(cd)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    q = shard_hint(q, *q_spec)
+    k = shard_hint(k, *kv_spec)
+    v = shard_hint(v, *kv_spec)  # a head-sharded bias would shard it
 
     if kv_cache is not None:
         ck, cv, pos0 = kv_cache
         ck[:, pos0:pos0 + S] = k
         cv[:, pos0:pos0 + S] = v
-        attn_out = chunked_attention(
-            q, ck, cv, causal=True, q_offset=pos0,
-            kv_valid=kv_valid, kv_chunk=cfg.attn_kv_chunk,
-        )
+        attn_out = _cached_attention(q, ck, cv, q_offset=pos0, kv_valid=kv_valid,
+                                     kv_chunk=cfg.attn_kv_chunk)
         new_cache = (ck, cv)
     else:
         attn_out = chunked_attention(q, k, v, causal=True, kv_chunk=cfg.attn_kv_chunk)
         new_cache = (k, v)
+    # positions gathered before the output product
+    attn_out = shard_hint(attn_out, BATCH, None, None, None)
     wo = lp["wo"].to(cd)
     out = attn_out.reshape(B, S, -1) @ wo.reshape(-1, wo.shape[-1])
-    return out, new_cache
+    return shard_hint(out, BATCH, None, None), new_cache
+
+
+def _cached_attention(q, ck, cv, **kw) -> torch.Tensor:
+    """Attention of q against a layer's KV cache. Over a mesh whose cache
+    is sharded over its KV heads (and batch), each rank attends its own
+    heads: ``chunked_attention`` runs in ``local_map`` on q laid out as the
+    cache (its heads are the cache's KV groups). DTensor would fold the two
+    sharded dims (batch, heads) of each product into one, a strided shard
+    whose reshard plans it searches for without end on the 3-D mesh."""
+    if current_mesh() is None:
+        return chunked_attention(q, ck, cv, causal=True, **kw)
+    from torch.distributed.tensor import DTensor, Shard
+
+    if not isinstance(ck, DTensor) \
+            or not any(isinstance(p, Shard) and p.dim == 2 for p in ck.placements):
+        return chunked_attention(q, ck, cv, causal=True, **kw)
+    from torch.distributed.tensor.experimental import local_map
+
+    pl = tuple(ck.placements)
+    mesh = ck.device_mesh
+    local = local_map(functools.partial(chunked_attention, causal=True, **kw),
+                      out_placements=(pl,), in_placements=(pl, pl, pl), device_mesh=mesh)
+    return local(q.redistribute(mesh, pl), ck, cv.redistribute(mesh, pl))
 
 
 def _ffn(lp, x, cfg: TransformerConfig, routing: list | None = None):
     cd = cfg.compute_dtype
-    xn = rms_norm(x, lp["ln2"], cfg.norm_eps).to(cd)
+    xn = shard_hint(rms_norm(x, lp["ln2"], cfg.norm_eps).to(cd), BATCH, None, None)
     B, S, d = xn.shape
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     y = torch.zeros_like(xn)
     if cfg.moe is None or cfg.moe.dense_residual:
         g = xn @ lp["w_gate"].to(cd)
         u = xn @ lp["w_up"].to(cd)
-        y = y + (F.silu(g) * u) @ lp["w_down"].to(cd)
+        h = shard_hint(F.silu(g) * u, BATCH, None, "model")
+        y = y + h @ lp["w_down"].to(cd)
     if cfg.moe is not None:
         ym, aux = moe_ffn(lp, xn.reshape(B * S, d), cfg, routing)
         y = y + ym.reshape(B, S, d)
-    return y, aux
+    return shard_hint(y, BATCH, None, None), aux
 
 
 def _layer(cfg: TransformerConfig, x, lp, positions, kv_cache=None, kv_valid=None,
@@ -349,7 +416,9 @@ def _layer(cfg: TransformerConfig, x, lp, positions, kv_cache=None, kv_valid=Non
 
 
 def _embed(params: dict, tokens: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
-    return params["embed"][tokens.long()].to(cfg.compute_dtype)
+    # ``F.embedding``, not indexing: over a mesh DTensor has a strategy for
+    # it (vocab- or width-sharded tables) and for its backward
+    return F.embedding(tokens.long(), params["embed"]).to(cfg.compute_dtype)
 
 
 def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
@@ -359,12 +428,15 @@ def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
     remat the backward's recomputation appends them again)."""
     B, S = tokens.shape
     cd = cfg.compute_dtype
-    x = _embed(params, tokens, cfg)
+    seq_ax = "model" if cfg.seq_shard else None
+    x = shard_hint(_embed(params, tokens, cfg), BATCH, seq_ax, None)
     positions = torch.arange(S, device=x.device)[None, :]
 
     def body(x, lp):
         out, _, aux = _layer(cfg, x, lp, positions, routing=routing)
-        return out, aux
+        # sequence-parallel residual stream: what remat saves a layer is
+        # sharded over 'model' on the sequence dim
+        return shard_hint(out, BATCH, seq_ax, None), aux
 
     auxs = []
     for i in range(cfg.n_layers):
@@ -374,9 +446,9 @@ def forward(params: dict, tokens: torch.Tensor, cfg: TransformerConfig,
         else:
             x, aux = body(x, lp)
         auxs.append(aux)
-    x = rms_norm(x, params["ln_f"], cfg.norm_eps).to(cd)
+    x = shard_hint(rms_norm(x, params["ln_f"], cfg.norm_eps).to(cd), BATCH, None, None)
     logits = x @ _head(params, cfg).to(cd)
-    return logits, torch.stack(auxs).sum()
+    return shard_hint(logits, BATCH, None, "model"), torch.stack(auxs).sum()
 
 
 def loss_fn(params, batch, cfg: TransformerConfig):
@@ -391,10 +463,13 @@ def loss_fn(params, batch, cfg: TransformerConfig):
 
 
 def init_kv_cache(cfg: TransformerConfig, batch: int, max_seq: int, device="cuda") -> dict:
+    """Zeros [L, B, S, H_kv, hd]; over a mesh, batch over (pod, data) and
+    heads over 'model' (``dist.sharding.kv_cache_shardings``' layout)."""
     shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.d_head)
+    spec = (None, BATCH, None, "model", None)
     return {
-        "k": torch.zeros(shape, dtype=cfg.compute_dtype, device=device),
-        "v": torch.zeros(shape, dtype=cfg.compute_dtype, device=device),
+        "k": sharded_zeros(shape, cfg.compute_dtype, device, *spec),
+        "v": sharded_zeros(shape, cfg.compute_dtype, device, *spec),
     }
 
 

@@ -2,8 +2,10 @@
 absmax scales), over trees of tensors: the JAX package's optimizer
 (``repro.optim.adamw``) on the same state tree ``{"step", "m", "v"}``.
 
-The reference's ``param_shardings`` (sharding constraints on the production
-mesh) comes with ROADMAP Queue 1 item 15c.
+Over a production mesh the params, moments and gradients are DTensors;
+``param_shardings`` (a tree of placements matching the params,
+``dist.sharding``) lays the moments and the new params out as the params
+are, the reference's sharding constraints.
 """
 from __future__ import annotations
 
@@ -76,11 +78,21 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in tree_leaves(tree)))
 
 
+def _constrain(tree, param_shardings):
+    """``tree``'s DTensor leaves redistributed to ``param_shardings``."""
+    if param_shardings is None:
+        return tree
+    return tree_map(lambda x, pl: x.redistribute(x.device_mesh, pl), tree, param_shardings)
+
+
 @torch.no_grad()
-def adamw_update(grads, state: dict, params, cfg: AdamWConfig):
+def adamw_update(grads, state: dict, params, cfg: AdamWConfig, param_shardings=None):
     """One step: clip by global norm, bias correction, decoupled weight
     decay. Returns (new params, new state, {"grad_norm"}); nothing is
-    updated in place."""
+    updated in place. ``param_shardings``: an optional tree of DTensor
+    placements matching params; the dequantized and new moments and the
+    new params are laid out by it (without it, over a mesh, the int8
+    moments' blocked reshape leaves them as the reshape's layout)."""
     step = state["step"] + 1
     gn = global_norm(grads)
     scale = torch.clamp_max(cfg.clip_norm / torch.clamp_min(gn, 1e-12), 1.0)
@@ -88,15 +100,18 @@ def adamw_update(grads, state: dict, params, cfg: AdamWConfig):
 
     is_q = cfg.quantize_moments
     if is_q:
-        m_f = tree_map(lambda q, g: _dq8(q, g.shape), state["m"], grads, is_leaf=_is_q8)
-        v_f = tree_map(lambda q, g: _dq8(q, g.shape, sqrt_domain=True), state["v"], grads,
-                       is_leaf=_is_q8)
+        m_f = _constrain(tree_map(lambda q, g: _dq8(q, g.shape), state["m"], grads,
+                                  is_leaf=_is_q8), param_shardings)
+        v_f = _constrain(tree_map(lambda q, g: _dq8(q, g.shape, sqrt_domain=True), state["v"],
+                                  grads, is_leaf=_is_q8), param_shardings)
     else:
         m_f = tree_map(lambda m: m.float(), state["m"])
         v_f = tree_map(lambda v: v.float(), state["v"])
 
-    m_new = tree_map(lambda m, g: cfg.b1 * m + (1 - cfg.b1) * g, m_f, grads)
-    v_new = tree_map(lambda v, g: cfg.b2 * v + (1 - cfg.b2) * g * g, v_f, grads)
+    m_new = _constrain(tree_map(lambda m, g: cfg.b1 * m + (1 - cfg.b1) * g, m_f, grads),
+                       param_shardings)
+    v_new = _constrain(tree_map(lambda v, g: cfg.b2 * v + (1 - cfg.b2) * g * g, v_f, grads),
+                       param_shardings)
     bc1 = 1 - cfg.b1 ** step.float()
     bc2 = 1 - cfg.b2 ** step.float()
     lr = cfg.lr(step) if callable(cfg.lr) else cfg.lr
@@ -105,7 +120,7 @@ def adamw_update(grads, state: dict, params, cfg: AdamWConfig):
         u = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps) + cfg.weight_decay * p.float()
         return (p.float() - lr * u).to(p.dtype)
 
-    new_params = tree_map(upd, params, m_new, v_new)
+    new_params = _constrain(tree_map(upd, params, m_new, v_new), param_shardings)
     if is_q:
         m_new = tree_map(_q8, m_new)
         v_new = tree_map(lambda v: _q8(v, sqrt_domain=True), v_new)

@@ -2,14 +2,17 @@
 on the CPU, against the JAX package's: the registry's ids and cells, every
 LM arch's full and smoke ``TransformerConfig`` field for field (dtypes mapped
 by name), the GNN and DIN archs' configs, shapes and optimizers, shapes and
-skip reasons, every arch's smoke, ``make_cell``'s error that names ROADMAP
-item 15c, and ``python -m repro_torch.launch.train`` run and resumed as a
-subprocess.
+skip reasons, every arch's smoke, ``make_cell`` building each arch's cell on
+a 1×1 dry-run mesh (a fake process group, in one child process) as the
+reference's, the production mesh's refusal in a one-rank process, and
+``python -m repro_torch.launch.train`` run and resumed as a subprocess.
 """
 import dataclasses
+import json
 import os
 import subprocess
 import sys
+import textwrap
 from pathlib import Path
 
 import numpy as np
@@ -26,13 +29,63 @@ from repro_torch.configs.din_arch import DIN_SHAPES  # noqa: E402
 from repro_torch.configs.gnn_family import GNN_SHAPES  # noqa: E402
 from repro_torch.configs.gqfast_arch import FULL, GQFAST  # noqa: E402
 from repro_torch.configs.lm_family import LM_SHAPES  # noqa: E402
-from repro_torch.robust.errors import ValidationError  # noqa: E402
 
 from torch_fixtures import port_config, two_threads  # noqa: E402,F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 LM_IDS = [a for a, arch in jregistry.ARCHS.items() if arch.kind == "lm"]
 GNN_DIN_IDS = [a for a, arch in jregistry.ARCHS.items() if arch.kind in ("gnn", "recsys")]
+#: The cells built on a 1×1 dry-run mesh: each GNN/DIN arch's first shape, and
+#: an LM and the GQ-Fast arch's.
+CELL_IDS = [(a, jregistry.get_arch(a).shape_ids[0]) for a in GNN_DIN_IDS] \
+    + [("qwen2.5-3b", "train_4k"), ("gqfast-pubmed", "as_b1")]
+
+CELL_CHILD = textwrap.dedent('''
+    import json, sys
+    from torch.distributed.tensor import DTensor
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.dist.sharding import is_placements, named
+    from repro_torch.launch.mesh import end_dry_run_mesh, make_dry_run_mesh
+    from repro_torch.tree import tree_leaves
+
+    mesh = make_dry_run_mesh("local_1x1")
+    res = {}
+    for aid, sid in json.loads(sys.argv[1]):
+        cell = get_arch(aid).make_cell(sid, mesh)
+        args = [tree_leaves(a) for a in cell.args]
+        shs = [tree_leaves(s, is_leaf=is_placements) for s in cell.in_shardings]
+        res[f"{aid}/{sid}"] = {
+            "kind": cell.kind, "model_flops": cell.model_flops,
+            "leaves": [len(a) for a in args], "aligned": [len(a) == len(s) and all(
+                tuple(x.placements) == p if isinstance(x, DTensor) else p == named(mesh, ())
+                for x, p in zip(a, s)) for a, s in zip(args, shs)],
+            "meta": all(x.to_local().is_meta for a in args for x in a if isinstance(x, DTensor)),
+        }
+    end_dry_run_mesh()
+    print("RESULT " + json.dumps(res))
+''')
+
+
+@pytest.fixture(scope="module")
+def cells():
+    proc = subprocess.run(
+        [sys.executable, "-c", CELL_CHILD, json.dumps(CELL_IDS)], cwd=ROOT, capture_output=True,
+        text=True, timeout=300, env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-4000:]
+    line = [ln for ln in proc.stdout.splitlines() if ln.startswith("RESULT ")][-1]
+    return json.loads(line[len("RESULT "):])
+
+
+def _hold_cell(cells, aid: str, sid: str) -> None:
+    """The port's cell (meta DTensors laid out as its placements, leaf for
+    leaf) has the reference's kind and model_flops on a 1×1 mesh."""
+    from repro.launch.mesh import make_mesh as jmake_mesh
+
+    got = cells[f"{aid}/{sid}"]
+    assert all(got["aligned"]) and got["meta"] and all(got["leaves"])
+    ref = jregistry.get_arch(aid).make_cell(sid, jmake_mesh((1, 1), ("data", "model")))
+    assert got["kind"] == ref.kind
+    assert got["model_flops"] == pytest.approx(ref.model_flops, rel=1e-12)
 
 
 def test_registry_ids_equal_the_reference():
@@ -82,14 +135,14 @@ def test_gqfast_smoke_matches_the_oracle():
 
 
 @pytest.mark.parametrize("aid", GNN_DIN_IDS)
-def test_gnn_and_recsys_archs_name_item_15b(aid):
+def test_gnn_and_recsys_archs_name_item_15b(aid, cells):
     """Item 15b (the GNN family and DIN) is ported: ``get_arch`` returns each
-    of its archs, whose ``make_cell`` names item 15c, and whose configs,
-    shapes and optimizer are the reference's."""
+    of its archs, whose ``make_cell`` builds its first shape's cell as the
+    reference's, and whose configs, shapes and optimizer are the
+    reference's."""
     arch, ref = registry.get_arch(aid), jregistry.get_arch(aid)
     assert (arch.arch_id, arch.kind, arch.shape_ids) == (ref.arch_id, ref.kind, ref.shape_ids)
-    with pytest.raises(ValidationError, match="item 15c"):
-        arch.make_cell(arch.shape_ids[0], mesh=None)
+    _hold_cell(cells, aid, arch.shape_ids[0])
     if arch.kind == "gnn":
         assert dataclasses.asdict(arch.base) == dataclasses.asdict(ref.base)
         assert dataclasses.asdict(arch.smoke_cfg) == dataclasses.asdict(ref.smoke_cfg)
@@ -118,10 +171,20 @@ def test_gnn_and_din_smoke_on_the_cpu(aid):
         assert out["grad_norm"] > 0
 
 
-def test_make_cell_names_item_15c():
+def test_make_cell_names_item_15c(cells):
+    """Item 15c is ported: ``make_cell`` builds a cell of each family."""
     for aid in ("qwen2.5-3b", "gqfast-pubmed", "mace", "din"):
-        with pytest.raises(ValidationError, match="item 15c"):
-            registry.get_arch(aid).make_cell("train_4k", mesh=None)
+        sid = "train_4k" if aid == "qwen2.5-3b" else registry.get_arch(aid).shape_ids[0]
+        _hold_cell(cells, aid, sid)
+
+
+def test_production_mesh_needs_its_ranks():
+    """The reference's test_mesh_factory_requires_devices: a 512-rank mesh in
+    a one-rank process raises and names 512."""
+    from repro_torch.launch.mesh import make_production_mesh
+
+    with pytest.raises(RuntimeError, match="512"):
+        make_production_mesh(multi_pod=True, device_type="cpu")
 
 
 def _port_train(*args, check=True):

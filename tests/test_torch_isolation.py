@@ -287,3 +287,28 @@ def test_port_gnn_and_din_load_neither_jax_nor_repro(tmp_path):
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "LOADED []" in proc.stdout
+
+
+def test_port_dry_run_tools_load_neither_jax_nor_repro(tmp_path):
+    """The sharding rules, the compressed all-reduce, the roofline and the
+    dry run (a DIN cell on a 1×1 mesh over a fake process group) run
+    without JAX or the JAX package."""
+    code = textwrap.dedent(f"""
+        import sys
+        from repro_torch.dist import compression, sharding
+        from repro_torch.launch.dryrun import run_cells
+        from repro_torch.roofline.analysis import report
+        recs = run_cells([("local_1x1", "din", "serve_p99")], {str(tmp_path)!r})
+        assert recs[0]["status"] == "ok", recs[0]
+        assert "din" in report({str(tmp_path)!r}, mesh="local_1x1")
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+        print("LOADED", bad)
+        assert not bad, bad
+    """)
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")}, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LOADED []" in proc.stdout

@@ -92,9 +92,9 @@ def test_atomicity_no_partial_dirs(tmp):
 
 
 def test_restore_onto_a_device(tmp):
-    """The reference restores under a mesh's shardings (its elastic case,
-    which comes with ROADMAP item 15c); the port places each leaf on its
-    template's device, or on the one asked for."""
+    """The reference restores under a mesh's shardings (its elastic case);
+    the port places each leaf on its template's device, or on the one asked
+    for."""
     mgr = CheckpointManager(tmp, keep=1)
     tree = {"w": torch.arange(16.0).reshape(4, 4), "n": torch.tensor(3, dtype=torch.int32)}
     mgr.save(1, tree)
