@@ -3,7 +3,8 @@
 From a frontier ``w`` (``[n_src]``, or ``[B, n_src]`` whose support is the OR
 over the rows), the combine op's ⊕-identity and an index's per-block source
 ranges ``[src_min, src_max]``, the kernel ``csrc/block_list.cu`` (its header
-says what bounds it and how it is built around that) writes the fixed-capacity
+says what bounds it and how it is built around that: one pass, each CTA a tile
+of blocks placing its ids by decoupled look-back) writes the fixed-capacity
 list ``(block_idx int32[n_blocks], n_active int32[1])`` that the active hop
 kernels follow: the listed ids ascending, the tail repeating the last one,
 position 0 when none is listed — the lists of
@@ -38,10 +39,22 @@ LIB = CudaLibrary("block_list", {
 #: counted nowhere else.
 LAUNCHES = 0
 
+#: Blocks a CTA of the kernel tests (its tile; ``kWarps`` in the source).
+TILE = 32
+#: The most blocks a list takes (a tile's ids and counts stay under 2^31).
+MAX_BLOCKS = 2**31 - 1 - TILE
+
 
 def build():
     """Compile (if needed) and load the kernel library; idempotent."""
     return LIB.load()
+
+
+def scratch_tiles(nb: int) -> int:
+    """The status words kept for a list of ``nb`` blocks: its tiles rounded
+    up to a power of two (at least 1,024), so that a stream keeps a few
+    buffers however many index sizes it lists."""
+    return max(1024, 1 << (-(-nb // TILE) - 1).bit_length())
 
 
 def block_list(w: torch.Tensor, zero: float, src_min: torch.Tensor, src_max: torch.Tensor,
@@ -50,7 +63,8 @@ def block_list(w: torch.Tensor, zero: float, src_min: torch.Tensor, src_max: tor
     also ``bool[n_blocks]``, each block's test (what a fused region's reach
     matrix reads). Allocates its outputs with ``torch.empty`` only; raises on
     anything the kernel does not take (no plain fallback). The first launch
-    on a stream also makes that stream's ticket word (one ``torch.zeros``)."""
+    on a stream at a size class also makes that stream's status buffer (one
+    ``torch.zeros``), which every launch leaves zero."""
     global LAUNCHES
     dev = cuda_device(w, "block_list")
     if w.dim() not in (1, 2):
@@ -63,18 +77,21 @@ def block_list(w: torch.Tensor, zero: float, src_min: torch.Tensor, src_max: tor
         raise ValueError(f"src_min and src_max must have one entry a block (got {nb} and "
                          f"{src_max.shape[0]}, at least 1)")
     B, n_src = (1, w.shape[0]) if w.dim() == 1 else tuple(w.shape)
-    if n_src >= 2**31 or B >= 2**31 or nb >= 2**31:
-        raise ValueError(f"sizes must fit int32: B={B}, n_src={n_src}, n_blocks={nb}")
+    if n_src >= 2**31 or B >= 2**31 or nb > MAX_BLOCKS:
+        raise ValueError(f"sizes must fit int32: B={B}, n_src={n_src}, n_blocks={nb} (at most"
+                         f" {MAX_BLOCKS} blocks)")
     block_idx = torch.empty(nb, dtype=torch.int32, device=dev)
     n_active = torch.empty(1, dtype=torch.int32, device=dev)
     fl = torch.empty(nb, dtype=torch.bool, device=dev) if flags else None
     stream = stream_of(dev)
-    ticket = stream_scratch("block_list", 1, torch.int32, dev, stream)  # the last-CTA ticket
+    cap = scratch_tiles(nb)
+    # 16 bytes of counter and ticket, then a status word a tile
+    scratch = stream_scratch(f"block_list/{cap}", 2 + cap, torch.int64, dev, stream)
     launch(
         build().block_list_launch, "block_list", dev,
         w.data_ptr(), B, n_src, float(zero), src_min.data_ptr(), src_max.data_ptr(), nb,
         block_idx.data_ptr(), n_active.data_ptr(),
-        fl.data_ptr() if flags else None, ticket.data_ptr(), stream,
+        fl.data_ptr() if flags else None, scratch.data_ptr(), stream,
     )
     LAUNCHES += 1
     return (block_idx, n_active, fl) if flags else (block_idx, n_active)

@@ -51,15 +51,17 @@ HOP_TABLE_HOT_SHARE = 0.003
 #: lists at every size). Set from ``chip_smoke.time_list_threshold`` on an
 #: NVIDIA H100 80GB HBM3 at 700 W: the whole hop through ``ops`` with
 #: skipping 'off' against 'on' (the list's launch and host time included,
-#: CUDA events over back-to-back calls, three rounds in turns) on the first
-#: k blocks of I_DA.Doc and I_DT.Term, k from CS's 13 up to I_DT.Term's
-#: 7,079, at supports from one seed to every source. In two runs, each in
-#: its own process, the list was faster in every round at no count from
-#: 2,048 to 4,096 blocks (it won at 2,876 in some runs and lost in others:
-#: the listed hop is host-bound), and at every count from 5,600 up (PERF.md
-#: §5). So SemMedDB's indexes (13-116 blocks) and I_DA's (2,876) scan under
-#: ``"auto"``, and I_DT's (7,079) list.
-SKIP_MIN_BLOCKS = 5600
+#: CUDA events over back-to-back calls, two rounds in turns) on the first k
+#: blocks of I_DA.Doc and I_DT.Term, k from CS's 13 up to I_DT.Term's 7,079,
+#: at supports from one seed to every source. With the one-pass list kernel
+#: (scripts/launch_probe.py threshold, four processes in one call, the
+#: parent's list kernel in two of them) the list was faster in every round
+#: at no count below 7,079 in any process, and at 7,079 in three of the four
+#: (PERF.md §6): the listed hop is host-bound, and the list kernel's own
+#: time (5.7-14.1 µs a launch) is not what decides. An earlier list kernel
+#: measured 5,600 on another host. SemMedDB's indexes (13-116 blocks) and
+#: I_DA's (2,876) scan under ``"auto"``, and I_DT's (7,079) list.
+SKIP_MIN_BLOCKS = 7079
 
 #: The ``fragment_loop`` strategy's scalar walk holds at most this many paths
 #: at once: a hop whose paths would exceed it expands its current paths in

@@ -181,12 +181,10 @@ def _head(params: dict, cfg: TransformerConfig) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _gqa_scores(qf: torch.Tensor, k: torch.Tensor, hd: int) -> torch.Tensor:
-    """qf [B,Hkv,Sq·G,hd] × k [B,Sk,Hkv,hd] → [B,Hkv,Sq·G,Sk] without
+def _gqa_scores(qf: torch.Tensor, kt: torch.Tensor, scale: float) -> torch.Tensor:
+    """qf [B,Hkv,Sq·G,hd] × kt [B,Hkv,C,hd] → [B,Hkv,Sq·G,C] without
     repeating K."""
-    # the reference divides by sqrt(hd) rounded to q's dtype
-    scale = float(torch.tensor(math.sqrt(hd), dtype=torch.float32).to(qf.dtype))
-    return (qf @ k.permute(0, 2, 3, 1)) / scale
+    return (qf @ kt.transpose(2, 3)) / scale
 
 
 def chunked_attention(
@@ -202,7 +200,9 @@ def chunked_attention(
     instead of O(Sq · Sk). The state is [B,Hkv,Sq,G(,hd)]: the products
     fold (Sq, G) with the positions outermost, so a q sharded over its
     positions (a mesh's 'model' axis when the KV heads do not divide it)
-    folds without a reshard."""
+    folds without a reshard. q is laid out so once, K and V as [B,Hkv,Sk,hd]
+    once (a batch-sharded K stays local): a chunk's products then read
+    views, with no copy a chunk."""
     B, Sq, H, hd = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     G = H // Hkv
@@ -212,8 +212,12 @@ def chunked_attention(
     if pad:
         k = F.pad(k, (0, 0, 0, 0, 0, pad))
         v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    kt = k.transpose(1, 2).contiguous()  # [B,Hkv,Sk,hd]
+    vt = v.transpose(1, 2).contiguous()
     dev = q.device
     q_pos = q_offset + torch.arange(Sq, device=dev)
+    # the reference divides by sqrt(hd) rounded to q's dtype
+    scale = float(torch.tensor(math.sqrt(hd), dtype=torch.float32).to(q.dtype))
 
     # the running state takes q's layout
     q_t = q.reshape(B, Sq, Hkv, G, hd).permute(0, 2, 1, 3, 4)  # [B,Hkv,Sq,G,hd]
@@ -223,9 +227,9 @@ def chunked_attention(
     l_ = torch.zeros_like(q_t[..., 0], **like)
     acc = torch.zeros_like(q_t, **like)
     for ci in range(n_chunks):
-        kch = k[:, ci * kv_chunk:(ci + 1) * kv_chunk]
-        vch = v[:, ci * kv_chunk:(ci + 1) * kv_chunk]
-        s = _gqa_scores(qf, kch, hd).float().reshape(B, Hkv, Sq, G, -1)  # [B,Hkv,Sq,G,C]
+        kch = kt[:, :, ci * kv_chunk:(ci + 1) * kv_chunk]
+        vch = vt[:, :, ci * kv_chunk:(ci + 1) * kv_chunk]
+        s = _gqa_scores(qf, kch, scale).float().reshape(B, Hkv, Sq, G, -1)  # [B,Hkv,Sq,G,C]
         kv_pos = ci * kv_chunk + torch.arange(kv_chunk, device=dev)
         mask = (kv_pos < Sk)[None, :]  # chunk padding
         if causal:
@@ -237,7 +241,7 @@ def chunked_attention(
         p = torch.exp(s - m_new[..., None])
         alpha = torch.exp(m - m_new)
         l_ = l_ * alpha + p.sum(-1)
-        pv = p.to(q.dtype).reshape(B, Hkv, Sq * G, -1) @ vch.permute(0, 2, 1, 3)
+        pv = p.to(q.dtype).reshape(B, Hkv, Sq * G, -1) @ vch
         acc = acc * alpha[..., None] + pv.float().reshape(B, Hkv, Sq, G, hd)
         m = m_new
     out = acc / torch.clamp_min(l_, 1e-30)[..., None]

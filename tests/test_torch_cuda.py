@@ -1269,8 +1269,8 @@ def _list_frontier(n_src, rows, support, op, seed, device):
 def test_list_kernel_equals_plain(cuda, op, rows, support, nb):
     """The list kernel's (block_idx, n_active) and flags equal the plain
     list's, integer for integer: 1 and 2 blocks, a number that is not a power
-    of two, more than one compaction chunk (2,048), more than the grid's
-    warps (8,448), over sources with gaps (every 7th degree 0)."""
+    of two, 65 tiles of 32 blocks and one block more, 313 tiles (10,000
+    blocks), over sources with gaps (every 7th degree 0)."""
     rng = np.random.default_rng(nb)
     n_src = nb * 50 + 64
     deg = rng.integers(0, 200, n_src)
@@ -1281,7 +1281,7 @@ def test_list_kernel_equals_plain(cuda, op, rows, support, nb):
     w = _list_frontier(n_src, rows, support, op, nb + len(op), cuda)
     want = active.active_block_list(w, ZERO[op], smin, smax)
     want_flags = active.active_flags(active.support_mask(w, ZERO[op]), smin, smax)
-    for _ in range(2):  # the ticket resets itself between launches
+    for _ in range(2):  # the status words reset themselves between launches
         before = lkernel.LAUNCHES
         bi, na, fl = lkernel.block_list(w, ZERO[op], smin, smax, flags=True)
         torch.cuda.synchronize()
@@ -1316,8 +1316,8 @@ def test_list_kernel_long_ranges_equal_plain(cuda, op, rows, support, nb):
 
 def test_list_kernel_on_two_streams_at_once(cuda):
     """List builds queued on two streams at once each get their own list:
-    the last-CTA ticket belongs to the stream, so concurrent launches do not
-    share it."""
+    the status words belong to the stream, so concurrent launches do not
+    share them."""
     rng = np.random.default_rng(11)
     n_src = 3_000_000
     src = np.repeat(np.arange(n_src, dtype=np.int32), rng.integers(0, 12, n_src))
@@ -1326,6 +1326,7 @@ def test_list_kernel_on_two_streams_at_once(cuda):
                  for k, (rows, support) in enumerate([(None, 0.001), (8, "one_seed"),
                                                       (None, "full"), (8, 0.0001)])]
     wants = [active.active_block_list(w, 0.0, smin, smax) for w in frontiers]
+    flags = [active.active_flags(active.support_mask(w, 0.0), smin, smax) for w in frontiers]
     streams = [torch.cuda.Stream(cuda), torch.cuda.Stream(cuda)]
     torch.cuda.synchronize()
     for _ in range(3):
@@ -1333,11 +1334,103 @@ def test_list_kernel_on_two_streams_at_once(cuda):
         for rep in range(20):  # queue many builds on both streams before any ends
             for k, w in enumerate(frontiers):
                 with torch.cuda.stream(streams[k % 2]):
-                    got[k].append(lkernel.block_list(w, 0.0, smin, smax))
+                    got[k].append(lkernel.block_list(w, 0.0, smin, smax, flags=rep % 2 == 1))
         torch.cuda.synchronize()
         for k, want in enumerate(wants):
-            for bi, na in got[k]:
-                assert torch.equal(bi, want[0]) and torch.equal(na, want[1])
+            for rep, out in enumerate(got[k]):
+                assert torch.equal(out[0], want[0]) and torch.equal(out[1], want[1])
+                if rep % 2:
+                    assert torch.equal(out[2], flags[k])
+
+
+def _tile_index(nb: int, seed: int, cuda):
+    """An nb-block index over n_src = 50·nb + 8 sources (every 5th with no
+    edges) and its block ranges on the card."""
+    rng = np.random.default_rng(seed)
+    n_src = 50 * nb + 8
+    deg = rng.integers(80, 200, n_src - 1)
+    deg[::5] = 0
+    # the last block holds only the last source, which no other block has
+    src = np.concatenate([np.repeat(np.arange(n_src - 1, dtype=np.int32), deg)[
+        : (nb - 1) * 4096], np.full(5, n_src - 1, np.int32)])
+    smin, smax = (torch.from_numpy(b).to(cuda) for b in active.block_ranges(src))
+    assert smin.shape[0] == nb
+    return n_src, smin, smax
+
+
+def _flagged_frontier(n_src, rows, which, op, smin, smax, seed, cuda):
+    """A frontier whose support flags no block, one block, every block or
+    only the last one (the identity elsewhere); ``nan``: a NaN in one
+    source (NaN is live) of the middle block, nothing else."""
+    rng = np.random.default_rng(seed)
+    B = 1 if rows is None else rows
+    w = np.full((B, n_src), ZERO[op], np.float32)
+    lo, hi = smin.cpu().numpy(), smax.cpu().numpy()
+    nb = lo.shape[0]
+    live = 1.0 if op == "bool" else 0.75
+    if which == "one":
+        b = int(rng.integers(0, nb))
+        w[int(rng.integers(0, B)), int(rng.integers(lo[b], hi[b] + 1))] = live
+    elif which == "all":
+        w[rng.integers(0, B, n_src), np.arange(n_src)] = live
+    elif which == "last":
+        w[B - 1, hi[nb - 1]] = live  # the last source: the last block's alone
+    elif which == "nan":
+        b = nb // 2
+        w[0, int(rng.integers(lo[b], hi[b] + 1))] = np.nan
+    t = torch.from_numpy(w).to(cuda)
+    return t[0] if rows is None else t
+
+
+@pytest.mark.parametrize("nb", [1, 31, 32, 33, 64, 65, 7_079])
+@pytest.mark.parametrize("which", ["none", "one", "all", "last", "nan"])
+@pytest.mark.parametrize("rows", [None, 8, 64], ids=["single", "B8", "B64"])
+@pytest.mark.parametrize("op", ["sum", "max"])
+def test_list_kernel_at_tile_boundaries(cuda, op, rows, which, nb):
+    """The single-pass list kernel (a CTA a tile of block_list.TILE blocks,
+    placed by decoupled look-back) at one block, a tile's size ±1, two tiles
+    ±1 and I_DT.Term's 7,079 blocks, with no, one, every and only the last
+    block flagged, and a NaN source, for 1, 8 and 64 rows: block_idx,
+    n_active and the flags equal the plain list's, id for id."""
+    assert lkernel.TILE == 32
+    n_src, smin, smax = _tile_index(nb, nb + (rows or 0), cuda)
+    w = _flagged_frontier(n_src, rows, which, op, smin, smax, nb + len(which), cuda)
+    want = active.active_block_list(w, ZERO[op], smin, smax)
+    want_flags = active.active_flags(active.support_mask(w, ZERO[op]), smin, smax)
+    # one source may lie in two blocks (a range shares its first with the
+    # range before)
+    assert int(want[1][0]) in {"none": (0,), "one": (1, 2), "all": (nb,), "last": (1,),
+                               "nan": (1, 2)}[which]
+    before = lkernel.LAUNCHES
+    bi, na, fl = lkernel.block_list(w, ZERO[op], smin, smax, flags=True)
+    torch.cuda.synchronize()
+    assert lkernel.LAUNCHES == before + 1
+    assert torch.equal(bi, want[0]) and torch.equal(na, want[1])
+    assert torch.equal(fl, want_flags)
+
+
+def test_list_kernel_reuses_its_status_words_back_to_back(cuda):
+    """Launches of every size in turn on one stream, none waited for, reuse
+    the stream's status buffer (each launch leaves it zero): every list
+    equals the plain list, and the buffers are zero after."""
+    from repro_torch.kernels import cuda_build
+
+    cases = []
+    for k, nb in enumerate([7_079, 33, 1, 7_079, 32, 2_049, 65]):
+        n_src, smin, smax = _tile_index(nb, 100 + k, cuda)
+        w = _list_frontier(n_src, None if k % 2 else 8, [0.001, "one_seed", "full"][k % 3],
+                           "sum", k, cuda)
+        cases.append((w, smin, smax, active.active_block_list(w, 0.0, smin, smax)))
+    torch.cuda.synchronize()
+    got = [lkernel.block_list(w, 0.0, smin, smax) for _ in range(3)
+           for w, smin, smax, _ in cases]
+    torch.cuda.synchronize()
+    for i, (bi, na) in enumerate(got):
+        want = cases[i % len(cases)][3]
+        assert torch.equal(bi, want[0]) and torch.equal(na, want[1]), i
+    bufs = [b for (name, _, _), b in cuda_build._STREAM_SCRATCH.items()
+            if name.startswith("block_list")]
+    assert bufs and all(int(b.abs().sum()) == 0 for b in bufs)
 
 
 def test_list_kernel_rejects_bad_inputs(cuda):
@@ -1956,6 +2049,54 @@ def test_crc32c_kernel_check_value_and_chain(cuda):
     assert int(ops.crc32c(words[1000:], head)) == whole
     with pytest.raises(ValueError):
         ckernel.crc32c(words[::2])  # not contiguous
+
+
+#: Lengths at the kernel's boundaries: a warp's tile (512 bytes), a CTA's
+#: step (32 tiles, 16 KiB), a wave's step (132 CTAs on an H100) and a lane's
+#: kUnroll = 4 steps, each ±1 and ±16 (one uint4).
+CRC_BOUNDARIES = [496, 511, 512, 513, 528, 16_368, 16_383, 16_384, 16_385, 16_400,
+                  132 * 16_384 - 16, 132 * 16_384 - 1, 132 * 16_384, 132 * 16_384 + 1,
+                  132 * 16_384 + 16, 4 * 132 * 16_384 - 1, 4 * 132 * 16_384 + 17,
+                  5 * 132 * 16_384 + 3]
+
+
+@pytest.mark.parametrize("n", CRC_BOUNDARIES)
+def test_crc32c_kernel_at_tile_and_wave_boundaries(cuda, n):
+    """The kernel at every offset 0-15 of the stream (the head, the body of
+    16-byte units, the tail) and at lengths around its tile, CTA, wave and
+    unroll boundaries, from 0 and from a previous value, equal to the plain
+    version; and chained: the CRC of the whole equals the CRC of its second
+    part continuing from its first's, cut anywhere."""
+    rng = np.random.default_rng(n)
+    raw = torch.tensor(rng.integers(0, 256, n + 16, dtype=np.uint8), device=cuda)
+    for off in range(16):
+        data = raw[off:off + n]
+        value = int(rng.integers(0, 2**32))
+        got = [int(ckernel.crc32c(data, v)) for v in (0, value)]
+        assert got == [int(ref.crc32c_ref(data, v)) for v in (0, value)], (n, off)
+        cut = int(rng.integers(0, n + 1))
+        head = int(ckernel.crc32c(data[:cut], value)) if cut else value
+        assert int(ops.crc32c(data[cut:], head)) == got[1], (n, off, cut)
+
+
+def test_crc32c_kernel_on_the_store_parts(cuda):
+    """Every encoded part and decoded view of a PubMed store on the card
+    (what manifests, verified reads and the scrubber hash), and their
+    concatenation chained part by part, equal to the plain version."""
+    from repro_torch.storage import decode_fresh, encoded_parts, iter_columns
+
+    schema = SG.make_pubmed(n_docs=20_000, n_terms=600, n_authors=4_000, seed=9)
+    db = GQFastDatabase(schema, device=cuda)
+    chained, want = 0, 0
+    n = 0
+    for _, _, _, col in iter_columns(db.device):
+        for part in list(encoded_parts(col)) + [decode_fresh(col)]:
+            b = ckernel.as_bytes(part.contiguous())
+            assert int(ckernel.crc32c(b)) == int(ref.crc32c_ref(b))
+            chained = int(ckernel.crc32c(b, chained))
+            want = int(ref.crc32c_ref(b, want))
+            n += 1
+    assert n > 10 and chained == want
 
 
 @pytest.mark.parametrize("enc", ["packed", "auto"])

@@ -185,6 +185,20 @@ def test_kernel_constants_equal_the_plain_versions():
     assert "0x82F63B78u" in src and ref.CRC32C_POLY == 0x82F63B78
 
 
+@pytest.mark.parametrize("name,count,span", [("kThreadPow[kThreads]", 1024,
+                                              lambda t: 16 * (1023 - t)),
+                                             ("kCtaPow[kMaxCtas]", 256, lambda d: 16_384 * d)])
+def test_kernel_carry_tables_equal_the_plain_versions(name, count, span):
+    """The kernel's end-of-run carries (a thread's register over the bytes
+    after its last uint4 in its CTA's tiles, over the CTAs after it) are
+    literals: each must be ``ref.x8nmodp`` of its span."""
+    src = (Path(ref.__file__).parent / "csrc" / "crc32c.cu").read_text()
+    body = src[src.index(f" uint32_t {name} = {{"):]
+    body = body[:body.index("};")]
+    lits = [int(v, 16) for v in re.findall(r"0x([0-9a-f]{8})u", body)]
+    assert lits == [ref.x8nmodp(span(i)) for i in range(count)]
+
+
 # ---------------------------------------------------------------------------
 # Manifests against the reference's
 # ---------------------------------------------------------------------------
